@@ -1,0 +1,153 @@
+// Shared device code of the color-packed kernels (packed_sweep.cu,
+// packed_cycle.cu): the stencil arguments, ghosted tile loads with zero
+// fill, the temporal-blocked four-color steps and the interior store.
+//
+// Layout (amg_tpu_torch/sparse/packed.py): a field is (4, M, M) f32, quarter
+// a = 2*pj + pi holds the points (2J+pj, 2I+pi). Quarter a's real cells are
+// J < Mj, I < Mi with Mj = M - pj, Mi = M - pi; every other cell is a pad
+// cell that stays exactly 0, and a read outside [0, M)^2 reads 0. Together
+// they are the Dirichlet boundary.
+//
+// Temporal blocking: a block holds a T x T tile of all four quarters plus a
+// ghost ring of G cells on all four sides in shared memory. Each color step
+// updates every real cell of the (T+2G)^2 window, reading neighbours inside
+// the window only (0 outside it). A cell on the window's edge therefore goes
+// wrong, and the error front moves inward by one cell per step in J and I.
+// After 8 steps the cells at distance >= 8 from the edge hold exactly the
+// sequential color-ordered iterate; G >= 8 keeps the interior exact.
+//
+// Arithmetic order equals the plain PyTorch version term by term, and the
+// library is built with -fmad=false, so no product is contracted into an
+// FMA: on equal inputs the kernels give the plain version's bits.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace amg {
+
+constexpr int kThreads = 256;
+
+// w33 rounded to f32 (row-major [dj+1][di+1]), 1/w33[1][1] computed in f64
+// and rounded to f32 on the host, omega rounded to f32.
+struct Stencil {
+  float w[9];
+  float inv_diag;
+  float omega;
+};
+
+inline Stencil make_stencil(const float* w9, float inv_diag, float omega) {
+  Stencil st;
+  for (int k = 0; k < 9; ++k) st.w[k] = w9[k];
+  st.inv_diag = inv_diag;
+  st.omega = omega;
+  return st;
+}
+
+__device__ __forceinline__ bool real_cell(int a, int J, int I, int M) {
+  const int Mj = M - (a >> 1);
+  const int Mi = M - (a & 1);
+  return J >= 0 && J < Mj && I >= 0 && I < Mi;
+}
+
+__device__ __forceinline__ size_t gidx(int q, int J, int I, int M) {
+  return ((size_t)q * M + J) * M + I;
+}
+
+// S[4][W][W] <- g[:, J0:J0+W, I0:I0+W], zero outside [0, M)^2.
+template <int W>
+__device__ void load_tile(float* S, const float* __restrict__ g, int M,
+                          int J0, int I0) {
+  for (int L = threadIdx.x; L < 4 * W * W; L += blockDim.x) {
+    const int q = L / (W * W);
+    const int rem = L - q * W * W;
+    const int r = rem / W;
+    const int c = rem - r * W;
+    const int J = J0 + r;
+    const int I = I0 + c;
+    float v = 0.f;
+    if (J >= 0 && J < M && I >= 0 && I < M) v = g[gidx(q, J, I, M)];
+    S[L] = v;
+  }
+}
+
+// Off-diagonal accumulation at window cell (r, c) of color (PJ, PI), in the
+// sparse/packed.py _neighbors order, starting from 0 like _acc.
+template <int W, int PJ, int PI>
+__device__ __forceinline__ float neighbour_acc(const float* U,
+                                               const Stencil& st, int r,
+                                               int c) {
+  float acc = 0.f;
+#pragma unroll
+  for (int dj = -1; dj <= 1; ++dj) {
+#pragma unroll
+    for (int di = -1; di <= 1; ++di) {
+      if (dj == 0 && di == 0) continue;
+      const float w = st.w[(dj + 1) * 3 + (di + 1)];
+      if (w == 0.f) continue;
+      const int bj = (PJ + dj + 2) & 1;
+      const int bi = (PI + di + 2) & 1;
+      const int src = 2 * bj + bi;
+      const int rr = r + (PJ + dj - bj) / 2;
+      const int cc = c + (PI + di - bi) / 2;
+      float x = 0.f;
+      if (rr >= 0 && rr < W && cc >= 0 && cc < W) x = U[(src * W + rr) * W + cc];
+      acc = acc + w * x;
+    }
+  }
+  return acc;
+}
+
+// One GS color step on the window: u_a += omega * ((b_a - acc)/diag - u_a)
+// at every real cell of quarter a. The step reads only the other three
+// quarters, so updating quarter a in place is race-free.
+template <int W, int PJ, int PI>
+__device__ void color_step(float* U, const float* B, const Stencil& st,
+                           int M, int J0, int I0) {
+  constexpr int a = 2 * PJ + PI;
+  float* Ua = U + a * W * W;
+  const float* Ba = B + a * W * W;
+  for (int L = threadIdx.x; L < W * W; L += blockDim.x) {
+    const int r = L / W;
+    const int c = L - r * W;
+    if (!real_cell(a, J0 + r, I0 + c, M)) continue;
+    const float acc = neighbour_acc<W, PJ, PI>(U, st, r, c);
+    const float u = Ua[L];
+    const float delta = (Ba[L] - acc) * st.inv_diag - u;
+    Ua[L] = u + st.omega * delta;
+  }
+}
+
+// The 4 (or, symmetric, 8) color steps 00 01 10 11 [11 10 01 00].
+template <int W>
+__device__ void color_steps(float* U, const float* B, const Stencil& st,
+                            int M, int J0, int I0, int symmetric) {
+  const int n = symmetric ? 8 : 4;
+  for (int k = 0; k < n; ++k) {
+    switch (k < 4 ? k : 7 - k) {
+      case 0: color_step<W, 0, 0>(U, B, st, M, J0, I0); break;
+      case 1: color_step<W, 0, 1>(U, B, st, M, J0, I0); break;
+      case 2: color_step<W, 1, 0>(U, B, st, M, J0, I0); break;
+      default: color_step<W, 1, 1>(U, B, st, M, J0, I0); break;
+    }
+    __syncthreads();
+  }
+}
+
+// g[:, Jt:Jt+T, It:It+T] <- the T x T interior of the window (offset G).
+template <int T, int G>
+__device__ void store_interior(const float* U, float* __restrict__ g, int M,
+                               int Jt, int It) {
+  constexpr int W = T + 2 * G;
+  for (int L = threadIdx.x; L < 4 * T * T; L += blockDim.x) {
+    const int q = L / (T * T);
+    const int rem = L - q * T * T;
+    const int r = rem / T;
+    const int c = rem - r * T;
+    const int J = Jt + r;
+    const int I = It + c;
+    if (J < M && I < M) g[gidx(q, J, I, M)] = U[(q * W + G + r) * W + G + c];
+  }
+}
+
+}  // namespace amg

@@ -1,0 +1,503 @@
+"""Structured-grid multigrid solver for the constant-coefficient 2-D
+Poisson problem: the PyTorch port of ``amg_tpu/structured.py``'s main path.
+
+The path is ``StructuredSolver(side, device=...)`` with the default
+options: a device-built constant-stencil hierarchy (static 3x3 weights per
+level, a dense LU on the coarsest level), a full-multigrid start, and a
+double-float32 defect-correction loop running 3 f32 V-cycles per refine.
+Levels of side >= 200 keep their fields color-packed (sparse/packed.py);
+on levels of side >= 1023 the V-cycle legs are the fused CUDA kernels of
+ops/kernels (K2 down leg, K3 up leg; K1 the standalone sweep when the
+sweep counts are not 1); the fine-level df32 residual + rss is K4. Smaller
+levels run the plain PyTorch packed ops, and levels below 200 the masked
+four-color machinery, as the JAX package runs XLA there.
+
+Which kernel runs on which level is decided once, from the sides and the
+options, in :func:`level_plan` (``StructuredSolver.plan``). On CPU tensors
+every kernel wrapper runs its plain version, so the same plan drives the
+CPU tests.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from amg_tpu_torch.ops.doublefloat import (DF32, df_add_f32,
+                                           df_residual_const, df_rss,
+                                           df_rss_fast, is_pow2_weights)
+from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
+                                       fused_down_leg_packed,
+                                       fused_gs4_sweep_packed,
+                                       fused_up_leg_packed)
+from amg_tpu_torch.ops.rap import (interp1d_dense, planes_to_dense,
+                                   poisson_const_w33)
+from amg_tpu_torch.sparse.packed import (df_residual_const_packed,
+                                         gs4_sweep_packed, pack,
+                                         prolong_add_packed, residual_packed,
+                                         restrict_packed, unpack)
+from amg_tpu_torch.sparse.stencil import (Stencil2D, color_masks_iota,
+                                          const_planes, gs4_sweep_masked)
+
+# Level thresholds, both measured on a TPU v5e for the JAX package
+# (amg_tpu/structured.py) and kept as they are; re-deriving them on the GPU
+# is later work. Packed levels from PACKED_MIN_SIDE up, fused kernels from
+# FUSED_PACKED_MIN_SIDE up.
+PACKED_MIN_SIDE = 200
+FUSED_PACKED_MIN_SIDE = 1023
+
+
+@dataclasses.dataclass
+class SolveResult:
+    """Outcome of a solve (amg_tpu/multigrid.py SolveResult)."""
+
+    u: torch.Tensor
+    iterations: int
+    error: float
+    converged: bool
+    history: list  # (iteration, rss) at each check
+
+
+class StencilHierarchy(nn.Module):
+    """Constant-stencil level hierarchy.
+
+    Buffers: the coarsest level's LU factors (``coarse_lu``, LAPACK
+    1-based ``coarse_piv``) and the dense 1-D transfer matrices
+    ``P1_l`` (side_l x side_{l+1}); restriction and prolongation are
+    P1^T X P1 and P1 X P1^T because P2d = kron(P1, P1). ``sides`` and the
+    per-level weights ``w33s`` are static Python attributes.
+    """
+
+    def __init__(self, sides, w33s, coarse_lu, coarse_piv, P1s):
+        super().__init__()
+        if len(P1s) != len(sides) - 1 or len(w33s) != len(sides):
+            raise ValueError("need one w33 per level and one P1 per pair")
+        self.sides = tuple(int(s) for s in sides)
+        self.w33s = tuple(w33s)
+        self.register_buffer("coarse_lu", coarse_lu)
+        self.register_buffer("coarse_piv", coarse_piv)
+        for l, P in enumerate(P1s):
+            self.register_buffer(f"P1_{l}", P)
+        self.levels = tuple(Stencil2D.const(w, s)
+                            for s, w in zip(self.sides, self.w33s))
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.sides)
+
+    @property
+    def P1s(self) -> tuple:
+        return tuple(getattr(self, f"P1_{l}")
+                     for l in range(self.n_levels - 1))
+
+    def coarse_solve(self, b2: torch.Tensor) -> torch.Tensor:
+        """Direct solve on the coarsest level (nc x nc field)."""
+        nc = self.sides[-1]
+        sol = torch.linalg.lu_solve(self.coarse_lu, self.coarse_piv,
+                                    b2.reshape(-1, 1))
+        return sol.reshape(nc, nc)
+
+
+def max_levels_for_side(side: int) -> int:
+    """Number of times side -> (side-1)/2 stays a valid odd grid >= 3."""
+    n, L = side, 1
+    while n >= 7 and (n - 1) % 2 == 0 and ((n - 1) // 2) % 2 == 1:
+        n = (n - 1) // 2
+        L += 1
+    return L
+
+
+def build_stencil_hierarchy_device(side: int, n_levels: int | None = None,
+                                   dtype=torch.float32, device=None
+                                   ) -> StencilHierarchy:
+    """The Poisson hierarchy with closed-form constant stencils
+    (ops/rap.poisson_const_w33) on every level: no coefficient planes or
+    masks are stored. The coarsest dense matrix (9 x 9 at coarsest side 3)
+    is factored on the host and its factors move to ``device``; the
+    transfer matrices are built on ``device``."""
+    if n_levels is None:
+        n_levels = max_levels_for_side(side)
+    sides = [side]
+    for _ in range(n_levels - 1):
+        n = sides[-1]
+        if (n - 1) % 2 or n < 3:
+            raise ValueError(f"cannot coarsen side {n}; use side = 2^k - 1")
+        sides.append((n - 1) // 2)
+    w33s = poisson_const_w33(side, n_levels)
+    coarse = planes_to_dense(const_planes(w33s[-1], sides[-1], dtype))
+    lu, piv = torch.linalg.lu_factor(coarse)
+    P1s = [interp1d_dense(sides[l], sides[l + 1], dtype, device)
+           for l in range(n_levels - 1)]
+    return StencilHierarchy(sides, w33s, lu.to(device), piv.to(device), P1s)
+
+
+def restrict_mm(r2, P1):
+    """R @ r via the tensor-product factorization: P1^T @ r2 @ P1."""
+    return P1.T @ r2 @ P1
+
+
+def prolong_mm(uc2, P1):
+    """P @ u_c via P1 @ uc2 @ P1^T."""
+    return P1 @ uc2 @ P1.T
+
+
+def _smooth(hier: StencilHierarchy, l: int, u2, b2, sweeps: int,
+            omega: float, symmetric: bool):
+    """Masked four-color GS sweeps on a (non-packed) level."""
+    S = hier.levels[l]
+    masks = color_masks_iota(S.side, b2.dtype, b2.device)
+    for _ in range(sweeps):
+        u2 = gs4_sweep_masked(S, u2, b2, masks, omega, symmetric)
+    return u2
+
+
+def cycle_stencil(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
+                  post_sweeps: int = 1, omega: float = 1.0,
+                  symmetric: bool = True, _level: int = 0):
+    """V-cycle on the masked machinery from level ``_level`` down (leg order
+    of multigrid.hpp:263-305)."""
+    l = _level
+    if l == hier.n_levels - 1:
+        return hier.coarse_solve(b2)
+    S = hier.levels[l]
+    u2 = _smooth(hier, l, u2, b2, pre_sweeps, omega, symmetric)
+    r = b2 - S.matvec2(u2)
+    bc = restrict_mm(r, hier.P1s[l])
+    uc = cycle_stencil(hier, torch.zeros_like(bc), bc, pre_sweeps,
+                       post_sweeps, omega, symmetric, _level=l + 1)
+    u2 = u2 + prolong_mm(uc, hier.P1s[l])
+    return _smooth(hier, l, u2, b2, post_sweeps, omega, symmetric)
+
+
+def level_plan(sides, pre_sweeps: int, post_sweeps: int, min_side: int,
+               fused: bool) -> tuple:
+    """Per-level choice of machinery, decided once from the sides:
+
+    * ``direct``: the coarsest level's LU solve;
+    * ``masked``: side < min_side, the masked four-color cycle;
+    * ``packed``: plain PyTorch packed ops;
+    * ``legs``: the fused down/up legs (K2/K3), side >= FUSED_PACKED_MIN_SIDE
+      with one pre- and one post-sweep;
+    * ``sweep``: the fused sweep (K1) with plain residual and transfers,
+      side >= FUSED_PACKED_MIN_SIDE with other sweep counts.
+
+    The GPU kernels take every M, so the TPU's VMEM eligibility gates and
+    its split path (sweep + fused residual/restrict) have no counterpart.
+    """
+    kinds = []
+    for l, s in enumerate(sides):
+        if l == len(sides) - 1:
+            kinds.append("direct")
+        elif s < min_side:
+            kinds.append("masked")
+        elif fused and s >= FUSED_PACKED_MIN_SIDE:
+            kinds.append("legs" if pre_sweeps == post_sweeps == 1
+                         else "sweep")
+        else:
+            kinds.append("packed")
+    return tuple(kinds)
+
+
+def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
+                  post_sweeps: int = 1, omega: float = 1.0,
+                  symmetric: bool = True, _level: int = 0,
+                  _packed_in: bool = False, min_side: int | None = None,
+                  fused: bool = False, plan: tuple | None = None):
+    """V-cycle with color-packed smoothing, residual and transfers on the
+    levels of side >= min_side and the masked machinery below; the same
+    leg order and iterates as the unpacked cycle up to rounding.
+
+    ``plan`` (from :func:`level_plan`) picks each level's machinery; when
+    None it is derived from the arguments. With ``_packed_in`` the fields
+    arrive and return packed ((4, M, M)), so a solve loop pays pack and
+    unpack once per solve."""
+    if min_side is None:
+        min_side = PACKED_MIN_SIDE
+    if plan is None:
+        plan = level_plan(hier.sides, pre_sweeps, post_sweeps, min_side,
+                          fused)
+    l = _level
+    if l == hier.n_levels - 1:
+        nc = hier.sides[-1]
+        ml = (nc - 1) // 2
+        bd = unpack(b2, ml) if _packed_in else b2
+        sol = hier.coarse_solve(bd)
+        return pack(sol, ml) if _packed_in else sol
+    kind = plan[l]
+    if not _packed_in and kind == "masked":
+        return cycle_stencil(hier, u2, b2, pre_sweeps, post_sweeps, omega,
+                             symmetric, _level=l)
+    S = hier.levels[l]
+    m = (S.side - 1) // 2
+    sweep = fused_gs4_sweep_packed if kind == "sweep" else gs4_sweep_packed
+    if _packed_in:
+        u4, b4 = u2, b2
+    else:
+        u4, b4 = pack(u2, m), pack(b2, m)
+    if kind == "legs":
+        u4, bc_pad = fused_down_leg_packed(u4, b4, S.w33, m, omega,
+                                           symmetric)
+        bc = bc_pad[:m, :m]
+    else:
+        for _ in range(pre_sweeps):
+            u4 = sweep(u4, b4, S.w33, m, omega, symmetric)
+        bc = restrict_packed(residual_packed(u4, b4, S.w33, m), m)
+    uc = vcycle_packed(hier, torch.zeros_like(bc), bc, pre_sweeps,
+                       post_sweeps, omega, symmetric, _level=l + 1,
+                       min_side=min_side, fused=fused, plan=plan)
+    if kind == "legs":
+        u4 = fused_up_leg_packed(u4, b4, F.pad(uc, (0, 1, 0, 1)), S.w33, m,
+                                 omega, symmetric)
+    else:
+        u4 = prolong_add_packed(u4, uc, m)
+        for _ in range(post_sweeps):
+            u4 = sweep(u4, b4, S.w33, m, omega, symmetric)
+    return u4 if _packed_in else unpack(u4, m)
+
+
+def fmg_stencil(hier: StencilHierarchy, b2, pre_sweeps: int = 1,
+                post_sweeps: int = 1,
+                omega: float = 1.0, symmetric: bool = True,
+                start_level: int = 0, min_side: int | None = None,
+                fused: bool = False, plan: tuple | None = None):
+    """Full multigrid (nested iteration): restrict the rhs down from level
+    ``start_level``, solve the coarsest level directly, then prolong the
+    solution up, running one V-cycle on each level (packed cycles on
+    levels of side >= min_side).
+
+    The b-chain uses restrict_mm / prolong_mm: the JAX package measured the
+    4095^2 refine count to depend on this chain's precision, which is why
+    TF32 stays off (StructuredSolver)."""
+    if min_side is None:
+        min_side = PACKED_MIN_SIDE
+    L = hier.n_levels
+    l0 = start_level
+    bs = {l0: b2}
+    for l in range(l0, L - 1):
+        bs[l + 1] = restrict_mm(bs[l], hier.P1s[l])
+    u = hier.coarse_solve(bs[L - 1])
+    for l in range(L - 2, l0 - 1, -1):
+        u = prolong_mm(u, hier.P1s[l])
+        if hier.sides[l] >= min_side:
+            u = vcycle_packed(hier, u, bs[l], pre_sweeps, post_sweeps, omega,
+                              symmetric, _level=l, min_side=min_side,
+                              fused=fused, plan=plan)
+        else:
+            u = cycle_stencil(hier, u, bs[l], pre_sweeps, post_sweeps, omega,
+                              symmetric, _level=l)
+    return u
+
+
+def _not_yet(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to amg_tpu_torch yet (ROADMAP.md: {item})")
+
+
+class StructuredSolver:
+    """Single-device structured Poisson solver: the hierarchy and the level
+    plan are built once, then solves are cheap to repeat.
+
+    Same defaults as the JAX solver: ``smoother="auto"`` (packed levels
+    with the fused kernels), ``precision="df32"``, ``fmg=True``,
+    ``cycles_per_refine=3``. The solve loop runs on the host with one
+    device-to-host read of the rss per refine.
+    """
+
+    def __init__(self, side: int, n_levels: int | None = None,
+                 smoother: str = "auto", pre_sweeps: int = 1,
+                 post_sweeps: int = 1, omega: float = 1.0,
+                 symmetric: bool = True, cycles_per_refine: int = 3,
+                 A_fine=None, A_planes=None, fmg: bool = True,
+                 precision: str = "df32",
+                 packed_min_side: int = PACKED_MIN_SIDE, device=None):
+        if smoother not in ("auto", "packed"):
+            raise _not_yet(f"smoother={smoother!r}",
+                           "Queue 1 item 10, remaining structured variants")
+        if A_fine is not None or A_planes is not None:
+            raise _not_yet("A_fine / A_planes (variable coefficients)",
+                           "Queue 1 item 8, variable coefficients")
+        if precision == "f64":
+            raise _not_yet("precision='f64'",
+                           "Queue 1 item 5 and Queue 2 item 6, the f64 "
+                           "residual")
+        if precision != "df32":
+            raise ValueError(f"unknown precision {precision!r}; "
+                             "expected 'df32' or 'f64'")
+        if not fmg:
+            raise _not_yet("fmg=False", "Queue 1 item 6, StructuredSolver")
+        self.side = side
+        self.device = torch.device("cpu" if device is None else device)
+        self.pre_sweeps = pre_sweeps
+        self.post_sweeps = post_sweeps
+        self.omega = omega
+        self.symmetric = symmetric
+        self.cycles_per_refine = cycles_per_refine
+        self.packed_min_side = packed_min_side
+        # smoother="auto" is packed levels WITH the fused kernels; an
+        # explicit "packed" keeps the plain packed ops (as in JAX)
+        self.fused_packed = smoother == "auto"
+        if self.device.type == "cuda":
+            # the refine count depends on the f32 transfer matmuls'
+            # precision (amg_tpu/structured.py fmg_stencil note): no TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.hier = build_stencil_hierarchy_device(side, n_levels,
+                                                   device=self.device)
+        # the packed loop keeps the whole solve state color-packed; below
+        # packed_min_side (or with one level) the unpacked df32 loop runs
+        self.packed_loop = (side >= packed_min_side
+                            and self.hier.n_levels >= 2)
+        self.plan = level_plan(self.hier.sides, self.pre_sweeps,
+                               self.post_sweeps, self.packed_min_side,
+                               self.fused_packed)
+        # the f64 fine operator as exact static weights
+        self.w33 = poisson_const_w33(side, 1)[0]
+        self.m = (side - 1) // 2
+        # K4 needs power-of-two weights (2^k - 1 grids); other sides take
+        # the general df32 residual, as the JAX package does
+        self.df_kernel = self.fused_packed and is_pow2_weights(self.w33)
+
+    # -- pieces of the solve loop ------------------------------------------
+
+    def _vcycle(self, u2, b2, level: int = 0, packed_in: bool = False):
+        return vcycle_packed(self.hier, u2, b2, self.pre_sweeps,
+                             self.post_sweeps, self.omega, self.symmetric,
+                             _level=level, _packed_in=packed_in,
+                             min_side=self.packed_min_side,
+                             fused=self.fused_packed, plan=self.plan)
+
+    def _residual_hi_rss(self, b4: DF32, u4: DF32):
+        if self.df_kernel:
+            return fused_df_residual_rss(self.w33, b4, u4, self.m)
+        r = df_residual_const_packed(self.w33, b4, u4, self.m)
+        return r.hi, df_rss_fast(r)
+
+    def _fmg_start(self, b4: DF32) -> DF32:
+        """Nested-iteration start with the fine level packed: restrict b to
+        level 1, FMG the coarse hierarchy, prolong back, then one packed
+        fine-level V-cycle."""
+        bc = restrict_packed(b4.hi, self.m)
+        uc = fmg_stencil(self.hier, bc, self.pre_sweeps, self.post_sweeps,
+                         self.omega, self.symmetric, start_level=1,
+                         min_side=self.packed_min_side,
+                         fused=self.fused_packed, plan=self.plan)
+        u0f = prolong_add_packed(torch.zeros_like(b4.hi), uc, self.m)
+        return DF32.from_f32(self._vcycle(u0f, b4.hi, packed_in=True))
+
+    # -- public entry points -------------------------------------------------
+
+    def _solve_unpacked(self, b2_f64, tolerance: float, n_refine: int,
+                        rtol: float):
+        """The df32 loop on unpacked fields (side < packed_min_side, or one
+        level), with the JAX loop's semantics: the rss lags one correction
+        and every pass refines, so the loop runs one refine past
+        convergence; the final rss is always recomputed (df_rss)."""
+        b_df = DF32.from_f64(torch.as_tensor(b2_f64, device=self.device))
+        tol_eff = tolerance
+        if rtol > 0.0:
+            tol_eff = max(tolerance, rtol * float(df_rss_fast(b_df)))
+        u = DF32.from_f32(fmg_stencil(self.hier, b_df.hi, self.pre_sweeps,
+                                      self.post_sweeps, self.omega,
+                                      self.symmetric))
+        err = float("inf")
+        it = 0
+        while err > tol_eff and it < n_refine:
+            r = df_residual_const(self.w33, b_df, u)
+            err = float(df_rss_fast(r))
+            e = torch.zeros_like(r.hi)
+            for _ in range(self.cycles_per_refine):
+                e = self._vcycle(e, r.hi)
+            u = df_add_f32(u, e)
+            it += 1
+        final = df_rss(df_residual_const(self.w33, b_df, u))
+        return u.to_f64(), torch.stack([
+            final, torch.tensor(float(it), dtype=torch.float64,
+                                device=final.device)])
+
+    def prepare_b(self, b2_f64: torch.Tensor) -> DF32:
+        """f64 (side, side) rhs -> packed df32, once per rhs."""
+        if not self.packed_loop:
+            raise ValueError("the prepared-rhs path needs the packed df32 "
+                             "loop (side >= packed_min_side, >= 2 levels)")
+        b_df = DF32.from_f64(torch.as_tensor(b2_f64, device=self.device))
+        return DF32(hi=pack(b_df.hi, self.m), lo=pack(b_df.lo, self.m))
+
+    def finalize_u(self, u4_df: DF32) -> torch.Tensor:
+        return (unpack(u4_df.hi, self.m).to(torch.float64)
+                + unpack(u4_df.lo, self.m).to(torch.float64))
+
+    def solve_ir_device_prepared(self, b4_df: DF32, tolerance: float = 1e-7,
+                                 n_refine: int = 40, rtol: float = 0.0):
+        """Defect-correction solve on a prepared rhs. Returns
+        ``(u4_df, stats)``: the packed df32 iterate and the f64 tensor
+        ``[final_rss, refines]``.
+
+        Loop semantics of the JAX device loop: the rss is lagged (it is the
+        rss of u before the latest correction), a refine runs only while it
+        is above the tolerance and counts only then, so a converged loop
+        exits through a residual-only pass whose rss is the final one; on
+        budget exhaustion the final rss is recomputed."""
+        tol_eff = tolerance
+        if rtol > 0.0:
+            tol_eff = max(tolerance, rtol * float(df_rss_fast(b4_df)))
+        u4 = self._fmg_start(b4_df)
+        err = float("inf")
+        err_t = None
+        it = 0
+        while err > tol_eff and it < n_refine:
+            r_hi, err_t = self._residual_hi_rss(b4_df, u4)
+            err = float(err_t)      # the one host sync of the refine
+            if err > tol_eff:
+                e4 = torch.zeros_like(r_hi)
+                for _ in range(self.cycles_per_refine):
+                    e4 = self._vcycle(e4, r_hi, packed_in=True)
+                u4 = df_add_f32(u4, e4)
+                it += 1
+        if err > tol_eff:
+            err_t = self._residual_hi_rss(b4_df, u4)[1]
+        stats = torch.stack([err_t.to(torch.float64),
+                             torch.tensor(float(it), dtype=torch.float64,
+                                          device=err_t.device)])
+        return u4, stats
+
+    def solve_ir_device(self, b2_f64: torch.Tensor, tolerance: float = 1e-7,
+                        n_refine: int = 40, rtol: float = 0.0):
+        """prepare_b -> solve_ir_device_prepared -> finalize_u: returns
+        ``(u, stats)`` with u the f64 (side, side) field."""
+        if not self.packed_loop:
+            return self._solve_unpacked(b2_f64, tolerance, n_refine, rtol)
+        u4, stats = self.solve_ir_device_prepared(self.prepare_b(b2_f64),
+                                                  tolerance, n_refine, rtol)
+        return self.finalize_u(u4), stats
+
+    def solve_ir_fused(self, b2_f64: torch.Tensor, tolerance: float = 1e-7,
+                       n_refine: int = 40, rtol: float = 0.0) -> SolveResult:
+        """Solve and report: ``iterations`` counts the refine loop's
+        V-cycles (the FMG start excluded)."""
+        u, stats = self.solve_ir_device(b2_f64, tolerance, n_refine, rtol)
+        err_v, it_v = stats.tolist()
+        iters = int(it_v) * self.cycles_per_refine
+        tol_eff = tolerance
+        if rtol > 0.0:
+            # the loop's own base: df_rss_fast of the (packed) df32 rhs
+            b_df = (self.prepare_b(b2_f64) if self.packed_loop else
+                    DF32.from_f64(torch.as_tensor(b2_f64,
+                                                  device=self.device)))
+            tol_eff = max(tolerance, rtol * float(df_rss_fast(b_df)))
+        return SolveResult(u=u, iterations=iters, error=err_v,
+                           converged=err_v <= tol_eff,
+                           history=[(iters, err_v)])
+
+    def warmup(self) -> None:
+        """One solve on a zero rhs: builds the CUDA kernels on first use."""
+        z = torch.zeros((self.side, self.side), dtype=torch.float64,
+                        device=self.device)
+        _, stats = self.solve_ir_device(z, 1e-7, 40)
+        stats.tolist()
+
+    def solve_ir(self, b2_f64, tolerance: float = 1e-7, n_refine: int = 40):
+        raise _not_yet("solve_ir (the host-stepped refine_step loop)",
+                       "Queue 1 item 6, StructuredSolver")

@@ -1,0 +1,99 @@
+"""Where a solve's time goes on the GPU: wall time, device busy time by
+kernel, launch count and idle share, from ``torch.profiler``.
+
+    python -m amg_tpu_torch.utils.profiling --sides 1023 4095
+
+For each side: one warm solve (prepare_b -> solve_ir_device_prepared ->
+finalize_u) is timed, then a second one is traced. Device busy time is the
+sum of the GPU kernels' and copies' own times in the trace (one stream, so
+they do not overlap); the idle share is 1 - busy / (untraced wall). Needs
+a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def profile_solve(side: int, device="cuda", top: int = 12) -> dict:
+    """Trace one warm solve at ``side``; returns the summary it prints."""
+    from amg_tpu_torch import StructuredSolver, poisson
+    from amg_tpu_torch.ops import kernels as K
+
+    s = StructuredSolver(side, device=device)
+    b2 = poisson.rhs(side, device=device).reshape(side, side)
+    s.warmup()
+
+    def solve():
+        u4, stats = s.solve_ir_device_prepared(s.prepare_b(b2))
+        s.finalize_u(u4)
+        return stats.tolist()
+
+    solve()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve()
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    K.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        err, it = solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gpu = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(_device_us(e) for e in gpu)
+    gpu.sort(key=_device_us, reverse=True)
+    host = sorted((e for e in prof.key_averages()
+                   if e.key.startswith("aten::")),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    summary = {
+        "side": side, "wall_s": wall_plain, "wall_traced_s": wall,
+        "refines": int(it), "rss": err, "device_busy_s": busy_us * 1e-6,
+        "idle_share": 1.0 - busy_us * 1e-6 / wall_plain,
+        "gpu_launches": sum(e.count for e in gpu),
+        "our_kernel_launches": K.launch_counts(),
+        "top_kernels": [(e.key[:90], e.count, _device_us(e) * 1e-3)
+                        for e in gpu[:top]],
+        "top_host_ops": [(e.key, e.count, e.self_cpu_time_total * 1e-3)
+                         for e in host[:top]],
+    }
+    print(f"side {side}: wall {wall_plain:.6f} s (traced {wall:.6f} s), "
+          f"refines {int(it)}, rss "
+          f"{err:.3e}, device busy {summary['device_busy_s']:.6f} s, "
+          f"idle share {summary['idle_share']:.4f}, GPU launches "
+          f"{summary['gpu_launches']}, kernel wrappers "
+          f"{summary['our_kernel_launches']}")
+    for name, count, ms in summary["top_kernels"]:
+        print(f"  device {ms:10.4f} ms  {count:6d}x  {name}")
+    for name, count, ms in summary["top_host_ops"]:
+        print(f"  host   {ms:10.4f} ms  {count:6d}x  {name}")
+    return summary
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sides", type=int, nargs="+", default=[1023, 4095])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    for side in args.sides:
+        profile_solve(side)
+
+
+if __name__ == "__main__":
+    main()

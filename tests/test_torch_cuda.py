@@ -1,0 +1,93 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+
+Marked ``cuda``: each test skips where no CUDA device is present. On a GPU
+machine (which has no JAX, so the JAX conftest is left out):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Bounds are the JAX package's own for these kernels
+(tests/test_packed_cycle.py, tests/test_packed_df.py); the kernels keep the
+plain versions' operation order and are built with -fmad=false, so they
+are expected to agree exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from amg_tpu_torch import StructuredSolver, poisson
+from amg_tpu_torch.ops import kernels as K
+from amg_tpu_torch.ops.doublefloat import DF32
+from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
+                                                    up_leg_plain)
+from amg_tpu_torch.ops.kernels.packed_df import df_residual_rss_plain
+from amg_tpu_torch.ops.rap import poisson_const_w33
+from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
+
+pytestmark = pytest.mark.cuda
+
+SIDE = 1023               # M = 512, the 1023^2 solve's fine level
+M_ = (SIDE - 1) // 2
+W33 = poisson_const_w33(SIDE, 1)[0]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _field(dev, seed, scale=1.0):
+    x = np.random.default_rng(seed).standard_normal((SIDE, SIDE)) * scale
+    return pack(torch.as_tensor(x, dtype=torch.float32, device=dev), M_)
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_sweep_kernel(dev, symmetric):
+    u4, b4 = _field(dev, 0), _field(dev, 1)
+    got = K.fused_gs4_sweep_packed(u4, b4, W33, M_, 0.9, symmetric)
+    torch.cuda.synchronize()
+    assert K.fused_gs4_sweep_packed.launches > 0
+    assert _rel(got, gs4_sweep_packed(u4, b4, W33, M_, 0.9,
+                                      symmetric)) <= 2e-6
+    assert float(got[3][M_, :].abs().max()) == 0.0
+
+
+def test_leg_kernels(dev):
+    u4, b4 = _field(dev, 2), _field(dev, 3)
+    gu, gbc = K.fused_down_leg_packed(u4, b4, W33, M_, 0.9, True)
+    ru, rbc = down_leg_plain(u4, b4, W33, M_, 0.9, True)
+    assert _rel(gu, ru) <= 2e-6 and _rel(gbc, rbc) <= 1e-5
+    assert float(gbc[M_, :].abs().max()) == float(gbc[:, M_].abs().max()) \
+        == 0.0
+    uc_pad = F.pad(_field(dev, 4)[0, :M_, :M_], (0, 1, 0, 1))
+    got = K.fused_up_leg_packed(u4, b4, uc_pad, W33, M_, 0.9, True)
+    assert _rel(got, up_leg_plain(u4, b4, uc_pad, W33, M_, 0.9,
+                                  True)) <= 1e-5
+
+
+def test_df_kernel(dev):
+    b_df = DF32(_field(dev, 5), _field(dev, 6, 1e-8))
+    u_df = DF32(_field(dev, 7), _field(dev, 8, 1e-8))
+    rh, rss = K.fused_df_residual_rss(W33, b_df, u_df, M_)
+    rh_ref, rss_ref = df_residual_rss_plain(W33, b_df, u_df, M_)
+    assert _rel(rh, rh_ref) <= 1e-6
+    assert abs(float(rss) - float(rss_ref)) <= 1e-5 * float(rss_ref)
+
+
+def test_solve_goes_through_the_kernels(dev):
+    s = StructuredSolver(SIDE, device=dev)
+    b2 = poisson.rhs(SIDE, device=dev).reshape(SIDE, SIDE)
+    K.reset_launch_counts()
+    res = s.solve_ir_fused(b2, tolerance=1e-7)
+    it = res.iterations // s.cycles_per_refine
+    assert res.converged and res.u.is_cuda
+    counts = K.launch_counts()
+    assert counts["fused_down_leg_packed"] == 1 + 3 * it
+    assert counts["fused_df_residual_rss"] == it + 1

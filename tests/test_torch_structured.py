@@ -1,0 +1,209 @@
+"""amg_tpu_torch's hierarchy, V-cycle and StructuredSolver against
+amg_tpu on the same inputs (CPU; the JAX side in f64 mode, x64).
+
+Tolerances: the hierarchy's static data is compared exactly and the coarse
+LU solve to 1e-12 (f64 roundoff of a 9 x 9 solve); the V-cycle to 1e-5
+relative, the JAX test's bound for its fused legs (f32 reassociation);
+the call counts of the kernel wrappers follow the level plan. Whole
+solves against JAX are in tests/test_torch_solver.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from amg_tpu import structured as jst
+from amg_tpu.models import poisson as jpoisson
+
+from amg_tpu_torch import structured as tst
+from amg_tpu_torch.interop import df32_from_numpy, hierarchy_from_numpy
+from amg_tpu_torch.models import poisson as tpoisson
+from amg_tpu_torch.ops.kernels import _build
+
+torch.set_num_threads(1)
+
+
+def _jax_hier(side, dtype=jnp.float64):
+    return jst.build_stencil_hierarchy_device(side, dtype=dtype,
+                                              smoother="packed")
+
+
+@pytest.mark.parametrize("side", [63, 255])
+def test_hierarchy_matches_jax(side):
+    jh = _jax_hier(side)
+    th = tst.build_stencil_hierarchy_device(side, dtype=torch.float64)
+    assert th.sides == tuple(jh.sides)
+    assert th.w33s == tuple(lv.w33 for lv in jh.levels)
+    assert th.n_levels == tst.max_levels_for_side(side) == len(jh.sides)
+    for tP, jP in zip(th.P1s, jh.P1s):
+        np.testing.assert_array_equal(tP.numpy(), np.asarray(jP))
+    nc = th.sides[-1]
+    b = np.random.default_rng(side).standard_normal((nc, nc))
+    want = jax.scipy.linalg.lu_solve((jh.coarse_lu, jh.coarse_piv),
+                                     jnp.asarray(b).reshape(-1))
+    got = th.coarse_solve(torch.as_tensor(b))
+    np.testing.assert_allclose(got.numpy().reshape(-1), np.asarray(want),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_interop_round_trip():
+    side = 127
+    jh = _jax_hier(side)
+    th = hierarchy_from_numpy(
+        jh.sides, [lv.w33 for lv in jh.levels], np.asarray(jh.coarse_lu),
+        np.asarray(jh.coarse_piv), [np.asarray(P) for P in jh.P1s])
+    own = tst.build_stencil_hierarchy_device(side, dtype=torch.float64)
+    assert th.sides == own.sides and th.w33s == own.w33s
+    assert th.coarse_piv.dtype == torch.int32
+    # 0-based JAX pivots became 1-based LAPACK pivots
+    np.testing.assert_array_equal(th.coarse_piv.numpy(),
+                                  np.asarray(jh.coarse_piv) + 1)
+    b2 = tpoisson.rhs(side).reshape(side, side)
+    u_interop = tst.vcycle_packed(th, torch.zeros_like(b2), b2, min_side=0)
+    u_own = tst.vcycle_packed(own, torch.zeros_like(b2), b2, min_side=0)
+    np.testing.assert_allclose(u_interop.numpy(), u_own.numpy(),
+                               rtol=1e-12, atol=1e-14)
+    hi = np.random.default_rng(0).standard_normal((4, 8, 8)).astype(
+        np.float32)
+    lo = (hi * 1e-8).astype(np.float32)
+    d = df32_from_numpy(hi, lo)
+    np.testing.assert_array_equal(d.hi.numpy(), hi)
+    np.testing.assert_array_equal(d.lo.numpy(), lo)
+    with pytest.raises(ValueError):
+        df32_from_numpy(hi.astype(np.float64), lo)
+
+
+def test_vcycle_legs_match_jax_fused(monkeypatch):
+    """vcycle_packed with the leg kernels' plain versions (threshold
+    lowered to 200 so that side 255 takes them) against JAX's
+    vcycle_packed(fused=True) with its Pallas legs in interpret mode (the
+    tests/test_packed_cycle.py pattern)."""
+    from unittest import mock
+
+    from amg_tpu.ops.pallas import packed_cycle, packed_rbgs
+
+    side = 255
+    jh = _jax_hier(side, jnp.float32)
+    b_np = np.asarray(jpoisson.rhs(side, dtype=jnp.float64),
+                      dtype=np.float32).reshape(side, side)
+    b2 = jnp.asarray(b_np)
+    orig_sweep = packed_rbgs.fused_gs4_sweep_packed
+    orig_down = packed_cycle.fused_down_leg_packed
+    orig_up = packed_cycle.fused_up_leg_packed
+    with mock.patch.object(jst, "FUSED_PACKED_MIN_SIDE", 200), \
+            mock.patch.object(jst, "_mosaic_ok", lambda: True), \
+            mock.patch(
+                "amg_tpu.ops.pallas.packed_rbgs.fused_gs4_sweep_packed",
+                new=lambda *a, **k: orig_sweep(
+                    *a, **{**k, "interpret": True})), \
+            mock.patch(
+                "amg_tpu.ops.pallas.packed_cycle.fused_down_leg_packed",
+                new=lambda *a, **k: orig_down(
+                    *a, **{**k, "interpret": True})), \
+            mock.patch(
+                "amg_tpu.ops.pallas.packed_cycle.fused_up_leg_packed",
+                new=lambda *a, **k: orig_up(*a, **{**k, "interpret": True})):
+        want = np.asarray(jst.vcycle_packed(jh, jnp.zeros_like(b2), b2,
+                                            min_side=100, fused=True))
+
+    monkeypatch.setattr(tst, "FUSED_PACKED_MIN_SIDE", 200)
+    th = tst.build_stencil_hierarchy_device(side)
+    plan = tst.level_plan(th.sides, 1, 1, 100, True)
+    assert plan[:2] == ("legs", "packed")
+    tb = torch.as_tensor(b_np)
+    got = tst.vcycle_packed(th, torch.zeros_like(tb), tb, min_side=100,
+                            fused=True).numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
+    assert _build.library.cache_info().currsize == 0
+
+
+def _counting(monkeypatch, name):
+    calls = []
+    orig = getattr(tst, name)
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+    monkeypatch.setattr(tst, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("smoother,sweeps", [("auto", 1), ("auto", 2),
+                                             ("packed", 1)])
+def test_kernel_call_counts_follow_the_plan(monkeypatch, smoother, sweeps):
+    """With the fused threshold at the fine side, one solve calls the legs
+    1 + 3 it times (FMG fine pass + 3 cycles per refine), the df32
+    residual it + 1 times, and, with two sweeps, the fused sweep
+    4 (1 + 3 it) times: the launch totals chip_smoke.py asserts on the
+    card. An explicit smoother="packed" keeps the plain packed ops (as in
+    JAX) and calls no kernel wrapper."""
+    side = 255
+    monkeypatch.setattr(tst, "FUSED_PACKED_MIN_SIDE", side)
+    counts = {n: _counting(monkeypatch, n) for n in (
+        "fused_gs4_sweep_packed", "fused_down_leg_packed",
+        "fused_up_leg_packed", "fused_df_residual_rss")}
+    s = tst.StructuredSolver(side, smoother=smoother, pre_sweeps=sweeps,
+                             post_sweeps=sweeps)
+    b2 = tpoisson.rhs(side).reshape(side, side)
+    res = s.solve_ir_fused(b2, tolerance=1e-7)
+    it = res.iterations // s.cycles_per_refine
+    assert res.converged and it >= 1
+    n = {k: len(v) for k, v in counts.items()}
+    if smoother == "packed":
+        assert "legs" not in s.plan and not any(n.values())
+        return
+    assert s.plan[0] == ("legs" if sweeps == 1 else "sweep")
+    assert n["fused_df_residual_rss"] == it + 1
+    if sweeps == 1:
+        assert n["fused_down_leg_packed"] == n["fused_up_leg_packed"] \
+            == 1 + 3 * it
+        assert n["fused_gs4_sweep_packed"] == 0
+    else:
+        assert n["fused_gs4_sweep_packed"] == 4 * (1 + 3 * it)
+        assert n["fused_down_leg_packed"] == 0
+
+
+def test_level_plan_at_production_sides():
+    for side, legs in ((1023, 1), (4095, 3), (8191, 4)):
+        sides = [side]
+        while sides[-1] > 3:
+            sides.append((sides[-1] - 1) // 2)
+        plan = tst.level_plan(sides, 1, 1, tst.PACKED_MIN_SIDE, True)
+        assert plan.count("legs") == legs
+        assert plan[legs:legs + 2] == ("packed", "packed")
+        assert plan[-1] == "direct" and "sweep" not in plan
+        assert "legs" not in tst.level_plan(sides, 1, 1, 200, False)
+
+
+def test_budget_exhaustion_and_rtol():
+    side = 255
+    s = tst.StructuredSolver(side)
+    b2 = tpoisson.rhs(side).reshape(side, side)
+    _, stats = s.solve_ir_device(b2, tolerance=1e-7, n_refine=1)
+    err, it = stats.tolist()
+    assert it == 1 and err > 1e-7     # recomputed after the last refine
+    res = s.solve_ir_fused(b2, tolerance=0.0, rtol=1e-10)
+    assert res.converged and res.error > 0.0
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"precision": "f64"}, {"fmg": False}, {"A_fine": object()},
+    {"A_planes": object()}, {"smoother": "masked"},
+])
+def test_unported_options_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tst.StructuredSolver(255, **kwargs)
+
+
+def test_unported_entry_points_raise():
+    s = tst.StructuredSolver(255)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        s.solve_ir(tpoisson.rhs(255).reshape(255, 255))
+    with pytest.raises(ValueError):        # below packed_min_side
+        tst.StructuredSolver(127).prepare_b(tpoisson.rhs(127).reshape(127,
+                                                                      127))
+    with pytest.raises(ValueError):
+        tst.StructuredSolver(255, precision="f16")
