@@ -12,14 +12,18 @@ import numpy as np
 import torch
 
 from amg_tpu_torch.ops.doublefloat import DF32
-from amg_tpu_torch.structured import StencilHierarchy
+from amg_tpu_torch.structured import PACKED_MIN_SIDE, StencilHierarchy
 
 
 def hierarchy_from_numpy(sides, w33s, coarse_lu, coarse_piv, P1s,
-                         device=None) -> StencilHierarchy:
+                         device=None, planes=None, smoother: str = "masked",
+                         packed_min_side: int = PACKED_MIN_SIDE
+                         ) -> StencilHierarchy:
     """A StencilHierarchy from a JAX hierarchy's arrays: ``coarse_lu`` and
     ``coarse_piv`` from ``jax.scipy.linalg.lu_factor``, ``P1s`` the dense
-    transfer matrices, ``sides`` and ``w33s`` its static metadata.
+    transfer matrices, ``sides`` its static metadata, and either ``w33s``
+    (a constant hierarchy) or ``planes``, one (3,3,n,n) array per level
+    (a variable one; ``w33s`` then all None).
 
     ``jax.scipy.linalg.lu_factor`` returns 0-based pivots;
     ``torch.linalg.lu_solve`` expects LAPACK's 1-based int32 pivots."""
@@ -27,7 +31,19 @@ def hierarchy_from_numpy(sides, w33s, coarse_lu, coarse_piv, P1s,
     piv = torch.tensor(np.asarray(coarse_piv).astype(np.int32) + 1,
                        device=device)
     P1s = [torch.tensor(np.asarray(P), device=device) for P in P1s]
-    return StencilHierarchy(sides, w33s, lu, piv, P1s)
+    if planes is not None:
+        planes = [planes_from_numpy(c, device) for c in planes]
+    return StencilHierarchy(sides, w33s, lu, piv, P1s, planes=planes,
+                            smoother=smoother,
+                            packed_min_side=packed_min_side)
+
+
+def planes_from_numpy(c, device=None) -> torch.Tensor:
+    """(3,3,n,n) coefficient planes from numpy, dtype kept."""
+    c = np.asarray(c)
+    if c.ndim != 4 or c.shape[:2] != (3, 3) or c.shape[2] != c.shape[3]:
+        raise ValueError(f"planes must be (3, 3, n, n), got {c.shape}")
+    return torch.tensor(c, device=device)
 
 
 def df32_from_numpy(hi, lo, device=None) -> DF32:

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from amg_tpu_torch.utils.device import resolve_device
+
 # Two boundary points flank each direction (reference: grid.hpp:22).
 N_BOUNDARY_POINTS = 2
 
@@ -28,7 +30,9 @@ def default_forcing(x, y):
 def rhs(n: int, f=default_forcing, dtype=torch.float64,
         device=None) -> torch.Tensor:
     """Forcing vector b (flat, length n^2): f at the n x n interior points,
-    outer loop j over x, inner loop i over y (grid.hpp:108-140)."""
+    outer loop j over x, inner loop i over y (grid.hpp:108-140).
+    ``device`` None means ``"cuda"`` (utils/device.py)."""
+    device = resolve_device(device)
     domain = np.linspace(-1.0, 1.0, n + N_BOUNDARY_POINTS)
     interior = domain[1:-1]
     X, Y = np.meshgrid(interior, interior, indexing="ij")  # X varies with j

@@ -1,7 +1,7 @@
 """Double-float32 (df32) arithmetic: an unevaluated pair ``hi + lo`` of f32
 with ``|lo| <= ulp(hi)/2`` (~48-bit significand).
 
-PyTorch port of ``amg_tpu/ops/doublefloat.py:33-256``. The error-free
+PyTorch port of ``amg_tpu/ops/doublefloat.py:33-257``. The error-free
 transformations (Knuth TwoSum, Dekker TwoProd with Veltkamp splitting) rely
 on every f32 operation rounding on its own: eager PyTorch runs each
 operator as its own rounded elementwise pass, and nothing here may be
@@ -103,6 +103,25 @@ def df_mul(a: DF32, b: DF32) -> DF32:
     e = e + a.hi * b.lo + a.lo * b.hi
     hi, lo = quick_two_sum(p, e)
     return DF32(hi=hi, lo=lo)
+
+
+def df_residual(c_df: DF32, b_df: DF32, u_df: DF32) -> DF32:
+    """r = b - A u in df32 on an n x n field for a 9-point operator with
+    df32 coefficient planes ``c_df`` ((3,3,n,n) hi and lo): every product a
+    TwoProd, every accumulation a TwoSum, in Stencil2D.matvec2's order."""
+    n = u_df.hi.shape[0]
+    uh = F.pad(u_df.hi, (1, 1, 1, 1))
+    ul = F.pad(u_df.lo, (1, 1, 1, 1))
+    acc = DF32.from_f32(torch.zeros_like(u_df.hi))
+    for dj in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            def sl(z):
+                return z[1 + dj:1 + dj + n, 1 + di:1 + di + n]
+            term = df_mul(DF32(hi=c_df.hi[dj + 1, di + 1],
+                               lo=c_df.lo[dj + 1, di + 1]),
+                          DF32(hi=sl(uh), lo=sl(ul)))
+            acc = df_add(acc, term)
+    return df_add(b_df, df_neg(acc))
 
 
 def df_residual_const(w33, b_df: DF32, u_df: DF32) -> DF32:

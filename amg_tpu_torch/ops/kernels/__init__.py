@@ -2,16 +2,21 @@
 
 Every wrapper takes CPU tensors to its plain PyTorch version and CUDA
 tensors to its kernel (built from ``amg_tpu_torch/csrc`` at first launch),
-and counts its kernel launches in a ``launches`` attribute.
+and counts each kernel's launches in a ``launches`` attribute.
 """
 
 from amg_tpu_torch.ops.kernels.packed_cycle import (fused_down_leg_packed,
                                                     fused_up_leg_packed)
 from amg_tpu_torch.ops.kernels.packed_df import fused_df_residual_rss
 from amg_tpu_torch.ops.kernels.packed_rbgs import fused_gs4_sweep_packed
+from amg_tpu_torch.ops.kernels.rbgs import (fused_gs4_sweep,
+                                            fused_gs4_sweep_const,
+                                            fused_gs4_sweep_var)
 
+# the launch counters, one per kernel (K1..K6)
 KERNELS = (fused_gs4_sweep_packed, fused_down_leg_packed,
-           fused_up_leg_packed, fused_df_residual_rss)
+           fused_up_leg_packed, fused_df_residual_rss,
+           fused_gs4_sweep_const, fused_gs4_sweep_var)
 
 
 def reset_launch_counts() -> None:

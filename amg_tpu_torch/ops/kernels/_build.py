@@ -42,6 +42,8 @@ _SIGNATURES = {
     "amg_up_leg": (_P, _P, _P, _P, _I, _W9, _F, _F, _I, _P),
     "amg_df_residual": (_P, _P, _P, _P, _P, _P, _I, _W9, _P),
     "amg_df_partials_count": (_I,),
+    "amg_rbgs_sweep_const": (_P, _P, _P, _I, _W9, _F, _F, _I, _P),
+    "amg_rbgs_sweep_var": (_P, _P, _P, _P, _I, _F, _I, _P),
 }
 
 
@@ -104,6 +106,15 @@ def build_log() -> str:
     ('' when it was built by an earlier process)."""
     log = BUILD_DIR / f"libamg_kernels_{_digest()}.log"
     return log.read_text() if log.exists() else ""
+
+
+class LaunchCounter:
+    """The launch count of a kernel whose wrapper serves more than one
+    kernel (a one-kernel wrapper carries its own ``launches``)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
 
 
 def check(err: int, name: str) -> None:

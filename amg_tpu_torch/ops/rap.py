@@ -1,14 +1,81 @@
-"""Closed-form Galerkin coarsening of the constant Poisson stencil, and the
-dense operators the hierarchy build needs.
+"""Closed-form Galerkin coarsening of 9-point stencils, and the dense
+operators the hierarchy build needs.
 
-PyTorch port of ``amg_tpu/ops/rap.py:92-172``. ``poisson_const_w33`` is pure
-Python f64 arithmetic in the same order as the reference module, so the
-weight tuples are identical.
+PyTorch port of ``amg_tpu/ops/rap.py:28-75, 92-172``. ``poisson_const_w33``
+is pure Python f64 arithmetic in the same order as the reference module,
+so the weight tuples are identical; ``rap_stencil_planes`` sums its terms
+in the reference's order, so the coarse planes are bitwise equal.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+_W = (0.5, 1.0, 0.5)  # w(-1), w(0), w(1): the transfer stencil
+
+
+def rap_stencil_planes(c: torch.Tensor) -> torch.Tensor:
+    """Galerkin-coarsen (3,3,n,n) coefficient planes (n odd >= 3) under the
+    tensor-product bilinear transfer: returns (3,3,nc,nc), nc = (n-1)/2,
+
+      A_H[dJ,dI][a,b] = sum w(d1) w(d2) w(d1') w(d2')
+                        * c[2dJ+d1'-d1, 2dI+d2'-d2][2a+1+d1, 2b+1+d2]
+
+    over the offsets with |2dJ+d1'-d1| <= 1 and |2dI+d2'-d2| <= 1, with
+    couplings to coarse dofs outside the grid set to 0."""
+    n = c.shape[-1]
+    nc = (n - 1) // 2
+    cp = F.pad(c, (1, 1, 1, 1))
+
+    def sample(dj, di, d1, d2):
+        # fine rows 2a+1+d1, a in [0, nc): padded index 2a+2+d1
+        return cp[dj + 1, di + 1, 2 + d1:2 + d1 + 2 * nc - 1:2,
+                  2 + d2:2 + d2 + 2 * nc - 1:2]
+
+    a_idx = torch.arange(nc, device=c.device).reshape(nc, 1)
+    b_idx = torch.arange(nc, device=c.device).reshape(1, nc)
+    zero = torch.zeros((), dtype=c.dtype, device=c.device)
+    out = torch.zeros((3, 3, nc, nc), dtype=c.dtype, device=c.device)
+    for dJ in (-1, 0, 1):
+        for dI in (-1, 0, 1):
+            acc = torch.zeros((nc, nc), dtype=c.dtype, device=c.device)
+            for d1 in (-1, 0, 1):
+                for d1p in (-1, 0, 1):
+                    dj = 2 * dJ + d1p - d1
+                    if abs(dj) > 1:
+                        continue
+                    for d2 in (-1, 0, 1):
+                        for d2p in (-1, 0, 1):
+                            di = 2 * dI + d2p - d2
+                            if abs(di) > 1:
+                                continue
+                            w = (_W[d1 + 1] * _W[d2 + 1] * _W[d1p + 1]
+                                 * _W[d2p + 1])
+                            acc = acc + w * sample(dj, di, d1, d2)
+            valid = ((a_idx + dJ >= 0) & (a_idx + dJ < nc)
+                     & (b_idx + dI >= 0) & (b_idx + dI < nc))
+            out[dJ + 1, dI + 1] = torch.where(valid, acc, zero)
+    return out
+
+
+def poisson_planes(side: int, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+    """The fine 5-point Laplacian as (3,3,n,n) planes (-4/h^2 diagonal,
+    +1/h^2 neighbours, boundary couplings 0), built on ``device``."""
+    n = side
+    h = 2.0 / (n + 1)
+    one = torch.full((n, n), 1.0 / (h * h), dtype=dtype, device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    j = torch.arange(n, device=device).reshape(n, 1)
+    i = torch.arange(n, device=device).reshape(1, n)
+    c = torch.zeros((3, 3, n, n), dtype=dtype, device=device)
+    c[1, 1] = -4.0 * one
+    c[0, 1] = torch.where(j > 0, one, zero)         # u[j-1, i]
+    c[2, 1] = torch.where(j < n - 1, one, zero)     # u[j+1, i]
+    c[1, 0] = torch.where(i > 0, one, zero)         # u[j, i-1]
+    c[1, 2] = torch.where(i < n - 1, one, zero)     # u[j, i+1]
+    return c
 
 
 def coarsen_tridiag(off: float, diag: float) -> tuple[float, float]:

@@ -1,6 +1,6 @@
 """Color-packed four-color Gauss-Seidel pipeline, as plain PyTorch ops.
 
-PyTorch port of ``amg_tpu/sparse/packed.py:39-164, 274-364``. These
+PyTorch port of ``amg_tpu/sparse/packed.py:39-215, 274-364``. These
 functions are the CPU path of the solver, the plain versions the CUDA
 kernels of ``amg_tpu_torch/ops/kernels`` are checked against, and the ops
 of the packed levels below the kernels' threshold on the GPU.
@@ -159,6 +159,58 @@ def prolong_add_packed(u4: torch.Tensor, uc: torch.Tensor, m: int
                               (2, c10, (1, 0)), (3, c11, (1, 1))):
         u4[a] = u4[a] + _valid(pj, pi, m, u4.dtype, u4.device) * corr
     return u4
+
+
+def pack_planes(c: torch.Tensor, m: int) -> torch.Tensor:
+    """(3,3,n,n) coefficient planes -> (3,3,4,M,M) color-packed:
+    ``cp[dj+1, di+1, a]`` holds the (dj, di) coefficient at the color-a
+    target points. The planes do not change during a solve, so the solver
+    packs them once, when the hierarchy is built."""
+    return torch.stack([torch.stack([pack(c[dj, di], m) for di in range(3)])
+                        for dj in range(3)])
+
+
+def _packed_inv_diag(diag: torch.Tensor) -> torch.Tensor:
+    """1/diag with 0 where diag is 0 (the pad cells of a packed plane)."""
+    nz = diag != 0
+    one = torch.ones((), dtype=diag.dtype, device=diag.device)
+    return torch.where(nz, 1.0 / torch.where(nz, diag, one),
+                       torch.zeros((), dtype=diag.dtype, device=diag.device))
+
+
+def gs4_sweep_packed_var(cp: torch.Tensor, u4: torch.Tensor,
+                         b4: torch.Tensor, m: int, omega: float = 1.0,
+                         symmetric: bool = True) -> torch.Tensor:
+    """Variable-coefficient packed GS sweep: gs4_sweep_packed with the
+    weights read from packed planes (pack_planes)."""
+    order = list(COLORS)
+    if symmetric:
+        order = order + order[::-1]
+    u4 = u4.clone()
+    for pj, pi in order:
+        a = 2 * pj + pi
+        acc = torch.zeros_like(u4[a])
+        for (wj, wi), src, (sJ, sI) in _neighbors(pj, pi):
+            acc = acc + cp[wj, wi, a] * _shift(u4[src], sJ, sI)
+        delta = (b4[a] - acc) * _packed_inv_diag(cp[1, 1, a]) - u4[a]
+        mask = _valid(pj, pi, m, u4.dtype, u4.device)
+        u4[a] = u4[a] + (omega * mask) * delta
+    return u4
+
+
+def residual_packed_var(cp: torch.Tensor, u4: torch.Tensor,
+                        b4: torch.Tensor, m: int) -> torch.Tensor:
+    """r = b - A u, color-packed, variable coefficients (pad cells carry
+    zero residual)."""
+    r4 = torch.zeros_like(u4)
+    for pj, pi in COLORS:
+        a = 2 * pj + pi
+        acc = cp[1, 1, a] * u4[a]
+        for (wj, wi), src, (sJ, sI) in _neighbors(pj, pi):
+            acc = acc + cp[wj, wi, a] * _shift(u4[src], sJ, sI)
+        mask = _valid(pj, pi, m, u4.dtype, u4.device)
+        r4[a] = mask * (b4[a] - acc)
+    return r4
 
 
 def _df_residual_pow2_packed(w33, b4_df: DF32, u4_df: DF32, m: int) -> DF32:

@@ -1,21 +1,36 @@
-"""Structured-grid multigrid solver for the constant-coefficient 2-D
-Poisson problem: the PyTorch port of ``amg_tpu/structured.py``'s main path.
+"""Structured-grid multigrid solver for 2-D 9-point problems: the PyTorch
+port of ``amg_tpu/structured.py``'s single-device solver.
 
-The path is ``StructuredSolver(side, device=...)`` with the default
-options: a device-built constant-stencil hierarchy (static 3x3 weights per
-level, a dense LU on the coarsest level), a full-multigrid start, and a
-double-float32 defect-correction loop running 3 f32 V-cycles per refine.
-Levels of side >= 200 keep their fields color-packed (sparse/packed.py);
-on levels of side >= 1023 the V-cycle legs are the fused CUDA kernels of
-ops/kernels (K2 down leg, K3 up leg; K1 the standalone sweep when the
-sweep counts are not 1); the fine-level df32 residual + rss is K4. Smaller
-levels run the plain PyTorch packed ops, and levels below 200 the masked
-four-color machinery, as the JAX package runs XLA there.
+Two operator families, as in the JAX package:
 
-Which kernel runs on which level is decided once, from the sides and the
-options, in :func:`level_plan` (``StructuredSolver.plan``). On CPU tensors
-every kernel wrapper runs its plain version, so the same plan drives the
-CPU tests.
+* the constant-coefficient Poisson problem, ``StructuredSolver(side)``: a
+  device-built constant-stencil hierarchy (static 3x3 weights per level,
+  no coefficient planes);
+* a variable-coefficient problem, ``StructuredSolver(side,
+  A_planes=planes)`` with (3,3,n,n) fine planes (models/varcoef.py): a
+  Galerkin plane hierarchy coarsened on the device (ops/rap.py).
+
+Both get a dense LU on the coarsest level, a full-multigrid start and a
+defect-correction loop running 3 f32 V-cycles per refine, with the
+residual in double-float32 (``precision="df32"``, the default) or native
+f64 (``precision="f64"``).
+
+Smoothers (``smoother=``):
+
+* ``"auto"``: color-packed levels (sparse/packed.py) from side 200 up. On
+  constant levels of side >= 1023 the V-cycle legs are the fused CUDA
+  kernels K2/K3 (K1 the standalone sweep when the sweep counts are not 1)
+  and the fine-level df32 residual + rss is K4. Variable-coefficient
+  levels run the plain packed-var ops, with no kernel, as in JAX.
+* ``"packed"``: the same levels with the plain packed ops only.
+* ``"fused"``: the unpacked V-cycle with masked four-color sweeps, and on
+  levels of side >= FUSED_MIN_SIDE the fused sweep kernel K5 (constant) or
+  K6 (variable).
+
+Which machinery runs on which level is decided once, from the sides and
+the options, in :func:`level_plan` (``StructuredSolver.plan``). On CPU
+tensors every kernel wrapper runs its plain version, so the same plan
+drives the CPU tests.
 """
 
 from __future__ import annotations
@@ -26,28 +41,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from amg_tpu_torch.ops.doublefloat import (DF32, df_add_f32,
+from amg_tpu_torch.ops.doublefloat import (DF32, df_add_f32, df_residual,
                                            df_residual_const, df_rss,
                                            df_rss_fast, is_pow2_weights)
 from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
-                                       fused_down_leg_packed,
+                                       fused_down_leg_packed, fused_gs4_sweep,
                                        fused_gs4_sweep_packed,
                                        fused_up_leg_packed)
 from amg_tpu_torch.ops.rap import (interp1d_dense, planes_to_dense,
-                                   poisson_const_w33)
+                                   poisson_const_w33, rap_stencil_planes)
 from amg_tpu_torch.sparse.packed import (df_residual_const_packed,
-                                         gs4_sweep_packed, pack,
-                                         prolong_add_packed, residual_packed,
+                                         gs4_sweep_packed,
+                                         gs4_sweep_packed_var, pack,
+                                         pack_planes, prolong_add_packed,
+                                         residual_packed, residual_packed_var,
                                          restrict_packed, unpack)
 from amg_tpu_torch.sparse.stencil import (Stencil2D, color_masks_iota,
                                           const_planes, gs4_sweep_masked)
+from amg_tpu_torch.utils.device import resolve_device
+from amg_tpu_torch.utils.metrics import rss_from_residual
 
-# Level thresholds, both measured on a TPU v5e for the JAX package
+# Level thresholds, all three measured on a TPU v5e for the JAX package
 # (amg_tpu/structured.py) and kept as they are; re-deriving them on the GPU
-# is later work. Packed levels from PACKED_MIN_SIDE up, fused kernels from
-# FUSED_PACKED_MIN_SIDE up.
+# is later work. Packed levels from PACKED_MIN_SIDE up, the fused packed
+# kernels from FUSED_PACKED_MIN_SIDE up, and with smoother="fused" the
+# fused masked sweep (K5/K6) from FUSED_MIN_SIDE up.
 PACKED_MIN_SIDE = 200
 FUSED_PACKED_MIN_SIDE = 1023
+FUSED_MIN_SIDE = 3000
 
 
 @dataclasses.dataclass
@@ -62,36 +83,68 @@ class SolveResult:
 
 
 class StencilHierarchy(nn.Module):
-    """Constant-stencil level hierarchy.
+    """Level hierarchy: constant (``w33s`` static weight tuples, no planes)
+    or variable (``planes``: one (3,3,n,n) tensor per level, ``w33s`` all
+    None).
 
     Buffers: the coarsest level's LU factors (``coarse_lu``, LAPACK
-    1-based ``coarse_piv``) and the dense 1-D transfer matrices
-    ``P1_l`` (side_l x side_{l+1}); restriction and prolongation are
-    P1^T X P1 and P1 X P1^T because P2d = kron(P1, P1). ``sides`` and the
-    per-level weights ``w33s`` are static Python attributes.
+    1-based ``coarse_piv``), the dense 1-D transfer matrices ``P1_l``
+    (side_l x side_{l+1}; restriction and prolongation are P1^T X P1 and
+    P1 X P1^T because P2d = kron(P1, P1)), the planes ``c_l`` of a variable
+    hierarchy and, when ``smoother == "packed"``, their color-packed form
+    ``cp_l`` on the levels of side >= ``packed_min_side`` except the
+    coarsest, packed once here rather than in every V-cycle.
     """
 
-    def __init__(self, sides, w33s, coarse_lu, coarse_piv, P1s):
+    def __init__(self, sides, w33s, coarse_lu, coarse_piv, P1s, planes=None,
+                 smoother: str = "masked",
+                 packed_min_side: int = PACKED_MIN_SIDE):
         super().__init__()
         if len(P1s) != len(sides) - 1 or len(w33s) != len(sides):
             raise ValueError("need one w33 per level and one P1 per pair")
+        if (planes is None) == any(w is None for w in w33s):
+            raise ValueError("a hierarchy has weights or planes on every "
+                             "level")
         self.sides = tuple(int(s) for s in sides)
         self.w33s = tuple(w33s)
+        self.smoother = smoother
         self.register_buffer("coarse_lu", coarse_lu)
         self.register_buffer("coarse_piv", coarse_piv)
         for l, P in enumerate(P1s):
             self.register_buffer(f"P1_{l}", P)
-        self.levels = tuple(Stencil2D.const(w, s)
-                            for s, w in zip(self.sides, self.w33s))
+        for l, c in enumerate(planes or ()):
+            self.register_buffer(f"c_{l}", c)
+            if (smoother == "packed" and l < len(sides) - 1
+                    and self.sides[l] >= packed_min_side):
+                self.register_buffer(f"cp_{l}",
+                                     pack_planes(c, (self.sides[l] - 1) // 2))
 
     @property
     def n_levels(self) -> int:
         return len(self.sides)
 
     @property
+    def is_var(self) -> bool:
+        return self.w33s[0] is None
+
+    @property
     def P1s(self) -> tuple:
         return tuple(getattr(self, f"P1_{l}")
                      for l in range(self.n_levels - 1))
+
+    @property
+    def levels(self) -> tuple:
+        """Per-level Stencil2D operators (views of the current buffers)."""
+        return tuple(Stencil2D(side=s, w33=w, c=getattr(self, f"c_{l}", None))
+                     for l, (s, w) in enumerate(zip(self.sides, self.w33s)))
+
+    def packed_planes(self, l: int) -> torch.Tensor:
+        """Level l's color-packed planes: the setup-time buffer, or packed
+        now for a level outside the setup's packed range."""
+        cp = getattr(self, f"cp_{l}", None)
+        if cp is None:
+            cp = pack_planes(getattr(self, f"c_{l}"), (self.sides[l] - 1) // 2)
+        return cp
 
     def coarse_solve(self, b2: torch.Tensor) -> torch.Tensor:
         """Direct solve on the coarsest level (nc x nc field)."""
@@ -110,14 +163,7 @@ def max_levels_for_side(side: int) -> int:
     return L
 
 
-def build_stencil_hierarchy_device(side: int, n_levels: int | None = None,
-                                   dtype=torch.float32, device=None
-                                   ) -> StencilHierarchy:
-    """The Poisson hierarchy with closed-form constant stencils
-    (ops/rap.poisson_const_w33) on every level: no coefficient planes or
-    masks are stored. The coarsest dense matrix (9 x 9 at coarsest side 3)
-    is factored on the host and its factors move to ``device``; the
-    transfer matrices are built on ``device``."""
+def _level_sides(side: int, n_levels: int | None) -> list:
     if n_levels is None:
         n_levels = max_levels_for_side(side)
     sides = [side]
@@ -126,12 +172,55 @@ def build_stencil_hierarchy_device(side: int, n_levels: int | None = None,
         if (n - 1) % 2 or n < 3:
             raise ValueError(f"cannot coarsen side {n}; use side = 2^k - 1")
         sides.append((n - 1) // 2)
-    w33s = poisson_const_w33(side, n_levels)
-    coarse = planes_to_dense(const_planes(w33s[-1], sides[-1], dtype))
-    lu, piv = torch.linalg.lu_factor(coarse)
+    return sides
+
+
+def _factor_coarse(c: torch.Tensor, device):
+    """Densify the coarsest planes and LU-factor them on the host (9 x 9
+    at coarsest side 3); the factors move to ``device``."""
+    lu, piv = torch.linalg.lu_factor(planes_to_dense(c.cpu()))
+    return lu.to(device), piv.to(device)
+
+
+def build_stencil_hierarchy_device(side: int, n_levels: int | None = None,
+                                   dtype=torch.float32, device=None,
+                                   smoother: str = "masked"
+                                   ) -> StencilHierarchy:
+    """The Poisson hierarchy with closed-form constant stencils
+    (ops/rap.poisson_const_w33) on every level: no coefficient planes or
+    masks are stored. ``device`` None means ``"cuda"``."""
+    device = resolve_device(device)
+    sides = _level_sides(side, n_levels)
+    w33s = poisson_const_w33(side, len(sides))
+    lu, piv = _factor_coarse(const_planes(w33s[-1], sides[-1], dtype), device)
     P1s = [interp1d_dense(sides[l], sides[l + 1], dtype, device)
-           for l in range(n_levels - 1)]
-    return StencilHierarchy(sides, w33s, lu.to(device), piv.to(device), P1s)
+           for l in range(len(sides) - 1)]
+    return StencilHierarchy(sides, w33s, lu, piv, P1s, smoother=smoother)
+
+
+def build_stencil_hierarchy_planes(c_fine: torch.Tensor,
+                                   n_levels: int | None = None,
+                                   dtype=torch.float32, device=None,
+                                   smoother: str = "masked",
+                                   packed_min_side: int = PACKED_MIN_SIDE
+                                   ) -> StencilHierarchy:
+    """A variable-coefficient hierarchy from fine (3,3,n,n) planes: the
+    Galerkin chain as the closed-form plane contraction
+    (ops/rap.rap_stencil_planes), run on ``device`` (None means
+    ``"cuda"``) in ``dtype``. The levels keep their planes: no constant
+    stencil is detected, as in the JAX package."""
+    device = resolve_device(device)
+    side = int(c_fine.shape[-1])
+    sides = _level_sides(side, n_levels)
+    planes = [c_fine.to(device=device, dtype=dtype).contiguous()]
+    for _ in range(len(sides) - 1):
+        planes.append(rap_stencil_planes(planes[-1]))
+    lu, piv = _factor_coarse(planes[-1], device)
+    P1s = [interp1d_dense(sides[l], sides[l + 1], dtype, device)
+           for l in range(len(sides) - 1)]
+    return StencilHierarchy(sides, [None] * len(sides), lu, piv, P1s,
+                            planes=planes, smoother=smoother,
+                            packed_min_side=packed_min_side)
 
 
 def restrict_mm(r2, P1):
@@ -144,10 +233,20 @@ def prolong_mm(uc2, P1):
     return P1 @ uc2 @ P1.T
 
 
+def _fused_level(smoother: str, side: int) -> bool:
+    """Whether a level sweeps with K5/K6 (smoother="fused", large side)."""
+    return smoother == "fused" and side >= FUSED_MIN_SIDE
+
+
 def _smooth(hier: StencilHierarchy, l: int, u2, b2, sweeps: int,
             omega: float, symmetric: bool):
-    """Masked four-color GS sweeps on a (non-packed) level."""
+    """GS sweeps on a non-packed level: the fused sweep kernel on the
+    fused levels, masked four-color sweeps elsewhere."""
     S = hier.levels[l]
+    if _fused_level(hier.smoother, S.side):
+        for _ in range(sweeps):
+            u2 = fused_gs4_sweep(S, u2, b2, omega, symmetric)
+        return u2
     masks = color_masks_iota(S.side, b2.dtype, b2.device)
     for _ in range(sweeps):
         u2 = gs4_sweep_masked(S, u2, b2, masks, omega, symmetric)
@@ -157,8 +256,10 @@ def _smooth(hier: StencilHierarchy, l: int, u2, b2, sweeps: int,
 def cycle_stencil(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
                   post_sweeps: int = 1, omega: float = 1.0,
                   symmetric: bool = True, _level: int = 0):
-    """V-cycle on the masked machinery from level ``_level`` down (leg order
-    of multigrid.hpp:263-305)."""
+    """V-cycle on unpacked fields from level ``_level`` down (leg order of
+    multigrid.hpp:263-305). From level 0 it is the JAX package's
+    ``vcycle_stencil`` (the smoother="fused" solve cycle) and, with
+    gamma = 1, its ``cycle_stencil``."""
     l = _level
     if l == hier.n_levels - 1:
         return hier.coarse_solve(b2)
@@ -173,26 +274,37 @@ def cycle_stencil(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
 
 
 def level_plan(sides, pre_sweeps: int, post_sweeps: int, min_side: int,
-               fused: bool) -> tuple:
+               fused: bool, var: bool = False,
+               smoother: str = "packed") -> tuple:
     """Per-level choice of machinery, decided once from the sides:
 
     * ``direct``: the coarsest level's LU solve;
-    * ``masked``: side < min_side, the masked four-color cycle;
-    * ``packed``: plain PyTorch packed ops;
-    * ``legs``: the fused down/up legs (K2/K3), side >= FUSED_PACKED_MIN_SIDE
-      with one pre- and one post-sweep;
-    * ``sweep``: the fused sweep (K1) with plain residual and transfers,
-      side >= FUSED_PACKED_MIN_SIDE with other sweep counts.
+    * ``masked``: the masked four-color cycle (side < min_side, or any
+      non-fused level of a smoother="fused" solve);
+    * ``packed``: plain PyTorch packed ops, constant stencil;
+    * ``packed_var``: plain PyTorch packed ops on packed planes;
+    * ``legs``: the fused down/up legs (K2/K3), constant levels of side
+      >= FUSED_PACKED_MIN_SIDE with one pre- and one post-sweep;
+    * ``sweep``: the fused packed sweep (K1) with plain residual and
+      transfers, the same levels with other sweep counts;
+    * ``fused_const`` / ``fused_var``: smoother="fused" levels of side >=
+      FUSED_MIN_SIDE, swept by K5 / K6.
 
-    The GPU kernels take every M, so the TPU's VMEM eligibility gates and
-    its split path (sweep + fused residual/restrict) have no counterpart.
+    The GPU kernels take every size, so the TPU's VMEM eligibility gates
+    and its split path (sweep + fused residual/restrict) have no
+    counterpart.
     """
     kinds = []
     for l, s in enumerate(sides):
         if l == len(sides) - 1:
             kinds.append("direct")
+        elif smoother == "fused":
+            kinds.append(("fused_var" if var else "fused_const")
+                         if _fused_level(smoother, s) else "masked")
         elif s < min_side:
             kinds.append("masked")
+        elif var:
+            kinds.append("packed_var")
         elif fused and s >= FUSED_PACKED_MIN_SIDE:
             kinds.append("legs" if pre_sweeps == post_sweeps == 1
                          else "sweep")
@@ -209,6 +321,7 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
     """V-cycle with color-packed smoothing, residual and transfers on the
     levels of side >= min_side and the masked machinery below; the same
     leg order and iterates as the unpacked cycle up to rounding.
+    Variable-coefficient levels sweep with their packed planes.
 
     ``plan`` (from :func:`level_plan`) picks each level's machinery; when
     None it is derived from the arguments. With ``_packed_in`` the fields
@@ -218,7 +331,7 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
         min_side = PACKED_MIN_SIDE
     if plan is None:
         plan = level_plan(hier.sides, pre_sweeps, post_sweeps, min_side,
-                          fused)
+                          fused, var=hier.is_var)
     l = _level
     if l == hier.n_levels - 1:
         nc = hier.sides[-1]
@@ -232,7 +345,23 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
                              symmetric, _level=l)
     S = hier.levels[l]
     m = (S.side - 1) // 2
-    sweep = fused_gs4_sweep_packed if kind == "sweep" else gs4_sweep_packed
+    if S.w33 is None:
+        cp = hier.packed_planes(l)
+
+        def sweep(u4_, b4_):
+            return gs4_sweep_packed_var(cp, u4_, b4_, m, omega, symmetric)
+
+        def resid(u4_, b4_):
+            return residual_packed_var(cp, u4_, b4_, m)
+    else:
+        sweep_fn = fused_gs4_sweep_packed if kind == "sweep" \
+            else gs4_sweep_packed
+
+        def sweep(u4_, b4_):
+            return sweep_fn(u4_, b4_, S.w33, m, omega, symmetric)
+
+        def resid(u4_, b4_):
+            return residual_packed(u4_, b4_, S.w33, m)
     if _packed_in:
         u4, b4 = u2, b2
     else:
@@ -243,8 +372,8 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
         bc = bc_pad[:m, :m]
     else:
         for _ in range(pre_sweeps):
-            u4 = sweep(u4, b4, S.w33, m, omega, symmetric)
-        bc = restrict_packed(residual_packed(u4, b4, S.w33, m), m)
+            u4 = sweep(u4, b4)
+        bc = restrict_packed(resid(u4, b4), m)
     uc = vcycle_packed(hier, torch.zeros_like(bc), bc, pre_sweeps,
                        post_sweeps, omega, symmetric, _level=l + 1,
                        min_side=min_side, fused=fused, plan=plan)
@@ -254,7 +383,7 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
     else:
         u4 = prolong_add_packed(u4, uc, m)
         for _ in range(post_sweeps):
-            u4 = sweep(u4, b4, S.w33, m, omega, symmetric)
+            u4 = sweep(u4, b4)
     return u4 if _packed_in else unpack(u4, m)
 
 
@@ -265,8 +394,10 @@ def fmg_stencil(hier: StencilHierarchy, b2, pre_sweeps: int = 1,
                 fused: bool = False, plan: tuple | None = None):
     """Full multigrid (nested iteration): restrict the rhs down from level
     ``start_level``, solve the coarsest level directly, then prolong the
-    solution up, running one V-cycle on each level (packed cycles on
-    levels of side >= min_side).
+    solution up, running one V-cycle on each level: a packed cycle on the
+    constant levels of side >= min_side of a smoother="packed" hierarchy,
+    the unpacked cycle everywhere else (as in the JAX package, so a
+    variable or fused hierarchy never takes a packed cycle here).
 
     The b-chain uses restrict_mm / prolong_mm: the JAX package measured the
     4095^2 refine count to depend on this chain's precision, which is why
@@ -281,7 +412,8 @@ def fmg_stencil(hier: StencilHierarchy, b2, pre_sweeps: int = 1,
     u = hier.coarse_solve(bs[L - 1])
     for l in range(L - 2, l0 - 1, -1):
         u = prolong_mm(u, hier.P1s[l])
-        if hier.sides[l] >= min_side:
+        if (hier.smoother == "packed" and hier.sides[l] >= min_side
+                and hier.w33s[l] is not None):
             u = vcycle_packed(hier, u, bs[l], pre_sweeps, post_sweeps, omega,
                               symmetric, _level=l, min_side=min_side,
                               fused=fused, plan=plan)
@@ -297,13 +429,20 @@ def _not_yet(what: str, item: str):
 
 
 class StructuredSolver:
-    """Single-device structured Poisson solver: the hierarchy and the level
-    plan are built once, then solves are cheap to repeat.
+    """Single-device structured solver: the hierarchy and the level plan
+    are built once, then solves are cheap to repeat.
 
-    Same defaults as the JAX solver: ``smoother="auto"`` (packed levels
-    with the fused kernels), ``precision="df32"``, ``fmg=True``,
-    ``cycles_per_refine=3``. The solve loop runs on the host with one
-    device-to-host read of the rss per refine.
+    Same defaults as the JAX solver: ``smoother="auto"``,
+    ``precision="df32"``, ``fmg=True``, ``cycles_per_refine=3``. A
+    variable-coefficient operator comes in as ``A_planes``, (3,3,n,n)
+    planes (models/varcoef.py). The solve loop runs on the host with one
+    device-to-host read of the rss per refine. ``device`` None means
+    ``"cuda"``; pass ``device="cpu"`` to run on the CPU.
+
+    Loops, as in the JAX package: the packed df32 loop for a constant
+    operator with a packed smoother (side >= packed_min_side, >= 2
+    levels); the unpacked df32 loop otherwise (variable operators, the
+    fused smoother, small sides); the f64 loop for ``precision="f64"``.
     """
 
     def __init__(self, side: int, n_levels: int | None = None,
@@ -313,61 +452,102 @@ class StructuredSolver:
                  A_fine=None, A_planes=None, fmg: bool = True,
                  precision: str = "df32",
                  packed_min_side: int = PACKED_MIN_SIDE, device=None):
-        if smoother not in ("auto", "packed"):
+        if smoother not in ("auto", "packed", "fused"):
             raise _not_yet(f"smoother={smoother!r}",
                            "Queue 1 item 10, remaining structured variants")
-        if A_fine is not None or A_planes is not None:
-            raise _not_yet("A_fine / A_planes (variable coefficients)",
-                           "Queue 1 item 8, variable coefficients")
-        if precision == "f64":
-            raise _not_yet("precision='f64'",
-                           "Queue 1 item 5 and Queue 2 item 6, the f64 "
-                           "residual")
-        if precision != "df32":
+        if A_fine is not None:
+            raise _not_yet("A_fine (a scipy fine matrix; pass A_planes)",
+                           "Queue 1 item 10, build_stencil_hierarchy")
+        if precision not in ("df32", "f64"):
             raise ValueError(f"unknown precision {precision!r}; "
                              "expected 'df32' or 'f64'")
         if not fmg:
             raise _not_yet("fmg=False", "Queue 1 item 6, StructuredSolver")
         self.side = side
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.pre_sweeps = pre_sweeps
         self.post_sweeps = post_sweeps
         self.omega = omega
         self.symmetric = symmetric
         self.cycles_per_refine = cycles_per_refine
         self.packed_min_side = packed_min_side
-        # smoother="auto" is packed levels WITH the fused kernels; an
-        # explicit "packed" keeps the plain packed ops (as in JAX)
-        self.fused_packed = smoother == "auto"
+        self.precision = precision
+        # smoother="auto" is packed levels, WITH the fused kernels on a
+        # constant operator; variable operators and an explicit "packed"
+        # keep the plain packed ops (as in JAX)
+        self.fused_packed = smoother == "auto" and A_planes is None
+        self.smoother = "fused" if smoother == "fused" else "packed"
         if self.device.type == "cuda":
             # the refine count depends on the f32 transfer matmuls'
             # precision (amg_tpu/structured.py fmg_stencil note): no TF32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.hier = build_stencil_hierarchy_device(side, n_levels,
-                                                   device=self.device)
-        # the packed loop keeps the whole solve state color-packed; below
-        # packed_min_side (or with one level) the unpacked df32 loop runs
-        self.packed_loop = (side >= packed_min_side
+        if A_planes is not None:
+            A_planes = torch.as_tensor(A_planes)
+            if tuple(A_planes.shape) != (3, 3, side, side):
+                raise ValueError(f"A_planes must be (3, 3, {side}, {side}), "
+                                 f"got {tuple(A_planes.shape)}")
+            self.hier = build_stencil_hierarchy_planes(
+                A_planes, n_levels, device=self.device,
+                smoother=self.smoother, packed_min_side=packed_min_side)
+            # the fine operator in the precision the loop reads, only
+            c64 = A_planes.to(device=self.device, dtype=torch.float64)
+            self.w33 = None
+            self.A64 = Stencil2D(side=side, c=c64) if precision == "f64" \
+                else None
+            self.c_df = DF32.from_f64(c64) if precision == "df32" else None
+        else:
+            self.hier = build_stencil_hierarchy_device(
+                side, n_levels, device=self.device, smoother=self.smoother)
+            # the f64 fine operator as exact static weights
+            self.w33 = poisson_const_w33(side, 1)[0]
+            self.A64 = Stencil2D.const(self.w33, side)
+            self.c_df = None
+        self.m = (side - 1) // 2
+        # the packed loop keeps the whole solve state color-packed
+        self.packed_loop = (precision == "df32" and self.w33 is not None
+                            and self.smoother == "packed"
+                            and side >= packed_min_side
                             and self.hier.n_levels >= 2)
         self.plan = level_plan(self.hier.sides, self.pre_sweeps,
                                self.post_sweeps, self.packed_min_side,
-                               self.fused_packed)
-        # the f64 fine operator as exact static weights
-        self.w33 = poisson_const_w33(side, 1)[0]
-        self.m = (side - 1) // 2
+                               self.fused_packed, var=self.hier.is_var,
+                               smoother=self.smoother)
         # K4 needs power-of-two weights (2^k - 1 grids); other sides take
         # the general df32 residual, as the JAX package does
-        self.df_kernel = self.fused_packed and is_pow2_weights(self.w33)
+        self.df_kernel = (self.fused_packed and self.w33 is not None
+                          and is_pow2_weights(self.w33))
 
     # -- pieces of the solve loop ------------------------------------------
 
     def _vcycle(self, u2, b2, level: int = 0, packed_in: bool = False):
+        if self.smoother == "fused":
+            return cycle_stencil(self.hier, u2, b2, self.pre_sweeps,
+                                 self.post_sweeps, self.omega,
+                                 self.symmetric, _level=level)
         return vcycle_packed(self.hier, u2, b2, self.pre_sweeps,
                              self.post_sweeps, self.omega, self.symmetric,
                              _level=level, _packed_in=packed_in,
                              min_side=self.packed_min_side,
                              fused=self.fused_packed, plan=self.plan)
+
+    def _cycles(self, r32):
+        """cycles_per_refine V-cycles on A e = r from e = 0."""
+        e = torch.zeros_like(r32)
+        for _ in range(self.cycles_per_refine):
+            e = self._vcycle(e, r32)
+        return e
+
+    def _fmg(self, b32):
+        """The unpacked loops' nested-iteration start (an f32 FMG pass
+        from the fine level, the JAX defaults for min_side and fused)."""
+        return fmg_stencil(self.hier, b32, self.pre_sweeps,
+                           self.post_sweeps, self.omega, self.symmetric)
+
+    def _df_residual(self, b_df: DF32, u: DF32) -> DF32:
+        if self.w33 is not None:
+            return df_residual_const(self.w33, b_df, u)
+        return df_residual(self.c_df, b_df, u)
 
     def _residual_hi_rss(self, b4: DF32, u4: DF32):
         if self.df_kernel:
@@ -387,42 +567,79 @@ class StructuredSolver:
         u0f = prolong_add_packed(torch.zeros_like(b4.hi), uc, self.m)
         return DF32.from_f32(self._vcycle(u0f, b4.hi, packed_in=True))
 
-    # -- public entry points -------------------------------------------------
+    def _b64(self, b2_f64) -> torch.Tensor:
+        b64 = torch.as_tensor(b2_f64, device=self.device)
+        if b64.dtype != torch.float64:
+            raise ValueError(f"the rhs must be float64, got {b64.dtype}")
+        return b64
+
+    def _rtol_base(self, b2_f64) -> float:
+        """rss(b) exactly as the active loop computes it for rtol."""
+        if self.precision == "f64":
+            return float(rss_from_residual(self._b64(b2_f64)))
+        b_df = (self.prepare_b(b2_f64) if self.packed_loop
+                else DF32.from_f64(self._b64(b2_f64)))
+        return float(df_rss_fast(b_df))
+
+    def _stats(self, final: torch.Tensor, it: int) -> torch.Tensor:
+        return torch.stack([final.to(torch.float64),
+                            torch.tensor(float(it), dtype=torch.float64,
+                                         device=final.device)])
+
+    # -- the unpacked loops --------------------------------------------------
 
     def _solve_unpacked(self, b2_f64, tolerance: float, n_refine: int,
                         rtol: float):
-        """The df32 loop on unpacked fields (side < packed_min_side, or one
-        level), with the JAX loop's semantics: the rss lags one correction
-        and every pass refines, so the loop runs one refine past
-        convergence; the final rss is always recomputed (df_rss)."""
-        b_df = DF32.from_f64(torch.as_tensor(b2_f64, device=self.device))
+        """The df32 loop on unpacked fields, with the JAX loop's semantics:
+        the rss lags one correction and every pass refines, so the loop
+        runs one refine past convergence; the final rss is always
+        recomputed (df_rss)."""
+        b_df = DF32.from_f64(self._b64(b2_f64))
         tol_eff = tolerance
         if rtol > 0.0:
             tol_eff = max(tolerance, rtol * float(df_rss_fast(b_df)))
-        u = DF32.from_f32(fmg_stencil(self.hier, b_df.hi, self.pre_sweeps,
-                                      self.post_sweeps, self.omega,
-                                      self.symmetric))
+        u = DF32.from_f32(self._fmg(b_df.hi))
         err = float("inf")
         it = 0
         while err > tol_eff and it < n_refine:
-            r = df_residual_const(self.w33, b_df, u)
-            err = float(df_rss_fast(r))
-            e = torch.zeros_like(r.hi)
-            for _ in range(self.cycles_per_refine):
-                e = self._vcycle(e, r.hi)
-            u = df_add_f32(u, e)
+            r = self._df_residual(b_df, u)
+            err = float(df_rss_fast(r))     # the one host sync of the refine
+            u = df_add_f32(u, self._cycles(r.hi))
             it += 1
-        final = df_rss(df_residual_const(self.w33, b_df, u))
-        return u.to_f64(), torch.stack([
-            final, torch.tensor(float(it), dtype=torch.float64,
-                                device=final.device)])
+        final = df_rss(self._df_residual(b_df, u))
+        return u.to_f64(), self._stats(final, it)
+
+    def _solve_f64(self, b2_f64, tolerance: float, n_refine: int,
+                   rtol: float):
+        """The native-f64 loop (JAX's solve_loop_f64): f64 residual and
+        rss, f32 V-cycles on the residual, the FMG start in f32 cast to
+        f64; the rss lags one correction, every pass refines, and the
+        final rss is recomputed."""
+        b64 = self._b64(b2_f64)
+        tol_eff = tolerance
+        if rtol > 0.0:
+            tol_eff = max(tolerance, rtol * float(rss_from_residual(b64)))
+        u = self._fmg(b64.to(torch.float32)).to(torch.float64)
+        err = float("inf")
+        it = 0
+        while err > tol_eff and it < n_refine:
+            r = b64 - self.A64.matvec2(u)
+            err = float(rss_from_residual(r))
+            u = u + self._cycles(r.to(torch.float32)).to(torch.float64)
+            it += 1
+        final = rss_from_residual(b64 - self.A64.matvec2(u))
+        return u, self._stats(final, it)
+
+    # -- public entry points -------------------------------------------------
 
     def prepare_b(self, b2_f64: torch.Tensor) -> DF32:
         """f64 (side, side) rhs -> packed df32, once per rhs."""
         if not self.packed_loop:
             raise ValueError("the prepared-rhs path needs the packed df32 "
-                             "loop (side >= packed_min_side, >= 2 levels)")
-        b_df = DF32.from_f64(torch.as_tensor(b2_f64, device=self.device))
+                             "loop (constant operator, smoother 'auto' or "
+                             "'packed', side >= packed_min_side, >= 2 "
+                             "levels)")
+        b_df = DF32.from_f64(self._b64(b2_f64))
         return DF32(hi=pack(b_df.hi, self.m), lo=pack(b_df.lo, self.m))
 
     def finalize_u(self, u4_df: DF32) -> torch.Tensor:
@@ -458,15 +675,15 @@ class StructuredSolver:
                 it += 1
         if err > tol_eff:
             err_t = self._residual_hi_rss(b4_df, u4)[1]
-        stats = torch.stack([err_t.to(torch.float64),
-                             torch.tensor(float(it), dtype=torch.float64,
-                                          device=err_t.device)])
-        return u4, stats
+        return u4, self._stats(err_t, it)
 
     def solve_ir_device(self, b2_f64: torch.Tensor, tolerance: float = 1e-7,
                         n_refine: int = 40, rtol: float = 0.0):
-        """prepare_b -> solve_ir_device_prepared -> finalize_u: returns
-        ``(u, stats)`` with u the f64 (side, side) field."""
+        """Solve A u = b to rss <= tolerance (or rtol * rss(b)): returns
+        ``(u, stats)`` with u the f64 (side, side) field and stats the f64
+        tensor ``[final_rss, refines]``."""
+        if self.precision == "f64":
+            return self._solve_f64(b2_f64, tolerance, n_refine, rtol)
         if not self.packed_loop:
             return self._solve_unpacked(b2_f64, tolerance, n_refine, rtol)
         u4, stats = self.solve_ir_device_prepared(self.prepare_b(b2_f64),
@@ -482,11 +699,7 @@ class StructuredSolver:
         iters = int(it_v) * self.cycles_per_refine
         tol_eff = tolerance
         if rtol > 0.0:
-            # the loop's own base: df_rss_fast of the (packed) df32 rhs
-            b_df = (self.prepare_b(b2_f64) if self.packed_loop else
-                    DF32.from_f64(torch.as_tensor(b2_f64,
-                                                  device=self.device)))
-            tol_eff = max(tolerance, rtol * float(df_rss_fast(b_df)))
+            tol_eff = max(tolerance, rtol * self._rtol_base(b2_f64))
         return SolveResult(u=u, iterations=iters, error=err_v,
                            converged=err_v <= tol_eff,
                            history=[(iters, err_v)])

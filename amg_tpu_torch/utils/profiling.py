@@ -2,9 +2,13 @@
 kernel, launch count and idle share, from ``torch.profiler``.
 
     python -m amg_tpu_torch.utils.profiling --sides 1023 4095
+    python -m amg_tpu_torch.utils.profiling --sides 4095 --var --tol 1e-5 \
+        [--smoother fused] [--precision f64]
 
-For each side: one warm solve (prepare_b -> solve_ir_device_prepared ->
-finalize_u) is timed, then a second one is traced. Device busy time is the
+For each side: one warm solve is timed, then a second one is traced. The
+constant problem's packed loop runs prepare_b -> solve_ir_device_prepared
+-> finalize_u; ``--var`` (the jump-coefficient problem, a = 100) and the
+other loops run solve_ir_device. Device busy time is the
 sum of the GPU kernels' and copies' own times in the trace (one stream, so
 they do not overlap); the idle share is 1 - busy / (untraced wall). Needs
 a CUDA device.
@@ -27,17 +31,24 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_solve(side: int, device="cuda", top: int = 12) -> dict:
+def profile_solve(side: int, device="cuda", top: int = 12,
+                  var: bool = False, smoother: str = "auto",
+                  precision: str = "df32", tol: float = 1e-7) -> dict:
     """Trace one warm solve at ``side``; returns the summary it prints."""
-    from amg_tpu_torch import StructuredSolver, poisson
+    from amg_tpu_torch import StructuredSolver, poisson, varcoef
     from amg_tpu_torch.ops import kernels as K
 
-    s = StructuredSolver(side, device=device)
+    planes = varcoef.jump_planes(side, device=device) if var else None
+    s = StructuredSolver(side, A_planes=planes, smoother=smoother,
+                         precision=precision, device=device)
     b2 = poisson.rhs(side, device=device).reshape(side, side)
     s.warmup()
 
     def solve():
-        u4, stats = s.solve_ir_device_prepared(s.prepare_b(b2))
+        if not s.packed_loop:
+            return s.solve_ir_device(b2, tolerance=tol)[1].tolist()
+        u4, stats = s.solve_ir_device_prepared(s.prepare_b(b2),
+                                               tolerance=tol)
         s.finalize_u(u4)
         return stats.tolist()
 
@@ -62,7 +73,8 @@ def profile_solve(side: int, device="cuda", top: int = 12) -> dict:
                    if e.key.startswith("aten::")),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     summary = {
-        "side": side, "wall_s": wall_plain, "wall_traced_s": wall,
+        "side": side, "var": var, "smoother": smoother,
+        "precision": precision, "tol": tol, "wall_s": wall_plain, "wall_traced_s": wall,
         "refines": int(it), "rss": err, "device_busy_s": busy_us * 1e-6,
         "idle_share": 1.0 - busy_us * 1e-6 / wall_plain,
         "gpu_launches": sum(e.count for e in gpu),
@@ -72,7 +84,8 @@ def profile_solve(side: int, device="cuda", top: int = 12) -> dict:
         "top_host_ops": [(e.key, e.count, e.self_cpu_time_total * 1e-3)
                          for e in host[:top]],
     }
-    print(f"side {side}: wall {wall_plain:.6f} s (traced {wall:.6f} s), "
+    print(f"side {side} var={var} smoother={smoother} precision="
+          f"{precision} tol={tol:g}: wall {wall_plain:.6f} s (traced {wall:.6f} s), "
           f"refines {int(it)}, rss "
           f"{err:.3e}, device busy {summary['device_busy_s']:.6f} s, "
           f"idle share {summary['idle_share']:.4f}, GPU launches "
@@ -88,11 +101,18 @@ def profile_solve(side: int, device="cuda", top: int = 12) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sides", type=int, nargs="+", default=[1023, 4095])
+    ap.add_argument("--var", action="store_true",
+                    help="the jump-coefficient problem (a = 100)")
+    ap.add_argument("--smoother", default="auto",
+                    choices=["auto", "packed", "fused"])
+    ap.add_argument("--precision", default="df32", choices=["df32", "f64"])
+    ap.add_argument("--tol", type=float, default=1e-7)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     for side in args.sides:
-        profile_solve(side)
+        profile_solve(side, var=args.var, smoother=args.smoother,
+                      precision=args.precision, tol=args.tol)
 
 
 if __name__ == "__main__":

@@ -2,15 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from amg_tpu_torch/csrc, checks each against
-its plain PyTorch version on the card and times both, then drives the
-constant-coefficient Poisson solve through the user entry points
-(StructuredSolver -> prepare_b -> solve_ir_device_prepared -> finalize_u)
-at 1023^2 and 4095^2 and checks the result with an independent f64
-residual. Any failed check raises, so the exit code is non-zero. The last
-line of stdout is one JSON object with "ok" and the device.
+Builds the port's CUDA kernels (K1-K6) from amg_tpu_torch/csrc, checks
+each against its plain PyTorch version on the card and times both, then
+drives the solves through the user entry points with an independent f64
+residual check and the kernels' launch counts:
 
-Needs a CUDA device and nvcc; imports neither JAX nor the JAX package.
+* the constant-coefficient Poisson df32 solve (StructuredSolver ->
+  prepare_b -> solve_ir_device_prepared -> finalize_u) at 1023^2 and
+  4095^2 (K2-K4), and at 1023^2 with two sweeps (K1);
+* the variable-coefficient jump problem (a = 100, models/varcoef.py)
+  through solve_ir_device: smoother="auto" at 2047^2 and 4095^2 (no
+  kernel), smoother="fused" at 4095^2 (K6), precision="f64" at 4095^2;
+* the constant problem with smoother="fused" at 4095^2 (K5);
+* the card against the port's own CPU solve at 1023^2 (constant) and
+  255^2 (variable).
+
+Any failed check raises, so the exit code is non-zero. The line before
+the last of stdout is the card's name and power limit, the one before it
+the kernels' JSON; the last line is one JSON object with "ok" and the
+device. Needs a CUDA device and nvcc; imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -25,27 +36,36 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from amg_tpu_torch import StructuredSolver, poisson
+from amg_tpu_torch import StructuredSolver, poisson, varcoef
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32
 from amg_tpu_torch.ops.kernels import _build
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
                                                     up_leg_plain)
 from amg_tpu_torch.ops.kernels.packed_df import df_residual_rss_plain
+from amg_tpu_torch.ops.kernels.rbgs import fused_gs4_sweep_plain
 from amg_tpu_torch.ops.rap import poisson_const_w33
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
+from amg_tpu_torch.sparse.stencil import Stencil2D
 
 TOL = 1e-7
 PARITY_SIDES = (1023, 4095)            # M = 512 and 2048
 SOLVE_SIDES = (1023, 4095)
+RBGS_SIDES = (1023, 4095)              # K5/K6 run at 4095 on the path
+
+# H100 SXM data-sheet peaks (700 W): device memory rate and f32 outside
+# the tensor cores; the least time of a kernel is the larger of its
+# bytes over the first and its f32 operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 # Kernel-vs-plain bounds, max|kernel - plain| / max|plain|. They are the
 # JAX package's own interpret-mode bounds for these kernels
 # (tests/test_packed_cycle.py, tests/test_packed_df.py): room for f32
 # reassociation. The kernels keep the plain versions' operation order and
-# are built with -fmad=false, so 0 is expected.
+# are built with -fmad=false, so 0 is expected. K5/K6 take K1's bound.
 BOUND = {"sweep_u": 2e-6, "down_u": 2e-6, "down_bc": 1e-5, "up_u": 1e-5,
-         "df_rhi": 1e-6, "df_rss": 1e-5}
+         "df_rhi": 1e-6, "df_rss": 1e-5, "rbgs_u": 2e-6}
 
 KERNEL_INFO = {
     "fused_gs4_sweep_packed": ("amg_tpu_torch/csrc/packed_sweep.cu",
@@ -56,6 +76,10 @@ KERNEL_INFO = {
                             "amg_tpu/ops/pallas/packed_cycle.py:465"),
     "fused_df_residual_rss": ("amg_tpu_torch/csrc/packed_df.cu",
                               "amg_tpu/ops/pallas/packed_df.py:258"),
+    "fused_gs4_sweep_const": ("amg_tpu_torch/csrc/rbgs_sweep.cu",
+                              "amg_tpu/ops/pallas/rbgs.py:544"),
+    "fused_gs4_sweep_var": ("amg_tpu_torch/csrc/rbgs_sweep.cu",
+                            "amg_tpu/ops/pallas/rbgs.py:584"),
 }
 
 
@@ -74,6 +98,23 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for moving nbytes and doing
+    ops f32 operations at the data-sheet peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_ops(w33, cells: int, symmetric: bool = True) -> int:
+    """f32 operations of one GS sweep: per cell update a multiply and an
+    add per nonzero off-diagonal weight, then 5 (b - acc, * inv_diag,
+    - u, * omega, + u); each cell updates twice when symmetric."""
+    k = sum(1 for dj in range(3) for di in range(3)
+            if (dj, di) != (1, 1) and w33[dj][di] != 0.0)
+    return cells * (2 if symmetric else 1) * (2 * k + 5)
 
 
 def packed_fields(side: int, seed: int, dev):
@@ -100,12 +141,26 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def interleaved(name: str, size: str, kern, plain, reps: int, times: dict):
+    """plain, kernel, kernel, plain: the better of two runs of each,
+    compared within one call."""
+    p1 = time_ms(plain, max(reps // 5, 2))
+    k1 = time_ms(kern, reps)
+    k2 = time_ms(kern, reps)
+    p2 = time_ms(plain, max(reps // 5, 2))
+    kms, pms = min(k1, k2), min(p1, p2)
+    print(f"time {name} {size}: kernel {kms:.4f} ms, plain {pms:.4f} ms "
+          f"(x{pms / kms:.1f})")
+    times[name] = (kms, pms)
+
+
 def parity_and_timing(dev):
-    """Phases 2 and 3: each kernel against its plain version, and both
-    timed, at the main path's M = 512 and 2048. Returns per-kernel
-    max_abs_err and {(kernel, M): (kernel ms, plain ms)}."""
-    errs = {k: 0.0 for k in KERNEL_INFO}
-    times = {}
+    """Phases 2 and 3 for K1-K4: each kernel against its plain version,
+    and both timed, at the main path's M = 512 and 2048. Returns per-kernel
+    max_abs_err, {kernel: (kernel ms, plain ms)} and {kernel: bound} at
+    M = 2048."""
+    errs = {k: 0.0 for k in list(KERNEL_INFO)[:4]}
+    times, bounds = {}, {}
     for side in PARITY_SIDES:
         M = (side + 1) // 2
         w33 = poisson_const_w33(side, 1)[0]
@@ -186,17 +241,76 @@ def parity_and_timing(dev):
                 lambda: K.fused_df_residual_rss(w33, b_df, u_df, m),
                 lambda: df_residual_rss_plain(w33, b_df, u_df, m)),
         }
+        t = {}
         for name, (kern, plain) in pairs.items():
-            # plain, kernel, kernel, plain: compare within one call
-            p1 = time_ms(plain, reps // 5)
-            k1 = time_ms(kern, reps)
-            k2 = time_ms(kern, reps)
-            p2 = time_ms(plain, reps // 5)
-            kms, pms = min(k1, k2), min(p1, p2)
-            print(f"time {name} M={M}: kernel {kms:.4f} ms, plain "
-                  f"{pms:.4f} ms (x{pms / kms:.1f})")
-            times[name, M] = (kms, pms)
-    return errs, times
+            interleaved(name, f"M={M}", kern, plain, reps, t)
+        if M == 2048:
+            times.update(t)
+            f4 = u4.nbytes          # one packed (4, M, M) f32 field
+            cells = side * side
+            sweep = sweep_ops(w33, cells)
+            n_parts = _build.library().amg_df_partials_count(M)
+            # residual 2k + 3 ops a cell, restriction 4, prolongation 3
+            bounds.update({
+                "fused_gs4_sweep_packed": bound(3 * f4, sweep),
+                "fused_down_leg_packed": bound(3 * f4 + uc_pad.nbytes,
+                                               sweep + 15 * cells),
+                "fused_up_leg_packed": bound(3 * f4 + uc_pad.nbytes,
+                                             sweep + 3 * cells),
+                # 5 TwoSum-cascade terms of 10 ops, a TwoSum, the square
+                "fused_df_residual_rss": bound(5 * f4 + 4 * n_parts,
+                                               60 * cells),
+            })
+    return errs, times, bounds
+
+
+def rbgs_parity_and_timing(dev):
+    """K5/K6 against their plain version at n = 1023 and 4095: symmetric
+    and forward, omega 1 and 0.9; K5 on the Poisson weights, K6 on the
+    jump-coefficient planes and on random positive planes. Times both at
+    n = 4095 (the path's size), K5 on Poisson and K6 on the jump planes."""
+    errs = {"fused_gs4_sweep_const": 0.0, "fused_gs4_sweep_var": 0.0}
+    times, bounds = {}, {}
+    for side in RBGS_SIDES:
+        g = torch.Generator(device=dev).manual_seed(side)
+        u = torch.randn((side, side), generator=g, device=dev)
+        b = torch.randn((side, side), generator=g, device=dev)
+        rand = torch.rand((3, 3, side, side), generator=g, device=dev) + 0.5
+        rand[1, 1] += 8.0
+        w33 = poisson_const_w33(side, 1)[0]
+        ops = {"K5 poisson": Stencil2D.const(w33, side),
+               "K6 jump": Stencil2D(side=side, c=varcoef.jump_planes(
+                   side, device=dev)),
+               "K6 random": Stencil2D(side=side, c=rand)}
+        for label, S in ops.items():
+            name = ("fused_gs4_sweep_const" if S.w33 is not None
+                    else "fused_gs4_sweep_var")
+            for symmetric in (True, False):
+                for omega in (1.0, 0.9):
+                    got = K.fused_gs4_sweep(S, u, b, omega, symmetric)
+                    ref = fused_gs4_sweep_plain(S, u, b, omega, symmetric)
+                    d, r = rel_err(got, ref)
+                    errs[name] = max(errs[name], d)
+                    print(f"parity {label} n={side} symmetric={symmetric} "
+                          f"omega={omega}: max_abs {d:.3e} rel {r:.3e} "
+                          f"(bound {BOUND['rbgs_u']})")
+                    require(r <= BOUND["rbgs_u"], f"{label} parity")
+        if side == 4095:
+            for label, name in (("K5 poisson", "fused_gs4_sweep_const"),
+                                ("K6 jump", "fused_gs4_sweep_var")):
+                S = ops[label]
+                interleaved(name, f"n={side}",
+                            lambda: K.fused_gs4_sweep(S, u, b),
+                            lambda: fused_gs4_sweep_plain(S, u, b), 20,
+                            times)
+            cells = side * side
+            bounds["fused_gs4_sweep_const"] = bound(3 * u.nbytes,
+                                                    sweep_ops(w33, cells))
+            # 8 off-diagonal terms and a division per update
+            bounds["fused_gs4_sweep_var"] = bound(
+                3 * u.nbytes + ops["K6 jump"].c.nbytes, cells * 2 * 22)
+        del ops, rand
+    return errs, times, bounds
 
 
 def f64_rss(u: torch.Tensor, b: torch.Tensor, side: int) -> float:
@@ -209,20 +323,210 @@ def f64_rss(u: torch.Tensor, b: torch.Tensor, side: int) -> float:
     return float(torch.sum((b - Au) ** 2))
 
 
+def f64_rss_planes(u: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+                   ) -> float:
+    """Independent rss of b - A u for (3,3,n,n) planes, in f64 with its
+    own 9 shifted products (zero Dirichlet boundary)."""
+    n = u.shape[0]
+    up = F.pad(u, (1, 1, 1, 1))
+    Au = torch.zeros_like(u)
+    for dj in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            Au += (c[dj + 1, di + 1].double()
+                   * up[1 + dj:1 + dj + n, 1 + di:1 + di + n])
+    return float(torch.sum((b - Au) ** 2))
+
+
 def solution_bound(rss1: float, rss2: float, side: int) -> float:
     """Bound on max|u1 - u2| for two iterates of the same system:
     |u1 - u2|_max <= |A^-1|_2 (|r1|_2 + |r2|_2), |A^-1|_2 = 1/lambda_min
-    with lambda_min = 8 sin^2(pi h / 4) / h^2 (about pi^2 / 2)."""
+    with lambda_min = 8 sin^2(pi h / 4) / h^2 (about pi^2 / 2) for the
+    Poisson operator, and at most that for the jump operator (a >= 1)."""
     h = poisson.grid_spacing_h(side)
     lam_min = 8.0 * np.sin(np.pi * h / 4.0) ** 2 / (h * h)
     return (rss1 ** 0.5 + rss2 ** 0.5) / lam_min
 
 
 def solve_once(s: StructuredSolver, b2: torch.Tensor):
+    """The constant main path: prepare_b -> solve_ir_device_prepared ->
+    finalize_u."""
     u4, stats = s.solve_ir_device_prepared(s.prepare_b(b2), tolerance=TOL)
     u = s.finalize_u(u4)
     err, it = stats.tolist()
     return u, err, int(it)
+
+
+def solve_device(s: StructuredSolver, b2, tol: float, n_refine: int = 40):
+    u, stats = s.solve_ir_device(b2, tolerance=tol, n_refine=n_refine)
+    err, it = stats.tolist()
+    return u, err, int(it)
+
+
+def drive(fn, launches: dict):
+    """One run of a path with the launch counts set to 0 just before it
+    and read just after; adds them to ``launches``."""
+    K.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    for k, n in counts.items():
+        launches[k] += n
+    return out, counts
+
+
+def wall_median(fn, reps: int) -> tuple[float, list]:
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), walls
+
+
+def const_solves(dev, launches: dict):
+    """Phase 4: the constant Poisson solve at 1023^2 and 4095^2 (legs),
+    and at 1023^2 with two sweeps (K1)."""
+    configs = [(side, 1) for side in SOLVE_SIDES] + [(1023, 2)]
+    solvers, rhs = {}, {}
+    for side, sweeps in configs:
+        t0 = time.perf_counter()
+        s = StructuredSolver(side, pre_sweeps=sweeps, post_sweeps=sweeps,
+                             device=dev)
+        s.warmup()
+        torch.cuda.synchronize()
+        print(f"setup+warmup {side}^2 sweeps={sweeps}: plan {s.plan}, "
+              f"{time.perf_counter() - t0:.2f} s")
+        solvers[(side, sweeps)] = s
+        rhs[side] = poisson.rhs(side, device=dev).reshape(side, side)
+
+    results = {}
+    for side, sweeps in configs:
+        (u, err, it), c = drive(
+            lambda: solve_once(solvers[(side, sweeps)], rhs[side]), launches)
+        results[(side, sweeps)] = (u, err, it)
+        ind = f64_rss(u, rhs[side], side)
+        print(f"solve {side}^2 sweeps={sweeps}: refines {it}, rss "
+              f"{err:.6e}, independent f64 rss {ind:.6e}, launches {c}")
+        require(bool(torch.isfinite(u).all()) and u.shape == (side, side),
+                f"finite u of shape ({side}, {side})")
+        require(err <= TOL and ind <= TOL, f"{side}^2 converged to {TOL}")
+        require(c["fused_df_residual_rss"] == it + 1, "K4 = it + 1")
+        if sweeps == 1:
+            legs = 1 + 3 * it if side == 1023 else 6 + 9 * it
+            require(c["fused_down_leg_packed"] == legs
+                    and c["fused_up_leg_packed"] == legs,
+                    f"K2 = K3 = {legs} at {side}^2")
+            require(c["fused_gs4_sweep_packed"] == 0, "K1 off the legs path")
+        else:
+            require(c["fused_gs4_sweep_packed"] == 4 * (1 + 3 * it),
+                    "K1 = 4 (1 + 3 it) with two sweeps")
+            require(c["fused_down_leg_packed"] == 0, "legs off at 2 sweeps")
+        require(c["fused_gs4_sweep_const"] == c["fused_gs4_sweep_var"] == 0,
+                "K5/K6 off the packed path")
+
+    for side in SOLVE_SIDES:
+        med, walls = wall_median(
+            lambda: solve_once(solvers[(side, 1)], rhs[side]), 5)
+        print(f"solve wall {side}^2: median of 5 {med:.6f} s (all {walls})")
+
+    # the card's solve against the port's own CPU solve, 1023^2
+    u_gpu, _, it_gpu = results[(1023, 1)]
+    b_cpu = poisson.rhs(1023, device="cpu").reshape(1023, 1023)
+    u_cpu, _, it_cpu = solve_once(StructuredSolver(1023, device="cpu"),
+                                  b_cpu)
+    du = float((u_gpu.cpu() - u_cpu).abs().max())
+    bnd = solution_bound(f64_rss(u_gpu.cpu(), b_cpu, 1023),
+                         f64_rss(u_cpu, b_cpu, 1023), 1023)
+    print(f"gpu vs cpu 1023^2: refines {it_gpu} / {it_cpu}, max|du| "
+          f"{du:.3e} (bound {bnd:.3e})")
+    require(it_gpu == it_cpu, "same refine count on GPU and CPU")
+    require(du <= bnd, "GPU and CPU solutions within the residual bound")
+
+
+# (label, side, StructuredSolver options, tolerance, n_refine, the TPU's
+# recorded V-cycle count where it has one: BENCH_r05.json var rows)
+VAR_ROWS = (
+    ("var auto df32", 2047, {}, 1e-7, 40, 21),
+    ("var auto df32", 4095, {}, 1e-5, 40, 42),
+    ("var fused df32", 4095, {"smoother": "fused"}, 1e-5, 40, None),
+    ("var f64", 4095, {"precision": "f64"}, 1e-7, 40, None),
+)
+
+
+def var_solves(dev, launches: dict):
+    """Phase 5: the jump-coefficient solve through solve_ir_device, each
+    row checked by an independent f64 rss; the constant fused solve (K5);
+    the card against the CPU at 255^2."""
+    for label, side, kw, tol, n_refine, tpu_cycles in VAR_ROWS:
+        t0 = time.perf_counter()
+        planes = varcoef.jump_planes(side, a_in=100.0, device=dev)
+        s = StructuredSolver(side, A_planes=planes, device=dev, **kw)
+        b2 = poisson.rhs(side, device=dev).reshape(side, side)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        (u, err, it), c = drive(lambda: solve_device(s, b2, tol, n_refine),
+                                launches)
+        ind = f64_rss_planes(u, b2, planes)
+        cycles = it * s.cycles_per_refine
+        tpu = f" (TPU v5e record: {tpu_cycles})" if tpu_cycles else ""
+        print(f"solve {label} {side}^2 tol {tol:g}: plan {s.plan}, setup "
+              f"{setup:.2f} s, refines {it}, V-cycles {cycles}{tpu}, rss "
+              f"{err:.6e}, independent f64 rss {ind:.6e}, launches {c}")
+        require(bool(torch.isfinite(u).all()) and u.shape == (side, side),
+                f"{label} {side}^2: finite u of shape ({side}, {side})")
+        if kw.get("precision") == "f64":
+            # open question (b): does native f64 get past the TPU's 1e-6
+            # stall at 4095^2? Required: 1e-5; reported: 1e-7 reached or not
+            print(f"var f64 {side}^2 reached {tol:g}: {err <= tol} "
+                  f"(final rss {err:.6e})")
+            require(err <= 1e-5 and ind <= 1e-5, "var f64 rss <= 1e-5")
+        else:
+            require(err <= tol and ind <= tol,
+                    f"{label} {side}^2 converged to {tol:g}")
+        fused = kw.get("smoother") == "fused"
+        require(c["fused_gs4_sweep_var"] == (2 * (1 + 3 * it) if fused
+                                             else 0),
+                f"{label}: K6 = 2 (1 + 3 it) on the fused path, else 0")
+        require(sum(n for k, n in c.items()
+                    if k != "fused_gs4_sweep_var") == 0,
+                f"{label}: no other kernel on a variable operator")
+        med, walls = wall_median(lambda: solve_device(s, b2, tol, n_refine),
+                                 3)
+        print(f"solve wall {label} {side}^2: median of 3 {med:.6f} s "
+              f"(all {walls})")
+        del s, planes
+
+    side = 4095
+    s = StructuredSolver(side, smoother="fused", device=dev)
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    (u, err, it), c = drive(lambda: solve_device(s, b2, TOL), launches)
+    ind = f64_rss(u, b2, side)
+    print(f"solve const fused df32 {side}^2: plan {s.plan}, refines {it}, "
+          f"rss {err:.6e}, independent f64 rss {ind:.6e}, launches {c}")
+    require(err <= TOL and ind <= TOL, f"const fused {side}^2 converged")
+    require(c["fused_gs4_sweep_const"] == 2 * (1 + 3 * it),
+            "K5 = 2 (1 + 3 it) on the const fused path")
+    require(sum(n for k, n in c.items() if k != "fused_gs4_sweep_const")
+            == 0, "const fused: no other kernel")
+    del s
+
+    side = 255
+    planes = varcoef.jump_planes(side, a_in=100.0, device="cpu")
+    b_cpu = poisson.rhs(side, device="cpu").reshape(side, side)
+    u_gpu, _, it_gpu = solve_device(
+        StructuredSolver(side, A_planes=planes.to(dev), device=dev),
+        b_cpu.to(dev), TOL)
+    u_cpu, _, it_cpu = solve_device(
+        StructuredSolver(side, A_planes=planes, device="cpu"), b_cpu, TOL)
+    du = float((u_gpu.cpu() - u_cpu).abs().max())
+    bnd = solution_bound(f64_rss_planes(u_gpu.cpu(), b_cpu, planes),
+                         f64_rss_planes(u_cpu, b_cpu, planes), side)
+    print(f"gpu vs cpu var {side}^2: refines {it_gpu} / {it_cpu}, max|du| "
+          f"{du:.3e} (bound {bnd:.3e})")
+    require(it_gpu == it_cpu, "same var refine count on GPU and CPU")
+    require(du <= bnd, "var GPU and CPU solutions within the residual bound")
 
 
 def main() -> int:
@@ -244,87 +548,31 @@ def main() -> int:
     print(_build.build_log())
 
     # phases 2-3: parity and timing, kernel against plain
-    errs, times = parity_and_timing(dev)
+    errs, times, bounds = parity_and_timing(dev)
+    e56, t56, b56 = rbgs_parity_and_timing(dev)
+    errs.update(e56)
+    times.update(t56)
+    bounds.update(b56)
 
-    # phase 4: the solve through the user entry points
-    configs = [(side, 1) for side in SOLVE_SIDES] + [(1023, 2)]
-    solvers, rhs = {}, {}
-    for side, sweeps in configs:
-        t0 = time.perf_counter()
-        s = StructuredSolver(side, pre_sweeps=sweeps, post_sweeps=sweeps,
-                             device=dev)
-        s.warmup()
-        torch.cuda.synchronize()
-        print(f"setup+warmup {side}^2 sweeps={sweeps}: plan {s.plan}, "
-              f"{time.perf_counter() - t0:.2f} s")
-        solvers[(side, sweeps)] = s
-        rhs[side] = poisson.rhs(side, device=dev).reshape(side, side)
-
-    K.reset_launch_counts()
-    results = {}
-    per_solve = {}
-    for side, sweeps in configs:
-        before = K.launch_counts()
-        u, err, it = solve_once(solvers[(side, sweeps)], rhs[side])
-        torch.cuda.synchronize()
-        after = K.launch_counts()
-        per_solve[(side, sweeps)] = {k: after[k] - before[k] for k in after}
-        results[(side, sweeps)] = (u, err, it)
-    launches = K.launch_counts()
-
-    for (side, sweeps), (u, err, it) in results.items():
-        c = per_solve[(side, sweeps)]
-        ind = f64_rss(u, rhs[side], side)
-        print(f"solve {side}^2 sweeps={sweeps}: refines {it}, rss "
-              f"{err:.6e}, independent f64 rss {ind:.6e}, launches {c}")
-        require(bool(torch.isfinite(u).all()) and u.shape == (side, side),
-                f"finite u of shape ({side}, {side})")
-        require(err <= TOL and ind <= TOL, f"{side}^2 converged to {TOL}")
-        require(c["fused_df_residual_rss"] == it + 1, "K4 = it + 1")
-        if sweeps == 1:
-            legs = 1 + 3 * it if side == 1023 else 6 + 9 * it
-            require(c["fused_down_leg_packed"] == legs
-                    and c["fused_up_leg_packed"] == legs,
-                    f"K2 = K3 = {legs} at {side}^2")
-            require(c["fused_gs4_sweep_packed"] == 0, "K1 off the legs path")
-        else:
-            require(c["fused_gs4_sweep_packed"] == 4 * (1 + 3 * it),
-                    "K1 = 4 (1 + 3 it) with two sweeps")
-            require(c["fused_down_leg_packed"] == 0, "legs off at 2 sweeps")
+    # phases 4-5: every path through the user entry points, each with the
+    # launch counts set to 0 just before it and read just after
+    launches = {k: 0 for k in KERNEL_INFO}
+    const_solves(dev, launches)
+    var_solves(dev, launches)
     require(all(n > 0 for n in launches.values()),
-            f"every kernel launched on the main path: {launches}")
-
-    for side in SOLVE_SIDES:
-        s = solvers[(side, 1)]
-        walls = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            solve_once(s, rhs[side])
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        print(f"solve wall {side}^2: median of 5 "
-              f"{statistics.median(walls):.6f} s (all {walls})")
-
-    # phase 5: the card's solve against the port's own CPU solve, 1023^2
-    u_gpu, _, it_gpu = results[(1023, 1)]
-    b_cpu = poisson.rhs(1023).reshape(1023, 1023)
-    u_cpu, _, it_cpu = solve_once(StructuredSolver(1023), b_cpu)
-    du = float((u_gpu.cpu() - u_cpu).abs().max())
-    bound = solution_bound(f64_rss(u_gpu.cpu(), b_cpu, 1023),
-                           f64_rss(u_cpu, b_cpu, 1023), 1023)
-    print(f"gpu vs cpu 1023^2: refines {it_gpu} / {it_cpu}, max|du| "
-          f"{du:.3e} (bound {bound:.3e})")
-    require(it_gpu == it_cpu, "same refine count on GPU and CPU")
-    require(du <= bound, "GPU and CPU solutions within the residual bound")
+            f"every kernel launched on its path: {launches}")
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
-        kms, pms = times[name, 2048]
+        kms, pms = times[name]
+        bms, by = bounds[name]
+        # no single PyTorch call computes a GS sweep, a V-cycle leg or a
+        # df32 residual: there is no library time to set beside these
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": kms,
-                        "plain_ms": pms})
+                        "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {

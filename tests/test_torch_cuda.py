@@ -16,14 +16,16 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from amg_tpu_torch import StructuredSolver, poisson
+from amg_tpu_torch import StructuredSolver, poisson, varcoef
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
                                                     up_leg_plain)
 from amg_tpu_torch.ops.kernels.packed_df import df_residual_rss_plain
+from amg_tpu_torch.ops.kernels.rbgs import fused_gs4_sweep_plain
 from amg_tpu_torch.ops.rap import poisson_const_w33
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
+from amg_tpu_torch.sparse.stencil import Stencil2D
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +93,42 @@ def test_solve_goes_through_the_kernels(dev):
     counts = K.launch_counts()
     assert counts["fused_down_leg_packed"] == 1 + 3 * it
     assert counts["fused_df_residual_rss"] == it + 1
+
+
+def _rbgs_op(var, side, dev):
+    if var:
+        return Stencil2D(side=side, c=varcoef.jump_planes(side, device=dev))
+    return Stencil2D.const(poisson_const_w33(side, 1)[0], side)
+
+
+@pytest.mark.parametrize("side", [31, 255, 1023])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("var", [False, True], ids=["K5", "K6"])
+def test_rbgs_kernels(dev, var, symmetric, side):
+    """K5/K6 against their plain version at sides with a ragged last
+    tile (31 < one tile, 255 and 1023 not multiples of 32)."""
+    S = _rbgs_op(var, side, dev)
+    rng = np.random.default_rng(side)
+    u, b = (torch.as_tensor(rng.standard_normal((side, side)),
+                            dtype=torch.float32, device=dev)
+            for _ in range(2))
+    K.reset_launch_counts()
+    got = K.fused_gs4_sweep(S, u, b, 0.9, symmetric)
+    torch.cuda.synchronize()
+    name = "fused_gs4_sweep_var" if var else "fused_gs4_sweep_const"
+    assert K.launch_counts()[name] == 1
+    assert _rel(got, fused_gs4_sweep_plain(S, u, b, 0.9, symmetric)) <= 2e-6
+
+
+def test_var_solve_on_the_card(dev):
+    """The jump-coefficient solve (smoother="auto": packed-var levels, no
+    kernel) on the card takes the port's CPU solve's refine count."""
+    side = 255
+    planes = varcoef.jump_planes(side, device="cpu")
+    b2 = poisson.rhs(side, device="cpu").reshape(side, side)
+    res = StructuredSolver(side, A_planes=planes.to(dev), device=dev
+                           ).solve_ir_fused(b2.to(dev), tolerance=1e-7)
+    ref = StructuredSolver(side, A_planes=planes, device="cpu"
+                           ).solve_ir_fused(b2, tolerance=1e-7)
+    assert res.converged and res.u.is_cuda
+    assert res.iterations == ref.iterations

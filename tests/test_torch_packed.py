@@ -161,7 +161,7 @@ def test_poisson_const_w33_identical(side):
 
 @pytest.mark.parametrize("side", [35, 255])
 def test_rhs_bitwise(side):
-    got = tpoisson.rhs(side)
+    got = tpoisson.rhs(side, device=torch.device("cpu"))
     want = np.asarray(jpoisson.rhs(side, dtype=jnp.float64))
     assert got.dtype == torch.float64
     np.testing.assert_array_equal(got.numpy(), want)

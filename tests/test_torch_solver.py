@@ -21,6 +21,7 @@ from amg_tpu.models import poisson as jpoisson
 from amg_tpu_torch import structured as tst
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 def _solution_bound(rss1, rss2, side):
@@ -51,7 +52,7 @@ def test_solver_matches_jax(side):
     ju = np.asarray(js.finalize_u(ju4))
     j_rss, j_it = np.asarray(jstats)
 
-    ts = tst.StructuredSolver(side)
+    ts = tst.StructuredSolver(side, device=CPU)
     tu4, tstats = ts.solve_ir_device_prepared(
         ts.prepare_b(torch.tensor(b_np)), tolerance=1e-7)
     tu = ts.finalize_u(tu4).numpy()
@@ -74,7 +75,7 @@ def test_unpacked_loop_matches_jax():
     ju, jstats = jst.StructuredSolver(side).solve_ir_device(
         jnp.asarray(b_np), tolerance=1e-7)
     j_rss, j_it = np.asarray(jstats)
-    ts = tst.StructuredSolver(side)
+    ts = tst.StructuredSolver(side, device=CPU)
     assert not ts.packed_loop
     tu, tstats = ts.solve_ir_device(torch.tensor(b_np), tolerance=1e-7)
     t_rss, t_it = tstats.tolist()

@@ -24,6 +24,7 @@ from amg_tpu_torch.models import poisson as tpoisson
 from amg_tpu_torch.ops.kernels import _build
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 def _jax_hier(side, dtype=jnp.float64):
@@ -34,7 +35,8 @@ def _jax_hier(side, dtype=jnp.float64):
 @pytest.mark.parametrize("side", [63, 255])
 def test_hierarchy_matches_jax(side):
     jh = _jax_hier(side)
-    th = tst.build_stencil_hierarchy_device(side, dtype=torch.float64)
+    th = tst.build_stencil_hierarchy_device(side, dtype=torch.float64,
+                                           device=CPU)
     assert th.sides == tuple(jh.sides)
     assert th.w33s == tuple(lv.w33 for lv in jh.levels)
     assert th.n_levels == tst.max_levels_for_side(side) == len(jh.sides)
@@ -55,13 +57,14 @@ def test_interop_round_trip():
     th = hierarchy_from_numpy(
         jh.sides, [lv.w33 for lv in jh.levels], np.asarray(jh.coarse_lu),
         np.asarray(jh.coarse_piv), [np.asarray(P) for P in jh.P1s])
-    own = tst.build_stencil_hierarchy_device(side, dtype=torch.float64)
+    own = tst.build_stencil_hierarchy_device(side, dtype=torch.float64,
+                                           device=CPU)
     assert th.sides == own.sides and th.w33s == own.w33s
     assert th.coarse_piv.dtype == torch.int32
     # 0-based JAX pivots became 1-based LAPACK pivots
     np.testing.assert_array_equal(th.coarse_piv.numpy(),
                                   np.asarray(jh.coarse_piv) + 1)
-    b2 = tpoisson.rhs(side).reshape(side, side)
+    b2 = tpoisson.rhs(side, device=CPU).reshape(side, side)
     u_interop = tst.vcycle_packed(th, torch.zeros_like(b2), b2, min_side=0)
     u_own = tst.vcycle_packed(own, torch.zeros_like(b2), b2, min_side=0)
     np.testing.assert_allclose(u_interop.numpy(), u_own.numpy(),
@@ -110,7 +113,7 @@ def test_vcycle_legs_match_jax_fused(monkeypatch):
                                             min_side=100, fused=True))
 
     monkeypatch.setattr(tst, "FUSED_PACKED_MIN_SIDE", 200)
-    th = tst.build_stencil_hierarchy_device(side)
+    th = tst.build_stencil_hierarchy_device(side, device=CPU)
     plan = tst.level_plan(th.sides, 1, 1, 100, True)
     assert plan[:2] == ("legs", "packed")
     tb = torch.as_tensor(b_np)
@@ -146,8 +149,8 @@ def test_kernel_call_counts_follow_the_plan(monkeypatch, smoother, sweeps):
         "fused_gs4_sweep_packed", "fused_down_leg_packed",
         "fused_up_leg_packed", "fused_df_residual_rss")}
     s = tst.StructuredSolver(side, smoother=smoother, pre_sweeps=sweeps,
-                             post_sweeps=sweeps)
-    b2 = tpoisson.rhs(side).reshape(side, side)
+                             post_sweeps=sweeps, device=CPU)
+    b2 = tpoisson.rhs(side, device=CPU).reshape(side, side)
     res = s.solve_ir_fused(b2, tolerance=1e-7)
     it = res.iterations // s.cycles_per_refine
     assert res.converged and it >= 1
@@ -180,8 +183,8 @@ def test_level_plan_at_production_sides():
 
 def test_budget_exhaustion_and_rtol():
     side = 255
-    s = tst.StructuredSolver(side)
-    b2 = tpoisson.rhs(side).reshape(side, side)
+    s = tst.StructuredSolver(side, device=CPU)
+    b2 = tpoisson.rhs(side, device=CPU).reshape(side, side)
     _, stats = s.solve_ir_device(b2, tolerance=1e-7, n_refine=1)
     err, it = stats.tolist()
     assert it == 1 and err > 1e-7     # recomputed after the last refine
@@ -190,20 +193,43 @@ def test_budget_exhaustion_and_rtol():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"precision": "f64"}, {"fmg": False}, {"A_fine": object()},
-    {"A_planes": object()}, {"smoother": "masked"},
+    {"smoother": "chebyshev"}, {"fmg": False}, {"A_fine": object()},
+    {"smoother": "strided"}, {"smoother": "masked"},
 ])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.StructuredSolver(255, **kwargs)
+        tst.StructuredSolver(255, device=CPU, **kwargs)
 
 
 def test_unported_entry_points_raise():
-    s = tst.StructuredSolver(255)
+    s = tst.StructuredSolver(255, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.solve_ir(tpoisson.rhs(255).reshape(255, 255))
+        s.solve_ir(tpoisson.rhs(255, device=CPU).reshape(255, 255))
     with pytest.raises(ValueError):        # below packed_min_side
-        tst.StructuredSolver(127).prepare_b(tpoisson.rhs(127).reshape(127,
-                                                                      127))
+        tst.StructuredSolver(127, device=CPU).prepare_b(
+            tpoisson.rhs(127, device=CPU).reshape(127, 127))
     with pytest.raises(ValueError):
-        tst.StructuredSolver(255, precision="f16")
+        tst.StructuredSolver(255, precision="f16", device=CPU)
+
+
+def _default_device_calls():
+    from amg_tpu_torch.models import varcoef as tvar
+    return {
+        "StructuredSolver": lambda: tst.StructuredSolver(63),
+        "build_stencil_hierarchy_device":
+            lambda: tst.build_stencil_hierarchy_device(63),
+        "build_stencil_hierarchy_planes":
+            lambda: tst.build_stencil_hierarchy_planes(
+                torch.zeros(3, 3, 63, 63)),
+        "poisson.rhs": lambda: tpoisson.rhs(63),
+        "varcoef.jump_planes": lambda: tvar.jump_planes(63),
+    }
+
+
+@pytest.mark.parametrize("entry", list(_default_device_calls()))
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """With no device given, an entry point means "cuda": without a CUDA
+    device it raises and names device="cpu", it never falls back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _default_device_calls()[entry]()
