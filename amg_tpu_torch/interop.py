@@ -8,10 +8,13 @@ same state.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from amg_tpu_torch.ops.doublefloat import DF32
+from amg_tpu_torch.parallel.structured_dist import DistConfig
 from amg_tpu_torch.structured import PACKED_MIN_SIDE, StencilHierarchy
 
 
@@ -36,6 +39,22 @@ def hierarchy_from_numpy(sides, w33s, coarse_lu, coarse_piv, P1s,
     return StencilHierarchy(sides, w33s, lu, piv, P1s, planes=planes,
                             smoother=smoother,
                             packed_min_side=packed_min_side)
+
+
+def dist_hierarchy_from_numpy(cfg_fields: dict, sub_sides, sub_w33s,
+                              coarse_lu, coarse_piv, sub_P1s, device=None):
+    """The port's ``(DistConfig, sub-hierarchy)`` from a JAX distributed
+    hierarchy: ``cfg_fields`` the JAX ``DistConfig``'s fields as a dict
+    (``dataclasses.asdict``; its TPU interpret-mode setting is dropped),
+    and the replicated sub-hierarchy's sides, constant weights, LU factors
+    and dense transfer matrices as numpy."""
+    names = {f.name for f in dataclasses.fields(DistConfig)}
+    fields = {k: v for k, v in cfg_fields.items() if k in names}
+    for k in ("sides", "blocks", "w33s"):
+        fields[k] = tuple(fields[k])
+    sub_hier = hierarchy_from_numpy(sub_sides, sub_w33s, coarse_lu,
+                                    coarse_piv, sub_P1s, device=device)
+    return DistConfig(**fields), sub_hier
 
 
 def planes_from_numpy(c, device=None) -> torch.Tensor:

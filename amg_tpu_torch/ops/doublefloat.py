@@ -151,8 +151,18 @@ def df_residual_const(w33, b_df: DF32, u_df: DF32) -> DF32:
         hi, lo = two_sum(s, c)
         return DF32(hi=hi, lo=lo)
 
-    dev = u_df.hi.device
-    acc = DF32.from_f32(torch.zeros_like(u_df.hi))
+    return df_add(b_df, df_neg(df_apply_const(w33, uh, ul)))
+
+
+def df_apply_const(w33, uh_pad: torch.Tensor, ul_pad: torch.Tensor) -> DF32:
+    """A u in df32 for a constant 3x3 stencil, general weights: ``uh_pad``
+    and ``ul_pad`` are the (..., R+2, n+2) fields with their one-cell frame
+    (zeros or neighbour rows); each weight enters as an exact (hi, lo) f32
+    pair, every product a df_mul, every sum a df_add, dj outer. Leading
+    axes are batch axes (the distributed solver's slabs)."""
+    R, n = uh_pad.shape[-2] - 2, uh_pad.shape[-1] - 2
+    dev = uh_pad.device
+    acc = DF32.from_f32(torch.zeros_like(uh_pad[..., 1:-1, 1:-1]))
     for dj in (-1, 0, 1):
         for di in (-1, 0, 1):
             w = w33[dj + 1][di + 1]
@@ -162,9 +172,10 @@ def df_residual_const(w33, b_df: DF32, u_df: DF32) -> DF32:
             w_lo = float(np.float32(w - w_hi))
             wdf = DF32(hi=torch.tensor(w_hi, dtype=torch.float32, device=dev),
                        lo=torch.tensor(w_lo, dtype=torch.float32, device=dev))
-            acc = df_add(acc, df_mul(wdf, DF32(hi=sl(uh, dj, di),
-                                               lo=sl(ul, dj, di))))
-    return df_add(b_df, df_neg(acc))
+            win = (..., slice(1 + dj, 1 + dj + R), slice(1 + di, 1 + di + n))
+            acc = df_add(acc, df_mul(wdf, DF32(hi=uh_pad[win],
+                                               lo=ul_pad[win])))
+    return acc
 
 
 def df_rss(r_df: DF32) -> torch.Tensor:

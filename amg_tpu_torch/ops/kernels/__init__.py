@@ -5,6 +5,7 @@ tensors to its kernel (built from ``amg_tpu_torch/csrc`` at first launch),
 and counts each kernel's launches in a ``launches`` attribute.
 """
 
+from amg_tpu_torch.ops.kernels.halo import rdma_halo_exchange
 from amg_tpu_torch.ops.kernels.packed_cycle import (fused_down_leg_packed,
                                                     fused_up_leg_packed)
 from amg_tpu_torch.ops.kernels.packed_df import fused_df_residual_rss
@@ -13,10 +14,10 @@ from amg_tpu_torch.ops.kernels.rbgs import (fused_gs4_sweep,
                                             fused_gs4_sweep_const,
                                             fused_gs4_sweep_var)
 
-# the launch counters, one per kernel (K1..K6)
+# the launch counters, one per kernel (K1..K7)
 KERNELS = (fused_gs4_sweep_packed, fused_down_leg_packed,
            fused_up_leg_packed, fused_df_residual_rss,
-           fused_gs4_sweep_const, fused_gs4_sweep_var)
+           fused_gs4_sweep_const, fused_gs4_sweep_var, rdma_halo_exchange)
 
 
 def reset_launch_counts() -> None:

@@ -35,6 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _W9 = ctypes.POINTER(ctypes.c_float)
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_LL = ctypes.c_longlong
 # C entry points: (argtypes); each returns a cudaError_t as int
 _SIGNATURES = {
     "amg_packed_sweep": (_P, _P, _P, _I, _W9, _F, _F, _I, _P),
@@ -44,6 +46,7 @@ _SIGNATURES = {
     "amg_df_partials_count": (_I,),
     "amg_rbgs_sweep_const": (_P, _P, _P, _I, _W9, _F, _F, _I, _P),
     "amg_rbgs_sweep_var": (_P, _P, _P, _P, _I, _F, _I, _P),
+    "amg_halo_exchange": (_PP, _I, _LL, _PP, _I, _I, _I, _I, _I, _P),
 }
 
 

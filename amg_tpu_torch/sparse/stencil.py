@@ -21,6 +21,12 @@ import torch.nn.functional as F
 # Color visit order: the 2x2-block parity classes.
 FOUR_COLORS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
+# Bilinear 3x3 transfer weights, the outer product of [0.5, 1, 0.5] with
+# itself: the full-weighting restriction's and the prolongation's stencil
+# (amg_tpu/sparse/stencil.py:415-416).
+_W1D = np.array([0.5, 1.0, 0.5])
+W2D = np.outer(_W1D, _W1D)
+
 
 @dataclasses.dataclass(frozen=True)
 class Stencil2D:

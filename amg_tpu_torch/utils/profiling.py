@@ -4,11 +4,15 @@ kernel, launch count and idle share, from ``torch.profiler``.
     python -m amg_tpu_torch.utils.profiling --sides 1023 4095
     python -m amg_tpu_torch.utils.profiling --sides 4095 --var --tol 1e-5 \
         [--smoother fused] [--precision f64]
+    python -m amg_tpu_torch.utils.profiling --sides 4095 --dist 4 \
+        [--halo rdma|sweep|overlap|step]
 
 For each side: one warm solve is timed, then a second one is traced. The
 constant problem's packed loop runs prepare_b -> solve_ir_device_prepared
 -> finalize_u; ``--var`` (the jump-coefficient problem, a = 100) and the
-other loops run solve_ir_device. Device busy time is the
+other loops run solve_ir_device; ``--dist D`` the distributed solve on D
+row slabs of the card (DistStructuredSolver.solve_ir_fused). Device busy
+time is the
 sum of the GPU kernels' and copies' own times in the trace (one stream, so
 they do not overlap); the idle share is 1 - busy / (untraced wall). Needs
 a CUDA device.
@@ -33,24 +37,34 @@ def _device_us(evt) -> float:
 
 def profile_solve(side: int, device="cuda", top: int = 12,
                   var: bool = False, smoother: str = "auto",
-                  precision: str = "df32", tol: float = 1e-7) -> dict:
+                  precision: str = "df32", tol: float = 1e-7,
+                  dist: int = 0, halo: str = "rdma") -> dict:
     """Trace one warm solve at ``side``; returns the summary it prints."""
-    from amg_tpu_torch import StructuredSolver, poisson, varcoef
+    from amg_tpu_torch import (DistStructuredSolver, StructuredSolver,
+                               poisson, varcoef)
     from amg_tpu_torch.ops import kernels as K
 
-    planes = varcoef.jump_planes(side, device=device) if var else None
-    s = StructuredSolver(side, A_planes=planes, smoother=smoother,
-                         precision=precision, device=device)
     b2 = poisson.rhs(side, device=device).reshape(side, side)
-    s.warmup()
+    if dist:
+        d = DistStructuredSolver(side, n_devices=dist, halo=halo,
+                                 device=device)
 
-    def solve():
-        if not s.packed_loop:
-            return s.solve_ir_device(b2, tolerance=tol)[1].tolist()
-        u4, stats = s.solve_ir_device_prepared(s.prepare_b(b2),
-                                               tolerance=tol)
-        s.finalize_u(u4)
-        return stats.tolist()
+        def solve():
+            r = d.solve_ir_fused(b2, tolerance=tol)
+            return r.error, r.iterations // d.cycles_per_refine
+    else:
+        planes = varcoef.jump_planes(side, device=device) if var else None
+        s = StructuredSolver(side, A_planes=planes, smoother=smoother,
+                             precision=precision, device=device)
+        s.warmup()
+
+        def solve():
+            if not s.packed_loop:
+                return s.solve_ir_device(b2, tolerance=tol)[1].tolist()
+            u4, stats = s.solve_ir_device_prepared(s.prepare_b(b2),
+                                                   tolerance=tol)
+            s.finalize_u(u4)
+            return stats.tolist()
 
     solve()
     torch.cuda.synchronize()
@@ -74,7 +88,8 @@ def profile_solve(side: int, device="cuda", top: int = 12,
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     summary = {
         "side": side, "var": var, "smoother": smoother,
-        "precision": precision, "tol": tol, "wall_s": wall_plain, "wall_traced_s": wall,
+        "precision": precision, "tol": tol, "dist": dist, "halo": halo,
+        "wall_s": wall_plain, "wall_traced_s": wall,
         "refines": int(it), "rss": err, "device_busy_s": busy_us * 1e-6,
         "idle_share": 1.0 - busy_us * 1e-6 / wall_plain,
         "gpu_launches": sum(e.count for e in gpu),
@@ -84,8 +99,9 @@ def profile_solve(side: int, device="cuda", top: int = 12,
         "top_host_ops": [(e.key, e.count, e.self_cpu_time_total * 1e-3)
                          for e in host[:top]],
     }
-    print(f"side {side} var={var} smoother={smoother} precision="
-          f"{precision} tol={tol:g}: wall {wall_plain:.6f} s (traced {wall:.6f} s), "
+    what = (f"dist D={dist} halo={halo}" if dist else
+            f"var={var} smoother={smoother} precision={precision}")
+    print(f"side {side} {what} tol={tol:g}: wall {wall_plain:.6f} s (traced {wall:.6f} s), "
           f"refines {int(it)}, rss "
           f"{err:.3e}, device busy {summary['device_busy_s']:.6f} s, "
           f"idle share {summary['idle_share']:.4f}, GPU launches "
@@ -107,12 +123,17 @@ def main() -> None:
                     choices=["auto", "packed", "fused"])
     ap.add_argument("--precision", default="df32", choices=["df32", "f64"])
     ap.add_argument("--tol", type=float, default=1e-7)
+    ap.add_argument("--dist", type=int, default=0, metavar="D",
+                    help="the distributed solve on D row slabs")
+    ap.add_argument("--halo", default="rdma",
+                    choices=["rdma", "sweep", "overlap", "step"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     for side in args.sides:
         profile_solve(side, var=args.var, smoother=args.smoother,
-                      precision=args.precision, tol=args.tol)
+                      precision=args.precision, tol=args.tol,
+                      dist=args.dist, halo=args.halo)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1-K6) from amg_tpu_torch/csrc, checks
+Builds the port's CUDA kernels (K1-K7) from amg_tpu_torch/csrc, checks
 each against its plain PyTorch version on the card and times both, then
 drives the solves through the user entry points with an independent f64
 residual check and the kernels' launch counts:
@@ -15,7 +15,10 @@ residual check and the kernels' launch counts:
   kernel), smoother="fused" at 4095^2 (K6), precision="f64" at 4095^2;
 * the constant problem with smoother="fused" at 4095^2 (K5);
 * the card against the port's own CPU solve at 1023^2 (constant) and
-  255^2 (variable).
+  255^2 (variable);
+* the distributed solve (DistStructuredSolver, 4 row slabs on the card)
+  at 4095^2 with halo="rdma" (K7) and "sweep", one V-cycle per halo mode
+  at 1023^2 on 8 slabs, and the card against the CPU at 255^2.
 
 Any failed check raises, so the exit code is non-zero. The line before
 the last of stdout is the card's name and power limit, the one before it
@@ -36,15 +39,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from amg_tpu_torch import StructuredSolver, poisson, varcoef
+from amg_tpu_torch import (DistStructuredSolver, StructuredSolver, poisson,
+                           varcoef)
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32
 from amg_tpu_torch.ops.kernels import _build
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
                                                     up_leg_plain)
+from amg_tpu_torch.ops.kernels.halo import rdma_halo_exchange_plain
 from amg_tpu_torch.ops.kernels.packed_df import df_residual_rss_plain
 from amg_tpu_torch.ops.kernels.rbgs import fused_gs4_sweep_plain
 from amg_tpu_torch.ops.rap import poisson_const_w33
+from amg_tpu_torch.parallel.structured_dist import ghost_rows
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
 from amg_tpu_torch.sparse.stencil import Stencil2D
 
@@ -52,6 +58,10 @@ TOL = 1e-7
 PARITY_SIDES = (1023, 4095)            # M = 512 and 2048
 SOLVE_SIDES = (1023, 4095)
 RBGS_SIDES = (1023, 4095)              # K5/K6 run at 4095 on the path
+# K7 shapes (D slabs, B rows, n columns, G strip rows): the 4095^2 D = 4
+# solve's fine level first, then small meshes
+HALO_SHAPES = ((4, 1024, 4095, 10), (2, 10, 31, 10), (8, 10, 31, 10))
+DIST_SIDE, DIST_SLABS = 4095, 4
 
 # H100 SXM data-sheet peaks (700 W): device memory rate and f32 outside
 # the tensor cores; the least time of a kernel is the larger of its
@@ -80,6 +90,8 @@ KERNEL_INFO = {
                               "amg_tpu/ops/pallas/rbgs.py:544"),
     "fused_gs4_sweep_var": ("amg_tpu_torch/csrc/rbgs_sweep.cu",
                             "amg_tpu/ops/pallas/rbgs.py:584"),
+    "rdma_halo_exchange": ("amg_tpu_torch/csrc/halo.cu",
+                           "amg_tpu/ops/pallas/halo.py:103"),
 }
 
 
@@ -529,6 +541,156 @@ def var_solves(dev, launches: dict):
     require(du <= bnd, "var GPU and CPU solutions within the residual bound")
 
 
+def halo_parity_and_timing(dev):
+    """K7 against its plain version, bitwise (it is a copy): f32 and f64,
+    u and b given apart and stacked as one u|b slab, at HALO_SHAPES. Timed
+    at the path's shape in f32 against the plain version, and against one
+    PyTorch call that computes the same strips: index_select of the rows
+    of the stacked u|b field with one zero row appended (field, zero row
+    and index made outside the timing). Returns max_abs_err, the times,
+    the bound and the library call's ms."""
+    err = 0.0
+    for D, B, n, G in HALO_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            g = torch.Generator(device=dev).manual_seed(D * B + n)
+            u, b = (torch.randn((D, B, n), generator=g, device=dev,
+                                dtype=dtype) for _ in range(2))
+            ref = rdma_halo_exchange_plain((u, b), G)
+            got = K.rdma_halo_exchange((u, b), G)
+            got_st = K.rdma_halo_exchange(torch.cat([u, b], dim=2), G)
+            torch.cuda.synchronize()
+            same = torch.equal(got, ref) and torch.equal(got_st, ref)
+            err = max(err, float((got - ref).abs().max()),
+                      float((got_st - ref).abs().max()))
+            print(f"parity K7 D={D} B={B} n={n} G={G} {dtype}: bitwise "
+                  f"equal {same}")
+            require(same, "K7 bitwise equal to its plain version")
+
+    D, B, n, G = HALO_SHAPES[0]
+    g = torch.Generator(device=dev).manual_seed(7)
+    u, b = (torch.randn((D, B, n), generator=g, device=dev)
+            for _ in range(2))
+    W = 2 * n
+    src = torch.cat([torch.cat([u, b], dim=2).reshape(D * B, W),
+                     torch.zeros((1, W), device=dev)])
+    zero = D * B
+    rows = []
+    for d in range(D):
+        rows += [(d - 1) * B + B - G + r if d > 0 else zero
+                 for r in range(G)]
+        rows += [(d + 1) * B + r if d < D - 1 else zero for r in range(G)]
+    idx = torch.tensor(rows, device=dev)
+
+    def gather():
+        return torch.index_select(src, 0, idx).reshape(D, 2 * G, W)
+    require(torch.equal(gather(), rdma_halo_exchange_plain((u, b), G)),
+            "the index_select computes K7's strips")
+    times = {}
+    interleaved("rdma_halo_exchange", f"D={D} B={B} n={n} G={G}",
+                lambda: K.rdma_halo_exchange((u, b), G),
+                lambda: rdma_halo_exchange_plain((u, b), G), 20, times)
+    lib_ms = min(time_ms(gather, 20), time_ms(gather, 20))
+    print(f"time rdma_halo_exchange library call (index_select of the "
+          f"stacked u|b rows + a zero row): {lib_ms:.4f} ms")
+    # the sent rows read once, the receive strips written once
+    es = u.element_size()
+    moved = (2 * (D - 1) * G * W + 2 * D * G * W) * es
+    return err, times, {"rdma_halo_exchange": bound(moved, 0)}, lib_ms
+
+
+def k7_levels(cfg) -> int:
+    """Sharded levels whose slabs hold the G strip rows: K7 runs there,
+    once per smoothing call; the others take the multi-hop ghost sweep."""
+    G = ghost_rows(cfg.pre_sweeps, cfg.symmetric)
+    return sum(1 for B in cfg.blocks if B >= G) if cfg.n_devices > 1 else 0
+
+
+def dist_solves(dev, launches: dict):
+    """Phase 6: the distributed solve through DistStructuredSolver on
+    DIST_SLABS row slabs of the card. At 4095^2, solve_ir_fused with
+    halo="rdma" (K7 on every level whose slab holds the G strip rows, 2
+    launches per such level per V-cycle) and with "sweep": the same refines
+    and a bitwise equal u. One f64 V-cycle at 1023^2 on 8 slabs per halo
+    mode: "sweep", "rdma", "overlap" bitwise equal, "step" within 1e-12.
+    The card against the CPU at 255^2."""
+    side, D = DIST_SIDE, DIST_SLABS
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    results = {}
+    for halo in ("rdma", "sweep"):
+        t0 = time.perf_counter()
+        s = DistStructuredSolver(side, n_devices=D, halo=halo, device=dev)
+        setup = time.perf_counter() - t0
+        res, c = drive(lambda: s.solve_ir_fused(b2, tolerance=TOL), launches)
+        refines = res.iterations // s.cycles_per_refine
+        ind = f64_rss(res.u, b2, side)
+        levels = k7_levels(s.cfg) if halo == "rdma" else 0
+        print(f"dist solve {side}^2 D={D} halo={halo}: blocks "
+              f"{s.cfg.blocks} (n_pad {s.n_pad}), setup {setup:.2f} s, "
+              f"refines {refines}, V-cycles {res.iterations}, rss "
+              f"{res.error:.6e}, independent f64 rss {ind:.6e}, launches "
+              f"{c}")
+        require(bool(torch.isfinite(res.u).all())
+                and res.u.shape == (side, side),
+                f"dist {halo}: finite u of shape ({side}, {side})")
+        require(res.error <= TOL and ind <= TOL,
+                f"dist {halo} {side}^2 converged to {TOL}")
+        require(c["rdma_halo_exchange"] == 2 * levels * res.iterations,
+                f"dist {halo}: K7 = 2 x {levels} levels x V-cycles")
+        require(sum(n for k, n in c.items() if k != "rdma_halo_exchange")
+                == 0, f"dist {halo}: no other kernel")
+        if halo == "rdma":
+            require(levels == 7, "K7 on levels 0-6 (B = 1024 ... 16)")
+            med, walls = wall_median(
+                lambda: s.solve_ir_fused(b2, tolerance=TOL), 3)
+            print(f"dist solve wall {side}^2 D={D} halo=rdma: median of 3 "
+                  f"{med:.6f} s (all {walls})")
+        results[halo] = (refines, res.u)
+        del s
+    require(results["rdma"][0] == results["sweep"][0],
+            "rdma and sweep take the same refines")
+    require(torch.equal(results["rdma"][1], results["sweep"][1]),
+            "rdma and sweep give a bitwise equal u")
+    print(f"dist rdma vs sweep {side}^2: same refines, u bitwise equal")
+    del results
+
+    side, D = 1023, 8
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    us = {}
+    for halo in ("sweep", "rdma", "overlap", "step"):
+        s = DistStructuredSolver(side, n_devices=D, dtype=torch.float64,
+                                 halo=halo, device=dev)
+        bp = s.pad_field(b2)
+        u, c = drive(lambda: s.unpad(s.vcycle(torch.zeros_like(bp), bp)),
+                     launches)
+        k7 = 2 * k7_levels(s.cfg) if halo == "rdma" else 0
+        require(c["rdma_halo_exchange"] == k7, f"V-cycle {halo}: K7 = {k7}")
+        us[halo] = u
+    ref = us["sweep"]
+    for halo in ("rdma", "overlap"):
+        require(torch.equal(us[halo], ref), f"V-cycle {halo} == sweep")
+    close = bool(((us["step"] - ref).abs()
+                  <= 1e-14 + 1e-12 * ref.abs()).all())
+    d, r = rel_err(us["step"], ref)
+    print(f"dist V-cycle {side}^2 D={D} f64: rdma, overlap bitwise equal "
+          f"to sweep; step max_abs {d:.3e} rel {r:.3e} (rtol 1e-12)")
+    require(close, "step within rtol 1e-12 / atol 1e-14 of sweep")
+
+    side, D = 255, 4
+    b_cpu = poisson.rhs(side, device="cpu").reshape(side, side)
+    r_gpu = DistStructuredSolver(side, n_devices=D, halo="rdma", device=dev
+                                 ).solve_ir_fused(b_cpu.to(dev), TOL)
+    r_cpu = DistStructuredSolver(side, n_devices=D, halo="rdma",
+                                 device="cpu").solve_ir_fused(b_cpu, TOL)
+    du = float((r_gpu.u.cpu() - r_cpu.u).abs().max())
+    bnd = solution_bound(f64_rss(r_gpu.u.cpu(), b_cpu, side),
+                         f64_rss(r_cpu.u, b_cpu, side), side)
+    print(f"dist gpu vs cpu {side}^2 D={D}: V-cycles {r_gpu.iterations} / "
+          f"{r_cpu.iterations}, max|du| {du:.3e} (bound {bnd:.3e})")
+    require(r_gpu.iterations == r_cpu.iterations,
+            "dist: same refines on GPU and CPU")
+    require(du <= bnd, "dist GPU and CPU solutions within the bound")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU "
@@ -553,12 +715,17 @@ def main() -> int:
     errs.update(e56)
     times.update(t56)
     bounds.update(b56)
+    errs["rdma_halo_exchange"], t7, b7, k7_lib_ms = halo_parity_and_timing(
+        dev)
+    times.update(t7)
+    bounds.update(b7)
 
-    # phases 4-5: every path through the user entry points, each with the
+    # phases 4-6: every path through the user entry points, each with the
     # launch counts set to 0 just before it and read just after
     launches = {k: 0 for k in KERNEL_INFO}
     const_solves(dev, launches)
     var_solves(dev, launches)
+    dist_solves(dev, launches)
     require(all(n > 0 for n in launches.values()),
             f"every kernel launched on its path: {launches}")
 
@@ -567,12 +734,13 @@ def main() -> int:
         kms, pms = times[name]
         bms, by = bounds[name]
         # no single PyTorch call computes a GS sweep, a V-cycle leg or a
-        # df32 residual: there is no library time to set beside these
+        # df32 residual (K1-K6); K7's strips are one index_select
+        lib_ms = k7_lib_ms if name == "rdma_halo_exchange" else None
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": kms,
                         "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": None})
+                        "library_ms": lib_ms})
     print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -16,11 +16,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from amg_tpu_torch import StructuredSolver, poisson, varcoef
+from amg_tpu_torch import (DistStructuredSolver, StructuredSolver, poisson,
+                           varcoef)
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
                                                     up_leg_plain)
+from amg_tpu_torch.ops.kernels.halo import rdma_halo_exchange_plain
 from amg_tpu_torch.ops.kernels.packed_df import df_residual_rss_plain
 from amg_tpu_torch.ops.kernels.rbgs import fused_gs4_sweep_plain
 from amg_tpu_torch.ops.rap import poisson_const_w33
@@ -130,5 +132,48 @@ def test_var_solve_on_the_card(dev):
                            ).solve_ir_fused(b2.to(dev), tolerance=1e-7)
     ref = StructuredSolver(side, A_planes=planes, device="cpu"
                            ).solve_ir_fused(b2, tolerance=1e-7)
+    assert res.converged and res.u.is_cuda
+    assert res.iterations == ref.iterations
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D,B,n,G", [(2, 10, 31, 10), (8, 10, 31, 10),
+                                     (3, 16, 33, 2), (4, 64, 255, 10),
+                                     (1, 12, 7, 4)])
+def test_halo_kernel(dev, D, B, n, G, dtype):
+    """K7 equals its plain version bitwise (a copy): G == B, odd widths,
+    one slab, u and b apart and stacked."""
+    g = torch.Generator(device=dev).manual_seed(D * B + n)
+    u, b = (torch.randn((D, B, n), generator=g, device=dev, dtype=dtype)
+            for _ in range(2))
+    K.reset_launch_counts()
+    got = K.rdma_halo_exchange((u, b), G)
+    got_st = K.rdma_halo_exchange(torch.cat([u, b], dim=2), G)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["rdma_halo_exchange"] == 2
+    ref = rdma_halo_exchange_plain((u, b), G)
+    assert torch.equal(got, ref) and torch.equal(got_st, ref)
+    assert got.data_ptr() not in (u.data_ptr(), b.data_ptr())
+
+
+def test_dist_rdma_on_the_card(dev):
+    """The distributed solve with K7 on the card: the V-cycle bitwise equal
+    to halo="sweep", and the CPU's refine count."""
+    side = 255
+    b2 = poisson.rhs(side, device="cpu").reshape(side, side)
+    us = {}
+    for halo in ("rdma", "sweep"):
+        s = DistStructuredSolver(side, n_devices=4, halo=halo, device=dev)
+        bp = s.pad_field(b2)
+        K.reset_launch_counts()
+        us[halo] = s.vcycle(torch.zeros_like(bp), bp)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["rdma_halo_exchange"] == (
+            2 * 3 if halo == "rdma" else 0)   # B = 64, 32, 16 >= G = 10
+    assert torch.equal(us["rdma"], us["sweep"])
+    res = DistStructuredSolver(side, n_devices=4, halo="rdma", device=dev
+                               ).solve_ir_fused(b2.to(dev), tolerance=1e-7)
+    ref = DistStructuredSolver(side, n_devices=4, halo="rdma", device="cpu"
+                               ).solve_ir_fused(b2, tolerance=1e-7)
     assert res.converged and res.u.is_cuda
     assert res.iterations == ref.iterations
