@@ -14,6 +14,12 @@ constant-coefficient Poisson problem and for variable coefficients:
     v = StructuredSolver(2047, A_planes=varcoef.jump_planes(2047))
     u, stats = v.solve_ir_device(poisson.rhs(2047).reshape(2047, 2047))
 
+the AMG-preconditioned conjugate gradient of ``amg_tpu.krylov``:
+
+    h = build_stencil_hierarchy_device(4095, smoother="packed")
+    b32 = poisson.rhs(4095, dtype=torch.float32).reshape(4095, 4095)
+    u, stats = solve_pcg_device(h, b32, tolerance=1e-5, fused=True)
+
 and the row-partitioned distributed solve of
 ``amg_tpu.parallel.structured_dist`` over a mesh of D row slabs on one
 device (``halo="rdma"``: the exchange is a CUDA kernel):
@@ -26,6 +32,7 @@ hand-written CUDA kernels (``ops/kernels``, sources in ``csrc``) build
 with ``nvcc`` at their first launch, never at import.
 """
 
+from amg_tpu_torch.krylov import solve_pcg_device, solve_pcg_stencil
 from amg_tpu_torch.models import poisson, varcoef
 from amg_tpu_torch.ops.doublefloat import DF32
 from amg_tpu_torch.parallel.structured_dist import DistStructuredSolver
@@ -39,4 +46,5 @@ from amg_tpu_torch.utils.metrics import rss_from_residual
 __all__ = ["DF32", "DistStructuredSolver", "SolveResult",
            "StencilHierarchy", "StructuredSolver",
            "build_stencil_hierarchy_device", "build_stencil_hierarchy_planes",
-           "poisson", "rss_from_residual", "varcoef", "vcycle_packed"]
+           "poisson", "rss_from_residual", "solve_pcg_device",
+           "solve_pcg_stencil", "varcoef", "vcycle_packed"]

@@ -1,12 +1,24 @@
-// Shared device code of the color-packed kernels (packed_sweep.cu,
-// packed_cycle.cu): the stencil arguments, ghosted tile loads with zero
-// fill, the temporal-blocked four-color steps and the interior store.
+// Shared device code of the color-packed kernels. One copy of each piece,
+// used as follows:
 //
-// Layout (amg_tpu_torch/sparse/packed.py): a field is (4, M, M) f32, quarter
-// a = 2*pj + pi holds the points (2J+pj, 2I+pi). Quarter a's real cells are
-// J < Mj, I < Mi with Mj = M - pj, Mi = M - pi; every other cell is a pad
-// cell that stays exactly 0, and a read outside [0, M)^2 reads 0. Together
-// they are the Dirichlet boundary.
+//   piece                               K1  K2  K3  K8  K9
+//   gidx / load_tile / store_interior   x   x   x   x   x   (layout: K9 rows)
+//   color_steps (the GS color steps)    x   x   x       x
+//   sweep_block (K1's whole block)      x                x
+//   residual_window (b - A u in b)          x       x
+//   restrict_store (coarse rhs)             x       x
+//
+// K1 packed_sweep.cu, K2/K3/K8 packed_cycle.cu, K9 packed_rm.cu.
+//
+// Layout (amg_tpu_torch/sparse/packed.py): a field holds four (M, M) f32
+// quarters, quarter a = 2*pj + pi holding the points (2J+pj, 2I+pi). With
+// kQuarterMajor (the (4, M, M) packed field) quarter q, row J, column I
+// sit at (q*M + J)*M + I; with kRowGrouped (the (M, 4M) row-grouped field
+// of ops/kernels/packed_rm.py) at J*4M + q*M + I. Quarter a's real cells
+// are J < Mj, I < Mi with Mj = M - pj, Mi = M - pi; every other cell is a
+// pad cell that stays exactly 0, and a read outside [0, M)^2 reads 0.
+// Together they are the Dirichlet boundary. Shared-memory tiles are always
+// [4][W][W], whatever the layout in device memory.
 //
 // Temporal blocking: a block holds a T x T tile of all four quarters plus a
 // ghost ring of G cells on all four sides in shared memory. Each color step
@@ -27,6 +39,10 @@
 namespace amg {
 
 constexpr int kThreads = 256;
+
+// Device-memory layouts of a packed field (see above).
+constexpr int kQuarterMajor = 0;
+constexpr int kRowGrouped = 1;
 
 // w33 rounded to f32 (row-major [dj+1][di+1]), 1/w33[1][1] computed in f64
 // and rounded to f32 on the host, omega rounded to f32.
@@ -50,12 +66,16 @@ __device__ __forceinline__ bool real_cell(int a, int J, int I, int M) {
   return J >= 0 && J < Mj && I >= 0 && I < Mi;
 }
 
+template <int Lay = kQuarterMajor>
 __device__ __forceinline__ size_t gidx(int q, int J, int I, int M) {
+  if (Lay == kRowGrouped) return ((size_t)J * 4 + q) * M + I;
   return ((size_t)q * M + J) * M + I;
 }
 
-// S[4][W][W] <- g[:, J0:J0+W, I0:I0+W], zero outside [0, M)^2.
-template <int W>
+// S[4][W][W] <- the four quarters' [J0, J0+W) x [I0, I0+W) windows, zero
+// outside [0, M)^2. Neighbouring threads read neighbouring columns, which
+// are contiguous in both layouts.
+template <int W, int Lay = kQuarterMajor>
 __device__ void load_tile(float* S, const float* __restrict__ g, int M,
                           int J0, int I0) {
   for (int L = threadIdx.x; L < 4 * W * W; L += blockDim.x) {
@@ -66,7 +86,7 @@ __device__ void load_tile(float* S, const float* __restrict__ g, int M,
     const int J = J0 + r;
     const int I = I0 + c;
     float v = 0.f;
-    if (J >= 0 && J < M && I >= 0 && I < M) v = g[gidx(q, J, I, M)];
+    if (J >= 0 && J < M && I >= 0 && I < M) v = g[gidx<Lay>(q, J, I, M)];
     S[L] = v;
   }
 }
@@ -134,8 +154,9 @@ __device__ void color_steps(float* U, const float* B, const Stencil& st,
   }
 }
 
-// g[:, Jt:Jt+T, It:It+T] <- the T x T interior of the window (offset G).
-template <int T, int G>
+// The four quarters' [Jt, Jt+T) x [It, It+T) <- the T x T interior of the
+// window (offset G).
+template <int T, int G, int Lay = kQuarterMajor>
 __device__ void store_interior(const float* U, float* __restrict__ g, int M,
                                int Jt, int It) {
   constexpr int W = T + 2 * G;
@@ -146,7 +167,94 @@ __device__ void store_interior(const float* U, float* __restrict__ g, int M,
     const int c = rem - r * T;
     const int J = Jt + r;
     const int I = It + c;
-    if (J < M && I < M) g[gidx(q, J, I, M)] = U[(q * W + G + r) * W + G + c];
+    if (J < M && I < M) g[gidx<Lay>(q, J, I, M)] = U[(q * W + G + r) * W + G + c];
+  }
+}
+
+// The whole block of the standalone sweep (K1, K9): load u and b with the
+// ghost ring, run the color steps, store the tile. The block's tile is
+// (blockIdx.y, blockIdx.x); shared memory holds 2 * 4 * (T+2G)^2 floats.
+template <int T, int G, int Lay>
+__device__ void sweep_block(const float* __restrict__ u,
+                            const float* __restrict__ b,
+                            float* __restrict__ out, int M,
+                            const Stencil& st, int symmetric) {
+  constexpr int W = T + 2 * G;
+  extern __shared__ float smem[];
+  float* U = smem;
+  float* B = smem + 4 * W * W;
+  const int Jt = blockIdx.y * T;
+  const int It = blockIdx.x * T;
+  load_tile<W, Lay>(U, u, M, Jt - G, It - G);
+  load_tile<W, Lay>(B, b, M, Jt - G, It - G);
+  __syncthreads();
+  color_steps<W>(U, B, st, M, Jt - G, It - G, symmetric);
+  store_interior<T, G, Lay>(U, out, M, Jt, It);
+}
+
+// Residual of color (PJ, PI) at window cell (r, c), overwriting b there:
+// sparse/packed.py residual_packed, acc = _acc + w_c * u_a, r = b - acc on
+// real cells, 0 elsewhere. A cell's residual reads b only at that cell.
+template <int W, int PJ, int PI>
+__device__ __forceinline__ void residual_cell(const float* U, float* B,
+                                              const Stencil& st, int M,
+                                              int J0, int I0, int r, int c) {
+  constexpr int a = 2 * PJ + PI;
+  const int L = (a * W + r) * W + c;
+  const float acc = neighbour_acc<W, PJ, PI>(U, st, r, c) + st.w[4] * U[L];
+  B[L] = real_cell(a, J0 + r, I0 + c, M) ? B[L] - acc : 0.f;
+}
+
+// The residual in place of b on window rows and columns [G, G + T] of all
+// four quarters: the (T+1)^2 cells the restriction of the tile reads. It
+// reads u one cell further out, so the ghost ring must be >= 2.
+template <int T, int G>
+__device__ void residual_window(const float* U, float* B, const Stencil& st,
+                                int M, int J0, int I0) {
+  constexpr int W = T + 2 * G;
+  constexpr int R = T + 1;
+  for (int L = threadIdx.x; L < 4 * R * R; L += blockDim.x) {
+    const int q = L / (R * R);
+    const int rem = L - q * R * R;
+    const int r = G + rem / R;
+    const int c = G + rem % R;
+    switch (q) {
+      case 0: residual_cell<W, 0, 0>(U, B, st, M, J0, I0, r, c); break;
+      case 1: residual_cell<W, 0, 1>(U, B, st, M, J0, I0, r, c); break;
+      case 2: residual_cell<W, 1, 0>(U, B, st, M, J0, I0, r, c); break;
+      default: residual_cell<W, 1, 1>(U, B, st, M, J0, I0, r, c); break;
+    }
+  }
+}
+
+// bc[Jt:Jt+T, It:It+T] of the (M, M) padded coarse rhs <- the full-
+// weighting restriction of the residual R (window offset G): coarse (J, I)
+// <- r11 + 0.5*(r01[J,I] + r01[J+1,I] + r10[J,I] + r10[J,I+1])
+// + 0.25*(r00 at J..J+1 x I..I+1), in the restrict_packed summation order;
+// 0 on the pad row and column (index m = M-1).
+template <int T, int G>
+__device__ void restrict_store(const float* R, float* __restrict__ bc, int M,
+                               int Jt, int It) {
+  constexpr int W = T + 2 * G;
+  const int m = M - 1;
+  for (int L = threadIdx.x; L < T * T; L += blockDim.x) {
+    const int jj = L / T;
+    const int ii = L - jj * T;
+    const int J = Jt + jj;
+    const int I = It + ii;
+    if (J >= M || I >= M) continue;
+    float v = 0.f;
+    if (J < m && I < m) {
+      const int r = G + jj;
+      const int c = G + ii;
+      auto R_ = [&](int q, int rr, int cc) { return R[(q * W + rr) * W + cc]; };
+      v = R_(3, r, c);
+      v = v + 0.5f * (((R_(1, r, c) + R_(1, r + 1, c)) + R_(2, r, c))
+                      + R_(2, r, c + 1));
+      v = v + 0.25f * (((R_(0, r, c) + R_(0, r, c + 1)) + R_(0, r + 1, c))
+                       + R_(0, r + 1, c + 1));
+    }
+    bc[(size_t)J * M + I] = v;
   }
 }
 

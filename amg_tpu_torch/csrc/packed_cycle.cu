@@ -1,4 +1,5 @@
-// K2 and K3: the two fused V-cycle legs on the packed (4, M, M) f32 layout.
+// K2 and K3: the two fused V-cycle legs on the packed (4, M, M) f32 layout;
+// K8: the residual + restriction without the sweep.
 //
 // K2 replaces the TPU kernel amg_tpu/ops/pallas/packed_cycle.py
 // fused_down_leg_packed (bodies _down_kernel, _residual_quarters): the
@@ -20,10 +21,18 @@
 // reads u and b with G = 8 plus the coarse field (about 1 byte per packed
 // cell, from L2) and writes u: about 23 bytes per packed cell.
 //
-// Design: K2 computes the residual in place of b in shared memory (a cell's
-// residual reads b only at that cell), on the (T+1)^2 window the
-// restriction reads; K3 applies the correction while loading u, since it is
-// a local function of the coarse field at (J-1..J, I-1..I).
+// K8 replaces packed_cycle.py fused_residual_restrict_packed (body
+// _rr_kernel): the residual and restriction of K2 on an already smoothed u,
+// the down half of the TPU's split V-cycle level (side >= 8191, where its
+// full down leg does not fit VMEM). It reads u and b with a ghost ring of
+// G = 2 and writes bc: (4 + 4) * (36/32)^2 + 1 = 11.1 bytes per packed cell,
+// against a floor of 9 (u and b once, bc once).
+//
+// Design: K2 and K8 compute the residual in place of b in shared memory (a
+// cell's residual reads b only at that cell), on the (T+1)^2 window the
+// restriction reads (packed_common.cuh residual_window, restrict_store);
+// K3 applies the correction while loading u, since it is a local function
+// of the coarse field at (J-1..J, I-1..I).
 
 #include "packed_common.cuh"
 
@@ -35,21 +44,10 @@ constexpr int WD = T + 2 * GD;
 constexpr int GU = 8;                  // up-leg ghost ring
 constexpr int WU = T + 2 * GU;
 constexpr size_t kSmemDown = 2 * 4 * WD * WD * sizeof(float);
+constexpr int GR = 2;                  // residual+restrict ghost ring
+constexpr int WR = T + 2 * GR;
 constexpr size_t kSmemUp = 2 * 4 * WU * WU * sizeof(float);
-
-// Residual of color (PJ, PI) at window cell (r, c), overwriting b there:
-// sparse/packed.py residual_packed, acc = _acc + w_c * u_a, r = b - acc on
-// real cells, 0 elsewhere.
-template <int PJ, int PI>
-__device__ __forceinline__ void residual_cell(const float* U, float* B,
-                                              const amg::Stencil& st, int M,
-                                              int J0, int I0, int r, int c) {
-  constexpr int a = 2 * PJ + PI;
-  const int L = (a * WD + r) * WD + c;
-  const float acc =
-      amg::neighbour_acc<WD, PJ, PI>(U, st, r, c) + st.w[4] * U[L];
-  B[L] = amg::real_cell(a, J0 + r, I0 + c, M) ? B[L] - acc : 0.f;
-}
+constexpr size_t kSmemRR = 2 * 4 * WR * WR * sizeof(float);
 
 __global__ void __launch_bounds__(amg::kThreads)
 down_leg_kernel(const float* __restrict__ u, const float* __restrict__ b,
@@ -67,46 +65,32 @@ down_leg_kernel(const float* __restrict__ u, const float* __restrict__ b,
   __syncthreads();
   amg::color_steps<WD>(U, B, st, M, J0, I0, symmetric);
 
-  // residual on window rows/cols [GD, GD + T], all four quarters
-  constexpr int R = T + 1;
-  for (int L = threadIdx.x; L < 4 * R * R; L += blockDim.x) {
-    const int q = L / (R * R);
-    const int rem = L - q * R * R;
-    const int r = GD + rem / R;
-    const int c = GD + rem % R;
-    switch (q) {
-      case 0: residual_cell<0, 0>(U, B, st, M, J0, I0, r, c); break;
-      case 1: residual_cell<0, 1>(U, B, st, M, J0, I0, r, c); break;
-      case 2: residual_cell<1, 0>(U, B, st, M, J0, I0, r, c); break;
-      default: residual_cell<1, 1>(U, B, st, M, J0, I0, r, c); break;
-    }
-  }
+  amg::residual_window<T, GD>(U, B, st, M, J0, I0);
   __syncthreads();
   amg::store_interior<T, GD>(U, u_out, M, Jt, It);
+  amg::restrict_store<T, GD>(B, bc, M, Jt, It);
+}
 
-  // restriction: coarse (J, I) <- r11 + 0.5*(r01[J,I] + r01[J+1,I] +
-  // r10[J,I] + r10[J,I+1]) + 0.25*(r00 at J..J+1 x I..I+1), in the
-  // restrict_packed summation order; 0 on the pad row and column
-  const int m = M - 1;
-  for (int L = threadIdx.x; L < T * T; L += blockDim.x) {
-    const int jj = L / T;
-    const int ii = L - jj * T;
-    const int J = Jt + jj;
-    const int I = It + ii;
-    if (J >= M || I >= M) continue;
-    float v = 0.f;
-    if (J < m && I < m) {
-      const int r = GD + jj;
-      const int c = GD + ii;
-      auto R_ = [&](int q, int rr, int cc) { return B[(q * WD + rr) * WD + cc]; };
-      v = R_(3, r, c);
-      v = v + 0.5f * (((R_(1, r, c) + R_(1, r + 1, c)) + R_(2, r, c))
-                      + R_(2, r, c + 1));
-      v = v + 0.25f * (((R_(0, r, c) + R_(0, r, c + 1)) + R_(0, r + 1, c))
-                       + R_(0, r + 1, c + 1));
-    }
-    bc[(size_t)J * M + I] = v;
-  }
+// K8: the residual in place of b on the (T+1)^2 cells the tile's
+// restriction reads, then the restriction; no color steps, so a ring of
+// GR = 2 covers the residual's and the restriction's one-cell reach.
+__global__ void __launch_bounds__(amg::kThreads)
+residual_restrict_kernel(const float* __restrict__ u,
+                         const float* __restrict__ b, float* __restrict__ bc,
+                         int M, amg::Stencil st) {
+  extern __shared__ float smem[];
+  float* U = smem;
+  float* B = smem + 4 * WR * WR;
+  const int Jt = blockIdx.y * T;
+  const int It = blockIdx.x * T;
+  const int J0 = Jt - GR;
+  const int I0 = It - GR;
+  amg::load_tile<WR>(U, u, M, J0, I0);
+  amg::load_tile<WR>(B, b, M, J0, I0);
+  __syncthreads();
+  amg::residual_window<T, GR>(U, B, st, M, J0, I0);
+  __syncthreads();
+  amg::restrict_store<T, GR>(B, bc, M, Jt, It);
 }
 
 // Bilinear correction of quarter a at (J, I) from the padded coarse field
@@ -186,5 +170,18 @@ extern "C" int amg_up_leg(const float* u, const float* b, const float* uc,
   const int nt = (M + T - 1) / T;
   up_leg_kernel<<<dim3(nt, nt), amg::kThreads, kSmemUp, stream>>>(
       u, b, uc, u_out, M, amg::make_stencil(w9, inv_diag, omega), symmetric);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int amg_residual_restrict(const float* u, const float* b,
+                                     float* bc, int M, const float* w9,
+                                     cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      residual_restrict_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemRR);
+  if (err != cudaSuccess) return (int)err;
+  const int nt = (M + T - 1) / T;
+  residual_restrict_kernel<<<dim3(nt, nt), amg::kThreads, kSmemRR, stream>>>(
+      u, b, bc, M, amg::make_stencil(w9, 0.f, 0.f));
   return (int)cudaGetLastError();
 }

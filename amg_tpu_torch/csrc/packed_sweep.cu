@@ -29,16 +29,7 @@ __global__ void __launch_bounds__(amg::kThreads)
 packed_sweep_kernel(const float* __restrict__ u, const float* __restrict__ b,
                     float* __restrict__ out, int M, amg::Stencil st,
                     int symmetric) {
-  extern __shared__ float smem[];
-  float* U = smem;
-  float* B = smem + 4 * W * W;
-  const int Jt = blockIdx.y * T;
-  const int It = blockIdx.x * T;
-  amg::load_tile<W>(U, u, M, Jt - G, It - G);
-  amg::load_tile<W>(B, b, M, Jt - G, It - G);
-  __syncthreads();
-  amg::color_steps<W>(U, B, st, M, Jt - G, It - G, symmetric);
-  amg::store_interior<T, G>(U, out, M, Jt, It);
+  amg::sweep_block<T, G, amg::kQuarterMajor>(u, b, out, M, st, symmetric);
 }
 
 }  // namespace

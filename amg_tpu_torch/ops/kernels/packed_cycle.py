@@ -1,12 +1,14 @@
-"""K2 and K3: the fused V-cycle legs on packed fields
-(``csrc/packed_cycle.cu``).
+"""K2, K3 and K8: the fused V-cycle legs and the fused residual +
+restriction on packed fields (``csrc/packed_cycle.cu``).
 
 Port of the TPU kernels ``amg_tpu/ops/pallas/packed_cycle.py``
 ``fused_down_leg_packed`` (pre-sweep + residual + full-weighting
-restriction) and ``fused_up_leg_packed`` (bilinear prolongation correction
-+ post-sweep), each one pass over the fields. The plain versions are built
-from ``sparse.packed``: sweep -> residual_packed -> restrict_packed for the
-down leg, prolong_add_packed -> sweep for the up leg.
+restriction), ``fused_up_leg_packed`` (bilinear prolongation correction
++ post-sweep) and ``fused_residual_restrict_packed`` (residual +
+restriction, the down half of a split level), each one pass over the
+fields. The plain versions are built from ``sparse.packed``: sweep ->
+residual_packed -> restrict_packed for the down leg, prolong_add_packed ->
+sweep for the up leg, residual_packed -> restrict_packed for K8.
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ def up_leg_plain(u4, b4, uc_pad, w33, m: int, omega: float = 1.0,
                  symmetric: bool = True):
     u4 = prolong_add_packed(u4, uc_pad[:m, :m], m)
     return gs4_sweep_packed(u4, b4, w33, m, omega, symmetric)
+
+
+def residual_restrict_plain(u4, b4, w33, m: int):
+    return F.pad(restrict_packed(residual_packed(u4, b4, w33, m), m),
+                 (0, 1, 0, 1))
 
 
 def fused_down_leg_packed(u4: torch.Tensor, b4: torch.Tensor, w33, m: int,
@@ -75,5 +82,24 @@ def fused_up_leg_packed(u4: torch.Tensor, b4: torch.Tensor,
     return u_out
 
 
+def fused_residual_restrict_packed(u4: torch.Tensor, b4: torch.Tensor, w33,
+                                   m: int) -> torch.Tensor:
+    """Residual + restriction in one pass over u and b. Returns the (M, M)
+    coarse rhs ``bc_pad`` with a zero pad row and column (slice
+    ``[:m, :m]``)."""
+    M = m + 1
+    require_f32("u4", u4, (4, M, M), u4.device)
+    require_f32("b4", b4, (4, M, M), u4.device)
+    if u4.device.type == "cpu":
+        return residual_restrict_plain(u4, b4, w33, m)
+    bc_pad = torch.empty((M, M), dtype=u4.dtype, device=u4.device)
+    check(library().amg_residual_restrict(
+        u4.data_ptr(), b4.data_ptr(), bc_pad.data_ptr(), M, weights(w33),
+        stream_of(u4)), "amg_residual_restrict")
+    fused_residual_restrict_packed.launches += 1
+    return bc_pad
+
+
 fused_down_leg_packed.launches = 0
 fused_up_leg_packed.launches = 0
+fused_residual_restrict_packed.launches = 0

@@ -19,8 +19,9 @@ Smoothers (``smoother=``):
 
 * ``"auto"``: color-packed levels (sparse/packed.py) from side 200 up. On
   constant levels of side >= 1023 the V-cycle legs are the fused CUDA
-  kernels K2/K3 (K1 the standalone sweep when the sweep counts are not 1)
-  and the fine-level df32 residual + rss is K4. Variable-coefficient
+  kernels K2/K3 (K1 the standalone sweep when the sweep counts are not 1),
+  from side 8191 the split level (K1, the fused residual + restriction K8,
+  K3), and the fine-level df32 residual + rss is K4. Variable-coefficient
   levels run the plain packed-var ops, with no kernel, as in JAX.
 * ``"packed"``: the same levels with the plain packed ops only.
 * ``"fused"``: the unpacked V-cycle with masked four-color sweeps, and on
@@ -47,6 +48,7 @@ from amg_tpu_torch.ops.doublefloat import (DF32, df_add_f32, df_residual,
 from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
                                        fused_down_leg_packed, fused_gs4_sweep,
                                        fused_gs4_sweep_packed,
+                                       fused_residual_restrict_packed,
                                        fused_up_leg_packed)
 from amg_tpu_torch.ops.rap import (interp1d_dense, planes_to_dense,
                                    poisson_const_w33, rap_stencil_planes)
@@ -61,14 +63,19 @@ from amg_tpu_torch.sparse.stencil import (Stencil2D, color_masks_iota,
 from amg_tpu_torch.utils.device import resolve_device
 from amg_tpu_torch.utils.metrics import rss_from_residual
 
-# Level thresholds, all three measured on a TPU v5e for the JAX package
+# Level thresholds, all measured on a TPU v5e for the JAX package
 # (amg_tpu/structured.py) and kept as they are; re-deriving them on the GPU
 # is later work. Packed levels from PACKED_MIN_SIDE up, the fused packed
 # kernels from FUSED_PACKED_MIN_SIDE up, and with smoother="fused" the
-# fused masked sweep (K5/K6) from FUSED_MIN_SIDE up.
+# fused masked sweep (K5/K6) from FUSED_MIN_SIDE up. From SPLIT_MIN_SIDE
+# up a fused level is split (sweep K1, residual + restriction K8, up leg
+# K3): the side from which the JAX package's full down leg does not fit the
+# TPU's VMEM (ops/pallas/packed_cycle.py eligible / eligible_split); K2
+# itself takes every size on the GPU.
 PACKED_MIN_SIDE = 200
 FUSED_PACKED_MIN_SIDE = 1023
 FUSED_MIN_SIDE = 3000
+SPLIT_MIN_SIDE = 8191
 
 
 @dataclasses.dataclass
@@ -285,14 +292,17 @@ def level_plan(sides, pre_sweeps: int, post_sweeps: int, min_side: int,
     * ``packed_var``: plain PyTorch packed ops on packed planes;
     * ``legs``: the fused down/up legs (K2/K3), constant levels of side
       >= FUSED_PACKED_MIN_SIDE with one pre- and one post-sweep;
+    * ``split``: the same levels of side >= SPLIT_MIN_SIDE: the fused
+      sweep (K1), the fused residual + restriction (K8), then the up leg
+      (K3), as the JAX package runs its levels of M >= 4096;
     * ``sweep``: the fused packed sweep (K1) with plain residual and
       transfers, the same levels with other sweep counts;
     * ``fused_const`` / ``fused_var``: smoother="fused" levels of side >=
       FUSED_MIN_SIDE, swept by K5 / K6.
 
-    The GPU kernels take every size, so the TPU's VMEM eligibility gates
-    and its split path (sweep + fused residual/restrict) have no
-    counterpart.
+    The GPU kernels take every size; the TPU's VMEM eligibility gates
+    survive only as the thresholds, so the plan picks on each level what
+    the JAX package picks on a 2^k - 1 hierarchy.
     """
     kinds = []
     for l, s in enumerate(sides):
@@ -306,8 +316,10 @@ def level_plan(sides, pre_sweeps: int, post_sweeps: int, min_side: int,
         elif var:
             kinds.append("packed_var")
         elif fused and s >= FUSED_PACKED_MIN_SIDE:
-            kinds.append("legs" if pre_sweeps == post_sweeps == 1
-                         else "sweep")
+            if pre_sweeps == post_sweeps == 1:
+                kinds.append("split" if s >= SPLIT_MIN_SIDE else "legs")
+            else:
+                kinds.append("sweep")
         else:
             kinds.append("packed")
     return tuple(kinds)
@@ -370,6 +382,9 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
         u4, bc_pad = fused_down_leg_packed(u4, b4, S.w33, m, omega,
                                            symmetric)
         bc = bc_pad[:m, :m]
+    elif kind == "split":
+        u4 = fused_gs4_sweep_packed(u4, b4, S.w33, m, omega, symmetric)
+        bc = fused_residual_restrict_packed(u4, b4, S.w33, m)[:m, :m]
     else:
         for _ in range(pre_sweeps):
             u4 = sweep(u4, b4)
@@ -377,7 +392,7 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
     uc = vcycle_packed(hier, torch.zeros_like(bc), bc, pre_sweeps,
                        post_sweeps, omega, symmetric, _level=l + 1,
                        min_side=min_side, fused=fused, plan=plan)
-    if kind == "legs":
+    if kind in ("legs", "split"):
         u4 = fused_up_leg_packed(u4, b4, F.pad(uc, (0, 1, 0, 1)), S.w33, m,
                                  omega, symmetric)
     else:

@@ -6,16 +6,19 @@ kernel, launch count and idle share, from ``torch.profiler``.
         [--smoother fused] [--precision f64]
     python -m amg_tpu_torch.utils.profiling --sides 4095 --dist 4 \
         [--halo rdma|sweep|overlap|step]
+    python -m amg_tpu_torch.utils.profiling --sides 2047 4095 --pcg \
+        --tol 1e-5
 
 For each side: one warm solve is timed, then a second one is traced. The
 constant problem's packed loop runs prepare_b -> solve_ir_device_prepared
 -> finalize_u; ``--var`` (the jump-coefficient problem, a = 100) and the
 other loops run solve_ir_device; ``--dist D`` the distributed solve on D
-row slabs of the card (DistStructuredSolver.solve_ir_fused). Device busy
-time is the
-sum of the GPU kernels' and copies' own times in the trace (one stream, so
-they do not overlap); the idle share is 1 - busy / (untraced wall). Needs
-a CUDA device.
+row slabs of the card (DistStructuredSolver.solve_ir_fused); ``--pcg``
+the f32 PCG (solve_pcg_device, fused=True, on the packed hierarchy),
+whose "refines" are its iterations. Device busy time is the sum of the GPU
+kernels' and copies' own times in the trace (one stream, so they do not
+overlap); the idle share is 1 - busy / (untraced wall). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -38,14 +41,24 @@ def _device_us(evt) -> float:
 def profile_solve(side: int, device="cuda", top: int = 12,
                   var: bool = False, smoother: str = "auto",
                   precision: str = "df32", tol: float = 1e-7,
-                  dist: int = 0, halo: str = "rdma") -> dict:
+                  dist: int = 0, halo: str = "rdma",
+                  pcg: bool = False) -> dict:
     """Trace one warm solve at ``side``; returns the summary it prints."""
     from amg_tpu_torch import (DistStructuredSolver, StructuredSolver,
-                               poisson, varcoef)
+                               build_stencil_hierarchy_device, poisson,
+                               solve_pcg_device, varcoef)
     from amg_tpu_torch.ops import kernels as K
 
     b2 = poisson.rhs(side, device=device).reshape(side, side)
-    if dist:
+    if pcg:
+        hier = build_stencil_hierarchy_device(side, device=device,
+                                              smoother="packed")
+        b32 = b2.to(torch.float32)
+
+        def solve():
+            return solve_pcg_device(hier, b32, tolerance=tol, n_iters=50,
+                                    fused=True)[1].tolist()
+    elif dist:
         d = DistStructuredSolver(side, n_devices=dist, halo=halo,
                                  device=device)
 
@@ -89,6 +102,7 @@ def profile_solve(side: int, device="cuda", top: int = 12,
     summary = {
         "side": side, "var": var, "smoother": smoother,
         "precision": precision, "tol": tol, "dist": dist, "halo": halo,
+        "pcg": pcg,
         "wall_s": wall_plain, "wall_traced_s": wall,
         "refines": int(it), "rss": err, "device_busy_s": busy_us * 1e-6,
         "idle_share": 1.0 - busy_us * 1e-6 / wall_plain,
@@ -99,7 +113,8 @@ def profile_solve(side: int, device="cuda", top: int = 12,
         "top_host_ops": [(e.key, e.count, e.self_cpu_time_total * 1e-3)
                          for e in host[:top]],
     }
-    what = (f"dist D={dist} halo={halo}" if dist else
+    what = ("pcg f32 fused" if pcg else
+            f"dist D={dist} halo={halo}" if dist else
             f"var={var} smoother={smoother} precision={precision}")
     print(f"side {side} {what} tol={tol:g}: wall {wall_plain:.6f} s (traced {wall:.6f} s), "
           f"refines {int(it)}, rss "
@@ -127,13 +142,15 @@ def main() -> None:
                     help="the distributed solve on D row slabs")
     ap.add_argument("--halo", default="rdma",
                     choices=["rdma", "sweep", "overlap", "step"])
+    ap.add_argument("--pcg", action="store_true",
+                    help="the f32 AMG-preconditioned CG (fused=True)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     for side in args.sides:
         profile_solve(side, var=args.var, smoother=args.smoother,
                       precision=args.precision, tol=args.tol,
-                      dist=args.dist, halo=args.halo)
+                      dist=args.dist, halo=args.halo, pcg=args.pcg)
 
 
 if __name__ == "__main__":

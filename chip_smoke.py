@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1-K7) from amg_tpu_torch/csrc, checks
+Builds the port's CUDA kernels (K1-K9) from amg_tpu_torch/csrc, checks
 each against its plain PyTorch version on the card and times both, then
 drives the solves through the user entry points with an independent f64
 residual check and the kernels' launch counts:
@@ -10,6 +10,10 @@ residual check and the kernels' launch counts:
 * the constant-coefficient Poisson df32 solve (StructuredSolver ->
   prepare_b -> solve_ir_device_prepared -> finalize_u) at 1023^2 and
   4095^2 (K2-K4), and at 1023^2 with two sweeps (K1);
+* the same solve at 8191^2, whose fine level is split (K1, K8, K3), and
+  one V-cycle there with the split level against one with legs (K2/K3);
+* the AMG-preconditioned CG (solve_pcg_device, f32, 1e-5, fused) at
+  2047^2 and 4095^2 (K2/K3), and the card against the CPU at 1023^2;
 * the variable-coefficient jump problem (a = 100, models/varcoef.py)
   through solve_ir_device: smoother="auto" at 2047^2 and 4095^2 (no
   kernel), smoother="fused" at 4095^2 (K6), precision="f64" at 4095^2;
@@ -20,10 +24,12 @@ residual check and the kernels' launch counts:
   at 4095^2 with halo="rdma" (K7) and "sweep", one V-cycle per halo mode
   at 1023^2 on 8 slabs, and the card against the CPU at 255^2.
 
-Any failed check raises, so the exit code is non-zero. The line before
-the last of stdout is the card's name and power limit, the one before it
-the kernels' JSON; the last line is one JSON object with "ok" and the
-device. Needs a CUDA device and nvcc; imports neither JAX nor the JAX
+K9, the sweep on the row-grouped layout, is on no path (no JAX solver
+calls it): it is checked against its plain version and against K1, and
+timed with the layout conversions. Any failed check raises, so the exit
+code is non-zero. The line before the last of stdout is the card's name
+and power limit, the one before it the kernels' JSON; the last line is
+one JSON object with "ok" and the device. Needs a CUDA device and nvcc; imports neither JAX nor the JAX
 package.
 """
 
@@ -34,25 +40,32 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from amg_tpu_torch import (DistStructuredSolver, StructuredSolver, poisson,
-                           varcoef)
+from amg_tpu_torch import (DistStructuredSolver, StructuredSolver,
+                           build_stencil_hierarchy_device, poisson,
+                           solve_pcg_device, varcoef, vcycle_packed)
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32
 from amg_tpu_torch.ops.kernels import _build
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
+                                                    residual_restrict_plain,
                                                     up_leg_plain)
 from amg_tpu_torch.ops.kernels.halo import rdma_halo_exchange_plain
 from amg_tpu_torch.ops.kernels.packed_df import df_residual_rss_plain
+from amg_tpu_torch.ops.kernels.packed_rm import (from_rm,
+                                                 fused_gs4_sweep_rm_plain,
+                                                 to_rm)
 from amg_tpu_torch.ops.kernels.rbgs import fused_gs4_sweep_plain
 from amg_tpu_torch.ops.rap import poisson_const_w33
 from amg_tpu_torch.parallel.structured_dist import ghost_rows
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
 from amg_tpu_torch.sparse.stencil import Stencil2D
+from amg_tpu_torch.structured import PACKED_MIN_SIDE, level_plan
 
 TOL = 1e-7
 PARITY_SIDES = (1023, 4095)            # M = 512 and 2048
@@ -62,6 +75,16 @@ RBGS_SIDES = (1023, 4095)              # K5/K6 run at 4095 on the path
 # solve's fine level first, then small meshes
 HALO_SHAPES = ((4, 1024, 4095, 10), (2, 10, 31, 10), (8, 10, 31, 10))
 DIST_SIDE, DIST_SLABS = 4095, 4
+SPLIT_SIDE = 8191                      # the split fine level, M = 4096
+K89_SIDES = (201, 8191)                # M = 101 (ragged) and 4096
+PCG_SIDES = (2047, 4095)               # bench.py pcg_stats
+PCG_TOL = 1e-5
+PCG_TPU_ITERS = 5                      # BENCH_r05.json, TPU v5e, both sides
+# max|u - u_df32| / max|u_df32| of the f32 PCG at tol 1e-5 (H100 readings
+# 3.0e-5 at 2047^2, 1.4e-4 at 4095^2), and the card's 1023^2 PCG against
+# the CPU's relative to max|u| (reading 8.9e-8 absolute)
+PCG_REL_U = 1e-3
+PCG_CARD_CPU_REL = 1e-5
 
 # H100 SXM data-sheet peaks (700 W): device memory rate and f32 outside
 # the tensor cores; the least time of a kernel is the larger of its
@@ -92,7 +115,15 @@ KERNEL_INFO = {
                             "amg_tpu/ops/pallas/rbgs.py:584"),
     "rdma_halo_exchange": ("amg_tpu_torch/csrc/halo.cu",
                            "amg_tpu/ops/pallas/halo.py:103"),
+    "fused_residual_restrict_packed": (
+        "amg_tpu_torch/csrc/packed_cycle.cu",
+        "amg_tpu/ops/pallas/packed_cycle.py:300"),
+    "fused_gs4_sweep_rm": ("amg_tpu_torch/csrc/packed_rm.cu",
+                           "amg_tpu/ops/pallas/packed_rm.py:224"),
 }
+# no JAX solver calls the row-grouped sweep, so no path of the port does:
+# its launches are those of its parity phase
+OFF_PATH = {"fused_gs4_sweep_rm": "no JAX solver calls it"}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -129,6 +160,14 @@ def sweep_ops(w33, cells: int, symmetric: bool = True) -> int:
     return cells * (2 if symmetric else 1) * (2 * k + 5)
 
 
+def residual_ops(w33, cells: int) -> int:
+    """f32 operations of a residual b - A u: a multiply and an add per
+    nonzero off-diagonal weight, the centre product, its add and b - acc."""
+    k = sum(1 for dj in range(3) for di in range(3)
+            if (dj, di) != (1, 1) and w33[dj][di] != 0.0)
+    return cells * (2 * k + 3)
+
+
 def packed_fields(side: int, seed: int, dev):
     m = (side - 1) // 2
     rng = np.random.default_rng(seed)
@@ -153,14 +192,21 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def alternating(fa, fb, reps_a: int, reps_b: int | None = None
+                ) -> tuple[float, float]:
+    """a, b, b, a: the better of two runs of each, in ms."""
+    reps_b = reps_a if reps_b is None else reps_b
+    a1 = time_ms(fa, reps_a)
+    b1 = time_ms(fb, reps_b)
+    b2 = time_ms(fb, reps_b)
+    a2 = time_ms(fa, reps_a)
+    return min(a1, a2), min(b1, b2)
+
+
 def interleaved(name: str, size: str, kern, plain, reps: int, times: dict):
     """plain, kernel, kernel, plain: the better of two runs of each,
     compared within one call."""
-    p1 = time_ms(plain, max(reps // 5, 2))
-    k1 = time_ms(kern, reps)
-    k2 = time_ms(kern, reps)
-    p2 = time_ms(plain, max(reps // 5, 2))
-    kms, pms = min(k1, k2), min(p1, p2)
+    pms, kms = alternating(plain, kern, max(reps // 5, 2), reps)
     print(f"time {name} {size}: kernel {kms:.4f} ms, plain {pms:.4f} ms "
           f"(x{pms / kms:.1f})")
     times[name] = (kms, pms)
@@ -325,6 +371,92 @@ def rbgs_parity_and_timing(dev):
     return errs, times, bounds
 
 
+def split_rm_parity_and_timing(dev):
+    """K8 and K9 against their plain versions at K89_SIDES (M = 101 and
+    4096), K9 through to_rm / from_rm against K1 on the same fields, pad
+    cells exactly 0. At M = 4096 both are timed against their plain
+    versions, K9 against K1, and to_rm + from_rm alone: does the
+    row-grouped layout pay for its conversions on the card? Returns
+    max_abs_err, the times, the bounds and K9's parity launches."""
+    errs = {"fused_residual_restrict_packed": 0.0, "fused_gs4_sweep_rm": 0.0}
+    times, bounds = {}, {}
+    k9_launches = 0
+    for side in K89_SIDES:
+        M = (side + 1) // 2
+        w33 = poisson_const_w33(side, 1)[0]
+        m, f = packed_fields(side, seed=side + 2, dev=dev)
+        u4, b4 = f(), f()
+        got = K.fused_residual_restrict_packed(u4, b4, w33, m)
+        ref = residual_restrict_plain(u4, b4, w33, m)
+        d, r = rel_err(got, ref)
+        errs["fused_residual_restrict_packed"] = max(
+            errs["fused_residual_restrict_packed"], d)
+        print(f"parity K8 residual+restrict M={M}: max_abs {d:.3e} rel "
+              f"{r:.3e} (bound {BOUND['down_bc']}), bitwise equal "
+              f"{torch.equal(got, ref)}")
+        require(r <= BOUND["down_bc"], "K8 residual+restrict parity")
+        require(float(got[m, :].abs().max()) == 0.0
+                and float(got[:, m].abs().max()) == 0.0,
+                "K8 bc_pad pad row and column exactly 0")
+
+        u_rm, b_rm = to_rm(u4), to_rm(b4)
+        for symmetric in (True, False):
+            n0 = K.fused_gs4_sweep_rm.launches
+            got = K.fused_gs4_sweep_rm(u_rm, b_rm, w33, m, 0.9, symmetric)
+            k9_launches += K.fused_gs4_sweep_rm.launches - n0
+            ref = fused_gs4_sweep_rm_plain(u_rm, b_rm, w33, m, 0.9,
+                                           symmetric)
+            k1 = K.fused_gs4_sweep_packed(u4, b4, w33, m, 0.9, symmetric)
+            d, r = rel_err(got, ref)
+            d1, r1 = rel_err(from_rm(got), k1)
+            errs["fused_gs4_sweep_rm"] = max(errs["fused_gs4_sweep_rm"], d)
+            print(f"parity K9 rm sweep M={M} symmetric={symmetric} "
+                  f"omega=0.9: max_abs {d:.3e} rel {r:.3e}; against K1 via "
+                  f"from_rm max_abs {d1:.3e} rel {r1:.3e} (bound "
+                  f"{BOUND['sweep_u']}); bitwise equal "
+                  f"{torch.equal(got, ref) and torch.equal(from_rm(got), k1)}")
+            require(r <= BOUND["sweep_u"] and r1 <= BOUND["sweep_u"],
+                    "K9 parity against its plain version and K1")
+            g4 = from_rm(got)
+            require(float(g4[1][:, m].abs().max()) == 0.0
+                    and float(g4[2][m, :].abs().max()) == 0.0
+                    and float(g4[3][m, :].abs().max()) == 0.0
+                    and float(g4[3][:, m].abs().max()) == 0.0,
+                    "K9 pad cells exactly 0")
+
+        if M == 4096:
+            interleaved("fused_residual_restrict_packed", f"M={M}",
+                        lambda: K.fused_residual_restrict_packed(
+                            u4, b4, w33, m),
+                        lambda: residual_restrict_plain(u4, b4, w33, m), 20,
+                        times)
+            interleaved("fused_gs4_sweep_rm", f"M={M}",
+                        lambda: K.fused_gs4_sweep_rm(u_rm, b_rm, w33, m),
+                        lambda: fused_gs4_sweep_rm_plain(u_rm, b_rm, w33, m),
+                        20, times)
+            k1_ms, k9_ms = alternating(
+                lambda: K.fused_gs4_sweep_packed(u4, b4, w33, m),
+                lambda: K.fused_gs4_sweep_rm(u_rm, b_rm, w33, m), 20)
+            conv_ms = min(time_ms(lambda: from_rm(to_rm(u4)), 10),
+                          time_ms(lambda: from_rm(to_rm(u4)), 10))
+            print(f"time K9 against K1 M={M}: K9 {k9_ms:.4f} ms, K1 "
+                  f"{k1_ms:.4f} ms (K9/K1 {k9_ms / k1_ms:.3f}); to_rm + "
+                  f"from_rm of one field {conv_ms:.4f} ms; a solve that "
+                  f"kept its state row-grouped would convert u and b once "
+                  f"each way ({2 * conv_ms:.4f} ms) and gain "
+                  f"{k1_ms - k9_ms:.4f} ms per sweep")
+            f4 = u4.nbytes          # one packed (4, M, M) f32 field
+            cells = side * side
+            # u and b read, the (M, M) bc_pad written; the restriction's
+            # 4 ops a cell as in the down leg's bound
+            bounds["fused_residual_restrict_packed"] = bound(
+                2 * f4 + f4 // 4, residual_ops(w33, cells) + 4 * cells)
+            bounds["fused_gs4_sweep_rm"] = bound(3 * f4, sweep_ops(w33,
+                                                                   cells))
+        del u4, b4, u_rm, b_rm, got, ref, k1
+    return errs, times, bounds, k9_launches
+
+
 def f64_rss(u: torch.Tensor, b: torch.Tensor, side: int) -> float:
     """Independent rss of b - A u: plain f64 5-point Laplacian (-4/h^2
     diagonal, +1/h^2 neighbours, zero Dirichlet boundary)."""
@@ -455,6 +587,162 @@ def const_solves(dev, launches: dict):
           f"{du:.3e} (bound {bnd:.3e})")
     require(it_gpu == it_cpu, "same refine count on GPU and CPU")
     require(du <= bnd, "GPU and CPU solutions within the residual bound")
+
+
+def vcycle_launches(plan: tuple, start: int) -> Counter:
+    """Kernel launches of one packed V-cycle from level ``start``, read off
+    the plan: a legs level runs K2 and K3, a split level K1, K8 and K3;
+    packed, masked and direct levels no kernel."""
+    per_kind = {"legs": ("fused_down_leg_packed", "fused_up_leg_packed"),
+                "split": ("fused_gs4_sweep_packed",
+                          "fused_residual_restrict_packed",
+                          "fused_up_leg_packed")}
+    return Counter(k for kind in plan[start:] for k in per_kind.get(kind, ()))
+
+
+def solve_launches(plan: tuple, sides: tuple, it: int) -> Counter:
+    """Launches of one packed df32 solve of ``it`` refines: the FMG start
+    runs one V-cycle from each packed level below the fine one, then the
+    fine V-cycle, then 3 per refine; K4 once per refine and once more."""
+    c = Counter()
+    for l in range(1, len(sides) - 1):
+        if sides[l] >= PACKED_MIN_SIDE:
+            c.update(vcycle_launches(plan, l))
+    for k, n in vcycle_launches(plan, 0).items():
+        c[k] += n * (1 + 3 * it)
+    c["fused_df_residual_rss"] = it + 1
+    return c
+
+
+def split_solve(dev, launches: dict):
+    """The constant 8191^2 solve, fine level split: plan, launch counts
+    against the plan, independent f64 rss, wall; then one V-cycle with the
+    split fine level against one with legs (K2/K3) there."""
+    side = SPLIT_SIDE
+    t0 = time.perf_counter()
+    s = StructuredSolver(side, device=dev)
+    s.warmup()
+    torch.cuda.synchronize()
+    print(f"setup+warmup {side}^2: plan {s.plan}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    require(s.plan[:5] == ("split", "legs", "legs", "legs", "packed"),
+            f"{side}^2 plan: split, 3 legs, packed")
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    (u, err, it), c = drive(lambda: solve_once(s, b2), launches)
+    ind = f64_rss(u, b2, side)
+    print(f"solve {side}^2: refines {it}, rss {err:.6e}, independent f64 "
+          f"rss {ind:.6e}, launches {c}")
+    require(bool(torch.isfinite(u).all()) and u.shape == (side, side),
+            f"finite u of shape ({side}, {side})")
+    require(err <= TOL and ind <= TOL, f"{side}^2 converged to {TOL}")
+    # for this plan: K1 = K8 = 1 + 3 it, K2 = 9 + 9 it, K3 = 10 + 12 it,
+    # K4 = it + 1
+    want = solve_launches(s.plan, s.hier.sides, it)
+    require(all(c[k] == want[k] for k in c),
+            f"{side}^2 launches equal the plan's: {dict(want)}")
+    del u
+    med, walls = wall_median(lambda: solve_once(s, b2), 3)
+    print(f"solve wall {side}^2: median of 3 {med:.6f} s (all {walls})")
+
+    b32 = b2.to(torch.float32)
+    legs = ("legs",) + s.plan[1:]
+    cycles, us = {}, {}
+    for name, plan in (("split", s.plan), ("legs", legs)):
+        def cycle(plan=plan):
+            return vcycle_packed(s.hier, torch.zeros_like(b32), b32,
+                                 fused=True, plan=plan)
+        us[name], c = drive(cycle, launches)
+        want = vcycle_launches(plan, 0)
+        require(all(c[k] == want[k] for k in c),
+                f"{name} V-cycle launches {dict(want)}")
+        cycles[name] = cycle
+    d, r = rel_err(us["split"], us["legs"])
+    split_ms, legs_ms = alternating(cycles["split"], cycles["legs"], 5)
+    print(f"vcycle {side}^2 split vs legs: max_abs {d:.3e} rel {r:.3e} "
+          f"(bound 1e-5), bitwise equal "
+          f"{torch.equal(us['split'], us['legs'])}; event ms per V-cycle "
+          f"split {split_ms:.4f}, legs {legs_ms:.4f}")
+    require(r <= 1e-5, "split and legs V-cycles agree")
+    # the fine level's down half alone: K1 + K8 against K2, M = 4096
+    m = s.m
+    w33 = s.hier.w33s[0]
+    u4 = pack(us["split"], m)
+    b4 = pack(b32, m)
+
+    def split_down():
+        return K.fused_residual_restrict_packed(
+            K.fused_gs4_sweep_packed(u4, b4, w33, m), b4, w33, m)
+    sd_ms, k2_ms = alternating(
+        split_down, lambda: K.fused_down_leg_packed(u4, b4, w33, m), 10)
+    print(f"time down half M={m + 1}: K1 + K8 {sd_ms:.4f} ms, K2 "
+          f"{k2_ms:.4f} ms (K2 / (K1 + K8) {k2_ms / sd_ms:.3f})")
+    del s, b2, b32, us, u4, b4
+
+
+def pcg_solves(dev, launches: dict):
+    """bench.py's pcg_stats on the card: solve_pcg_device(fused=True) on
+    the packed hierarchy, f32, tol 1e-5, at 2047^2 and 4095^2: rss, the
+    iterations beside the TPU record's, an independent f64 rss, K2 = K3 =
+    legs levels x (it + 1) and no other kernel, the wall; then the card's
+    1023^2 PCG against the port's CPU PCG."""
+    def pcg(h, b):
+        u, stats = solve_pcg_device(h, b, tolerance=PCG_TOL, n_iters=50,
+                                    fused=True)
+        err, it = stats.tolist()
+        return u, err, int(it)
+
+    for side in PCG_SIDES:
+        hier = build_stencil_hierarchy_device(side, smoother="packed",
+                                              device=dev)
+        b2 = poisson.rhs(side, device=dev).reshape(side, side)
+        b32 = b2.to(torch.float32)
+        pcg(hier, b32)                          # warm the allocator
+        (u, err, it), c = drive(lambda: pcg(hier, b32), launches)
+        ind = f64_rss(u.double(), b32.double(), side)
+        # what f32 can hold: the df32 solve's u rounded to f32
+        u64 = solve_once(StructuredSolver(side, device=dev), b2)[0]
+        floor = f64_rss(u64.float().double(), b32.double(), side)
+        _, rel_u = rel_err(u, u64)
+        legs = level_plan(hier.sides, 1, 1, PACKED_MIN_SIDE, True).count(
+            "legs")
+        print(f"pcg {side}^2 f32 tol {PCG_TOL:g}: iterations {it} (TPU v5e "
+              f"record: {PCG_TPU_ITERS}), recurrence rss {err:.6e}, "
+              f"independent f64 rss {ind:.6e} (f32 floor: the df32 "
+              f"solution rounded to f32 has {floor:.6e}; max|u - u_df32| / "
+              f"max|u_df32| {rel_u:.3e}), launches {c}")
+        require(bool(torch.isfinite(u).all()), f"pcg {side}^2: finite u")
+        require(err <= PCG_TOL, f"pcg {side}^2 converged to {PCG_TOL:g}")
+        # the recurrence rss does not hold the f32 iterate; the df32
+        # solution does, well above f32 rounding
+        require(rel_u <= PCG_REL_U, f"pcg {side}^2 within {PCG_REL_U:g} "
+                "of the df32 solution")
+        require(legs == {2047: 2, 4095: 3}[side], "legs levels of the plan")
+        require(c["fused_down_leg_packed"] == c["fused_up_leg_packed"]
+                == legs * (it + 1),
+                f"pcg {side}^2: K2 = K3 = {legs} x (it + 1)")
+        require(sum(n for k, n in c.items() if k not in (
+            "fused_down_leg_packed", "fused_up_leg_packed")) == 0,
+            f"pcg {side}^2: no other kernel")
+        med, walls = wall_median(lambda: pcg(hier, b32), 3)
+        print(f"pcg wall {side}^2: median of 3 {med:.6f} s (all {walls})")
+        del hier, b2, b32, u, u64
+
+    side = 1023
+    b_cpu = poisson.rhs(side, dtype=torch.float32, device="cpu").reshape(
+        side, side)
+    u_gpu, _, it_gpu = pcg(build_stencil_hierarchy_device(
+        side, smoother="packed", device=dev), b_cpu.to(dev))
+    u_cpu, _, it_cpu = pcg(build_stencil_hierarchy_device(
+        side, smoother="packed", device="cpu"), b_cpu)
+    du = float((u_gpu.cpu() - u_cpu).abs().max())
+    # the f32 iterates' rss sits at the f32 floor, so a bound from it holds
+    # nothing here: hold the difference to f32 summation-order noise
+    bnd = PCG_CARD_CPU_REL * float(u_cpu.abs().max())
+    print(f"pcg gpu vs cpu {side}^2: iterations {it_gpu} / {it_cpu}, "
+          f"max|du| {du:.3e} (bound {PCG_CARD_CPU_REL:g} max|u_cpu| = "
+          f"{bnd:.3e})")
+    require(it_gpu == it_cpu, "pcg: same iterations on GPU and CPU")
+    require(du <= bnd, "pcg GPU and CPU solutions agree")
 
 
 # (label, side, StructuredSolver options, tolerance, n_refine, the TPU's
@@ -719,28 +1007,43 @@ def main() -> int:
         dev)
     times.update(t7)
     bounds.update(b7)
+    e89, t89, b89, k9_launches = split_rm_parity_and_timing(dev)
+    errs.update(e89)
+    times.update(t89)
+    bounds.update(b89)
 
     # phases 4-6: every path through the user entry points, each with the
     # launch counts set to 0 just before it and read just after
     launches = {k: 0 for k in KERNEL_INFO}
     const_solves(dev, launches)
+    split_solve(dev, launches)
+    pcg_solves(dev, launches)
     var_solves(dev, launches)
     dist_solves(dev, launches)
-    require(all(n > 0 for n in launches.values()),
+    require(all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
             f"every kernel launched on its path: {launches}")
+    for k, why in OFF_PATH.items():
+        require(launches[k] == 0, f"{k} on no path ({why})")
+    print(f"fused_gs4_sweep_rm launches: {k9_launches} in its parity phase, "
+          f"none on a path ({OFF_PATH['fused_gs4_sweep_rm']})")
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kms, pms = times[name]
         bms, by = bounds[name]
-        # no single PyTorch call computes a GS sweep, a V-cycle leg or a
-        # df32 residual (K1-K6); K7's strips are one index_select
+        # no single PyTorch call computes a GS sweep, a V-cycle leg, a df32
+        # residual or a residual + restriction (K1-K6, K8, K9); K7's
+        # strips are one index_select
         lib_ms = k7_lib_ms if name == "rdma_halo_exchange" else None
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": errs[name], "ms": kms,
-                        "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": lib_ms})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": errs[name], "ms": kms, "plain_ms": pms,
+                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+        if name == "fused_gs4_sweep_rm":
+            # launches stays the path count (0); the parity phase's own
+            # launches are reported apart
+            entry.update(path=None, parity_launches=k9_launches)
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -21,13 +21,18 @@ from amg_tpu_torch import (DistStructuredSolver, StructuredSolver, poisson,
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
+                                                    residual_restrict_plain,
                                                     up_leg_plain)
+from amg_tpu_torch.ops.kernels.packed_rm import (from_rm,
+                                                 fused_gs4_sweep_rm_plain,
+                                                 to_rm)
 from amg_tpu_torch.ops.kernels.halo import rdma_halo_exchange_plain
 from amg_tpu_torch.ops.kernels.packed_df import df_residual_rss_plain
 from amg_tpu_torch.ops.kernels.rbgs import fused_gs4_sweep_plain
 from amg_tpu_torch.ops.rap import poisson_const_w33
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
 from amg_tpu_torch.sparse.stencil import Stencil2D
+from amg_tpu_torch.structured import vcycle_packed
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +88,73 @@ def test_df_kernel(dev):
     rh_ref, rss_ref = df_residual_rss_plain(W33, b_df, u_df, M_)
     assert _rel(rh, rh_ref) <= 1e-6
     assert abs(float(rss) - float(rss_ref)) <= 1e-5 * float(rss_ref)
+
+
+def _fields_at(dev, side, seed):
+    m = (side - 1) // 2
+    rng = np.random.default_rng(seed)
+    return m, [pack(torch.as_tensor(rng.standard_normal((side, side)),
+                                    dtype=torch.float32, device=dev), m)
+               for _ in range(2)]
+
+
+# M = 101 (not a multiple of the 32-cell tile) and M = 4096 (the 8191^2
+# fine level)
+K89_SIDES = pytest.mark.parametrize("side", [201, 8191])
+
+
+@K89_SIDES
+def test_residual_restrict_kernel(dev, side):
+    m, (u4, b4) = _fields_at(dev, side, side)
+    w33 = poisson_const_w33(side, 1)[0]
+    K.reset_launch_counts()
+    got = K.fused_residual_restrict_packed(u4, b4, w33, m)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["fused_residual_restrict_packed"] == 1
+    assert _rel(got, residual_restrict_plain(u4, b4, w33, m)) <= 1e-5
+    assert float(got[m, :].abs().max()) == float(got[:, m].abs().max()) \
+        == 0.0
+
+
+@K89_SIDES
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_rm_sweep_kernel(dev, side, symmetric):
+    """K9 against its plain version, and through the layouts against K1
+    on the same fields."""
+    m, (u4, b4) = _fields_at(dev, side, side + 1)
+    w33 = poisson_const_w33(side, 1)[0]
+    u_rm, b_rm = to_rm(u4), to_rm(b4)
+    K.reset_launch_counts()
+    got = K.fused_gs4_sweep_rm(u_rm, b_rm, w33, m, 0.9, symmetric)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["fused_gs4_sweep_rm"] == 1
+    assert _rel(got, fused_gs4_sweep_rm_plain(u_rm, b_rm, w33, m, 0.9,
+                                              symmetric)) <= 2e-6
+    k1 = K.fused_gs4_sweep_packed(u4, b4, w33, m, 0.9, symmetric)
+    assert _rel(from_rm(got), k1) <= 2e-6
+    assert float(from_rm(got)[3][m, :].abs().max()) == 0.0
+
+
+def test_split_vcycle_on_the_card(dev):
+    """A V-cycle at 2047^2 with plan[0] forced to "split" (K1, K8, K3 on
+    the fine level) against the solver's legs plan."""
+    side = 2047
+    s = StructuredSolver(side, device=dev)
+    assert s.plan[:2] == ("legs", "legs")
+    split = ("split",) + s.plan[1:]
+    b2 = poisson.rhs(side, dtype=torch.float32, device=dev).reshape(side,
+                                                                   side)
+    K.reset_launch_counts()
+    u_split = vcycle_packed(s.hier, torch.zeros_like(b2), b2, fused=True,
+                            plan=split)
+    torch.cuda.synchronize()
+    c = K.launch_counts()
+    assert (c["fused_gs4_sweep_packed"], c["fused_residual_restrict_packed"],
+            c["fused_down_leg_packed"], c["fused_up_leg_packed"]) \
+        == (1, 1, 1, 2)
+    u_legs = vcycle_packed(s.hier, torch.zeros_like(b2), b2, fused=True,
+                           plan=s.plan)
+    assert _rel(u_split, u_legs) <= 1e-5
 
 
 def test_solve_goes_through_the_kernels(dev):

@@ -43,7 +43,7 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         import chip_smoke
         for name in ("models.varcoef", "ops.kernels.rbgs", "utils.device",
                      "parallel.structured_dist", "ops.kernels.halo",
-                     "ops.transfer"):
+                     "ops.transfer", "ops.kernels.packed_rm", "krylov"):
             assert "amg_tpu_torch." + name in sys.modules, name
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "amg_tpu"))

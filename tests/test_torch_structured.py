@@ -170,15 +170,20 @@ def test_kernel_call_counts_follow_the_plan(monkeypatch, smoother, sweeps):
 
 
 def test_level_plan_at_production_sides():
-    for side, legs in ((1023, 1), (4095, 3), (8191, 4)):
+    """Fused levels: legs from 1023 up, split from 8191 up (JAX's split
+    level at M = 4096), so 8191 is one split level and three legs."""
+    for side, split, legs in ((1023, 0, 1), (4095, 0, 3), (8191, 1, 3)):
         sides = [side]
         while sides[-1] > 3:
             sides.append((sides[-1] - 1) // 2)
         plan = tst.level_plan(sides, 1, 1, tst.PACKED_MIN_SIDE, True)
-        assert plan.count("legs") == legs
-        assert plan[legs:legs + 2] == ("packed", "packed")
+        assert plan[:split] == ("split",) * split
+        assert plan.count("split") == split and plan.count("legs") == legs
+        assert plan[split:split + legs] == ("legs",) * legs
+        assert plan[split + legs:split + legs + 2] == ("packed", "packed")
         assert plan[-1] == "direct" and "sweep" not in plan
-        assert "legs" not in tst.level_plan(sides, 1, 1, 200, False)
+        assert not {"legs", "split"} & set(
+            tst.level_plan(sides, 1, 1, 200, False))
 
 
 def test_budget_exhaustion_and_rtol():
