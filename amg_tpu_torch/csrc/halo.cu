@@ -7,55 +7,53 @@
 // Replaces the TPU kernel amg_tpu/ops/pallas/halo.py rdma_halo_exchange
 // (pallas_call :113, body _halo_kernel :32), where each chip pushes its
 // boundary strips into its neighbours' VMEM receive buffers by remote DMA
-// under semaphores. Here every slab's source and receive strip is reached
-// through a pointer in per-slab tables passed in the kernel's parameter
-// space, so a slab may live anywhere the card can address: on this card
-// now, on a peer card (unified addressing, peer access over NVLink) in a
-// later slice, with the same kernel. One launch moves every strip; the
-// launch and the stream order replace the TPU kernel's barrier and
-// semaphores: the strips are read by the ops that follow on the same stream.
+// under semaphores. Here the D slabs of the card are one tensor with a
+// uniform slab stride: the kernel takes one base pointer per part (u and b,
+// or one stacked u|b slab) with the slab stride and row pitch they share,
+// and the receive strips' base and slab stride, and computes every slab's
+// address itself. One launch moves every strip; the launch and the stream
+// order replace the TPU kernel's barrier and semaphores: the strips are read
+// by the ops that follow on the same stream.
 //
-// A slab may be given as several parts of equal width w (u and b, or one
-// stacked u|b slab): the receive strip row is the parts side by side,
-// (2G, P * w), contiguous. Sources are (B, w) row-major with row pitch
-// src_pitch elements. Elements are copied as bits (4 or 8 bytes: f32, f64),
-// so the kernel equals its plain version bitwise.
+// The receive strip row is the parts side by side, (2G, P * w), rows
+// contiguous. Elements are copied as bits (4 or 8 bytes: f32, f64), so the
+// kernel equals its plain version bitwise.
 //
 // Bound on the card: device memory, each sent element read once and each
 // receive element written once: 2 (D-1) G P w elements read, 2 D G P w
 // written (the zero strips are writes only). At D = 4, G = 10, P * w = 8190
 // (u and b at n = 4095), f32: 2.0 MB read, 2.6 MB written, 1.4 us at
-// 3.35 TB/s -- less than a launch, so the launch dominates. Design, simple first: block
-// (x, d, dir) copies a 256-column chunk of all G rows of one direction of
-// slab d; neighbouring threads take neighbouring columns (coalesced); plain
-// element loads, so odd widths and odd pitches need no alignment case.
+// 3.35 TB/s -- less than a launch, so the call's host cost is what a caller
+// sees. The host side is one C call with one argument, the packed scalars
+// (no pointer tables). Design: block (x, d, dir) copies a column chunk of
+// all G rows of one direction of slab d; neighbouring threads take
+// neighbouring columns (coalesced). A thread moves 16 bytes (uint4) when
+// the width, the pitches, the strides and the bases allow it, else one
+// element; one kernel template covers both.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MAX_SLABS = 128;
-constexpr int MAX_PARTS = 2;
 constexpr int THREADS = 256;
+constexpr int MAX_SLABS = 65535;       // gridDim.y
 
-// 128 * 2 * 8 + 128 * 8 = 3 KB, inside the 4 KB parameter space.
-struct Tables {
-  const void* src[MAX_SLABS][MAX_PARTS];
-  void* dst[MAX_SLABS];
-};
-
-template <typename E>  // uint32_t or uint64_t: a bit copy
+// V: uint32_t / uint64_t (one f32 / f64 element) or uint4 (16 bytes). All
+// strides and widths are in V units.
+template <typename V>
 __global__ void __launch_bounds__(THREADS)
-halo_put_kernel(Tables t, int D, int P, int B, int G, int w,
-                long long src_pitch) {
+halo_put_kernel(const V* __restrict__ src0, const V* __restrict__ src1,
+                long long slab, long long pitch, V* __restrict__ dst,
+                long long dst_slab, int D, int B, int G, int w, int P) {
   const int d = blockIdx.y;
   const int up = blockIdx.z;  // 0: last G rows down to d + 1; 1: first G up
   const int W = P * w;        // receive strip row width
   const int c = blockIdx.x * THREADS + threadIdx.x;
   if (c >= W) return;
-  const int p = c / w;
-  const int q = c - p * w;
+  const int p = c >= w;       // P <= 2
+  const int col = c - p * w;
 
   int to;       // receiving slab
   int dst_row;  // first receive row written
@@ -67,40 +65,73 @@ halo_put_kernel(Tables t, int D, int P, int B, int G, int w,
     if (d > 0)     { to = d - 1; dst_row = G; src_row = 0; }
     else           { to = d;     dst_row = 0; src_row = -1; }
   }
-  E* out = static_cast<E*>(t.dst[to]) + (size_t)dst_row * W + c;
+  V* out = dst + to * dst_slab + (long long)dst_row * W + c;
   if (src_row < 0) {
-    for (int r = 0; r < G; ++r) out[(size_t)r * W] = E(0);
+    for (int r = 0; r < G; ++r) out[(long long)r * W] = V{};
     return;
   }
-  const E* in = static_cast<const E*>(t.src[d][p])
-                + (size_t)src_row * src_pitch + q;
-  for (int r = 0; r < G; ++r) out[(size_t)r * W] = in[(size_t)r * src_pitch];
+  const V* in = (p ? src1 : src0) + d * slab + src_row * pitch + col;
+#pragma unroll 5
+  for (int r = 0; r < G; ++r) out[(long long)r * W] = in[r * pitch];
+}
+
+template <typename V>
+void launch(const void* src0, const void* src1, long long slab,
+            long long pitch, void* dst, long long dst_slab, int D, int B,
+            int G, int w, int P, cudaStream_t stream) {
+  const dim3 grid((P * w + THREADS - 1) / THREADS, D, 2);
+  halo_put_kernel<V><<<grid, THREADS, 0, stream>>>(
+      static_cast<const V*>(src0), static_cast<const V*>(src1), slab, pitch,
+      static_cast<V*>(dst), dst_slab, D, B, G, w, P);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
-// src: D * n_parts source pointers, slab-major; dst: D receive-strip
-// pointers. Returns a cudaError_t.
-extern "C" int amg_halo_exchange(const void* const* src, int n_parts,
-                                 long long src_pitch, void* const* dst,
-                                 int D, int B, int G, int w, int elsize,
-                                 cudaStream_t stream) {
-  if (D < 1 || D > MAX_SLABS || n_parts < 1 || n_parts > MAX_PARTS ||
-      G < 1 || G > B || w < 1 || src_pitch < w ||
-      (elsize != 4 && elsize != 8))
+// One call's arguments, 13 fields of 64 bits in this order (the wrapper
+// packs them into one int64 array: one ctypes argument in place of 13,
+// which halves the call's host cost). src0, src1: the parts' bases (src1
+// unused when n_parts == 1), each (D, B, w) with slab stride `slab` and row
+// pitch `pitch` elements and contiguous rows; dst: the (D, 2G, n_parts * w)
+// receive strips, rows contiguous, slab stride `dst_slab`, overlapping no
+// source.
+struct HaloCall {
+  const void* src0;
+  const void* src1;
+  long long slab, pitch;
+  void* dst;
+  long long dst_slab;
+  long long D, B, G, w, n_parts, elsize;
+  cudaStream_t stream;
+};
+static_assert(sizeof(HaloCall) == 13 * 8, "13 fields of 64 bits");
+
+// Returns a cudaError_t.
+extern "C" int amg_halo_exchange(const HaloCall* a) {
+  const long long D = a->D, B = a->B, G = a->G, w = a->w, P = a->n_parts;
+  if (D < 1 || D > MAX_SLABS || P < 1 || P > 2 || G < 1 || G > B ||
+      B > INT_MAX || w < 1 || P * w > INT_MAX || a->pitch < 0 ||
+      a->slab < 0 || a->dst_slab < 2 * G * P * w ||
+      (a->elsize != 4 && a->elsize != 8) || (P == 2 && a->src1 == nullptr))
     return (int)cudaErrorInvalidValue;
-  Tables t = {};
-  for (int d = 0; d < D; ++d) {
-    for (int p = 0; p < n_parts; ++p) t.src[d][p] = src[d * n_parts + p];
-    t.dst[d] = dst[d];
-  }
-  const int W = n_parts * w;
-  const dim3 grid((W + THREADS - 1) / THREADS, D, 2);
-  if (elsize == 4)
-    halo_put_kernel<uint32_t><<<grid, THREADS, 0, stream>>>(
-        t, D, n_parts, B, G, w, src_pitch);
+  const long long v = 16 / a->elsize;  // elements per 16-byte vector
+  const bool vec = w % v == 0 && a->pitch % v == 0 && a->slab % v == 0 &&
+                   a->dst_slab % v == 0 && aligned16(a->src0) &&
+                   aligned16(a->dst) && (P == 1 || aligned16(a->src1));
+  if (vec)
+    launch<uint4>(a->src0, a->src1, a->slab / v, a->pitch / v, a->dst,
+                  a->dst_slab / v, (int)D, (int)B, (int)G, (int)(w / v),
+                  (int)P, a->stream);
+  else if (a->elsize == 4)
+    launch<uint32_t>(a->src0, a->src1, a->slab, a->pitch, a->dst,
+                     a->dst_slab, (int)D, (int)B, (int)G, (int)w, (int)P,
+                     a->stream);
   else
-    halo_put_kernel<uint64_t><<<grid, THREADS, 0, stream>>>(
-        t, D, n_parts, B, G, w, src_pitch);
+    launch<uint64_t>(a->src0, a->src1, a->slab, a->pitch, a->dst,
+                     a->dst_slab, (int)D, (int)B, (int)G, (int)w, (int)P,
+                     a->stream);
   return (int)cudaGetLastError();
 }

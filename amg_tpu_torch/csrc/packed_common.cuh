@@ -2,13 +2,17 @@
 // used as follows:
 //
 //   piece                               K1  K2  K3  K8  K9
-//   gidx / load_tile / store_interior   x   x   x   x   x   (layout: K9 rows)
-//   color_steps (the GS color steps)    x   x   x       x
+//   gidx / real_cell / set_smem_once    x   x   x   x   x
+//   load_tile / store_interior          x       x   x   x   (layout: K9 rows)
+//   neighbour_acc / gs_update           x   x   x       x   (K2: kPat)
+//   color_steps (the GS color steps)    x       x       x
 //   sweep_block (K1's whole block)      x                x
-//   residual_window (b - A u in b)          x       x
-//   restrict_store (coarse rhs)             x       x
+//   residual_cell / restrict_cell           x       x
+//   residual_window / restrict_store                x
 //
-// K1 packed_sweep.cu, K2/K3/K8 packed_cycle.cu, K9 packed_rm.cu.
+// K1 packed_sweep.cu, K2/K3/K8 packed_cycle.cu, K9 packed_rm.cu. K2 has
+// its own window, loads and thread map (packed_cycle.cu) around the shared
+// arithmetic.
 //
 // Layout (amg_tpu_torch/sparse/packed.py): a field holds four (M, M) f32
 // quarters, quarter a = 2*pj + pi holding the points (2J+pj, 2I+pi). With
@@ -26,7 +30,9 @@
 // the window only (0 outside it). A cell on the window's edge therefore goes
 // wrong, and the error front moves inward by one cell per step in J and I.
 // After 8 steps the cells at distance >= 8 from the edge hold exactly the
-// sequential color-ordered iterate; G >= 8 keeps the interior exact.
+// sequential color-ordered iterate; G >= 8 keeps the interior exact. (The
+// front moves one fine grid point, half a packed cell, per step, so this G
+// is twice what exactness needs; K2 takes the tighter ring.)
 //
 // Arithmetic order equals the plain PyTorch version term by term, and the
 // library is built with -fmad=false, so no product is contracted into an
@@ -35,6 +41,8 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <atomic>
 
 namespace amg {
 
@@ -52,12 +60,49 @@ struct Stencil {
   float omega;
 };
 
+// Which off-diagonal weights are 0, as a compile-time parameter (the plain
+// version skips a zero weight's term): kAnyWeights tests each weight at run
+// time; kFivePoint has zero corners and nonzero edges; kNinePoint no zero.
+constexpr int kAnyWeights = 0;
+constexpr int kFivePoint = 1;
+constexpr int kNinePoint = 2;
+
+inline int weight_pattern(const float* w9) {
+  const bool corners = w9[0] == 0.f && w9[2] == 0.f && w9[6] == 0.f
+                       && w9[8] == 0.f;
+  const bool edges = w9[1] != 0.f && w9[3] != 0.f && w9[5] != 0.f
+                     && w9[7] != 0.f;
+  if (corners && edges) return kFivePoint;
+  if (edges && w9[0] != 0.f && w9[2] != 0.f && w9[6] != 0.f && w9[8] != 0.f)
+    return kNinePoint;
+  return kAnyWeights;
+}
+
 inline Stencil make_stencil(const float* w9, float inv_diag, float omega) {
   Stencil st;
   for (int k = 0; k < 9; ++k) st.w[k] = w9[k];
   st.inv_diag = inv_diag;
   st.omega = omega;
   return st;
+}
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once per
+// process and device (devices 0-63; others set it at every launch): the
+// entry points call this on every launch, and after the first it costs a
+// cudaGetDevice and an atomic load.
+template <typename Kernel>
+inline cudaError_t set_smem_once(Kernel* kernel, size_t bytes,
+                                 std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit & done.load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 __device__ __forceinline__ bool real_cell(int a, int J, int I, int M) {
@@ -91,9 +136,12 @@ __device__ void load_tile(float* S, const float* __restrict__ g, int M,
   }
 }
 
-// Off-diagonal accumulation at window cell (r, c) of color (PJ, PI), in the
-// sparse/packed.py _neighbors order, starting from 0 like _acc.
-template <int W, int PJ, int PI>
+// Off-diagonal accumulation at cell (r, c) of color (PJ, PI) of a [4][H][W]
+// window, in the sparse/packed.py _neighbors order, starting from 0 like
+// _acc. kBounds: a read outside the window is 0; without it the caller
+// keeps (r, c) off the window's edge. kPat: the weights' zero pattern.
+template <int H, int W, int PJ, int PI, bool kBounds = true,
+          int kPat = kAnyWeights>
 __device__ __forceinline__ float neighbour_acc(const float* U,
                                                const Stencil& st, int r,
                                                int c) {
@@ -103,19 +151,29 @@ __device__ __forceinline__ float neighbour_acc(const float* U,
 #pragma unroll
     for (int di = -1; di <= 1; ++di) {
       if (dj == 0 && di == 0) continue;
+      if (kPat == kFivePoint && dj != 0 && di != 0) continue;
       const float w = st.w[(dj + 1) * 3 + (di + 1)];
-      if (w == 0.f) continue;
+      if (kPat == kAnyWeights && w == 0.f) continue;
       const int bj = (PJ + dj + 2) & 1;
       const int bi = (PI + di + 2) & 1;
       const int src = 2 * bj + bi;
       const int rr = r + (PJ + dj - bj) / 2;
       const int cc = c + (PI + di - bi) / 2;
       float x = 0.f;
-      if (rr >= 0 && rr < W && cc >= 0 && cc < W) x = U[(src * W + rr) * W + cc];
+      if (!kBounds || (rr >= 0 && rr < H && cc >= 0 && cc < W))
+        x = U[(src * H + rr) * W + cc];
       acc = acc + w * x;
     }
   }
   return acc;
+}
+
+// The GS update of one cell, u + omega * ((b - acc)/diag - u), in the
+// plain version's order.
+__device__ __forceinline__ float gs_update(float u, float b, float acc,
+                                           const Stencil& st) {
+  const float delta = (b - acc) * st.inv_diag - u;
+  return u + st.omega * delta;
 }
 
 // One GS color step on the window: u_a += omega * ((b_a - acc)/diag - u_a)
@@ -131,10 +189,8 @@ __device__ void color_step(float* U, const float* B, const Stencil& st,
     const int r = L / W;
     const int c = L - r * W;
     if (!real_cell(a, J0 + r, I0 + c, M)) continue;
-    const float acc = neighbour_acc<W, PJ, PI>(U, st, r, c);
-    const float u = Ua[L];
-    const float delta = (Ba[L] - acc) * st.inv_diag - u;
-    Ua[L] = u + st.omega * delta;
+    const float acc = neighbour_acc<W, W, PJ, PI>(U, st, r, c);
+    Ua[L] = gs_update(Ua[L], Ba[L], acc, st);
   }
 }
 
@@ -192,17 +248,20 @@ __device__ void sweep_block(const float* __restrict__ u,
   store_interior<T, G, Lay>(U, out, M, Jt, It);
 }
 
-// Residual of color (PJ, PI) at window cell (r, c), overwriting b there:
-// sparse/packed.py residual_packed, acc = _acc + w_c * u_a, r = b - acc on
-// real cells, 0 elsewhere. A cell's residual reads b only at that cell.
-template <int W, int PJ, int PI>
+// Residual of color (PJ, PI) at cell (r, c) of a [4][H][W] window,
+// overwriting b there: sparse/packed.py residual_packed, acc = _acc + w_c *
+// u_a, r = b - acc on real cells, 0 elsewhere. A cell's residual reads b
+// only at that cell. kEdge false: the caller knows the cell is real.
+template <int H, int W, int PJ, int PI, bool kBounds = true,
+          bool kEdge = true, int kPat = kAnyWeights>
 __device__ __forceinline__ void residual_cell(const float* U, float* B,
                                               const Stencil& st, int M,
                                               int J0, int I0, int r, int c) {
   constexpr int a = 2 * PJ + PI;
-  const int L = (a * W + r) * W + c;
-  const float acc = neighbour_acc<W, PJ, PI>(U, st, r, c) + st.w[4] * U[L];
-  B[L] = real_cell(a, J0 + r, I0 + c, M) ? B[L] - acc : 0.f;
+  const int L = (a * H + r) * W + c;
+  const float acc = neighbour_acc<H, W, PJ, PI, kBounds, kPat>(U, st, r, c)
+                    + st.w[4] * U[L];
+  B[L] = (!kEdge || real_cell(a, J0 + r, I0 + c, M)) ? B[L] - acc : 0.f;
 }
 
 // The residual in place of b on window rows and columns [G, G + T] of all
@@ -219,19 +278,32 @@ __device__ void residual_window(const float* U, float* B, const Stencil& st,
     const int r = G + rem / R;
     const int c = G + rem % R;
     switch (q) {
-      case 0: residual_cell<W, 0, 0>(U, B, st, M, J0, I0, r, c); break;
-      case 1: residual_cell<W, 0, 1>(U, B, st, M, J0, I0, r, c); break;
-      case 2: residual_cell<W, 1, 0>(U, B, st, M, J0, I0, r, c); break;
-      default: residual_cell<W, 1, 1>(U, B, st, M, J0, I0, r, c); break;
+      case 0: residual_cell<W, W, 0, 0>(U, B, st, M, J0, I0, r, c); break;
+      case 1: residual_cell<W, W, 0, 1>(U, B, st, M, J0, I0, r, c); break;
+      case 2: residual_cell<W, W, 1, 0>(U, B, st, M, J0, I0, r, c); break;
+      default: residual_cell<W, W, 1, 1>(U, B, st, M, J0, I0, r, c); break;
     }
   }
 }
 
-// bc[Jt:Jt+T, It:It+T] of the (M, M) padded coarse rhs <- the full-
-// weighting restriction of the residual R (window offset G): coarse (J, I)
-// <- r11 + 0.5*(r01[J,I] + r01[J+1,I] + r10[J,I] + r10[J,I+1])
-// + 0.25*(r00 at J..J+1 x I..I+1), in the restrict_packed summation order;
-// 0 on the pad row and column (index m = M-1).
+// The full-weighting restriction at window cell (r, c) of the residual R,
+// a [4][H][W] window: r11 + 0.5*(r01[r,c] + r01[r+1,c] + r10[r,c] +
+// r10[r,c+1]) + 0.25*(r00 at r..r+1 x c..c+1), in the restrict_packed
+// summation order.
+template <int H, int W>
+__device__ __forceinline__ float restrict_cell(const float* R, int r, int c) {
+  auto R_ = [&](int q, int rr, int cc) { return R[(q * H + rr) * W + cc]; };
+  float v = R_(3, r, c);
+  v = v + 0.5f * (((R_(1, r, c) + R_(1, r + 1, c)) + R_(2, r, c))
+                  + R_(2, r, c + 1));
+  v = v + 0.25f * (((R_(0, r, c) + R_(0, r, c + 1)) + R_(0, r + 1, c))
+                   + R_(0, r + 1, c + 1));
+  return v;
+}
+
+// bc[Jt:Jt+T, It:It+T] of the (M, M) padded coarse rhs <- the restriction
+// of the residual R (window offset G); 0 on the pad row and column (index
+// m = M-1).
 template <int T, int G>
 __device__ void restrict_store(const float* R, float* __restrict__ bc, int M,
                                int Jt, int It) {
@@ -243,17 +315,8 @@ __device__ void restrict_store(const float* R, float* __restrict__ bc, int M,
     const int J = Jt + jj;
     const int I = It + ii;
     if (J >= M || I >= M) continue;
-    float v = 0.f;
-    if (J < m && I < m) {
-      const int r = G + jj;
-      const int c = G + ii;
-      auto R_ = [&](int q, int rr, int cc) { return R[(q * W + rr) * W + cc]; };
-      v = R_(3, r, c);
-      v = v + 0.5f * (((R_(1, r, c) + R_(1, r + 1, c)) + R_(2, r, c))
-                      + R_(2, r, c + 1));
-      v = v + 0.25f * (((R_(0, r, c) + R_(0, r, c + 1)) + R_(0, r + 1, c))
-                       + R_(0, r + 1, c + 1));
-    }
+    const float v = (J < m && I < m) ? restrict_cell<W, W>(R, G + jj, G + ii)
+                                     : 0.f;
     bc[(size_t)J * M + I] = v;
   }
 }

@@ -38,9 +38,8 @@ extern "C" int amg_packed_sweep(const float* u, const float* b, float* out,
                                 int M, const float* w9, float inv_diag,
                                 float omega, int symmetric,
                                 cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmem);
+  static std::atomic<unsigned long long> attr_set{0};
+  const cudaError_t err = amg::set_smem_once(packed_sweep_kernel, kSmem, attr_set);
   if (err != cudaSuccess) return (int)err;
   const int nt = (M + T - 1) / T;
   packed_sweep_kernel<<<dim3(nt, nt), amg::kThreads, kSmem, stream>>>(

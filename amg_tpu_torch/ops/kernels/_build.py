@@ -25,6 +25,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "amg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -35,8 +37,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _W9 = ctypes.POINTER(ctypes.c_float)
-_PP = ctypes.POINTER(ctypes.c_void_p)
-_LL = ctypes.c_longlong
 # C entry points: (argtypes); each returns a cudaError_t as int
 _SIGNATURES = {
     "amg_packed_sweep": (_P, _P, _P, _I, _W9, _F, _F, _I, _P),
@@ -48,7 +48,7 @@ _SIGNATURES = {
     "amg_df_partials_count": (_I,),
     "amg_rbgs_sweep_const": (_P, _P, _P, _I, _W9, _F, _F, _I, _P),
     "amg_rbgs_sweep_var": (_P, _P, _P, _P, _I, _F, _I, _P),
-    "amg_halo_exchange": (_PP, _I, _LL, _PP, _I, _I, _I, _I, _I, _P),
+    "amg_halo_exchange": (_P,),      # csrc/halo.cu HaloCall, packed
 }
 
 
@@ -133,17 +133,16 @@ def weights(w33) -> ctypes.Array:
     return (ctypes.c_float * 9)(*(float(w) for row in w33 for w in row))
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    import torch
-
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t) -> int:
+    """The raw handle of the current stream of CUDA tensor ``t``'s device
+    (the capturing stream inside a CUDA graph capture), as the kernels'
+    stream argument: one C call, no Stream object."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_f32(name: str, t, shape: tuple, device) -> None:
     """Raise unless ``t`` is a contiguous f32 tensor of ``shape`` on
     ``device`` (what the kernels, and so their wrappers, accept)."""
-    import torch
-
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):

@@ -5,27 +5,33 @@ Port of the TPU kernel ``amg_tpu/ops/pallas/halo.py`` ``rdma_halo_exchange``
 ``halo="rdma"`` (parallel/structured_dist.py). The TPU kernel runs per chip
 inside ``shard_map`` and pushes strips to its neighbours by remote DMA; here
 the D slabs of the mesh are the leading axis of one tensor, and one launch
-puts every slab's boundary strips into its neighbours' receive strips,
-addressing each slab through a pointer table (csrc/halo.cu).
+puts every slab's boundary strips into its neighbours' receive strips. The
+kernel gets each part's base pointer with the slab stride and row pitch
+the parts share, and computes every slab's address itself.
 
 The slabs come as one (D, B, w) tensor (the stacked u|b slab) or as a tuple
-of them (u and b, no stacking copy); the result is the (D, 2G, P*w)
-receive strips: rows [0, G) the previous slab's last G rows, rows [G, 2G)
-the next slab's first G rows, zeros at the line's ends. The plain version
-is the single-hop ghost-strip exchange in torch, which the CPU path and
-``halo="sweep"`` run.
+of two of them (u and b, no stacking copy), each with contiguous rows and
+the same strides (a view such as the slab rows of a framed field will do);
+the result is the (D, 2G, P*w) receive strips: rows [0, G) the previous
+slab's last G rows, rows [G, 2G) the next slab's first G rows, zeros at the
+line's ends. ``out=`` takes a contiguous receive buffer the caller owns, so
+a call allocates nothing. The plain version is the single-hop ghost-strip
+exchange in torch, which the CPU path and ``halo="sweep"`` run.
+
+The call is lean on the host, since the kernel's bytes take less time than
+its launch: no per-slab loop, and one C call whose one argument is the
+packed scalars.
 """
 
 from __future__ import annotations
 
-import ctypes
+from array import array
 
 import torch
 
 from amg_tpu_torch.ops.kernels._build import check, library, stream_of
 
-# csrc/halo.cu's table sizes
-MAX_SLABS = 128
+MAX_SLABS = 65535   # csrc/halo.cu: the grid's y extent
 MAX_PARTS = 2
 
 
@@ -45,42 +51,61 @@ def rdma_halo_exchange_plain(slabs, G: int) -> torch.Tensor:
     return torch.cat([top, bot], dim=1)
 
 
-def rdma_halo_exchange(slabs, G: int) -> torch.Tensor:
+def rdma_halo_exchange(slabs, G: int, out: torch.Tensor | None = None
+                       ) -> torch.Tensor:
     """The (D, 2G, P*w) receive strips of (D, B, w) slabs (one tensor, or a
-    tuple of up to two of one shape, dtype and device), 1 <= G <= B. CPU
-    tensors take the plain version; CUDA tensors launch K7 (f32 or f64,
-    contiguous) into a new tensor, on the current stream."""
-    parts = _parts(slabs)
+    tuple of two of one shape, dtype, device and strides, rows contiguous),
+    1 <= G <= B, into ``out`` (a contiguous (D, 2G, P*w) tensor of their
+    dtype and device, overlapping no slab) or a new tensor. CPU tensors
+    take the plain version; CUDA tensors launch K7 (f32 or f64) on the
+    current stream."""
+    parts = (slabs,) if isinstance(slabs, torch.Tensor) else tuple(slabs)
     x0 = parts[0]
     if x0.dim() != 3:
         raise ValueError(f"slabs must be (D, B, w), got {tuple(x0.shape)}")
+    P = len(parts)
+    if not 1 <= P <= MAX_PARTS:
+        raise ValueError(f"at most {MAX_PARTS} parts")
     D, B, w = x0.shape
-    for t in parts:
-        if (t.shape != x0.shape or t.dtype != x0.dtype
-                or t.device != x0.device):
+    if D > MAX_SLABS:
+        raise ValueError(f"at most {MAX_SLABS} slabs")
+    st = x0.stride()
+    if P == 2:
+        x1 = parts[1]
+        if (x1.shape != x0.shape or x1.dtype != x0.dtype
+                or x1.device != x0.device):
             raise ValueError("slab parts must share shape, dtype and device")
+        if x1.stride() != st:
+            raise ValueError(f"slab parts must share strides, got {st} and "
+                             f"{x1.stride()}")
+    if st[2] != 1 and w > 1:
+        raise ValueError(f"slab rows must be contiguous, got strides {st}")
     if not 1 <= G <= B:
         raise ValueError(f"single-hop exchange needs 1 <= G <= B, got "
                          f"G={G}, B={B}")
-    if not 1 <= len(parts) <= MAX_PARTS or D > MAX_SLABS:
-        raise ValueError(f"at most {MAX_PARTS} parts and {MAX_SLABS} slabs")
-    if x0.device.type == "cpu":
-        return rdma_halo_exchange_plain(parts, G)
-    if x0.device.type != "cuda":
+    W = P * w
+    if out is not None and (out.shape != (D, 2 * G, W)
+                            or out.dtype != x0.dtype
+                            or out.device != x0.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {(D, 2 * G, W)} "
+                         f"{x0.dtype} tensor on {x0.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    if x0.is_cpu:
+        strips = rdma_halo_exchange_plain(parts, G)
+        return strips if out is None else out.copy_(strips)
+    if not x0.is_cuda:
         raise ValueError(f"unsupported device {x0.device}")
     if x0.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"K7 takes float32 or float64, got {x0.dtype}")
-    if not all(t.is_contiguous() for t in parts):
-        raise ValueError("K7 needs contiguous slabs")
-    P = len(parts)
-    out = torch.empty((D, 2 * G, P * w), dtype=x0.dtype, device=x0.device)
-    es = x0.element_size()
-    src = (ctypes.c_void_p * (D * P))(*(
-        t.data_ptr() + d * B * w * es for d in range(D) for t in parts))
-    dst = (ctypes.c_void_p * D)(*(
-        out.data_ptr() + d * 2 * G * P * w * es for d in range(D)))
-    check(library().amg_halo_exchange(src, P, w, dst, D, B, G, w, es,
-                                      stream_of(out)), "amg_halo_exchange")
+    if out is None:
+        out = torch.empty((D, 2 * G, W), dtype=x0.dtype, device=x0.device)
+    # csrc/halo.cu HaloCall, packed
+    call = array("q", (x0.data_ptr(), parts[1].data_ptr() if P == 2 else 0,
+                       st[0], st[1], out.data_ptr(), 2 * G * W, D, B, G, w,
+                       P, x0.element_size(), stream_of(x0)))
+    check(library().amg_halo_exchange(call.buffer_info()[0]),
+          "amg_halo_exchange")
     rdma_halo_exchange.launches += 1
     return out
 

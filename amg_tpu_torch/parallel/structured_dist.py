@@ -15,8 +15,9 @@ collectives become tensor ops on that axis:
 
 All D slabs live on one device (``device``): on the card a mesh of slabs,
 whose ``halo="rdma"`` exchange is the CUDA kernel K7 (ops/kernels/halo.py),
-written as a put through per-slab pointer tables so that slabs on peer
-cards change where the pointers point, not the kernel.
+a put that addresses every slab from one base pointer and the slab stride
+(slabs on peer cards will need per-slab pointers: ROADMAP Queue 1 item
+13).
 
 Layout invariants (``build_dist_hierarchy``), as in the JAX package:
 
@@ -38,6 +39,7 @@ hop; ``"step"`` a one-row halo before every color step (JAX's CPU default).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import scipy.sparse as sp
@@ -200,17 +202,24 @@ def _gs4_sweep_overlap_const(w33, u, b, side: int, sweeps: int,
 
 
 def _gs4_sweep_rdma_const(w33, u, b, side: int, sweeps: int, omega: float,
-                          symmetric: bool):
-    """The ghost sweep with K7 as the exchange: u and b ride one launch.
-    JAX's rule: with one slab, or strips that span more than one
-    neighbour slab (G > B), the level takes the ghost sweep."""
-    D, B, _ = u.shape
+                          symmetric: bool, recv: dict):
+    """The ghost sweep with K7 as the exchange: u and b ride one launch,
+    into the level's receive buffer, kept in ``recv`` by shape (its owner's
+    buffers: the exchange allocates nothing after the first; on one stream,
+    ``_extend`` has copied the strips out before the next exchange of the
+    shape writes them). JAX's rule: with one slab, or strips that span more
+    than one neighbour slab (G > B), the level takes the ghost sweep."""
+    D, B, n = u.shape
     G = ghost_rows(sweeps, symmetric)
     if D == 1 or G > B:
         return _gs4_sweep_ghost_const(w33, u, b, side, sweeps, omega,
                                       symmetric)
     u, b = u.contiguous(), b.contiguous()
-    u_ext, b_ext = _extend(rdma_halo_exchange((u, b), G), u, b, G)
+    out = recv.get((D, G, n))
+    if out is None:
+        out = recv[(D, G, n)] = torch.empty((D, 2 * G, 2 * n),
+                                            dtype=u.dtype, device=u.device)
+    u_ext, b_ext = _extend(rdma_halo_exchange((u, b), G, out=out), u, b, G)
     u_ext = _masked_steps_const(w33, u_ext, b_ext,
                                 _row0(D, B, u.device) - G, side, sweeps,
                                 omega, symmetric)
@@ -440,14 +449,19 @@ def build_dist_hierarchy(side: int, n_levels: int | None = None,
 # The V-cycle.
 
 
-def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b):
+def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
+                recv: dict | None = None):
     """One V-cycle on (D, B_0, n_0) slabs (JAX ``_vcycle_local`` on every
     slab at once): the sharded down-leg, one V-cycle of the replicated
-    sub-hierarchy from zero, the sharded up-leg."""
+    sub-hierarchy from zero, the sharded up-leg. ``recv``: the caller's
+    dict of ``halo="rdma"`` receive buffers, kept across calls (None: new
+    ones for this V-cycle)."""
     D, Ls = cfg.n_devices, cfg.n_sharded
     ghost = GHOST_SWEEPS.get(cfg.halo)
     if ghost is None and cfg.halo != "step":
         raise ValueError(f"halo mode {cfg.halo!r} has no sweep here")
+    if cfg.halo == "rdma":
+        ghost = functools.partial(ghost, recv={} if recv is None else recv)
     us, bs = [u] + [None] * (Ls - 1), [b] + [None] * (Ls - 1)
 
     def smooth_only(l, u_, b_, sweeps):
@@ -551,6 +565,7 @@ class DistStructuredSolver:
         self.cycles_per_refine = (2 if cycles_per_refine is None
                                   else cycles_per_refine)
         self.n_pad = self.cfg.n_devices * self.cfg.blocks[0]
+        self._recv = {}          # halo="rdma" receive buffers, by shape
 
     def _tensor(self, f) -> torch.Tensor:
         """A tensor on the solver's device; numpy input is copied."""
@@ -574,7 +589,7 @@ class DistStructuredSolver:
         return f.reshape(self.n_pad, self.side)[:self.side]
 
     def vcycle(self, u_pad, b_pad):
-        return vcycle_dist(self.cfg, self.sub_hier, u_pad, b_pad)
+        return vcycle_dist(self.cfg, self.sub_hier, u_pad, b_pad, self._recv)
 
     def rss(self, u_pad, b_pad) -> float:
         r = b_pad - _matvec_const(self.cfg.w33s[0], u_pad, self.side)

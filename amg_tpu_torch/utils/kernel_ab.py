@@ -1,0 +1,184 @@
+"""Time this checkout's packed-field kernels against another build of them,
+on one card, in one process.
+
+    python -m amg_tpu_torch.utils.kernel_ab --other DIR [DIR ...] \
+        [--sides 1023 4095 8191] [--reps 20] [--nine]
+
+Each DIR is the root of another checkout of the repository (for example an
+earlier commit unpacked with ``git archive``, or a copy whose
+``amg_tpu_torch/csrc`` holds a variant of a kernel). Its ``csrc/*.cu`` are
+compiled with this checkout's nvcc flags into ``build/amg_tpu_torch/ab/``;
+both libraries' C entry points are then called directly (pointers, weights
+and the stream prepared once, so the host cost is the ctypes call), on the
+same random packed fields at each side's M = (side + 1) / 2, for K1
+(amg_packed_sweep), K2 (amg_down_leg), K3 (amg_up_leg), K8
+(amg_residual_restrict) and K9 (amg_packed_sweep_rm). Each pair is checked
+bitwise equal, then timed with CUDA events over ``reps`` back-to-back
+launches in turns other, this, this, other (each build's better of two).
+The weights are the 5-point Poisson ones at the side, or with ``--nine``
+a 9-point set (the zero pattern of the Galerkin levels).
+Prints one line per kernel and size and, last, one JSON object with the
+times and the card's name and power limit. Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from amg_tpu_torch.ops.kernels import _build
+from amg_tpu_torch.ops.rap import poisson_const_w33
+from amg_tpu_torch.sparse.packed import pack
+
+# C entry point -> kernel
+ENTRIES = {"amg_packed_sweep": "K1", "amg_down_leg": "K2",
+           "amg_up_leg": "K3", "amg_residual_restrict": "K8",
+           "amg_packed_sweep_rm": "K9"}
+
+
+def build_other(root: Path) -> ctypes.CDLL:
+    """Compile ``root``'s kernel sources with this checkout's flags."""
+    csrc = root / "amg_tpu_torch" / "csrc"
+    srcs = sorted(csrc.glob("*.cu"))
+    if not srcs:
+        raise FileNotFoundError(f"no kernel sources under {csrc}")
+    h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
+    for p in sorted(csrc.glob("*.cu*")):
+        h.update(p.read_bytes())
+    out = _build.BUILD_DIR / "ab" / f"lib_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+               *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {root}:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    for name in ENTRIES:
+        fn = getattr(lib, name)
+        fn.argtypes = list(_build._SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+NINE_POINT = ((-0.5, -1.0, -0.5), (-1.0, 6.0, -1.0), (-0.5, -1.0, -0.5))
+
+
+def calls(lib, side: int, dev, nine: bool = False) -> dict:
+    """{entry: (launch, outputs, inputs)} on fresh fields at ``side``
+    (the same values for every library); the inputs are held so that the
+    pointers in the launches stay valid."""
+    m = (side - 1) // 2
+    M = m + 1
+    rng = np.random.default_rng(side)
+
+    def field():
+        x = torch.as_tensor(rng.standard_normal((side, side)),
+                            dtype=torch.float32, device=dev)
+        return pack(x, m)
+    u4, b4 = field(), field()
+    u_rm = u4.permute(1, 0, 2).reshape(M, 4 * M).contiguous()
+    b_rm = b4.permute(1, 0, 2).reshape(M, 4 * M).contiguous()
+    uc = torch.nn.functional.pad(u4[0, :m, :m], (0, 1, 0, 1))
+    w33 = NINE_POINT if nine else poisson_const_w33(side, 1)[0]
+    w9, inv, om = _build.weights(w33), 1.0 / w33[1][1], 1.0
+    s = _build.stream_of(u4)
+    p = torch.Tensor.data_ptr
+    o_u, o_bc, o_rm = (torch.empty_like(u4), torch.empty((M, M), device=dev),
+                       torch.empty_like(u_rm))
+    args = {
+        "amg_packed_sweep": ((p(u4), p(b4), p(o_u), M, w9, inv, om, 1, s),
+                             (o_u,)),
+        "amg_down_leg": ((p(u4), p(b4), p(o_u), p(o_bc), M, w9, inv, om, 1,
+                          s), (o_u, o_bc)),
+        "amg_up_leg": ((p(u4), p(b4), p(uc), p(o_u), M, w9, inv, om, 1, s),
+                       (o_u,)),
+        "amg_residual_restrict": ((p(u4), p(b4), p(o_bc), M, w9, s),
+                                  (o_bc,)),
+        "amg_packed_sweep_rm": ((p(u_rm), p(b_rm), p(o_rm), M, w9, inv, om,
+                                 1, s), (o_rm,)),
+    }
+    out = {}
+    for name, (a, outs) in args.items():
+        fn = getattr(lib, name)
+
+        def launch(fn=fn, a=a, name=name):
+            _build.check(fn(*a), name)
+        out[name] = (launch, outs, (u4, b4, uc, u_rm, b_rm))
+    return out
+
+
+def time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", nargs="+", required=True, type=Path)
+    ap.add_argument("--sides", nargs="+", type=int,
+                    default=[1023, 4095, 8191])
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--nine", action="store_true",
+                    help="9-point weights in place of 5-point Poisson")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_ab needs a CUDA device")
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    this = _build.library()
+    others = {str(d): build_other(d) for d in args.other}
+    rows = []
+    for side in args.sides:
+        M = (side + 1) // 2
+        mine = calls(this, side, dev, args.nine)
+        for d, lib in others.items():
+            theirs = calls(lib, side, dev, args.nine)
+            for name, kernel in ENTRIES.items():
+                fa, outs_a, _ = theirs[name]
+                fb, outs_b, _ = mine[name]
+                fa()
+                ref = [o.clone() for o in outs_a]
+                fb()
+                same = all(torch.equal(r, o) for r, o in zip(ref, outs_b))
+                a1 = time_ms(fa, args.reps)
+                b1 = time_ms(fb, args.reps)
+                b2 = time_ms(fb, args.reps)
+                a2 = time_ms(fa, args.reps)
+                ta, tb = min(a1, a2), min(b1, b2)
+                print(f"{kernel} {name} M={M} other={d}: other {ta:.4f} ms, "
+                      f"this {tb:.4f} ms (this/other {tb / ta:.3f}; runs "
+                      f"{a1:.4f} {b1:.4f} {b2:.4f} {a2:.4f}), bitwise "
+                      f"equal {same}", flush=True)
+                rows.append({"kernel": kernel, "entry": name, "M": M,
+                             "weights": "nine" if args.nine else "five",
+                             "other": d, "other_ms": ta, "this_ms": tb,
+                             "bitwise_equal": same})
+            del theirs
+        del mine
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1-K9) from amg_tpu_torch/csrc, checks
-each against its plain PyTorch version on the card and times both, then
+each against its plain PyTorch version on the card and times both (K2
+bitwise at M = 513, 512, 2048 and 4096 and timed at the last three; K7
+per call against index_select and on the device, in a CUDA graph), then
 drives the solves through the user entry points with an independent f64
 residual check and the kernels' launch counts:
 
@@ -66,14 +68,28 @@ from amg_tpu_torch.parallel.structured_dist import ghost_rows
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
 from amg_tpu_torch.sparse.stencil import Stencil2D
 from amg_tpu_torch.structured import PACKED_MIN_SIDE, level_plan
+from amg_tpu_torch.utils.profiling import _device_us
 
 TOL = 1e-7
 PARITY_SIDES = (1023, 4095)            # M = 512 and 2048
+# K2: M = 513 (ragged: 4-byte copies, edge tiles), then the timed sizes
+# M = 512, 2048 (the legs' fine levels) and 4096 (8191^2's fine level)
+K2_SIDES = (1025, 1023, 4095, 8191)
+K2_TIMED = (1023, 4095, 8191)
+# K2's weight instantiations besides the fine level's 5-point Poisson
+# weights: a Galerkin level's 9-point pattern and another zero pattern
+K2_WEIGHTS = {"nine": ((-0.5, -1.0, -0.5), (-1.0, 6.0, -1.0),
+                       (-0.5, -1.0, -0.5)),
+              "other": ((0.0, -1.0, -0.5), (-1.0, 4.5, -1.0),
+                        (0.0, -1.0, 0.0))}
 SOLVE_SIDES = (1023, 4095)
 RBGS_SIDES = (1023, 4095)              # K5/K6 run at 4095 on the path
 # K7 shapes (D slabs, B rows, n columns, G strip rows): the 4095^2 D = 4
-# solve's fine level first, then small meshes
-HALO_SHAPES = ((4, 1024, 4095, 10), (2, 10, 31, 10), (8, 10, 31, 10))
+# solve's fine level first, then small meshes; n = 256 takes the 16-byte
+# copies
+HALO_SHAPES = ((4, 1024, 4095, 10), (2, 10, 31, 10), (8, 10, 31, 10),
+               (4, 64, 256, 10))
+K7_GRAPH_LAUNCHES = 20
 DIST_SIDE, DIST_SLABS = 4095, 4
 SPLIT_SIDE = 8191                      # the split fine level, M = 4096
 K89_SIDES = (201, 8191)                # M = 101 (ragged) and 4096
@@ -213,11 +229,12 @@ def interleaved(name: str, size: str, kern, plain, reps: int, times: dict):
 
 
 def parity_and_timing(dev):
-    """Phases 2 and 3 for K1-K4: each kernel against its plain version,
-    and both timed, at the main path's M = 512 and 2048. Returns per-kernel
-    max_abs_err, {kernel: (kernel ms, plain ms)} and {kernel: bound} at
-    M = 2048."""
-    errs = {k: 0.0 for k in list(KERNEL_INFO)[:4]}
+    """Phases 2 and 3 for K1, K3 and K4 (K2: down_leg_parity_and_timing):
+    each kernel against its plain version, and both timed, at the main
+    path's M = 512 and 2048. Returns per-kernel max_abs_err, {kernel:
+    (kernel ms, plain ms)} and {kernel: bound} at M = 2048."""
+    errs = {k: 0.0 for k in ("fused_gs4_sweep_packed", "fused_up_leg_packed",
+                             "fused_df_residual_rss")}
     times, bounds = {}, {}
     for side in PARITY_SIDES:
         M = (side + 1) // 2
@@ -243,21 +260,6 @@ def parity_and_timing(dev):
                     and float(got[3][m, :].abs().max()) == 0.0
                     and float(got[3][:, m].abs().max()) == 0.0,
                     "K1 pad cells exactly 0")
-
-        gu, gbc = K.fused_down_leg_packed(u4, b4, w33, m, 0.9, True)
-        ru, rbc = down_leg_plain(u4, b4, w33, m, 0.9, True)
-        du, r_u = rel_err(gu, ru)
-        dbc, r_bc = rel_err(gbc, rbc)
-        errs["fused_down_leg_packed"] = max(errs["fused_down_leg_packed"],
-                                            du, dbc)
-        print(f"parity K2 down leg M={M}: u max_abs {du:.3e} rel {r_u:.3e} "
-              f"(bound {BOUND['down_u']}); bc max_abs {dbc:.3e} rel "
-              f"{r_bc:.3e} (bound {BOUND['down_bc']})")
-        require(r_u <= BOUND["down_u"] and r_bc <= BOUND["down_bc"],
-                "K2 down-leg parity")
-        require(float(gbc[m, :].abs().max()) == 0.0
-                and float(gbc[:, m].abs().max()) == 0.0,
-                "K2 bc_pad pad row and column exactly 0")
 
         got = K.fused_up_leg_packed(u4, b4, uc_pad, w33, m, 0.9, True)
         ref = up_leg_plain(u4, b4, uc_pad, w33, m, 0.9, True)
@@ -289,9 +291,6 @@ def parity_and_timing(dev):
             "fused_gs4_sweep_packed": (
                 lambda: K.fused_gs4_sweep_packed(u4, b4, w33, m),
                 lambda: gs4_sweep_packed(u4, b4, w33, m)),
-            "fused_down_leg_packed": (
-                lambda: K.fused_down_leg_packed(u4, b4, w33, m),
-                lambda: down_leg_plain(u4, b4, w33, m)),
             "fused_up_leg_packed": (
                 lambda: K.fused_up_leg_packed(u4, b4, uc_pad, w33, m),
                 lambda: up_leg_plain(u4, b4, uc_pad, w33, m)),
@@ -311,8 +310,6 @@ def parity_and_timing(dev):
             # residual 2k + 3 ops a cell, restriction 4, prolongation 3
             bounds.update({
                 "fused_gs4_sweep_packed": bound(3 * f4, sweep),
-                "fused_down_leg_packed": bound(3 * f4 + uc_pad.nbytes,
-                                               sweep + 15 * cells),
                 "fused_up_leg_packed": bound(3 * f4 + uc_pad.nbytes,
                                              sweep + 3 * cells),
                 # 5 TwoSum-cascade terms of 10 ops, a TwoSum, the square
@@ -320,6 +317,67 @@ def parity_and_timing(dev):
                                                60 * cells),
             })
     return errs, times, bounds
+
+
+def down_leg_bound(w33, side: int, f4: int) -> tuple[float, str]:
+    """K2's least time: u and b read, u and the (M, M) bc_pad written; the
+    sweep, the residual (2k + 3 ops a cell) and the restriction (4)."""
+    cells = side * side
+    return bound(3 * f4 + f4 // 4, sweep_ops(w33, cells)
+                 + residual_ops(w33, cells) + 4 * cells)
+
+
+def down_leg_parity_and_timing(dev):
+    """K2 against its plain version at K2_SIDES, bitwise (torch.equal) on
+    u and bc_pad, symmetric and forward, omega 0.9 and 1, pad row and
+    column exactly 0, on the 5-point Poisson weights and K2_WEIGHTS; timed
+    against the plain version at K2_TIMED (Poisson; 9-point beside it),
+    each beside its bound. Returns max_abs_err, the times at M = 2048, the
+    bound there and {M: (kernel ms, bound ms)}."""
+    err, times, bounds, by_m = 0.0, {}, {}, {}
+    for side in K2_SIDES:
+        M = (side + 1) // 2
+        w33 = poisson_const_w33(side, 1)[0]
+        m, f = packed_fields(side, seed=side + 3, dev=dev)
+        u4, b4 = f(), f()
+        for label, w in (("five", w33), *K2_WEIGHTS.items()):
+            for symmetric in (True, False):
+                for omega in (0.9, 1.0):
+                    gu, gbc = K.fused_down_leg_packed(u4, b4, w, m, omega,
+                                                      symmetric)
+                    ru, rbc = down_leg_plain(u4, b4, w, m, omega, symmetric)
+                    du, r_u = rel_err(gu, ru)
+                    dbc, r_bc = rel_err(gbc, rbc)
+                    same = torch.equal(gu, ru) and torch.equal(gbc, rbc)
+                    err = max(err, du, dbc)
+                    print(f"parity K2 down leg M={M} {label}-point "
+                          f"symmetric={symmetric} omega={omega}: u max_abs "
+                          f"{du:.3e} rel {r_u:.3e}, bc max_abs {dbc:.3e} "
+                          f"rel {r_bc:.3e}; bitwise equal {same}")
+                    require(same, "K2 bitwise equal to its plain version")
+                    require(float(gbc[m, :].abs().max()) == 0.0
+                            and float(gbc[:, m].abs().max()) == 0.0,
+                            "K2 bc_pad pad row and column exactly 0")
+        if side in K2_TIMED:
+            w9 = K2_WEIGHTS["nine"]
+            t9 = min(time_ms(lambda: K.fused_down_leg_packed(u4, b4, w9, m),
+                             20), time_ms(lambda: K.fused_down_leg_packed(
+                                 u4, b4, w9, m), 20))
+            print(f"time K2 M={M} 9-point weights: {t9:.4f} ms")
+            t = {}
+            interleaved("fused_down_leg_packed", f"M={M}",
+                        lambda: K.fused_down_leg_packed(u4, b4, w33, m),
+                        lambda: down_leg_plain(u4, b4, w33, m),
+                        50 if M <= 512 else 20, t)
+            bnd = down_leg_bound(w33, side, u4.nbytes)
+            by_m[M] = (t["fused_down_leg_packed"][0], bnd[0])
+            print(f"time K2 M={M}: {by_m[M][0]:.4f} ms against its bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / by_m[M][0]:.1%}")
+            if M == 2048:
+                times.update(t)
+                bounds["fused_down_leg_packed"] = bnd
+        del u4, b4, gu, gbc, ru, rbc
+    return err, times, bounds, by_m
 
 
 def rbgs_parity_and_timing(dev):
@@ -831,27 +889,43 @@ def var_solves(dev, launches: dict):
 
 def halo_parity_and_timing(dev):
     """K7 against its plain version, bitwise (it is a copy): f32 and f64,
-    u and b given apart and stacked as one u|b slab, at HALO_SHAPES. Timed
-    at the path's shape in f32 against the plain version, and against one
-    PyTorch call that computes the same strips: index_select of the rows
-    of the stacked u|b field with one zero row appended (field, zero row
-    and index made outside the timing). Returns max_abs_err, the times,
-    the bound and the library call's ms."""
+    u and b given apart and stacked as one u|b slab, into a new tensor and
+    into ``out=``, and as strided views (the slab rows of a framed field),
+    at HALO_SHAPES. At the path's shape in f32, in the path's call form
+    (u and b apart, ``out=`` the level's buffer): the per-call time (20
+    back-to-back calls between CUDA events) against the plain version, and
+    in turns against one PyTorch call that computes the same strips:
+    index_select of the rows of the stacked u|b field with one zero row
+    appended (field, zero row and index made outside the timing); then the
+    kernel's own device time, from a CUDA graph of K7_GRAPH_LAUNCHES
+    launches replayed, and from torch.profiler's kernel time. Returns
+    max_abs_err, the times, the bound, the library call's ms and the
+    graph's device ms per launch."""
     err = 0.0
     for D, B, n, G in HALO_SHAPES:
         for dtype in (torch.float32, torch.float64):
             g = torch.Generator(device=dev).manual_seed(D * B + n)
             u, b = (torch.randn((D, B, n), generator=g, device=dev,
                                 dtype=dtype) for _ in range(2))
+            framed = torch.randn((2, D, B + 2 * G, n + 4), generator=g,
+                                 device=dev, dtype=dtype)
+            uv, bv = framed[0, :, G:G + B, 4:], framed[1, :, G:G + B, 4:]
+            out = torch.full((D, 2 * G, 2 * n), float("nan"), device=dev,
+                             dtype=dtype)
             ref = rdma_halo_exchange_plain((u, b), G)
-            got = K.rdma_halo_exchange((u, b), G)
-            got_st = K.rdma_halo_exchange(torch.cat([u, b], dim=2), G)
+            ref_v = rdma_halo_exchange_plain((uv.contiguous(),
+                                              bv.contiguous()), G)
+            gots = (K.rdma_halo_exchange((u, b), G),
+                    K.rdma_halo_exchange(torch.cat([u, b], dim=2), G),
+                    K.rdma_halo_exchange((u, b), G, out=out))
+            got_v = K.rdma_halo_exchange((uv, bv), G)
             torch.cuda.synchronize()
-            same = torch.equal(got, ref) and torch.equal(got_st, ref)
-            err = max(err, float((got - ref).abs().max()),
-                      float((got_st - ref).abs().max()))
-            print(f"parity K7 D={D} B={B} n={n} G={G} {dtype}: bitwise "
-                  f"equal {same}")
+            same = (all(torch.equal(x, ref) for x in gots)
+                    and torch.equal(got_v, ref_v))
+            err = max([err, float((got_v - ref_v).abs().max())]
+                      + [float((x - ref).abs().max()) for x in gots])
+            print(f"parity K7 D={D} B={B} n={n} G={G} {dtype}: apart, "
+                  f"stacked, out=, strided views: bitwise equal {same}")
             require(same, "K7 bitwise equal to its plain version")
 
     D, B, n, G = HALO_SHAPES[0]
@@ -868,22 +942,66 @@ def halo_parity_and_timing(dev):
                  for r in range(G)]
         rows += [(d + 1) * B + r if d < D - 1 else zero for r in range(G)]
     idx = torch.tensor(rows, device=dev)
+    ref = rdma_halo_exchange_plain((u, b), G)
+    out = torch.empty_like(ref)
 
     def gather():
         return torch.index_select(src, 0, idx).reshape(D, 2 * G, W)
-    require(torch.equal(gather(), rdma_halo_exchange_plain((u, b), G)),
-            "the index_select computes K7's strips")
+
+    def k7():
+        return K.rdma_halo_exchange((u, b), G, out=out)
+    require(torch.equal(gather(), ref), "the index_select computes K7's "
+            "strips")
+    size = f"D={D} B={B} n={n} G={G}"
     times = {}
-    interleaved("rdma_halo_exchange", f"D={D} B={B} n={n} G={G}",
-                lambda: K.rdma_halo_exchange((u, b), G),
+    interleaved("rdma_halo_exchange", size, k7,
                 lambda: rdma_halo_exchange_plain((u, b), G), 20, times)
-    lib_ms = min(time_ms(gather, 20), time_ms(gather, 20))
-    print(f"time rdma_halo_exchange library call (index_select of the "
-          f"stacked u|b rows + a zero row): {lib_ms:.4f} ms")
+    lib_ms, k7_ms = alternating(gather, k7, 20)
+    new_ms = min(time_ms(lambda: K.rdma_halo_exchange((u, b), G), 20),
+                 time_ms(lambda: K.rdma_halo_exchange((u, b), G), 20))
+    print(f"time rdma_halo_exchange per call {size} (out=, the path's "
+          f"form): {k7_ms:.4f} ms against the library call (index_select "
+          f"of the stacked u|b rows + a zero row) {lib_ms:.4f} ms in turns "
+          f"(K7 / index_select {k7_ms / lib_ms:.3f}); without out= "
+          f"{new_ms:.4f} ms")
+    times["rdma_halo_exchange"] = (k7_ms, times["rdma_halo_exchange"][1])
+
+    # the kernel's own device time: a graph of back-to-back launches
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k7()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(K7_GRAPH_LAUNCHES):
+            k7()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(out, ref), "K7's graph replay writes the strips")
+    device_ms = min(time_ms(graph.replay, 10),
+                    time_ms(graph.replay, 10)) / K7_GRAPH_LAUNCHES
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(K7_GRAPH_LAUNCHES):
+            k7()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages() if "halo_put" in e.key]
+    n_k = sum(e.count for e in evts)
+    prof_ms = (sum(_device_us(e) for e in evts) / n_k / 1e3 if n_k
+               else None)
     # the sent rows read once, the receive strips written once
     es = u.element_size()
     moved = (2 * (D - 1) * G * W + 2 * D * G * W) * es
-    return err, times, {"rdma_halo_exchange": bound(moved, 0)}, lib_ms
+    bnd = bound(moved, 0)
+    prof_txt = f"{prof_ms:.5f} ms" if prof_ms else "not measured"
+    print(f"time rdma_halo_exchange device {size}: {device_ms:.5f} ms a "
+          f"launch in a CUDA graph of {K7_GRAPH_LAUNCHES} (torch.profiler "
+          f"kernel time {prof_txt}) against its bound {bnd[0]:.5f} ms "
+          f"({moved / 1e6:.2f} MB); per call through the wrapper "
+          f"{k7_ms:.4f} ms")
+    return (err, times, {"rdma_halo_exchange": bnd}, lib_ms, device_ms)
 
 
 def k7_levels(cfg) -> int:
@@ -999,12 +1117,16 @@ def main() -> int:
 
     # phases 2-3: parity and timing, kernel against plain
     errs, times, bounds = parity_and_timing(dev)
+    errs["fused_down_leg_packed"], t2, b2, k2_by_m = \
+        down_leg_parity_and_timing(dev)
+    times.update(t2)
+    bounds.update(b2)
     e56, t56, b56 = rbgs_parity_and_timing(dev)
     errs.update(e56)
     times.update(t56)
     bounds.update(b56)
-    errs["rdma_halo_exchange"], t7, b7, k7_lib_ms = halo_parity_and_timing(
-        dev)
+    errs["rdma_halo_exchange"], t7, b7, k7_lib_ms, k7_device_ms = \
+        halo_parity_and_timing(dev)
     times.update(t7)
     bounds.update(b7)
     e89, t89, b89, k9_launches = split_rm_parity_and_timing(dev)
@@ -1039,6 +1161,13 @@ def main() -> int:
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": errs[name], "ms": kms, "plain_ms": pms,
                  "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+        if name == "rdma_halo_exchange":
+            # ms is the per-call time; device_ms the kernel's own
+            entry["device_ms"] = k7_device_ms
+        if name == "fused_down_leg_packed":
+            entry["ms_by_M"] = {str(M): t for M, (t, _) in k2_by_m.items()}
+            entry["bound_ms_by_M"] = {str(M): bm
+                                      for M, (_, bm) in k2_by_m.items()}
         if name == "fused_gs4_sweep_rm":
             # launches stays the path count (0); the parity phase's own
             # launches are reported apart

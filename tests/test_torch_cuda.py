@@ -68,17 +68,33 @@ def test_sweep_kernel(dev, symmetric):
     assert float(got[3][M_, :].abs().max()) == 0.0
 
 
-def test_leg_kernels(dev):
-    u4, b4 = _field(dev, 2), _field(dev, 3)
-    gu, gbc = K.fused_down_leg_packed(u4, b4, W33, M_, 0.9, True)
-    ru, rbc = down_leg_plain(u4, b4, W33, M_, 0.9, True)
-    assert _rel(gu, ru) <= 2e-6 and _rel(gbc, rbc) <= 1e-5
-    assert float(gbc[M_, :].abs().max()) == float(gbc[:, M_].abs().max()) \
-        == 0.0
-    uc_pad = F.pad(_field(dev, 4)[0, :M_, :M_], (0, 1, 0, 1))
-    got = K.fused_up_leg_packed(u4, b4, uc_pad, W33, M_, 0.9, True)
-    assert _rel(got, up_leg_plain(u4, b4, uc_pad, W33, M_, 0.9,
-                                  True)) <= 1e-5
+# K2's three weight instantiations: the fine level's 5-point Poisson
+# weights, a Galerkin level's 9-point ones, and another zero pattern
+NINE_POINT = ((-0.5, -1.0, -0.5), (-1.0, 6.0, -1.0), (-0.5, -1.0, -0.5))
+OTHER_POINT = ((0.0, -1.0, -0.5), (-1.0, 4.5, -1.0), (0.0, -1.0, 0.0))
+
+
+# M = 513 (ragged: 4-byte copies, edge tiles), 512 and 2048 (the 1023^2
+# and 4095^2 fine levels)
+@pytest.mark.parametrize("side", [1025, 1023, 4095])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("weights", ["five", "nine", "other"])
+def test_leg_kernels(dev, side, symmetric, weights):
+    """K2 bitwise equal to its plain version (omega 0.9 and 1, pad row and
+    column exactly 0), K3 within its bound."""
+    m, (u4, b4) = _fields_at(dev, side, side + 2)
+    w33 = {"five": poisson_const_w33(side, 1)[0], "nine": NINE_POINT,
+           "other": OTHER_POINT}[weights]
+    for omega in (0.9, 1.0):
+        gu, gbc = K.fused_down_leg_packed(u4, b4, w33, m, omega, symmetric)
+        ru, rbc = down_leg_plain(u4, b4, w33, m, omega, symmetric)
+        assert torch.equal(gu, ru) and torch.equal(gbc, rbc)
+        assert float(gbc[m, :].abs().max()) == float(
+            gbc[:, m].abs().max()) == 0.0
+    uc_pad = F.pad(u4[0, :m, :m], (0, 1, 0, 1))
+    got = K.fused_up_leg_packed(u4, b4, uc_pad, w33, m, 0.9, symmetric)
+    assert _rel(got, up_leg_plain(u4, b4, uc_pad, w33, m, 0.9,
+                                  symmetric)) <= 1e-5
 
 
 def test_df_kernel(dev):
@@ -211,20 +227,33 @@ def test_var_solve_on_the_card(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("D,B,n,G", [(2, 10, 31, 10), (8, 10, 31, 10),
                                      (3, 16, 33, 2), (4, 64, 255, 10),
-                                     (1, 12, 7, 4)])
+                                     (1, 12, 7, 4), (4, 64, 256, 10),
+                                     (3, 8, 32, 3)])
 def test_halo_kernel(dev, D, B, n, G, dtype):
-    """K7 equals its plain version bitwise (a copy): G == B, odd widths,
-    one slab, u and b apart and stacked."""
+    """K7 equals its plain version bitwise (a copy): G == B, odd widths
+    (element copies) and widths of whole 16-byte vectors, one slab; u and
+    b apart and stacked, into a new tensor and into ``out=``, and as
+    strided views (the slab rows of a framed field)."""
     g = torch.Generator(device=dev).manual_seed(D * B + n)
     u, b = (torch.randn((D, B, n), generator=g, device=dev, dtype=dtype)
             for _ in range(2))
+    framed = torch.randn((2, D, B + 2 * G, n + 4), generator=g, device=dev,
+                         dtype=dtype)
+    uv, bv = framed[0, :, G:G + B, 4:], framed[1, :, G:G + B, 4:]
+    out = torch.full((D, 2 * G, 2 * n), float("nan"), device=dev,
+                     dtype=dtype)
     K.reset_launch_counts()
     got = K.rdma_halo_exchange((u, b), G)
     got_st = K.rdma_halo_exchange(torch.cat([u, b], dim=2), G)
+    got_out = K.rdma_halo_exchange((u, b), G, out=out)
+    got_view = K.rdma_halo_exchange((uv, bv), G)
     torch.cuda.synchronize()
-    assert K.launch_counts()["rdma_halo_exchange"] == 2
+    assert K.launch_counts()["rdma_halo_exchange"] == 4
     ref = rdma_halo_exchange_plain((u, b), G)
     assert torch.equal(got, ref) and torch.equal(got_st, ref)
+    assert got_out is out and torch.equal(out, ref)
+    assert torch.equal(got_view, rdma_halo_exchange_plain(
+        (uv.contiguous(), bv.contiguous()), G))
     assert got.data_ptr() not in (u.data_ptr(), b.data_ptr())
 
 

@@ -85,3 +85,58 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         K.rdma_halo_exchange(torch.zeros((MAX_SLABS + 1, 4, 3)), 2)
     with pytest.raises(ValueError, match="must be"):
         K.rdma_halo_exchange(torch.zeros((4, 3)), 2)
+
+
+def _framed(D, B, n, G, dtype, seed):
+    """(field, slabs): slabs are the (D, B, n) rows [G, G + B) of a framed
+    (D, B + 2G, n + 3) field, a strided view (slab stride (B + 2G)(n + 3),
+    row pitch n + 3)."""
+    rng = np.random.default_rng(seed)
+    f = torch.tensor(rng.standard_normal((D, B + 2 * G, n + 3)), dtype=dtype)
+    return f, f[:, G:G + B, 1:n + 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D,B,n,G", [(4, 12, 9, 5), (3, 6, 8, 6),
+                                     (1, 4, 3, 2)])
+def test_strided_slabs_and_out(D, B, n, G, dtype):
+    """The new argument forms on CPU tensors: u and b as strided views of
+    framed fields (one slab stride and row pitch), and ``out=`` a buffer
+    the caller owns, which is filled and returned; all equal the plain
+    version on contiguous copies, and nothing launches."""
+    _, u = _framed(D, B, n, G, dtype, 1)
+    _, b = _framed(D, B, n, G, dtype, 2)
+    assert not u.is_contiguous()
+    ref = rdma_halo_exchange_plain((u.contiguous(), b.contiguous()), G)
+    K.reset_launch_counts()
+    assert torch.equal(K.rdma_halo_exchange((u, b), G), ref)
+    out = torch.full((D, 2 * G, 2 * n), float("nan"), dtype=dtype)
+    got = K.rdma_halo_exchange((u, b), G, out=out)
+    assert got is out and torch.equal(out, ref)
+    one = torch.empty((D, 2 * G, n), dtype=dtype)
+    assert torch.equal(K.rdma_halo_exchange(u, G, out=one), ref[..., :n])
+    assert K.launch_counts()["rdma_halo_exchange"] == 0
+
+
+@pytest.mark.parametrize("case", ["transposed", "strides", "out_shape",
+                                  "out_dtype", "out_strided"])
+def test_wrapper_rejects_wrong_strides_and_out(case):
+    """What the kernel cannot take raises on every device: rows that are
+    not contiguous, parts whose strides differ, an ``out=`` of the wrong
+    shape, dtype or layout."""
+    D, B, n, G = 3, 8, 6, 2
+    x = torch.zeros((D, B, n))
+    parts, out, match = (x, x.clone()), None, "out must be"
+    if case == "transposed":
+        parts, match = torch.zeros((D, n, B)).transpose(1, 2), "contiguous"
+    elif case == "strides":
+        parts, match = (x, _framed(D, B, n, G, torch.float32, 0)[1]), \
+            "share strides"
+    elif case == "out_shape":
+        out = torch.zeros((D, 2 * G, n))
+    elif case == "out_dtype":
+        out = torch.zeros((D, 2 * G, 2 * n), dtype=torch.float64)
+    else:
+        out = torch.zeros((D, 2 * n, 2 * G)).transpose(1, 2)
+    with pytest.raises(ValueError, match=match):
+        K.rdma_halo_exchange(parts, G, out=out)
