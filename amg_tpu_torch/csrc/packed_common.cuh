@@ -3,16 +3,15 @@
 //
 //   piece                               K1  K2  K3  K8  K9
 //   gidx / real_cell / set_smem_once    x   x   x   x   x
-//   load_tile / store_interior          x       x   x   x   (layout: K9 rows)
-//   neighbour_acc / gs_update           x   x   x       x   (K2: kPat)
-//   color_steps (the GS color steps)    x       x       x
-//   sweep_block (K1's whole block)      x                x
+//   neighbour_acc / gs_update           x   x   x       x
+//   Tiling, load_window, window_sweep,  x   x   x
+//     store_tile (the windowed block)
 //   residual_cell / restrict_cell           x       x
+//   load_tile / store_interior                      x   x   (layout: K9 rows)
+//   color_steps, sweep_block                            x   (32 x 32 block)
 //   residual_window / restrict_store                x
 //
-// K1 packed_sweep.cu, K2/K3/K8 packed_cycle.cu, K9 packed_rm.cu. K2 has
-// its own window, loads and thread map (packed_cycle.cu) around the shared
-// arithmetic.
+// K1 packed_sweep.cu, K2/K3/K8 packed_cycle.cu, K9 packed_rm.cu.
 //
 // Layout (amg_tpu_torch/sparse/packed.py): a field holds four (M, M) f32
 // quarters, quarter a = 2*pj + pi holding the points (2J+pj, 2I+pi). With
@@ -24,15 +23,33 @@
 // Together they are the Dirichlet boundary. Shared-memory tiles are always
 // [4][W][W], whatever the layout in device memory.
 //
-// Temporal blocking: a block holds a T x T tile of all four quarters plus a
-// ghost ring of G cells on all four sides in shared memory. Each color step
-// updates every real cell of the (T+2G)^2 window, reading neighbours inside
-// the window only (0 outside it). A cell on the window's edge therefore goes
-// wrong, and the error front moves inward by one cell per step in J and I.
-// After 8 steps the cells at distance >= 8 from the edge hold exactly the
-// sequential color-ordered iterate; G >= 8 keeps the interior exact. (The
-// front moves one fine grid point, half a packed cell, per step, so this G
-// is twice what exactness needs; K2 takes the tighter ring.)
+// Temporal blocking: a block holds a tile of all four quarters plus a ghost
+// ring in shared memory and runs all the color steps there. The window's
+// edge cells cannot be updated exactly (their neighbours lie outside), and
+// the wrong values spread inwards with the color steps; the ring keeps them
+// off the cells the block stores.
+//
+// The windowed block (Tiling, K1, K2, K3): a TJ x TI tile in a window of
+// H = TJ + 2 GJ rows and W = TI + 2 GI columns. The color steps update the
+// window's inner (H-2) x (W-2) cells and never its outermost ones, so every
+// update reads inside the window without a bounds test. How far do the
+// wrong values reach? A color step of parity (pj, pi) reads fine neighbours
+// at most one fine row and column away, so along a chain of steps a wrong
+// value moves one fine row only where the row parity changes and one fine
+// column where the column parity changes. In the 8 steps 00 01 10 11 11 10
+// 01 00 the row parity changes twice and the column parity up to six times
+// (9-point weights; twice with 5-point ones). From the frozen outer cells
+// (fine rows and columns 0-1 of each edge) the wrong values therefore stay
+// in the outer 2 packed rows and 4 packed columns: GJ = 2, GI = 4 keep a
+// sweep's tile exact (K1, K3). K2's residual reads one fine point further
+// and its restriction one cell past the tile: GJ >= 3, GI >= 5 (it takes 6
+// and 8). tests/test_torch_tiling.py emulates the blocks on the CPU: these
+// rings are bitwise exact, one row or one column less is not.
+//
+// The 32 x 32 block (sweep_block, K9 only): a T x T tile with a ring of
+// G = 8 in a (T+2G)^2 window whose every real cell is updated, reads
+// outside the window taken as 0; G = 8 is one packed cell per color step,
+// far more than exactness needs.
 //
 // Arithmetic order equals the plain PyTorch version term by term, and the
 // library is built with -fmad=false, so no product is contracted into an
@@ -43,6 +60,7 @@
 #include <stddef.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace amg {
 
@@ -176,6 +194,192 @@ __device__ __forceinline__ float gs_update(float u, float b, float acc,
   return u + st.omega * delta;
 }
 
+// ---------------------------------------------------------------------------
+// The windowed block (see the note at the top). A block of NX x NY threads,
+// a thread per window column and NY row phases, holds u and b's windows:
+// 2 x 4 x H x W floats of shared memory. Window row 0 is packed row J0 =
+// Jt - GJ, column 0 is I0 = It - GI, for the block's tile (Jt, It) =
+// (blockIdx.y * TJ, blockIdx.x * TI).
+template <int TJ_, int TI_, int GJ_, int GI_, int NY_>
+struct Tiling {
+  static constexpr int TJ = TJ_;         // tile rows, cells of each quarter
+  static constexpr int TI = TI_;         // tile columns
+  static constexpr int GJ = GJ_;         // ghost rows above and below
+  static constexpr int GI = GI_;         // ghost columns left and right
+  static constexpr int H = TJ + 2 * GJ;  // window rows
+  static constexpr int W = TI + 2 * GI;  // window columns
+  static constexpr int NX = W;
+  static constexpr int NY = NY_;
+  static constexpr int NT = NX * NY;
+  static constexpr size_t kSmem = 2 * 4 * H * W * sizeof(float);
+  // blocks an SM holds (228 KB of shared memory, 1 KB reserved a block)
+  static constexpr int kBlocks = (233472 / (kSmem + 1024)) > 1 ? 2 : 1;
+  static_assert(W % 4 == 0 && GI % 4 == 0 && TI % 4 == 0,
+                "16-byte window rows");
+  static_assert(TJ > GJ && TI > GI, "only the first tiles' windows start "
+                "before row or column 1");
+  static_assert(kSmem <= 232448, "one block's shared memory");
+};
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ void cp_async(float* s, const float* g, int bytes,
+                                         bool in) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(sa), "l"(g), "r"(in ? 16 : 0) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(sa), "l"(g), "r"(in ? 4 : 0) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// S[4][H][W] <- the four quarters' [J0, J0+H) x [I0, I0+W) windows of g,
+// 0 outside [0, M)^2, as cp.async copies in flight (the caller waits).
+// vec: 16-byte copies (M % 4 == 0, I0 % 4 == 0, g 16-byte aligned), so a
+// chunk lies wholly inside or outside [0, M).
+template <class Tl>
+__device__ __forceinline__ void load_window(float* S,
+                                            const float* __restrict__ g,
+                                            int M, int J0, int I0, bool vec) {
+  const int tid = threadIdx.x + Tl::NX * threadIdx.y;
+  if (vec) {
+    constexpr int CH = Tl::W / 4;      // chunks per window row
+    constexpr int N = 4 * Tl::H * CH;
+#pragma unroll
+    for (int k = 0; k < (N + Tl::NT - 1) / Tl::NT; ++k) {
+      const int L = tid + Tl::NT * k;
+      if (L >= N) break;
+      const int qr = L / CH;           // quarter * H + row
+      const int ch = L - qr * CH;
+      const int q = qr / Tl::H;
+      const int J = J0 + qr - q * Tl::H;
+      const int I = I0 + 4 * ch;
+      const bool in = J >= 0 && J < M && I >= 0 && I < M;
+      cp_async(S + qr * Tl::W + 4 * ch, in ? g + gidx(q, J, I, M) : g, 16,
+               in);
+    }
+  } else {
+    const int I = I0 + threadIdx.x;
+#pragma unroll 4
+    for (int k = 0; k < (4 * Tl::H + Tl::NY - 1) / Tl::NY; ++k) {
+      const int qr = threadIdx.y + Tl::NY * k;
+      if (qr >= 4 * Tl::H) break;
+      const int q = qr / Tl::H;
+      const int J = J0 + qr - q * Tl::H;
+      const bool in = J >= 0 && J < M && I >= 0 && I < M;
+      cp_async(S + qr * Tl::W + threadIdx.x, in ? g + gidx(q, J, I, M) : g,
+               4, in);
+    }
+  }
+}
+
+// Every window cell real in every quarter: the color steps test no cell.
+// The condition is uniform over the block.
+template <class Tl>
+__device__ __forceinline__ bool window_inside(int M, int J0, int I0) {
+  return J0 >= 0 && I0 >= 0 && J0 + Tl::H <= M - 1 && I0 + Tl::W <= M - 1;
+}
+
+// One color step on the window's inner (H-2) x (W-2) cells: column 1 + x,
+// rows 1 + y + NY k. kEdge: test each cell for being real.
+template <class Tl, int PJ, int PI, bool kEdge, int kPat>
+__device__ __forceinline__ void window_step(float* U, const float* B,
+                                            const Stencil& st, int M,
+                                            int J0, int I0) {
+  constexpr int a = 2 * PJ + PI;
+  const int c = 1 + threadIdx.x;
+  if (c > Tl::W - 2) return;
+#pragma unroll
+  for (int k = 0; k < (Tl::H - 2 + Tl::NY - 1) / Tl::NY; ++k) {
+    const int r = 1 + threadIdx.y + Tl::NY * k;
+    if (r > Tl::H - 2) break;
+    if (kEdge && !real_cell(a, J0 + r, I0 + c, M)) continue;
+    const int L = (a * Tl::H + r) * Tl::W + c;
+    const float acc =
+        neighbour_acc<Tl::H, Tl::W, PJ, PI, false, kPat>(U, st, r, c);
+    U[L] = gs_update(U[L], B[L], acc, st);
+  }
+}
+
+// The 4 (or, symmetric, 8) color steps 00 01 10 11 [11 10 01 00], each
+// followed by a barrier.
+template <class Tl, bool kEdge, int kPat>
+__device__ void window_sweep(float* U, const float* B, const Stencil& st,
+                             int M, int J0, int I0, int symmetric) {
+  const int n = symmetric ? 8 : 4;
+  for (int k = 0; k < n; ++k) {
+    switch (k < 4 ? k : 7 - k) {
+      case 0: window_step<Tl, 0, 0, kEdge, kPat>(U, B, st, M, J0, I0); break;
+      case 1: window_step<Tl, 0, 1, kEdge, kPat>(U, B, st, M, J0, I0); break;
+      case 2: window_step<Tl, 1, 0, kEdge, kPat>(U, B, st, M, J0, I0); break;
+      default: window_step<Tl, 1, 1, kEdge, kPat>(U, B, st, M, J0, I0); break;
+    }
+    __syncthreads();
+  }
+}
+
+// The four quarters' [Jt, Jt+TJ) x [It, It+TI) of out <- the window's tile:
+// 16-byte stores where the tile lies inside [0, M)^2 and vec holds.
+template <class Tl>
+__device__ __forceinline__ void store_tile(const float* U,
+                                           float* __restrict__ out, int M,
+                                           int Jt, int It, bool vec) {
+  const int tid = threadIdx.x + Tl::NX * threadIdx.y;
+  if (vec && Jt + Tl::TJ <= M && It + Tl::TI <= M) {
+    constexpr int N = 4 * Tl::TJ * Tl::TI / 4;  // float4s of the tile
+#pragma unroll
+    for (int k = 0; k < (N + Tl::NT - 1) / Tl::NT; ++k) {
+      const int L = tid + Tl::NT * k;
+      if (L >= N) break;
+      const int q = L / (Tl::TJ * Tl::TI / 4);
+      const int r = (L / (Tl::TI / 4)) % Tl::TJ;
+      const int c = 4 * (L % (Tl::TI / 4));
+      *reinterpret_cast<float4*>(out + gidx(q, Jt + r, It + c, M)) =
+          *reinterpret_cast<const float4*>(
+              U + (q * Tl::H + Tl::GJ + r) * Tl::W + Tl::GI + c);
+    }
+  } else {
+    constexpr int N = 4 * Tl::TJ * Tl::TI;
+    for (int L = tid; L < N; L += Tl::NT) {
+      const int q = L / (Tl::TJ * Tl::TI);
+      const int r = (L / Tl::TI) % Tl::TJ;
+      const int c = L % Tl::TI;
+      if (Jt + r < M && It + c < M)
+        out[gidx(q, Jt + r, It + c, M)] =
+            U[(q * Tl::H + Tl::GJ + r) * Tl::W + Tl::GI + c];
+    }
+  }
+}
+
+// Launch kernel<kPat> for the zero pattern of w9 (kFivePoint, kNinePoint or
+// kAnyWeights): launch is a callable template taking the pattern as an
+// integral_constant.
+template <typename Launch>
+inline int by_weight_pattern(const float* w9, Launch launch) {
+  switch (weight_pattern(w9)) {
+    case kFivePoint:
+      return launch(std::integral_constant<int, kFivePoint>());
+    case kNinePoint:
+      return launch(std::integral_constant<int, kNinePoint>());
+    default:
+      return launch(std::integral_constant<int, kAnyWeights>());
+  }
+}
+
 // One GS color step on the window: u_a += omega * ((b_a - acc)/diag - u_a)
 // at every real cell of quarter a. The step reads only the other three
 // quarters, so updating quarter a in place is race-free.
@@ -227,7 +431,7 @@ __device__ void store_interior(const float* U, float* __restrict__ g, int M,
   }
 }
 
-// The whole block of the standalone sweep (K1, K9): load u and b with the
+// The 32 x 32 block of the row-grouped sweep (K9): load u and b with the
 // ghost ring, run the color steps, store the tile. The block's tile is
 // (blockIdx.y, blockIdx.x); shared memory holds 2 * 4 * (T+2G)^2 floats.
 template <int T, int G, int Lay>

@@ -10,12 +10,14 @@
 // cost). It is ported so that the card can answer the same question.
 //
 // Bound on the card: device-memory traffic, as K1. The block and its color
-// steps are K1's (packed_common.cuh sweep_block, with the kRowGrouped
-// address map): a block reads the 4 x 48 rows of u and b of its ghosted
-// tile and writes 4 x 32 rows, so it moves K1's 22 bytes per packed cell
-// (12 is the floor). Each tile row of a quarter is 48 contiguous floats in
-// both layouts, so the loads coalesce alike; the layouts differ only in
-// the stride between the rows of a quarter (4M floats here, M in K1).
+// steps are K1's first block (packed_common.cuh sweep_block, with the
+// kRowGrouped address map): a block reads the 4 x 48 rows of u and b of its
+// ghosted tile and writes 4 x 32 rows, 22 bytes per packed cell (12 is the
+// floor). Each tile row of a quarter is 48 contiguous floats in both
+// layouts, so the loads coalesce alike; the layouts differ only in the
+// stride between the rows of a quarter (4M floats here, M in K1). K1 runs
+// the windowed block; both are bitwise equal to the plain sweep, so K9
+// through the layout conversions equals K1.
 //
 // Out of place, like K1: every block's ghost cells read the input.
 

@@ -7,11 +7,16 @@
 // both: it tiles in 2-D at every M.
 //
 // Bound on the card: device-memory traffic. Unfused, the 8 color steps move
-// about 24 field passes; here a block reads u and b once with a ghost ring
-// and writes u once: (4 + 4) * ((T+2G)/T)^2 + 4 = 22 bytes per packed cell
-// at T = 32, G = 8 (12 bytes is the floor without ghosts). The 8 steps run
-// out of shared memory: 2 * 4 * 48^2 * 4 B = 73.7 KB per block, so three
-// blocks fit on one SM.
+// about 24 field passes; the floor is u and b read once and u written once,
+// 12 bytes per packed cell. K1 is K3 (packed_cycle.cu) without the
+// correction: a windowed block (packed_common.cuh Tiling) with a 32 x 64
+// tile in a 36 x 72 window, the exact ring of 2 rows and 4 columns, 576
+// threads and 82,944 B of shared memory, so two blocks share an SM and one
+// block's loads overlap the other's color steps. u and b go in by cp.async
+// (16-byte copies where M % 4 == 0), the color steps take the weights' zero
+// pattern as a template parameter and test cells for being real only in
+// blocks at the domain's edge, and the tile goes out by 16-byte stores:
+// (4 + 4) * (36 * 72) / (32 * 64) + 4 = 14.1 bytes per packed cell.
 //
 // Out of place: every block's ghost cells read the pre-sweep input, so the
 // output is a separate buffer (never u itself).
@@ -20,16 +25,46 @@
 
 namespace {
 
-constexpr int T = 32;
-constexpr int G = 8;
-constexpr int W = T + 2 * G;
-constexpr size_t kSmem = 2 * 4 * W * W * sizeof(float);
+using Sweep = amg::Tiling<32, 64, 2, 4, 8>;
 
-__global__ void __launch_bounds__(amg::kThreads)
+template <int kPat>
+__global__ void __launch_bounds__(Sweep::NT, Sweep::kBlocks)
 packed_sweep_kernel(const float* __restrict__ u, const float* __restrict__ b,
                     float* __restrict__ out, int M, amg::Stencil st,
-                    int symmetric) {
-  amg::sweep_block<T, G, amg::kQuarterMajor>(u, b, out, M, st, symmetric);
+                    int symmetric, int vec) {
+  extern __shared__ float sweep_smem[];
+  float* U = sweep_smem;
+  float* B = sweep_smem + 4 * Sweep::H * Sweep::W;
+  const int Jt = blockIdx.y * Sweep::TJ;
+  const int It = blockIdx.x * Sweep::TI;
+  const int J0 = Jt - Sweep::GJ;
+  const int I0 = It - Sweep::GI;
+  amg::load_window<Sweep>(U, u, M, J0, I0, vec);
+  amg::load_window<Sweep>(B, b, M, J0, I0, vec);
+  amg::cp_async_commit();
+  amg::cp_async_wait<0>();
+  __syncthreads();
+  if (amg::window_inside<Sweep>(M, J0, I0))
+    amg::window_sweep<Sweep, false, kPat>(U, B, st, M, J0, I0, symmetric);
+  else
+    amg::window_sweep<Sweep, true, kPat>(U, B, st, M, J0, I0, symmetric);
+  amg::store_tile<Sweep>(U, out, M, Jt, It, vec);
+}
+
+template <int kPat>
+int launch_sweep(const float* u, const float* b, float* out, int M,
+                 const float* w9, float inv_diag, float omega, int symmetric,
+                 int vec, cudaStream_t stream) {
+  static std::atomic<unsigned long long> attr_set{0};
+  const cudaError_t err = amg::set_smem_once(packed_sweep_kernel<kPat>,
+                                             Sweep::kSmem, attr_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + Sweep::TI - 1) / Sweep::TI,
+                  (M + Sweep::TJ - 1) / Sweep::TJ);
+  packed_sweep_kernel<kPat><<<grid, dim3(Sweep::NX, Sweep::NY), Sweep::kSmem,
+                              stream>>>(
+      u, b, out, M, amg::make_stencil(w9, inv_diag, omega), symmetric, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -38,11 +73,10 @@ extern "C" int amg_packed_sweep(const float* u, const float* b, float* out,
                                 int M, const float* w9, float inv_diag,
                                 float omega, int symmetric,
                                 cudaStream_t stream) {
-  static std::atomic<unsigned long long> attr_set{0};
-  const cudaError_t err = amg::set_smem_once(packed_sweep_kernel, kSmem, attr_set);
-  if (err != cudaSuccess) return (int)err;
-  const int nt = (M + T - 1) / T;
-  packed_sweep_kernel<<<dim3(nt, nt), amg::kThreads, kSmem, stream>>>(
-      u, b, out, M, amg::make_stencil(w9, inv_diag, omega), symmetric);
-  return (int)cudaGetLastError();
+  const int vec = M % 4 == 0 && amg::aligned16(u) && amg::aligned16(b)
+                  && amg::aligned16(out);
+  return amg::by_weight_pattern(w9, [&](auto pat) {
+    return launch_sweep<decltype(pat)::value>(u, b, out, M, w9, inv_diag,
+                                              omega, symmetric, vec, stream);
+  });
 }

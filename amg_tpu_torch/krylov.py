@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from amg_tpu_torch.structured import (PACKED_MIN_SIDE, SolveResult,
-                                      StencilHierarchy, cycle_stencil,
-                                      level_plan, vcycle_packed)
+                                      StencilHierarchy, level_plan,
+                                      vcycle_packed, vcycle_stencil)
 from amg_tpu_torch.utils.metrics import rss_from_residual
 
 
@@ -31,7 +31,7 @@ def _preconditioner(hier: StencilHierarchy, fused: bool = False,
                     min_side: int | None = None, cycle=None):
     """z = -cycle(hier, 0, r). By default a packed hierarchy takes the
     color-packed V-cycle (with the fused kernels when ``fused``) and any
-    other the unpacked gamma = 1 cycle, JAX's vcycle_stencil."""
+    other the unpacked V-cycle (vcycle_stencil)."""
     if cycle is None:
         if hier.smoother == "packed":
             ms = PACKED_MIN_SIDE if min_side is None else min_side
@@ -41,7 +41,7 @@ def _preconditioner(hier: StencilHierarchy, fused: bool = False,
                 return vcycle_packed(h, z, r, min_side=ms, fused=fused,
                                      plan=plan)
         else:
-            cycle = cycle_stencil
+            cycle = vcycle_stencil
     return lambda r: -cycle(hier, torch.zeros_like(r), r)
 
 

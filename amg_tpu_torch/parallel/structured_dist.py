@@ -54,8 +54,8 @@ from amg_tpu_torch.ops.kernels.halo import (rdma_halo_exchange,
 from amg_tpu_torch.ops.transfer import linear_interp_1d
 from amg_tpu_torch.sparse.stencil import FOUR_COLORS, W2D, Stencil2D
 from amg_tpu_torch.structured import (SolveResult, StencilHierarchy,
-                                      _not_yet, cycle_stencil,
-                                      max_levels_for_side)
+                                      _not_yet, max_levels_for_side,
+                                      vcycle_stencil)
 from amg_tpu_torch.utils.device import resolve_device
 
 HALO_MODES = ("overlap", "sweep", "step", "rdma", "packed")
@@ -503,9 +503,9 @@ def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
         else:
             b_repl = coarse.reshape(D * Bc, nc)[:nc]     # all_gather
     # the agglomerated levels, computed once for every slab
-    u_repl = cycle_stencil(sub_hier, torch.zeros_like(b_repl), b_repl,
-                           cfg.pre_sweeps, cfg.post_sweeps, cfg.omega,
-                           cfg.symmetric)
+    u_repl = vcycle_stencil(sub_hier, torch.zeros_like(b_repl), b_repl,
+                            cfg.pre_sweeps, cfg.post_sweeps, cfg.omega,
+                            cfg.symmetric)
     for l in range(Ls - 1, -1, -1):
         B, n = cfg.blocks[l], cfg.sides[l]
         if l == Ls - 1:

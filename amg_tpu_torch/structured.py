@@ -260,13 +260,14 @@ def _smooth(hier: StencilHierarchy, l: int, u2, b2, sweeps: int,
     return u2
 
 
-def cycle_stencil(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
-                  post_sweeps: int = 1, omega: float = 1.0,
-                  symmetric: bool = True, _level: int = 0):
-    """V-cycle on unpacked fields from level ``_level`` down (leg order of
-    multigrid.hpp:263-305). From level 0 it is the JAX package's
-    ``vcycle_stencil`` (the smoother="fused" solve cycle) and, with
-    gamma = 1, its ``cycle_stencil``."""
+def cycle_stencil(hier: StencilHierarchy, u2, b2, gamma: int = 1,
+                  pre_sweeps: int = 1, post_sweeps: int = 1,
+                  omega: float = 1.0, symmetric: bool = True,
+                  _level: int = 0):
+    """Generalized multigrid cycle on unpacked fields from level ``_level``
+    down (leg order of multigrid.hpp:263-305): the coarse problem is
+    visited ``gamma`` times per level, so gamma = 1 is the V-cycle
+    (:func:`vcycle_stencil`) and gamma = 2 the W-cycle."""
     l = _level
     if l == hier.n_levels - 1:
         return hier.coarse_solve(b2)
@@ -274,10 +275,22 @@ def cycle_stencil(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
     u2 = _smooth(hier, l, u2, b2, pre_sweeps, omega, symmetric)
     r = b2 - S.matvec2(u2)
     bc = restrict_mm(r, hier.P1s[l])
-    uc = cycle_stencil(hier, torch.zeros_like(bc), bc, pre_sweeps,
-                       post_sweeps, omega, symmetric, _level=l + 1)
+    uc = torch.zeros_like(bc)
+    for _ in range(gamma):
+        uc = cycle_stencil(hier, uc, bc, gamma, pre_sweeps, post_sweeps,
+                           omega, symmetric, _level=l + 1)
     u2 = u2 + prolong_mm(uc, hier.P1s[l])
     return _smooth(hier, l, u2, b2, post_sweeps, omega, symmetric)
+
+
+def vcycle_stencil(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
+                   post_sweeps: int = 1, omega: float = 1.0,
+                   symmetric: bool = True, *, _level: int = 0):
+    """One V-cycle on unpacked fields from level ``_level`` down: the
+    smoother="fused" solve cycle and the masked levels of a packed one
+    (:func:`cycle_stencil` with gamma = 1)."""
+    return cycle_stencil(hier, u2, b2, 1, pre_sweeps, post_sweeps, omega,
+                         symmetric, _level=_level)
 
 
 def level_plan(sides, pre_sweeps: int, post_sweeps: int, min_side: int,
@@ -353,8 +366,8 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
         return pack(sol, ml) if _packed_in else sol
     kind = plan[l]
     if not _packed_in and kind == "masked":
-        return cycle_stencil(hier, u2, b2, pre_sweeps, post_sweeps, omega,
-                             symmetric, _level=l)
+        return vcycle_stencil(hier, u2, b2, pre_sweeps, post_sweeps, omega,
+                              symmetric, _level=l)
     S = hier.levels[l]
     m = (S.side - 1) // 2
     if S.w33 is None:
@@ -402,23 +415,26 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
     return u4 if _packed_in else unpack(u4, m)
 
 
-def fmg_stencil(hier: StencilHierarchy, b2, pre_sweeps: int = 1,
-                post_sweeps: int = 1,
+def fmg_stencil(hier: StencilHierarchy, b2, cycles_per_level: int = 1,
+                pre_sweeps: int = 1, post_sweeps: int = 1,
                 omega: float = 1.0, symmetric: bool = True,
-                start_level: int = 0, min_side: int | None = None,
-                fused: bool = False, plan: tuple | None = None):
+                gamma: int = 1, start_level: int = 0,
+                min_side: int | None = None, fused: bool = False, *,
+                plan: tuple | None = None):
     """Full multigrid (nested iteration): restrict the rhs down from level
     ``start_level``, solve the coarsest level directly, then prolong the
-    solution up, running one V-cycle on each level: a packed cycle on the
-    constant levels of side >= min_side of a smoother="packed" hierarchy,
-    the unpacked cycle everywhere else (as in the JAX package, so a
-    variable or fused hierarchy never takes a packed cycle here).
+    solution up, running ``cycles_per_level`` cycles on each level: with
+    gamma = 1 a packed V-cycle on the constant levels of side >= min_side
+    of a smoother="packed" hierarchy, the unpacked cycle of ``gamma``
+    everywhere else (as in the JAX package, so a variable or fused
+    hierarchy never takes a packed cycle here).
 
     The b-chain uses restrict_mm / prolong_mm: the JAX package measured the
     4095^2 refine count to depend on this chain's precision, which is why
     TF32 stays off (StructuredSolver)."""
     if min_side is None:
         min_side = PACKED_MIN_SIDE
+    use_packed = hier.smoother == "packed" and gamma == 1
     L = hier.n_levels
     l0 = start_level
     bs = {l0: b2}
@@ -427,14 +443,15 @@ def fmg_stencil(hier: StencilHierarchy, b2, pre_sweeps: int = 1,
     u = hier.coarse_solve(bs[L - 1])
     for l in range(L - 2, l0 - 1, -1):
         u = prolong_mm(u, hier.P1s[l])
-        if (hier.smoother == "packed" and hier.sides[l] >= min_side
-                and hier.w33s[l] is not None):
-            u = vcycle_packed(hier, u, bs[l], pre_sweeps, post_sweeps, omega,
-                              symmetric, _level=l, min_side=min_side,
-                              fused=fused, plan=plan)
-        else:
-            u = cycle_stencil(hier, u, bs[l], pre_sweeps, post_sweeps, omega,
-                              symmetric, _level=l)
+        for _ in range(cycles_per_level):
+            if (use_packed and hier.sides[l] >= min_side
+                    and hier.w33s[l] is not None):
+                u = vcycle_packed(hier, u, bs[l], pre_sweeps, post_sweeps,
+                                  omega, symmetric, _level=l,
+                                  min_side=min_side, fused=fused, plan=plan)
+            else:
+                u = cycle_stencil(hier, u, bs[l], gamma, pre_sweeps,
+                                  post_sweeps, omega, symmetric, _level=l)
     return u
 
 
@@ -537,9 +554,9 @@ class StructuredSolver:
 
     def _vcycle(self, u2, b2, level: int = 0, packed_in: bool = False):
         if self.smoother == "fused":
-            return cycle_stencil(self.hier, u2, b2, self.pre_sweeps,
-                                 self.post_sweeps, self.omega,
-                                 self.symmetric, _level=level)
+            return vcycle_stencil(self.hier, u2, b2, self.pre_sweeps,
+                                  self.post_sweeps, self.omega,
+                                  self.symmetric, _level=level)
         return vcycle_packed(self.hier, u2, b2, self.pre_sweeps,
                              self.post_sweeps, self.omega, self.symmetric,
                              _level=level, _packed_in=packed_in,
@@ -556,7 +573,7 @@ class StructuredSolver:
     def _fmg(self, b32):
         """The unpacked loops' nested-iteration start (an f32 FMG pass
         from the fine level, the JAX defaults for min_side and fused)."""
-        return fmg_stencil(self.hier, b32, self.pre_sweeps,
+        return fmg_stencil(self.hier, b32, 1, self.pre_sweeps,
                            self.post_sweeps, self.omega, self.symmetric)
 
     def _df_residual(self, b_df: DF32, u: DF32) -> DF32:
@@ -575,8 +592,9 @@ class StructuredSolver:
         level 1, FMG the coarse hierarchy, prolong back, then one packed
         fine-level V-cycle."""
         bc = restrict_packed(b4.hi, self.m)
-        uc = fmg_stencil(self.hier, bc, self.pre_sweeps, self.post_sweeps,
-                         self.omega, self.symmetric, start_level=1,
+        uc = fmg_stencil(self.hier, bc, 1, self.pre_sweeps,
+                         self.post_sweeps, self.omega, self.symmetric,
+                         start_level=1,
                          min_side=self.packed_min_side,
                          fused=self.fused_packed, plan=self.plan)
         u0f = prolong_add_packed(torch.zeros_like(b4.hi), uc, self.m)

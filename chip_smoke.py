@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1-K9) from amg_tpu_torch/csrc, checks
-each against its plain PyTorch version on the card and times both (K2
-bitwise at M = 513, 512, 2048 and 4096 and timed at the last three; K7
-per call against index_select and on the device, in a CUDA graph), then
+each against its plain PyTorch version on the card and times both (K1, K2
+and K3 bitwise at M = 513, 512, 2048 and 4096 and timed at the last three;
+K7 per call against index_select and on the device, in a CUDA graph), then
 drives the solves through the user entry points with an independent f64
 residual check and the kernels' launch counts:
 
@@ -71,14 +71,15 @@ from amg_tpu_torch.structured import PACKED_MIN_SIDE, level_plan
 from amg_tpu_torch.utils.profiling import _device_us
 
 TOL = 1e-7
-PARITY_SIDES = (1023, 4095)            # M = 512 and 2048
-# K2: M = 513 (ragged: 4-byte copies, edge tiles), then the timed sizes
-# M = 512, 2048 (the legs' fine levels) and 4096 (8191^2's fine level)
-K2_SIDES = (1025, 1023, 4095, 8191)
-K2_TIMED = (1023, 4095, 8191)
-# K2's weight instantiations besides the fine level's 5-point Poisson
+PARITY_SIDES = (1023, 4095)            # K4: M = 512 and 2048
+# K1, K2, K3 (the windowed kernels): M = 513 (ragged: 4-byte copies, edge
+# tiles), then the timed sizes M = 512, 2048 (the legs' fine levels) and
+# 4096 (8191^2's fine level)
+WINDOW_SIDES = (1025, 1023, 4095, 8191)
+WINDOW_TIMED = (1023, 4095, 8191)
+# their weight instantiations besides the fine level's 5-point Poisson
 # weights: a Galerkin level's 9-point pattern and another zero pattern
-K2_WEIGHTS = {"nine": ((-0.5, -1.0, -0.5), (-1.0, 6.0, -1.0),
+WINDOW_WEIGHTS = {"nine": ((-0.5, -1.0, -0.5), (-1.0, 6.0, -1.0),
                        (-0.5, -1.0, -0.5)),
               "other": ((0.0, -1.0, -0.5), (-1.0, 4.5, -1.0),
                         (0.0, -1.0, 0.0))}
@@ -108,13 +109,15 @@ PCG_CARD_CPU_REL = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# Kernel-vs-plain bounds, max|kernel - plain| / max|plain|. They are the
-# JAX package's own interpret-mode bounds for these kernels
+# Kernel-vs-plain bounds, max|kernel - plain| / max|plain|, for the kernels
+# not held bitwise (K1, K2 and K3 are: torch.equal). They are the JAX
+# package's own interpret-mode bounds for these kernels
 # (tests/test_packed_cycle.py, tests/test_packed_df.py): room for f32
 # reassociation. The kernels keep the plain versions' operation order and
-# are built with -fmad=false, so 0 is expected. K5/K6 take K1's bound.
-BOUND = {"sweep_u": 2e-6, "down_u": 2e-6, "down_bc": 1e-5, "up_u": 1e-5,
-         "df_rhi": 1e-6, "df_rss": 1e-5, "rbgs_u": 2e-6}
+# are built with -fmad=false, so 0 is expected. K5/K6 and K9 take the
+# sweep's bound.
+BOUND = {"sweep_u": 2e-6, "down_bc": 1e-5, "df_rhi": 1e-6, "df_rss": 1e-5,
+         "rbgs_u": 2e-6}
 
 KERNEL_INFO = {
     "fused_gs4_sweep_packed": ("amg_tpu_torch/csrc/packed_sweep.cu",
@@ -229,48 +232,17 @@ def interleaved(name: str, size: str, kern, plain, reps: int, times: dict):
 
 
 def parity_and_timing(dev):
-    """Phases 2 and 3 for K1, K3 and K4 (K2: down_leg_parity_and_timing):
-    each kernel against its plain version, and both timed, at the main
-    path's M = 512 and 2048. Returns per-kernel max_abs_err, {kernel:
-    (kernel ms, plain ms)} and {kernel: bound} at M = 2048."""
-    errs = {k: 0.0 for k in ("fused_gs4_sweep_packed", "fused_up_leg_packed",
-                             "fused_df_residual_rss")}
+    """Phases 2 and 3 for K4 (K1, K2, K3: windowed_parity_and_timing): the
+    kernel against its plain version, and both timed, at the main path's
+    M = 512 and 2048. Returns max_abs_err, {kernel: (kernel ms, plain ms)}
+    and {kernel: bound} at M = 2048."""
+    errs = {"fused_df_residual_rss": 0.0}
     times, bounds = {}, {}
     for side in PARITY_SIDES:
         M = (side + 1) // 2
         w33 = poisson_const_w33(side, 1)[0]
         m, f = packed_fields(side, seed=side, dev=dev)
-        u4, b4 = f(), f()
-        uc_pad = F.pad(torch.as_tensor(
-            np.random.default_rng(side + 1).standard_normal((m, m)),
-            dtype=torch.float32, device=dev), (0, 1, 0, 1))
         u_df, b_df = DF32(hi=f(), lo=f(1e-8)), DF32(hi=f(), lo=f(1e-8))
-
-        for symmetric in (True, False):
-            got = K.fused_gs4_sweep_packed(u4, b4, w33, m, 0.9, symmetric)
-            ref = gs4_sweep_packed(u4, b4, w33, m, 0.9, symmetric)
-            d, r = rel_err(got, ref)
-            errs["fused_gs4_sweep_packed"] = max(
-                errs["fused_gs4_sweep_packed"], d)
-            print(f"parity K1 sweep M={M} symmetric={symmetric} omega=0.9: "
-                  f"max_abs {d:.3e} rel {r:.3e} (bound {BOUND['sweep_u']})")
-            require(r <= BOUND["sweep_u"], "K1 sweep parity")
-            require(float(got[1][:, m].abs().max()) == 0.0
-                    and float(got[2][m, :].abs().max()) == 0.0
-                    and float(got[3][m, :].abs().max()) == 0.0
-                    and float(got[3][:, m].abs().max()) == 0.0,
-                    "K1 pad cells exactly 0")
-
-        got = K.fused_up_leg_packed(u4, b4, uc_pad, w33, m, 0.9, True)
-        ref = up_leg_plain(u4, b4, uc_pad, w33, m, 0.9, True)
-        d, r = rel_err(got, ref)
-        errs["fused_up_leg_packed"] = max(errs["fused_up_leg_packed"], d)
-        print(f"parity K3 up leg M={M}: max_abs {d:.3e} rel {r:.3e} "
-              f"(bound {BOUND['up_u']})")
-        require(r <= BOUND["up_u"], "K3 up-leg parity")
-        require(float(got[3][m, :].abs().max()) == 0.0
-                and float(got[3][:, m].abs().max()) == 0.0,
-                "K3 pad cells exactly 0")
 
         rh, rss = K.fused_df_residual_rss(w33, b_df, u_df, m)
         rh_ref, rss_ref = df_residual_rss_plain(w33, b_df, u_df, m)
@@ -286,36 +258,17 @@ def parity_and_timing(dev):
                 and float(rh[3][:, m].abs().max()) == 0.0,
                 "K4 pad cells exactly 0")
 
-        reps = 50 if M <= 512 else 20
-        pairs = {
-            "fused_gs4_sweep_packed": (
-                lambda: K.fused_gs4_sweep_packed(u4, b4, w33, m),
-                lambda: gs4_sweep_packed(u4, b4, w33, m)),
-            "fused_up_leg_packed": (
-                lambda: K.fused_up_leg_packed(u4, b4, uc_pad, w33, m),
-                lambda: up_leg_plain(u4, b4, uc_pad, w33, m)),
-            "fused_df_residual_rss": (
-                lambda: K.fused_df_residual_rss(w33, b_df, u_df, m),
-                lambda: df_residual_rss_plain(w33, b_df, u_df, m)),
-        }
         t = {}
-        for name, (kern, plain) in pairs.items():
-            interleaved(name, f"M={M}", kern, plain, reps, t)
+        interleaved("fused_df_residual_rss", f"M={M}",
+                    lambda: K.fused_df_residual_rss(w33, b_df, u_df, m),
+                    lambda: df_residual_rss_plain(w33, b_df, u_df, m),
+                    50 if M <= 512 else 20, t)
         if M == 2048:
             times.update(t)
-            f4 = u4.nbytes          # one packed (4, M, M) f32 field
-            cells = side * side
-            sweep = sweep_ops(w33, cells)
             n_parts = _build.library().amg_df_partials_count(M)
-            # residual 2k + 3 ops a cell, restriction 4, prolongation 3
-            bounds.update({
-                "fused_gs4_sweep_packed": bound(3 * f4, sweep),
-                "fused_up_leg_packed": bound(3 * f4 + uc_pad.nbytes,
-                                             sweep + 3 * cells),
-                # 5 TwoSum-cascade terms of 10 ops, a TwoSum, the square
-                "fused_df_residual_rss": bound(5 * f4 + 4 * n_parts,
-                                               60 * cells),
-            })
+            # 5 TwoSum-cascade terms of 10 ops, a TwoSum, the square
+            bounds["fused_df_residual_rss"] = bound(
+                5 * u_df.hi.nbytes + 4 * n_parts, 60 * side * side)
     return errs, times, bounds
 
 
@@ -327,57 +280,108 @@ def down_leg_bound(w33, side: int, f4: int) -> tuple[float, str]:
                  + residual_ops(w33, cells) + 4 * cells)
 
 
-def down_leg_parity_and_timing(dev):
-    """K2 against its plain version at K2_SIDES, bitwise (torch.equal) on
-    u and bc_pad, symmetric and forward, omega 0.9 and 1, pad row and
-    column exactly 0, on the 5-point Poisson weights and K2_WEIGHTS; timed
-    against the plain version at K2_TIMED (Poisson; 9-point beside it),
-    each beside its bound. Returns max_abs_err, the times at M = 2048, the
-    bound there and {M: (kernel ms, bound ms)}."""
-    err, times, bounds, by_m = 0.0, {}, {}, {}
-    for side in K2_SIDES:
+def pads_zero(u4: torch.Tensor, m: int) -> bool:
+    """The pad cells of a packed field are exactly 0."""
+    return (float(u4[1][:, m].abs().max()) == float(u4[2][m, :].abs().max())
+            == float(u4[3][m, :].abs().max())
+            == float(u4[3][:, m].abs().max()) == 0.0)
+
+
+def windowed_parity_and_timing(dev):
+    """K1, K2 and K3 against their plain versions at WINDOW_SIDES, bitwise
+    (torch.equal) on every output, symmetric and forward, omega 0.9 and 1,
+    pad cells (K2: bc_pad's pad row and column) exactly 0, on the 5-point
+    Poisson weights and WINDOW_WEIGHTS; each timed against its plain
+    version at WINDOW_TIMED (Poisson; 9-point beside it) beside its bound.
+    Returns max_abs_err per kernel, the times at M = 2048, the bounds
+    there and {kernel: {M: (kernel ms, bound ms)}}."""
+    names = ("fused_gs4_sweep_packed", "fused_down_leg_packed",
+             "fused_up_leg_packed")
+    errs = {k: 0.0 for k in names}
+    times, bounds, by_m = {}, {}, {k: {} for k in names}
+    for side in WINDOW_SIDES:
         M = (side + 1) // 2
         w33 = poisson_const_w33(side, 1)[0]
         m, f = packed_fields(side, seed=side + 3, dev=dev)
         u4, b4 = f(), f()
-        for label, w in (("five", w33), *K2_WEIGHTS.items()):
+        uc_pad = F.pad(f()[0, :m, :m], (0, 1, 0, 1))
+
+        def calls(w, omega=1.0, symmetric=True):
+            """{kernel: (kernel call, plain call)} on these fields."""
+            return {
+                "fused_gs4_sweep_packed": (
+                    lambda: K.fused_gs4_sweep_packed(u4, b4, w, m, omega,
+                                                     symmetric),
+                    lambda: gs4_sweep_packed(u4, b4, w, m, omega,
+                                             symmetric)),
+                "fused_down_leg_packed": (
+                    lambda: K.fused_down_leg_packed(u4, b4, w, m, omega,
+                                                    symmetric),
+                    lambda: down_leg_plain(u4, b4, w, m, omega, symmetric)),
+                "fused_up_leg_packed": (
+                    lambda: K.fused_up_leg_packed(u4, b4, uc_pad, w, m,
+                                                  omega, symmetric),
+                    lambda: up_leg_plain(u4, b4, uc_pad, w, m, omega,
+                                         symmetric))}
+
+        for label, w in (("five", w33), *WINDOW_WEIGHTS.items()):
             for symmetric in (True, False):
                 for omega in (0.9, 1.0):
-                    gu, gbc = K.fused_down_leg_packed(u4, b4, w, m, omega,
-                                                      symmetric)
-                    ru, rbc = down_leg_plain(u4, b4, w, m, omega, symmetric)
-                    du, r_u = rel_err(gu, ru)
-                    dbc, r_bc = rel_err(gbc, rbc)
-                    same = torch.equal(gu, ru) and torch.equal(gbc, rbc)
-                    err = max(err, du, dbc)
-                    print(f"parity K2 down leg M={M} {label}-point "
-                          f"symmetric={symmetric} omega={omega}: u max_abs "
-                          f"{du:.3e} rel {r_u:.3e}, bc max_abs {dbc:.3e} "
-                          f"rel {r_bc:.3e}; bitwise equal {same}")
-                    require(same, "K2 bitwise equal to its plain version")
-                    require(float(gbc[m, :].abs().max()) == 0.0
-                            and float(gbc[:, m].abs().max()) == 0.0,
-                            "K2 bc_pad pad row and column exactly 0")
-        if side in K2_TIMED:
-            w9 = K2_WEIGHTS["nine"]
-            t9 = min(time_ms(lambda: K.fused_down_leg_packed(u4, b4, w9, m),
-                             20), time_ms(lambda: K.fused_down_leg_packed(
-                                 u4, b4, w9, m), 20))
-            print(f"time K2 M={M} 9-point weights: {t9:.4f} ms")
+                    for name, (kern, plain) in calls(w, omega,
+                                                     symmetric).items():
+                        got, ref = kern(), plain()
+                        if name == "fused_down_leg_packed":
+                            (gu, gbc), (ru, rbc) = got, ref
+                            du, r_u = rel_err(gu, ru)
+                            dbc, r_bc = rel_err(gbc, rbc)
+                            same = (torch.equal(gu, ru)
+                                    and torch.equal(gbc, rbc))
+                            pads = (float(gbc[m, :].abs().max()) == 0.0
+                                    and float(gbc[:, m].abs().max()) == 0.0)
+                            errs[name] = max(errs[name], du, dbc)
+                            what = (f"u max_abs {du:.3e} rel {r_u:.3e}, bc "
+                                    f"max_abs {dbc:.3e} rel {r_bc:.3e}")
+                            kid = "K2 down leg"
+                        else:
+                            d, r = rel_err(got, ref)
+                            same = torch.equal(got, ref)
+                            pads = pads_zero(got, m)
+                            errs[name] = max(errs[name], d)
+                            what = f"max_abs {d:.3e} rel {r:.3e}"
+                            kid = ("K1 sweep" if name == names[0]
+                                   else "K3 up leg")
+                        print(f"parity {kid} M={M} {label}-point "
+                              f"symmetric={symmetric} omega={omega}: {what}; "
+                              f"bitwise equal {same}")
+                        require(same, f"{kid} bitwise equal to its plain "
+                                "version")
+                        require(pads, f"{kid} pad cells exactly 0")
+        if side in WINDOW_TIMED:
+            f4, cells = u4.nbytes, side * side
+            sweep = sweep_ops(w33, cells)
+            bnds = {"fused_gs4_sweep_packed": bound(3 * f4, sweep),
+                    "fused_down_leg_packed": down_leg_bound(w33, side, f4),
+                    # the prolongation's 3 ops a cell
+                    "fused_up_leg_packed": bound(3 * f4 + uc_pad.nbytes,
+                                                 sweep + 3 * cells)}
+            nine = calls(WINDOW_WEIGHTS["nine"])
             t = {}
-            interleaved("fused_down_leg_packed", f"M={M}",
-                        lambda: K.fused_down_leg_packed(u4, b4, w33, m),
-                        lambda: down_leg_plain(u4, b4, w33, m),
-                        50 if M <= 512 else 20, t)
-            bnd = down_leg_bound(w33, side, u4.nbytes)
-            by_m[M] = (t["fused_down_leg_packed"][0], bnd[0])
-            print(f"time K2 M={M}: {by_m[M][0]:.4f} ms against its bound "
-                  f"{bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / by_m[M][0]:.1%}")
+            for name, (kern, plain) in calls(w33).items():
+                kern9 = nine[name][0]
+                t9 = min(time_ms(kern9, 20), time_ms(kern9, 20))
+                interleaved(name, f"M={M}", kern, plain,
+                            50 if M <= 512 else 20, t)
+                bnd = bnds[name]
+                by_m[name][M] = (t[name][0], bnd[0])
+                print(f"time {name} M={M}: {t[name][0]:.4f} ms against its "
+                      f"bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                      f"{bnd[0] / t[name][0]:.1%}; 9-point weights "
+                      f"{t9:.4f} ms")
             if M == 2048:
                 times.update(t)
-                bounds["fused_down_leg_packed"] = bnd
-        del u4, b4, gu, gbc, ru, rbc
-    return err, times, bounds, by_m
+                bounds.update(bnds)
+        del u4, b4, uc_pad
+    return errs, times, bounds, by_m
 
 
 def rbgs_parity_and_timing(dev):
@@ -1117,10 +1121,10 @@ def main() -> int:
 
     # phases 2-3: parity and timing, kernel against plain
     errs, times, bounds = parity_and_timing(dev)
-    errs["fused_down_leg_packed"], t2, b2, k2_by_m = \
-        down_leg_parity_and_timing(dev)
-    times.update(t2)
-    bounds.update(b2)
+    e123, t123, b123, by_m = windowed_parity_and_timing(dev)
+    errs.update(e123)
+    times.update(t123)
+    bounds.update(b123)
     e56, t56, b56 = rbgs_parity_and_timing(dev)
     errs.update(e56)
     times.update(t56)
@@ -1164,10 +1168,10 @@ def main() -> int:
         if name == "rdma_halo_exchange":
             # ms is the per-call time; device_ms the kernel's own
             entry["device_ms"] = k7_device_ms
-        if name == "fused_down_leg_packed":
-            entry["ms_by_M"] = {str(M): t for M, (t, _) in k2_by_m.items()}
+        if name in by_m:
+            entry["ms_by_M"] = {str(M): t for M, (t, _) in by_m[name].items()}
             entry["bound_ms_by_M"] = {str(M): bm
-                                      for M, (_, bm) in k2_by_m.items()}
+                                      for M, (_, bm) in by_m[name].items()}
         if name == "fused_gs4_sweep_rm":
             # launches stays the path count (0); the parity phase's own
             # launches are reported apart

@@ -203,7 +203,7 @@ def test_vcycle_matches_jax(side, D, halo):
 @pytest.mark.parametrize("side", [31, 63])
 def test_vcycle_matches_single_device(side, D, halo):
     """The port's distributed V-cycle from u = 0 against the port's single-
-    device cycle_stencil on the closed-form hierarchy (f64)."""
+    device vcycle_stencil on the closed-form hierarchy (f64)."""
     s = T.DistStructuredSolver(side, n_devices=D, dtype=torch.float64,
                                halo=halo, device=CPU)
     hier = tst.build_stencil_hierarchy_device(
@@ -211,7 +211,7 @@ def test_vcycle_matches_single_device(side, D, halo):
     b2 = tpoisson.rhs(side, device=CPU).reshape(side, side)
     bp = s.pad_field(b2)
     got = s.unpad(s.vcycle(torch.zeros_like(bp), bp))
-    want = tst.cycle_stencil(hier, torch.zeros_like(b2), b2)
+    want = tst.vcycle_stencil(hier, torch.zeros_like(b2), b2)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
                                atol=ATOL)
 

@@ -5,7 +5,7 @@ In f64 both sides walk the same iteration: the same count and history
 length, u within rtol 1e-10 (f64 rounding differences of the inner
 products and the V-cycle's sums, amplified by the iteration). The
 hierarchies are the packed one (the color-packed V-cycle) and one masked
-one (the unpacked gamma = 1 cycle, JAX's vcycle_stencil). The f32 runs are
+one (the unpacked V-cycle, vcycle_stencil). The f32 runs are
 in tests/test_torch_krylov_f32.py.
 """
 
@@ -74,7 +74,7 @@ def test_device_pcg_matches_jax_f64(side):
 
 def test_masked_hierarchy_pcg_matches_jax():
     """A masked hierarchy preconditions with the unpacked cycle
-    (cycle_stencil, JAX's vcycle_stencil); the port's device loop walks
+    (vcycle_stencil); the port's device loop walks
     its host loop's iteration bitwise."""
     jh, jb, th, tb = _pair(127, smoother="masked")
     want = jk.solve_pcg_stencil(jh, jb, tolerance=1e-9, n_iters=50)
@@ -98,7 +98,7 @@ def test_host_pcg_start_and_cycle_match_jax():
                                 cycle=jst.vcycle_stencil)
     got = tk.solve_pcg_stencil(th, tb, tolerance=1e-9, n_iters=50,
                                u0=torch.tensor(u0),
-                               cycle=tst.cycle_stencil)
+                               cycle=tst.vcycle_stencil)
     assert got.converged and got.iterations == want.iterations
     _close(got.u, want.u, 1e-10)
 

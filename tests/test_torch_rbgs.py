@@ -180,14 +180,14 @@ def test_fused_smoother_dispatch(monkeypatch, var):
 
     b = torch.tensor(np.random.default_rng(3).standard_normal((side, side)),
                      dtype=torch.float32)
-    want = tst.cycle_stencil(hier("masked"), torch.zeros_like(b), b)
+    want = tst.vcycle_stencil(hier("masked"), torch.zeros_like(b), b)
     calls = []
     orig = tst.fused_gs4_sweep
     monkeypatch.setattr(tst, "fused_gs4_sweep",
                         lambda *a, **k: calls.append(1) or orig(*a, **k))
     monkeypatch.setattr(tst, "FUSED_MIN_SIDE", side)
     h = hier("fused")
-    got = tst.cycle_stencil(h, torch.zeros_like(b), b)
+    got = tst.vcycle_stencil(h, torch.zeros_like(b), b)
     assert len(calls) == 2
     assert float((got - want).abs().max() / want.abs().max()) < 1e-5
     plan = tst.level_plan(h.sides, 1, 1, 200, False, var=var,
