@@ -3,13 +3,15 @@
 //
 //   piece                               K1  K2  K3  K8  K9
 //   gidx / real_cell / set_smem_once    x   x   x   x   x
-//   neighbour_acc / gs_update           x   x   x       x
-//   Tiling, load_window, window_sweep,  x   x   x
-//     store_tile (the windowed block)
-//   residual_cell / restrict_cell           x       x
-//   load_tile / store_interior                      x   x   (layout: K9 rows)
-//   color_steps, sweep_block                            x   (32 x 32 block)
-//   residual_window / restrict_store                x
+//   neighbour_acc                       x   x   x   x   x
+//   gs_update                           x   x   x       x
+//   Tiling, load_window, window_inside  x   x   x   x
+//     (the windowed block)
+//   window_sweep, store_tile            x   x   x
+//   residual_cell / restrict_cell,          x       x
+//     tile_residual, store_restriction
+//   load_tile / store_interior,                         x   (32 x 32 block,
+//     color_steps, sweep_block                              K9's rows)
 //
 // K1 packed_sweep.cu, K2/K3/K8 packed_cycle.cu, K9 packed_rm.cu.
 //
@@ -43,8 +45,13 @@
 // in the outer 2 packed rows and 4 packed columns: GJ = 2, GI = 4 keep a
 // sweep's tile exact (K1, K3). K2's residual reads one fine point further
 // and its restriction one cell past the tile: GJ >= 3, GI >= 5 (it takes 6
-// and 8). tests/test_torch_tiling.py emulates the blocks on the CPU: these
-// rings are bitwise exact, one row or one column less is not.
+// and 8). K8 has no color steps: the restriction reads the residual one
+// cell past the tile, and the residual it reads reads u one more cell out
+// at most, so GJ = GI = 1 is exact; it takes 2 and 4, because it computes
+// every quarter's residual on the tile's (TJ+1) x (TI+1) cells without a
+// bounds test (2 cells past the tile) and keeps 16-byte rows.
+// tests/test_torch_tiling.py emulates the blocks on the CPU: these rings
+// are bitwise exact, one row or one column less is not.
 //
 // The 32 x 32 block (sweep_block, K9 only): a T x T tile with a ring of
 // G = 8 in a (T+2G)^2 window whose every real cell is updated, reads
@@ -468,28 +475,6 @@ __device__ __forceinline__ void residual_cell(const float* U, float* B,
   B[L] = (!kEdge || real_cell(a, J0 + r, I0 + c, M)) ? B[L] - acc : 0.f;
 }
 
-// The residual in place of b on window rows and columns [G, G + T] of all
-// four quarters: the (T+1)^2 cells the restriction of the tile reads. It
-// reads u one cell further out, so the ghost ring must be >= 2.
-template <int T, int G>
-__device__ void residual_window(const float* U, float* B, const Stencil& st,
-                                int M, int J0, int I0) {
-  constexpr int W = T + 2 * G;
-  constexpr int R = T + 1;
-  for (int L = threadIdx.x; L < 4 * R * R; L += blockDim.x) {
-    const int q = L / (R * R);
-    const int rem = L - q * R * R;
-    const int r = G + rem / R;
-    const int c = G + rem % R;
-    switch (q) {
-      case 0: residual_cell<W, W, 0, 0>(U, B, st, M, J0, I0, r, c); break;
-      case 1: residual_cell<W, W, 0, 1>(U, B, st, M, J0, I0, r, c); break;
-      case 2: residual_cell<W, W, 1, 0>(U, B, st, M, J0, I0, r, c); break;
-      default: residual_cell<W, W, 1, 1>(U, B, st, M, J0, I0, r, c); break;
-    }
-  }
-}
-
 // The full-weighting restriction at window cell (r, c) of the residual R,
 // a [4][H][W] window: r11 + 0.5*(r01[r,c] + r01[r+1,c] + r10[r,c] +
 // r10[r,c+1]) + 0.25*(r00 at r..r+1 x c..c+1), in the restrict_packed
@@ -505,23 +490,53 @@ __device__ __forceinline__ float restrict_cell(const float* R, int r, int c) {
   return v;
 }
 
-// bc[Jt:Jt+T, It:It+T] of the (M, M) padded coarse rhs <- the restriction
-// of the residual R (window offset G); 0 on the pad row and column (index
-// m = M-1).
-template <int T, int G>
-__device__ void restrict_store(const float* R, float* __restrict__ bc, int M,
-                               int Jt, int It) {
-  constexpr int W = T + 2 * G;
+// The residual in place of b on window rows [GJ, GJ + TJ] and columns
+// [GI, GI + TI] of all four quarters: the (TJ + 1) x (TI + 1) cells the
+// tile's restriction reads. Thread (x, y) takes column GI + x, rows GJ + y
+// + NY k. kEdge: test each cell for being real.
+template <class Tl, bool kEdge, int kPat>
+__device__ __forceinline__ void tile_residual(const float* U, float* B,
+                                              const Stencil& st, int M,
+                                              int J0, int I0) {
+  if (threadIdx.x > Tl::TI) return;
+  const int c = Tl::GI + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < (Tl::TJ + Tl::NY) / Tl::NY; ++k) {
+    const int r = Tl::GJ + threadIdx.y + Tl::NY * k;
+    if (r > Tl::GJ + Tl::TJ) break;
+    residual_cell<Tl::H, Tl::W, 0, 0, false, kEdge, kPat>(U, B, st, M, J0,
+                                                          I0, r, c);
+    residual_cell<Tl::H, Tl::W, 0, 1, false, kEdge, kPat>(U, B, st, M, J0,
+                                                          I0, r, c);
+    residual_cell<Tl::H, Tl::W, 1, 0, false, kEdge, kPat>(U, B, st, M, J0,
+                                                          I0, r, c);
+    residual_cell<Tl::H, Tl::W, 1, 1, false, kEdge, kPat>(U, B, st, M, J0,
+                                                          I0, r, c);
+  }
+}
+
+// bc[Jt:Jt+TJ, It:It+TI] of the (M, M) padded coarse rhs <- the
+// restriction of the residual R (the window of tile_residual), neighbouring
+// threads on neighbouring columns; 0 on the pad row and column (m = M-1).
+template <class Tl>
+__device__ __forceinline__ void store_restriction(const float* R,
+                                                  float* __restrict__ bc,
+                                                  int M, int Jt, int It) {
+  const int tid = threadIdx.x + Tl::NX * threadIdx.y;
   const int m = M - 1;
-  for (int L = threadIdx.x; L < T * T; L += blockDim.x) {
-    const int jj = L / T;
-    const int ii = L - jj * T;
+#pragma unroll
+  for (int k = 0; k < (Tl::TJ * Tl::TI + Tl::NT - 1) / Tl::NT; ++k) {
+    const int L = tid + Tl::NT * k;
+    if (L >= Tl::TJ * Tl::TI) break;
+    const int jj = L / Tl::TI;
+    const int ii = L % Tl::TI;
     const int J = Jt + jj;
     const int I = It + ii;
     if (J >= M || I >= M) continue;
-    const float v = (J < m && I < m) ? restrict_cell<W, W>(R, G + jj, G + ii)
-                                     : 0.f;
-    bc[(size_t)J * M + I] = v;
+    bc[(size_t)J * M + I] =
+        (J < m && I < m)
+            ? restrict_cell<Tl::H, Tl::W>(R, Tl::GJ + jj, Tl::GI + ii)
+            : 0.f;
   }
 }
 

@@ -16,9 +16,8 @@
 // K8 replaces packed_cycle.py fused_residual_restrict_packed (body
 // _rr_kernel): the residual and restriction of K2 on an already smoothed u,
 // the down half of the TPU's split V-cycle level (side >= 8191, where its
-// full down leg does not fit VMEM). It reads u and b with a ghost ring of
-// G = 2 and writes bc: (4 + 4) * (36/32)^2 + 1 = 11.1 bytes per packed cell,
-// against a floor of 9 (u and b once, bc once).
+// full down leg does not fit VMEM). Its floor is u and b read once and the
+// quarter-size bc written once: 9 bytes per packed cell.
 //
 // Bound on the card: device-memory traffic. K2's floor is u and b read
 // once, u and a quarter-size bc written once: 13 bytes per packed cell;
@@ -61,21 +60,26 @@
 // - Color steps: compile-time trip counts and no divide per cell; only
 //   blocks whose window touches the domain's last rows or columns (or lies
 //   outside [0, M - 1)^2) test each cell for being real.
-// K8 uses packed_common.cuh's 32 x 32 tiles (load_tile, residual_window,
-// restrict_store). Every kernel sets its shared-memory attribute once per
-// process.
+//
+// K8 is K2's block without the color steps, on K3's tiling (Up): a 32 x 64
+// tile in a 36 x 72 window (ring 2 rows / 4 columns; 1 / 1 would be exact, see
+// packed_common.cuh, but the residual of every quarter on the tile's 33 x
+// 65 cells reads 2 rows and columns past it, and the columns take 4 for
+// 16-byte rows), 576 threads, 82,944 B; u and b through cp.async, the
+// residual in place of b, the restriction stored coalesced. With no color
+// steps it is a pure stream: (4 + 4) * (36 * 72) / (32 * 64) + 1 = 11.1
+// bytes per packed cell, two blocks an SM so that one block's loads
+// overlap the other's residual and stores (a 64 x 64 tile, one block an
+// SM, and 16- to 32-wide tiles were slower on the H100; PERF.md).
+//
+// Every kernel sets its shared-memory attribute once per process.
 
 #include "packed_common.cuh"
 
 namespace {
 
-constexpr int T = 32;
-constexpr int GR = 2;                  // residual+restrict ghost ring
-constexpr int WR = T + 2 * GR;
-constexpr size_t kSmemRR = 2 * 4 * WR * WR * sizeof(float);
-
 using Down = amg::Tiling<32, 64, 6, 8, 8>;   // K2
-using Up = amg::Tiling<32, 64, 2, 4, 8>;     // K3
+using Up = amg::Tiling<32, 64, 2, 4, 8>;     // K3 and K8
 
 // K2's color steps, then the residual in place of b on window rows [GJ,
 // GJ + TJ] and columns [GI, GI + TI], the cells the tile's restriction
@@ -85,21 +89,7 @@ __device__ void down_sweep_residual(float* U, float* B,
                                     const amg::Stencil& st, int M, int J0,
                                     int I0, int symmetric) {
   amg::window_sweep<Down, kEdge, kPat>(U, B, st, M, J0, I0, symmetric);
-  if (threadIdx.x > Down::TI) return;
-  const int c = Down::GI + threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < (Down::TJ + Down::NY) / Down::NY; ++k) {
-    const int r = Down::GJ + threadIdx.y + Down::NY * k;
-    if (r > Down::GJ + Down::TJ) break;
-    amg::residual_cell<Down::H, Down::W, 0, 0, false, kEdge, kPat>(
-        U, B, st, M, J0, I0, r, c);
-    amg::residual_cell<Down::H, Down::W, 0, 1, false, kEdge, kPat>(
-        U, B, st, M, J0, I0, r, c);
-    amg::residual_cell<Down::H, Down::W, 1, 0, false, kEdge, kPat>(
-        U, B, st, M, J0, I0, r, c);
-    amg::residual_cell<Down::H, Down::W, 1, 1, false, kEdge, kPat>(
-        U, B, st, M, J0, I0, r, c);
-  }
+  amg::tile_residual<Down, kEdge, kPat>(U, B, st, M, J0, I0);
 }
 
 template <int kPat>
@@ -124,45 +114,33 @@ down_leg_kernel(const float* __restrict__ u, const float* __restrict__ b,
     down_sweep_residual<true, kPat>(U, B, st, M, J0, I0, symmetric);
   __syncthreads();
   amg::store_tile<Down>(U, u_out, M, Jt, It, vec);
-
-  const int tid = threadIdx.x + Down::NX * threadIdx.y;
-  const int m = M - 1;
-#pragma unroll
-  for (int k = 0; k < (Down::TJ * Down::TI + Down::NT - 1) / Down::NT; ++k) {
-    const int L = tid + Down::NT * k;
-    if (L >= Down::TJ * Down::TI) break;
-    const int jj = L / Down::TI;
-    const int ii = L % Down::TI;
-    const int J = Jt + jj;
-    const int I = It + ii;
-    if (J >= M || I >= M) continue;
-    bc[(size_t)J * M + I] =
-        (J < m && I < m) ? amg::restrict_cell<Down::H, Down::W>(
-                               B, Down::GJ + jj, Down::GI + ii)
-                         : 0.f;
-  }
+  amg::store_restriction<Down>(B, bc, M, Jt, It);
 }
 
-// K8: the residual in place of b on the (T+1)^2 cells the tile's
-// restriction reads, then the restriction; no color steps, so a ring of
-// GR = 2 covers the residual's and the restriction's one-cell reach.
-__global__ void __launch_bounds__(amg::kThreads)
+// K8: the residual in place of b on the cells the tile's restriction
+// reads, then the restriction.
+template <int kPat>
+__global__ void __launch_bounds__(Up::NT, Up::kBlocks)
 residual_restrict_kernel(const float* __restrict__ u,
                          const float* __restrict__ b, float* __restrict__ bc,
-                         int M, amg::Stencil st) {
-  extern __shared__ float smem[];
-  float* U = smem;
-  float* B = smem + 4 * WR * WR;
-  const int Jt = blockIdx.y * T;
-  const int It = blockIdx.x * T;
-  const int J0 = Jt - GR;
-  const int I0 = It - GR;
-  amg::load_tile<WR>(U, u, M, J0, I0);
-  amg::load_tile<WR>(B, b, M, J0, I0);
+                         int M, amg::Stencil st, int vec) {
+  extern __shared__ float rr_smem[];
+  float* U = rr_smem;
+  float* B = rr_smem + 4 * Up::H * Up::W;
+  const int Jt = blockIdx.y * Up::TJ;
+  const int It = blockIdx.x * Up::TI;
+  const int J0 = Jt - Up::GJ;
+  const int I0 = It - Up::GI;
+  amg::load_window<Up>(U, u, M, J0, I0, vec);
+  amg::load_window<Up>(B, b, M, J0, I0, vec);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  amg::residual_window<T, GR>(U, B, st, M, J0, I0);
+  if (amg::window_inside<Up>(M, J0, I0))
+    amg::tile_residual<Up, false, kPat>(U, B, st, M, J0, I0);
+  else
+    amg::tile_residual<Up, true, kPat>(U, B, st, M, J0, I0);
   __syncthreads();
-  amg::restrict_store<T, GR>(B, bc, M, Jt, It);
+  amg::store_restriction<Up>(B, bc, M, Jt, It);
 }
 
 // K3's block after its copies are issued (u's window as the first commit
@@ -275,6 +253,21 @@ int launch_up_leg(const float* u, const float* b, const float* uc,
   return (int)cudaGetLastError();
 }
 
+template <int kPat>
+int launch_residual_restrict(const float* u, const float* b, float* bc,
+                             int M, const float* w9, int vec,
+                             cudaStream_t stream) {
+  static std::atomic<unsigned long long> attr_set{0};
+  const cudaError_t err = amg::set_smem_once(residual_restrict_kernel<kPat>,
+                                             Up::kSmem, attr_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + Up::TI - 1) / Up::TI, (M + Up::TJ - 1) / Up::TJ);
+  residual_restrict_kernel<kPat><<<grid, dim3(Up::NX, Up::NY), Up::kSmem,
+                                   stream>>>(
+      u, b, bc, M, amg::make_stencil(w9, 0.f, 0.f), vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int amg_down_leg(const float* u, const float* b, float* u_out,
@@ -303,12 +296,9 @@ extern "C" int amg_up_leg(const float* u, const float* b, const float* uc,
 extern "C" int amg_residual_restrict(const float* u, const float* b,
                                      float* bc, int M, const float* w9,
                                      cudaStream_t stream) {
-  static std::atomic<unsigned long long> attr_set{0};
-  const cudaError_t err = amg::set_smem_once(residual_restrict_kernel,
-                                             kSmemRR, attr_set);
-  if (err != cudaSuccess) return (int)err;
-  const int nt = (M + T - 1) / T;
-  residual_restrict_kernel<<<dim3(nt, nt), amg::kThreads, kSmemRR, stream>>>(
-      u, b, bc, M, amg::make_stencil(w9, 0.f, 0.f));
-  return (int)cudaGetLastError();
+  const int vec = M % 4 == 0 && amg::aligned16(u) && amg::aligned16(b);
+  return amg::by_weight_pattern(w9, [&](auto pat) {
+    return launch_residual_restrict<decltype(pat)::value>(u, b, bc, M, w9,
+                                                          vec, stream);
+  });
 }

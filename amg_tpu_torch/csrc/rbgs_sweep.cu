@@ -1,12 +1,12 @@
-// K5 / K6: one fused (symmetric) four-color Gauss-Seidel sweep on the
-// unpacked (n, n) f32 layout: K5 with a constant 3x3 stencil, K6 with nine
-// (n, n) coefficient planes (the contiguous (3, 3, n, n) planes).
+// K5: one fused (symmetric) four-color Gauss-Seidel sweep on the unpacked
+// (n, n) f32 layout with a constant 3x3 stencil (K6, the same sweep with
+// coefficient planes, is rbgs_var.cu).
 //
-// Replaces the TPU kernel amg_tpu/ops/pallas/rbgs.py fused_gs4_sweep:
-// pallas_call :544 (const; bodies _sweep_kernel_const, _sweep_kernel_const_db)
-// and :584 (var; bodies _sweep_kernel, _sweep_kernel_db). The TPU frame (G1
-// ghost rows, lane-padded columns, identity-diagonal padding planes) exists
-// only for Mosaic and is dropped: fields and planes are used as they are.
+// Replaces the TPU kernel amg_tpu/ops/pallas/rbgs.py fused_gs4_sweep,
+// pallas_call :544 (const; bodies _sweep_kernel_const,
+// _sweep_kernel_const_db). The TPU frame (G1 ghost rows, lane-padded
+// columns) exists only for Mosaic and is dropped: fields are used as they
+// are.
 //
 // What it computes (rbgs.py:86-174): colors (0,0) (0,1) (1,0) (1,1) by row
 // and column parity, then reversed when symmetric; a cell of the current
@@ -14,13 +14,11 @@
 // neighbours outside the grid reading 0 (Dirichlet).
 //
 // Bound on the card: device memory. Each input read once and the output
-// written once: K5 reads u and b and writes u, 12 B per cell; K6 also reads
-// the 9 planes, 48 B per cell. At n = 4095 (16.8 M cells) that is 201 MB ->
-// 0.060 ms and 805 MB -> 0.240 ms at the 3.35 TB/s data-sheet rate. This
+// written once: u and b read and u written, 12 B per cell; at n = 4095
+// (16.8 M cells) 201 MB -> 0.060 ms at the 3.35 TB/s data-sheet rate. This
 // design moves more: each block loads a (50/32)^2 = 2.4x window of u, and
-// its ghost cells update too, so b and K6's planes are read at (48/32)^2 =
-// 2.25x: about 23 B (K5) and 104 B (K6) per cell, where L2 does not catch
-// the neighbouring blocks' overlap.
+// its ghost cells update too, so b is read at (48/32)^2 = 2.25x: about 23 B
+// per cell, where L2 does not catch the neighbouring blocks' overlap.
 //
 // Design, simple and right first:
 // - Temporal blocking as in K1: a block owns a T x T output tile and holds
@@ -34,16 +32,14 @@
 //   cells per step (the TPU kernel's full-width masked update evaluates it
 //   everywhere). Cells of one color never neighbour each other, so the
 //   in-place update of the window is race-free within a step.
-// - b and the coefficients are used only when the cell updates: they are
-//   read from global memory (through L2, __ldg) into registers, never
-//   staged in shared memory. The second visit of a cell (symmetric sweep)
-//   finds them in L2.
+// - b is used only when the cell updates: it is read from global memory
+//   (through L2, __ldg) into a register, never staged in shared memory. The
+//   second visit of a cell (symmetric sweep) finds it in L2.
 // - Out of place: ghost cells read the pre-sweep input, so the output is a
 //   separate buffer. Only real cells are written.
 // - Operation order is the plain version's (amg_tpu_torch/ops/kernels/
-//   rbgs.py fused_gs4_sweep_plain): K6 sums the off-diagonal terms dj outer,
-//   di inner; K5 di outer, dj inner, skipping zero weights; IEEE division
-//   for K6's 1/diag; built with -fmad=false, so the kernels give the plain
+//   rbgs.py fused_gs4_sweep_plain): di outer, dj inner, skipping zero
+//   weights; built with -fmad=false, so the kernel gives the plain
 //   version's bits.
 
 #include <cuda_runtime.h>
@@ -54,17 +50,17 @@ namespace {
 constexpr int T = 32;  // output tile side; even, so window parity is real
 
 // w33 rounded to f32 (row-major [dj+1][di+1]) and 1/w33[1][1] computed in
-// f64 and rounded to f32 on the host. Unused by K6.
+// f64 and rounded to f32 on the host.
 struct ConstStencil {
   float w[9];
   float inv_diag;
 };
 
-template <int G, bool VAR>
+template <int G>
 __global__ void __launch_bounds__((T / 2 + G) * (T / 2 + G))
 rbgs_sweep_kernel(const float* __restrict__ u, const float* __restrict__ b,
-                  const float* __restrict__ c, float* __restrict__ out,
-                  int n, ConstStencil st, float omega, int nsteps) {
+                  float* __restrict__ out, int n, ConstStencil st,
+                  float omega, int nsteps) {
   constexpr int W = T + 2 * G;  // updated window side
   constexpr int S = W + 2;      // stored side: a never-updated frame cell
   constexpr int H = W / 2;      // threads per side
@@ -83,7 +79,6 @@ rbgs_sweep_kernel(const float* __restrict__ u, const float* __restrict__ b,
   }
   __syncthreads();
 
-  const size_t nn = (size_t)n * n;
   for (int k = 0; k < nsteps; ++k) {
     const int color = k < 4 ? k : 7 - k;
     const int r = 1 + 2 * (int)threadIdx.y + (color >> 1);
@@ -93,33 +88,18 @@ rbgs_sweep_kernel(const float* __restrict__ u, const float* __restrict__ b,
     if (j >= 0 && j < n && i >= 0 && i < n) {
       const size_t g = (size_t)j * n + i;
       float acc = 0.f;
-      float inv;
-      if constexpr (VAR) {
+#pragma unroll
+      for (int di = -1; di <= 1; ++di) {
 #pragma unroll
         for (int dj = -1; dj <= 1; ++dj) {
-#pragma unroll
-          for (int di = -1; di <= 1; ++di) {
-            if (dj == 0 && di == 0) continue;
-            const float w = __ldg(c + (size_t)((dj + 1) * 3 + di + 1) * nn + g);
-            acc = acc + w * U[(r + dj) * S + q + di];
-          }
+          if (dj == 0 && di == 0) continue;
+          const float w = st.w[(dj + 1) * 3 + di + 1];
+          if (w == 0.f) continue;
+          acc = acc + w * U[(r + dj) * S + q + di];
         }
-        inv = 1.0f / __ldg(c + 4 * nn + g);
-      } else {
-#pragma unroll
-        for (int di = -1; di <= 1; ++di) {
-#pragma unroll
-          for (int dj = -1; dj <= 1; ++dj) {
-            if (dj == 0 && di == 0) continue;
-            const float w = st.w[(dj + 1) * 3 + di + 1];
-            if (w == 0.f) continue;
-            acc = acc + w * U[(r + dj) * S + q + di];
-          }
-        }
-        inv = st.inv_diag;
       }
       const float uu = U[r * S + q];
-      const float delta = (__ldg(b + g) - acc) * inv - uu;
+      const float delta = (__ldg(b + g) - acc) * st.inv_diag - uu;
       U[r * S + q] = uu + omega * delta;
     }
     __syncthreads();
@@ -136,19 +116,18 @@ rbgs_sweep_kernel(const float* __restrict__ u, const float* __restrict__ b,
 }
 
 // G = the number of color steps: 8 symmetric, 4 forward.
-template <bool VAR>
-int launch(const float* u, const float* b, const float* c, float* out, int n,
+int launch(const float* u, const float* b, float* out, int n,
            const ConstStencil& st, float omega, int symmetric,
            cudaStream_t stream) {
   const int nt = (n + T - 1) / T;
   if (symmetric) {
     constexpr int H = T / 2 + 8;
-    rbgs_sweep_kernel<8, VAR><<<dim3(nt, nt), dim3(H, H), 0, stream>>>(
-        u, b, c, out, n, st, omega, 8);
+    rbgs_sweep_kernel<8><<<dim3(nt, nt), dim3(H, H), 0, stream>>>(
+        u, b, out, n, st, omega, 8);
   } else {
     constexpr int H = T / 2 + 4;
-    rbgs_sweep_kernel<4, VAR><<<dim3(nt, nt), dim3(H, H), 0, stream>>>(
-        u, b, c, out, n, st, omega, 4);
+    rbgs_sweep_kernel<4><<<dim3(nt, nt), dim3(H, H), 0, stream>>>(
+        u, b, out, n, st, omega, 4);
   }
   return (int)cudaGetLastError();
 }
@@ -162,13 +141,5 @@ extern "C" int amg_rbgs_sweep_const(const float* u, const float* b,
   ConstStencil st;
   for (int k = 0; k < 9; ++k) st.w[k] = w9[k];
   st.inv_diag = inv_diag;
-  return launch<false>(u, b, nullptr, out, n, st, omega, symmetric, stream);
-}
-
-extern "C" int amg_rbgs_sweep_var(const float* u, const float* b,
-                                  const float* c, float* out, int n,
-                                  float omega, int symmetric,
-                                  cudaStream_t stream) {
-  ConstStencil st = {};
-  return launch<true>(u, b, c, out, n, st, omega, symmetric, stream);
+  return launch(u, b, out, n, st, omega, symmetric, stream);
 }

@@ -1,0 +1,265 @@
+// K6: one fused (symmetric) four-color Gauss-Seidel sweep on the unpacked
+// (n, n) f32 layout with nine (n, n) coefficient planes (the contiguous
+// (3, 3, n, n) planes, plane p = 3 * (dj + 1) + (di + 1)).
+//
+// Replaces the TPU kernel amg_tpu/ops/pallas/rbgs.py fused_gs4_sweep,
+// pallas_call :584 (var; bodies _sweep_kernel, _sweep_kernel_db). What it
+// computes (rbgs.py:86-174): colors (0,0) (0,1) (1,0) (1,1) by row and
+// column parity, then reversed when symmetric; a cell of the current color
+// becomes u + omega * ((b - sum_off c * u_nbr) * (1 / c_diag) - u), the
+// off-diagonal terms summed dj outer, di inner, none skipped, neighbours
+// outside the grid reading 0 (Dirichlet). Built with -fmad=false and an
+// IEEE 1/c_diag, so the kernel gives the plain version's bits
+// (amg_tpu_torch/ops/kernels/rbgs.py fused_gs4_sweep_plain).
+//
+// Bound on the card: device memory. u, b and the nine planes read once and
+// u written once: 48 B a cell, 0.240 ms at n = 4095 (3.35 TB/s).
+//
+// Design. A block owns a 32 x 64 tile of grid cells and holds u's and b's
+// windows, with a ring of TOP / BOT rows and LEFT / RIGHT columns, in
+// shared memory (cp.async, 4-byte copies: a row of an odd n is not 16-byte
+// aligned; zero-filled outside [0, n)^2). A thread owns one window column
+// and every NY-th row pair, so a warp reads 32 neighbouring cells of a
+// plane: every sector it pulls is used whole. 78 x 9 = 702 threads, two
+// blocks an SM; a thread holds the coefficients of at most 2 rows.
+//
+// The ring. A color step changes the cells of one row and column parity,
+// so along a chain of steps a wrong value moves one row only where the row
+// parity changes and one column where the column parity changes. Tracing
+// back from the tile (tests/test_torch_tiling_rbgs.py emulates it), the
+// symmetric sweep reads u 3 rows above the tile, 2 below, 7 columns left
+// and 6 right; the forward sweep 1, 2, 3 and 4. The window starts on an
+// even row and column so that the parities are compile-time facts: it
+// takes 4 / 2 / 8 / 6 (symmetric) and 2 / 2 / 4 / 4 (forward).
+//
+// The planes. Each step updates only the cells of its color that can still
+// reach the tile (the trapezoid of temporal blocking; the margins below).
+// A row of one parity is updated twice in a row of steps by the two column
+// parities (steps 0-1: row parity 0; 2-5: row parity 1; 6-7: row parity 0
+// again), so the block loads a row's coefficients for both column parities
+// in one step, through the read-only path into registers, and keeps them
+// (8 off-diagonal values and 1 / c_diag, computed once) for the steps that
+// need them: the planes are read at steps 0, 2 and (symmetric) 6, the last
+// only on the tile's own rows. Design bytes at n = 4095 with a 32 x 64
+// tile (38 x 78 window): u and b windows 2 x 4 x 1.45, planes 36 x 1.26
+// where L2 catches the step-6 reread, u written 4: about 61 B a cell.
+// Loads for steps 2 and 6 are issued before the barrier that ends the step
+// before, while the other block of the SM computes. Other tiles, row
+// phases and blocks an SM were slower on the H100 (PERF.md lists them).
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+// The tile (rows, columns), the row phases and the blocks an SM.
+constexpr int kTJ = 32;
+constexpr int kTI = 64;
+constexpr int kNY = 9;
+constexpr int kBlocks = 2;
+
+// Load phases: 0 = row parity 0, steps 0 (even columns) and 1 (odd);
+// 1 = row parity 1, steps 2 and 5 (even), 3 and 4 (odd); 2 (symmetric
+// only) = row parity 0, steps 6 (odd) and 7 (even). A phase covers the
+// cells of its row parity within margins around the tile: field 0 rows
+// above, 1 rows below, 2 / 3 columns left / right of even columns, 4 / 5
+// of odd columns; the least that keeps the tile exact. The table is copied
+// as MARGINS in tests/test_torch_tiling_rbgs.py, which shows it exact and
+// each entry one smaller inexact: change both together.
+__host__ __device__ constexpr int margin(bool sym, int phase, int field) {
+  const int m[5][6] = {{2, 1, 6, 5, 5, 4},     // symmetric, phase 0
+                       {1, 0, 4, 3, 3, 2},     // symmetric, phase 1
+                       {0, -1, 0, -1, 1, 0},   // symmetric, phase 2
+                       {0, 1, 2, 3, 1, 2},     // forward, phase 0
+                       {-1, 0, 0, 1, -1, 0}};  // forward, phase 1
+  return m[sym ? phase : 3 + phase][field];
+}
+
+template <int TJ_, int TI_, int NY_, bool kSym_>
+struct VarTiling {
+  static constexpr bool kSym = kSym_;
+  static constexpr int TJ = TJ_;
+  static constexpr int TI = TI_;
+  static constexpr int NY = NY_;
+  static constexpr int TOP = kSym ? 4 : 2;
+  static constexpr int BOT = 2;
+  static constexpr int LEFT = kSym ? 8 : 4;
+  static constexpr int RIGHT = kSym ? 6 : 4;
+  static constexpr int H = TJ + TOP + BOT;   // window rows
+  static constexpr int W = TI + LEFT + RIGHT;
+  static constexpr int NX = W;               // a thread per window column
+  static constexpr int NT = NX * NY;
+  static_assert(TJ % 2 == 0 && TI % 2 == 0, "even tiles keep the parity");
+  static_assert(2 * H * W * sizeof(float) <= 48 * 1024, "static smem");
+};
+
+// Rows of load phase PH: the first tile row (of the phase's row parity),
+// the number of rows, and the rows a thread holds (every NY-th).
+template <class V, int PH>
+struct Phase {
+  static constexpr int P = PH == 1 ? 1 : 0;    // row parity
+  static constexpr int top = margin(V::kSym, PH, 0);
+  static constexpr int R0 = -top + ((-top - P) & 1);
+  static constexpr int NR = (V::TJ - 1 + margin(V::kSym, PH, 1) - R0) / 2
+                            + 1;
+  static constexpr int K = (NR + V::NY - 1) / V::NY;
+};
+
+// Per-thread state of one load phase: the coefficients of rows R0 +
+// 2 (y + NY k) of the thread's column, and whether each cell is updated.
+template <int K>
+struct Rows {
+  float cf[K][9];          // 8 off-diagonal (dj outer, di inner), 1/c_diag
+  bool on[K];
+};
+
+template <class V, int PH>
+__device__ __forceinline__ void load_rows(Rows<Phase<V, PH>::K>& s,
+                                          const float* __restrict__ c,
+                                          int n, int Jt, int It) {
+  using F = Phase<V, PH>;
+  const int t = (int)threadIdx.x - V::LEFT;    // tile column
+  constexpr int l0 = margin(V::kSym, PH, 2), r0 = margin(V::kSym, PH, 3);
+  constexpr int l1 = margin(V::kSym, PH, 4), r1 = margin(V::kSym, PH, 5);
+  const bool col = (t & 1) ? t >= -l1 && t <= V::TI - 1 + r1
+                           : t >= -l0 && t <= V::TI - 1 + r0;
+  const int i = It + t;
+  const size_t nn = (size_t)n * n;
+#pragma unroll
+  for (int k = 0; k < F::K; ++k) {
+    const int q = (int)threadIdx.y + V::NY * k;
+    const int j = Jt + F::R0 + 2 * q;
+    const bool on = col && q < F::NR && j >= 0 && j < n && i >= 0 && i < n;
+    s.on[k] = on;
+    if (on) {
+      const float* p = c + (size_t)j * n + i;
+#pragma unroll
+      for (int m = 0; m < 9; ++m) {
+        if (m == 4) continue;
+        s.cf[k][m < 4 ? m : m - 1] = __ldg(p + m * nn);
+      }
+      s.cf[k][8] = 1.0f / __ldg(p + 4 * nn);
+    }
+  }
+}
+
+// One color step, column parity PI, on the rows of load phase PH.
+template <class V, int PH, int PI>
+__device__ __forceinline__ void update_rows(float* U, const float* B,
+                                            const Rows<Phase<V, PH>::K>& s,
+                                            float omega) {
+  using F = Phase<V, PH>;
+  if (((int)threadIdx.x & 1) != PI) return;    // LEFT is even
+  const int x = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < F::K; ++k) {
+    if (!s.on[k]) continue;
+    const int r = V::TOP + F::R0 + 2 * ((int)threadIdx.y + V::NY * k);
+    float acc = 0.f;
+    int m = 0;
+#pragma unroll
+    for (int dj = -1; dj <= 1; ++dj) {
+#pragma unroll
+      for (int di = -1; di <= 1; ++di) {
+        if (dj == 0 && di == 0) continue;
+        acc = acc + s.cf[k][m++] * U[(r + dj) * V::W + x + di];
+      }
+    }
+    const int L = r * V::W + x;
+    const float uu = U[L];
+    const float delta = (B[L] - acc) * s.cf[k][8] - uu;
+    U[L] = uu + omega * delta;
+  }
+}
+
+template <class V>
+__global__ void __launch_bounds__(V::NT, kBlocks)
+rbgs_var_kernel(const float* __restrict__ u, const float* __restrict__ b,
+                const float* __restrict__ c, float* __restrict__ out, int n,
+                float omega) {
+  __shared__ float U[V::H * V::W];
+  __shared__ float Bw[V::H * V::W];
+  const int Jt = (int)blockIdx.y * V::TJ;
+  const int It = (int)blockIdx.x * V::TI;
+  const int j0 = Jt - V::TOP;
+  const int i0 = It - V::LEFT;
+  {
+    const int i = i0 + (int)threadIdx.x;
+    const bool in_i = i >= 0 && i < n;
+#pragma unroll
+    for (int k = 0; k < (V::H + V::NY - 1) / V::NY; ++k) {
+      const int r = (int)threadIdx.y + V::NY * k;
+      if (r >= V::H) break;
+      const int j = j0 + r;
+      const bool in = in_i && j >= 0 && j < n;
+      const size_t g = in ? (size_t)j * n + i : 0;
+      const int L = r * V::W + (int)threadIdx.x;
+      const unsigned su = (unsigned)__cvta_generic_to_shared(U + L);
+      const unsigned sb = (unsigned)__cvta_generic_to_shared(Bw + L);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   :: "r"(su), "l"(u + g), "r"(in ? 4 : 0) : "memory");
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   :: "r"(sb), "l"(b + g), "r"(in ? 4 : 0) : "memory");
+    }
+  }
+  {
+    Rows<Phase<V, 0>::K> a;
+    load_rows<V, 0>(a, c, n, Jt, It);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    update_rows<V, 0, 0>(U, Bw, a, omega);                 // step 0: 00
+    __syncthreads();
+    update_rows<V, 0, 1>(U, Bw, a, omega);                 // step 1: 01
+  }
+  Rows<Phase<V, 1>::K> bs;
+  load_rows<V, 1>(bs, c, n, Jt, It);
+  __syncthreads();
+  update_rows<V, 1, 0>(U, Bw, bs, omega);                  // step 2: 10
+  __syncthreads();
+  update_rows<V, 1, 1>(U, Bw, bs, omega);                  // step 3: 11
+  __syncthreads();
+  if constexpr (V::kSym) {
+    update_rows<V, 1, 1>(U, Bw, bs, omega);                // step 4: 11
+    __syncthreads();
+    update_rows<V, 1, 0>(U, Bw, bs, omega);                // step 5: 10
+    Rows<Phase<V, 2>::K> cs;
+    load_rows<V, 2>(cs, c, n, Jt, It);
+    __syncthreads();
+    update_rows<V, 2, 1>(U, Bw, cs, omega);                // step 6: 01
+    __syncthreads();
+    update_rows<V, 2, 0>(U, Bw, cs, omega);                // step 7: 00
+    __syncthreads();
+  }
+
+  // the tile: window rows TOP .. TOP + TJ - 1, columns LEFT .. LEFT + TI - 1
+  const int t = (int)threadIdx.x - V::LEFT;
+  const int i = It + t;
+  if (t < 0 || t >= V::TI || i >= n) return;
+#pragma unroll
+  for (int k = 0; k < (V::TJ + V::NY - 1) / V::NY; ++k) {
+    const int r = (int)threadIdx.y + V::NY * k;
+    if (r >= V::TJ || Jt + r >= n) break;
+    out[(size_t)(Jt + r) * n + i] = U[(V::TOP + r) * V::W + threadIdx.x];
+  }
+}
+
+
+template <bool kSym>
+int launch(const float* u, const float* b, const float* c, float* out, int n,
+           float omega, cudaStream_t stream) {
+  using V = VarTiling<kTJ, kTI, kNY, kSym>;
+  const dim3 grid((n + V::TI - 1) / V::TI, (n + V::TJ - 1) / V::TJ);
+  rbgs_var_kernel<V><<<grid, dim3(V::NX, V::NY), 0, stream>>>(
+      u, b, c, out, n, omega);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int amg_rbgs_sweep_var(const float* u, const float* b,
+                                  const float* c, float* out, int n,
+                                  float omega, int symmetric,
+                                  cudaStream_t stream) {
+  return symmetric ? launch<true>(u, b, c, out, n, omega, stream)
+                   : launch<false>(u, b, c, out, n, omega, stream);
+}

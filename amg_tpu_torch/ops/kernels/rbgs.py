@@ -1,5 +1,6 @@
 """K5 and K6: the fused four-color GS sweep on unpacked (n, n) fields
-(``csrc/rbgs_sweep.cu``), constant (K5) and variable-coefficient (K6).
+(``csrc/rbgs_sweep.cu`` K5, constant; ``csrc/rbgs_var.cu`` K6,
+variable-coefficient).
 
 Port of the TPU kernel ``amg_tpu/ops/pallas/rbgs.py`` ``fused_gs4_sweep``
 (``pallas_call`` at :544 const, :584 var): the whole (symmetric) sweep, 8

@@ -1,8 +1,8 @@
-"""Time this checkout's packed-field kernels against another build of them,
-on one card, in one process.
+"""Time this checkout's kernels against another build of them, on one
+card, in one process.
 
     python -m amg_tpu_torch.utils.kernel_ab --other DIR [DIR ...] \
-        [--sides 1023 4095 8191] [--reps 20] [--nine]
+        [--sides 1023 4095 8191] [--reps 20] [--nine] [--random-planes]
 
 Each DIR is the root of another checkout of the repository (for example an
 earlier commit unpacked with ``git archive``, or a copy whose
@@ -12,11 +12,15 @@ both libraries' C entry points are then called directly (pointers, weights
 and the stream prepared once, so the host cost is the ctypes call), on the
 same random packed fields at each side's M = (side + 1) / 2, for K1
 (amg_packed_sweep), K2 (amg_down_leg), K3 (amg_up_leg), K8
-(amg_residual_restrict) and K9 (amg_packed_sweep_rm). Each pair is checked
-bitwise equal, then timed with CUDA events over ``reps`` back-to-back
-launches in turns other, this, this, other (each build's better of two).
-The weights are the 5-point Poisson ones at the side, or with ``--nine``
-a 9-point set (the zero pattern of the Galerkin levels).
+(amg_residual_restrict) and K9 (amg_packed_sweep_rm), and on random
+unpacked (side, side) fields for K5 (amg_rbgs_sweep_const, the Poisson
+weights) and K6 (amg_rbgs_sweep_var, on varcoef.jump_planes, or with
+``--random-planes`` on random positive planes); every sweep symmetric with
+omega 1. Each pair is checked bitwise equal, then timed with CUDA events
+over ``reps`` back-to-back launches in turns other, this, this, other
+(each build's better of two).
+The packed kernels' weights are the 5-point Poisson ones at the side, or
+with ``--nine`` a 9-point set (the zero pattern of the Galerkin levels).
 Prints one line per kernel and size and, last, one JSON object with the
 times and the card's name and power limit. Needs a CUDA device and nvcc.
 """
@@ -34,6 +38,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from amg_tpu_torch.models import varcoef
 from amg_tpu_torch.ops.kernels import _build
 from amg_tpu_torch.ops.rap import poisson_const_w33
 from amg_tpu_torch.sparse.packed import pack
@@ -41,7 +46,8 @@ from amg_tpu_torch.sparse.packed import pack
 # C entry point -> kernel
 ENTRIES = {"amg_packed_sweep": "K1", "amg_down_leg": "K2",
            "amg_up_leg": "K3", "amg_residual_restrict": "K8",
-           "amg_packed_sweep_rm": "K9"}
+           "amg_packed_sweep_rm": "K9", "amg_rbgs_sweep_const": "K5",
+           "amg_rbgs_sweep_var": "K6"}
 
 
 def build_other(root: Path) -> ctypes.CDLL:
@@ -72,7 +78,8 @@ def build_other(root: Path) -> ctypes.CDLL:
 NINE_POINT = ((-0.5, -1.0, -0.5), (-1.0, 6.0, -1.0), (-0.5, -1.0, -0.5))
 
 
-def calls(lib, side: int, dev, nine: bool = False) -> dict:
+def calls(lib, side: int, dev, nine: bool = False,
+          random_planes: bool = False) -> dict:
     """{entry: (launch, outputs, inputs)} on fresh fields at ``side``
     (the same values for every library); the inputs are held so that the
     pointers in the launches stay valid."""
@@ -94,6 +101,17 @@ def calls(lib, side: int, dev, nine: bool = False) -> dict:
     p = torch.Tensor.data_ptr
     o_u, o_bc, o_rm = (torch.empty_like(u4), torch.empty((M, M), device=dev),
                        torch.empty_like(u_rm))
+    u2, b2 = (torch.as_tensor(rng.standard_normal((side, side)),
+                              dtype=torch.float32, device=dev)
+              for _ in range(2))
+    if random_planes:
+        c = torch.as_tensor(rng.random((3, 3, side, side)) + 0.5,
+                            dtype=torch.float32, device=dev)
+        c[1, 1] += 8.0
+    else:
+        c = varcoef.jump_planes(side, device=dev)
+    o_2 = torch.empty_like(u2)
+    w5 = poisson_const_w33(side, 1)[0]
     args = {
         "amg_packed_sweep": ((p(u4), p(b4), p(o_u), M, w9, inv, om, 1, s),
                              (o_u,)),
@@ -105,6 +123,11 @@ def calls(lib, side: int, dev, nine: bool = False) -> dict:
                                   (o_bc,)),
         "amg_packed_sweep_rm": ((p(u_rm), p(b_rm), p(o_rm), M, w9, inv, om,
                                  1, s), (o_rm,)),
+        "amg_rbgs_sweep_const": ((p(u2), p(b2), p(o_2), side,
+                                  _build.weights(w5), 1.0 / w5[1][1], om, 1,
+                                  s), (o_2,)),
+        "amg_rbgs_sweep_var": ((p(u2), p(b2), p(c), p(o_2), side, om, 1, s),
+                               (o_2,)),
     }
     out = {}
     for name, (a, outs) in args.items():
@@ -112,7 +135,7 @@ def calls(lib, side: int, dev, nine: bool = False) -> dict:
 
         def launch(fn=fn, a=a, name=name):
             _build.check(fn(*a), name)
-        out[name] = (launch, outs, (u4, b4, uc, u_rm, b_rm))
+        out[name] = (launch, outs, (u4, b4, uc, u_rm, b_rm, u2, b2, c))
     return out
 
 
@@ -137,6 +160,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--nine", action="store_true",
                     help="9-point weights in place of 5-point Poisson")
+    ap.add_argument("--random-planes", action="store_true",
+                    help="K6 on random positive planes, not the jump ones")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_ab needs a CUDA device")
@@ -150,9 +175,9 @@ def main(argv=None) -> int:
     rows = []
     for side in args.sides:
         M = (side + 1) // 2
-        mine = calls(this, side, dev, args.nine)
+        mine = calls(this, side, dev, args.nine, args.random_planes)
         for d, lib in others.items():
-            theirs = calls(lib, side, dev, args.nine)
+            theirs = calls(lib, side, dev, args.nine, args.random_planes)
             for name, kernel in ENTRIES.items():
                 fa, outs_a, _ = theirs[name]
                 fb, outs_b, _ = mine[name]
@@ -165,12 +190,16 @@ def main(argv=None) -> int:
                 b2 = time_ms(fb, args.reps)
                 a2 = time_ms(fa, args.reps)
                 ta, tb = min(a1, a2), min(b1, b2)
-                print(f"{kernel} {name} M={M} other={d}: other {ta:.4f} ms, "
+                size = f"n={side}" if "rbgs" in name else f"M={M}"
+                print(f"{kernel} {name} {size} other={d}: other {ta:.4f} ms, "
                       f"this {tb:.4f} ms (this/other {tb / ta:.3f}; runs "
                       f"{a1:.4f} {b1:.4f} {b2:.4f} {a2:.4f}), bitwise "
                       f"equal {same}", flush=True)
                 rows.append({"kernel": kernel, "entry": name, "M": M,
+                             "side": side,
                              "weights": "nine" if args.nine else "five",
+                             "planes": "random" if args.random_planes
+                             else "jump",
                              "other": d, "other_ms": ta, "this_ms": tb,
                              "bitwise_equal": same})
             del theirs

@@ -5,7 +5,9 @@
 Builds the port's CUDA kernels (K1-K9) from amg_tpu_torch/csrc, checks
 each against its plain PyTorch version on the card and times both (K1, K2
 and K3 bitwise at M = 513, 512, 2048 and 4096 and timed at the last three;
-K7 per call against index_select and on the device, in a CUDA graph), then
+K5 and K6 bitwise at n = 1000, 1023 and 4095; K8 bitwise at M = 101 and
+4096; K7 per call against index_select and on the device, in a CUDA graph),
+then
 drives the solves through the user entry points with an independent f64
 residual check and the kernels' launch counts:
 
@@ -84,7 +86,7 @@ WINDOW_WEIGHTS = {"nine": ((-0.5, -1.0, -0.5), (-1.0, 6.0, -1.0),
               "other": ((0.0, -1.0, -0.5), (-1.0, 4.5, -1.0),
                         (0.0, -1.0, 0.0))}
 SOLVE_SIDES = (1023, 4095)
-RBGS_SIDES = (1023, 4095)              # K5/K6 run at 4095 on the path
+RBGS_SIDES = (1000, 1023, 4095)        # K5/K6 run at 4095 on the path
 # K7 shapes (D slabs, B rows, n columns, G strip rows): the 4095^2 D = 4
 # solve's fine level first, then small meshes; n = 256 takes the 16-byte
 # copies
@@ -110,14 +112,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 # Kernel-vs-plain bounds, max|kernel - plain| / max|plain|, for the kernels
-# not held bitwise (K1, K2 and K3 are: torch.equal). They are the JAX
-# package's own interpret-mode bounds for these kernels
+# not held bitwise (K1, K2, K3, K5, K6 and K8 are: torch.equal). They are
+# the JAX package's own interpret-mode bounds for these kernels
 # (tests/test_packed_cycle.py, tests/test_packed_df.py): room for f32
 # reassociation. The kernels keep the plain versions' operation order and
-# are built with -fmad=false, so 0 is expected. K5/K6 and K9 take the
-# sweep's bound.
-BOUND = {"sweep_u": 2e-6, "down_bc": 1e-5, "df_rhi": 1e-6, "df_rss": 1e-5,
-         "rbgs_u": 2e-6}
+# are built with -fmad=false, so 0 is expected. K9 takes the sweep's bound.
+BOUND = {"sweep_u": 2e-6, "df_rhi": 1e-6, "df_rss": 1e-5}
 
 KERNEL_INFO = {
     "fused_gs4_sweep_packed": ("amg_tpu_torch/csrc/packed_sweep.cu",
@@ -130,7 +130,7 @@ KERNEL_INFO = {
                               "amg_tpu/ops/pallas/packed_df.py:258"),
     "fused_gs4_sweep_const": ("amg_tpu_torch/csrc/rbgs_sweep.cu",
                               "amg_tpu/ops/pallas/rbgs.py:544"),
-    "fused_gs4_sweep_var": ("amg_tpu_torch/csrc/rbgs_sweep.cu",
+    "fused_gs4_sweep_var": ("amg_tpu_torch/csrc/rbgs_var.cu",
                             "amg_tpu/ops/pallas/rbgs.py:584"),
     "rdma_halo_exchange": ("amg_tpu_torch/csrc/halo.cu",
                            "amg_tpu/ops/pallas/halo.py:103"),
@@ -385,7 +385,7 @@ def windowed_parity_and_timing(dev):
 
 
 def rbgs_parity_and_timing(dev):
-    """K5/K6 against their plain version at n = 1023 and 4095: symmetric
+    """K5/K6 bitwise against their plain version at RBGS_SIDES: symmetric
     and forward, omega 1 and 0.9; K5 on the Poisson weights, K6 on the
     jump-coefficient planes and on random positive planes. Times both at
     n = 4095 (the path's size), K5 on Poisson and K6 on the jump planes."""
@@ -410,11 +410,14 @@ def rbgs_parity_and_timing(dev):
                     got = K.fused_gs4_sweep(S, u, b, omega, symmetric)
                     ref = fused_gs4_sweep_plain(S, u, b, omega, symmetric)
                     d, r = rel_err(got, ref)
+                    same = torch.equal(got, ref)
                     errs[name] = max(errs[name], d)
                     print(f"parity {label} n={side} symmetric={symmetric} "
-                          f"omega={omega}: max_abs {d:.3e} rel {r:.3e} "
-                          f"(bound {BOUND['rbgs_u']})")
-                    require(r <= BOUND["rbgs_u"], f"{label} parity")
+                          f"omega={omega}: max_abs {d:.3e} rel {r:.3e}, "
+                          f"bitwise equal {same}")
+                    require(same, f"{label} bitwise equal to its plain "
+                            f"version (n={side}, symmetric={symmetric}, "
+                            f"omega={omega})")
         if side == 4095:
             for label, name in (("K5 poisson", "fused_gs4_sweep_const"),
                                 ("K6 jump", "fused_gs4_sweep_var")):
@@ -434,9 +437,9 @@ def rbgs_parity_and_timing(dev):
 
 
 def split_rm_parity_and_timing(dev):
-    """K8 and K9 against their plain versions at K89_SIDES (M = 101 and
-    4096), K9 through to_rm / from_rm against K1 on the same fields, pad
-    cells exactly 0. At M = 4096 both are timed against their plain
+    """K8 (bitwise, 5- and 9-point weights) and K9 against their plain
+    versions at K89_SIDES (M = 101 and 4096), K9 through to_rm / from_rm
+    against K1 on the same fields, pad cells exactly 0. At M = 4096 both are timed against their plain
     versions, K9 against K1, and to_rm + from_rm alone: does the
     row-grouped layout pay for its conversions on the card? Returns
     max_abs_err, the times, the bounds and K9's parity launches."""
@@ -448,18 +451,20 @@ def split_rm_parity_and_timing(dev):
         w33 = poisson_const_w33(side, 1)[0]
         m, f = packed_fields(side, seed=side + 2, dev=dev)
         u4, b4 = f(), f()
-        got = K.fused_residual_restrict_packed(u4, b4, w33, m)
-        ref = residual_restrict_plain(u4, b4, w33, m)
-        d, r = rel_err(got, ref)
-        errs["fused_residual_restrict_packed"] = max(
-            errs["fused_residual_restrict_packed"], d)
-        print(f"parity K8 residual+restrict M={M}: max_abs {d:.3e} rel "
-              f"{r:.3e} (bound {BOUND['down_bc']}), bitwise equal "
-              f"{torch.equal(got, ref)}")
-        require(r <= BOUND["down_bc"], "K8 residual+restrict parity")
-        require(float(got[m, :].abs().max()) == 0.0
-                and float(got[:, m].abs().max()) == 0.0,
-                "K8 bc_pad pad row and column exactly 0")
+        for wname, w in (("five", w33), ("nine", WINDOW_WEIGHTS["nine"])):
+            got = K.fused_residual_restrict_packed(u4, b4, w, m)
+            ref = residual_restrict_plain(u4, b4, w, m)
+            d, r = rel_err(got, ref)
+            same = torch.equal(got, ref)
+            errs["fused_residual_restrict_packed"] = max(
+                errs["fused_residual_restrict_packed"], d)
+            print(f"parity K8 residual+restrict M={M} {wname}: max_abs "
+                  f"{d:.3e} rel {r:.3e}, bitwise equal {same}")
+            require(same, f"K8 bitwise equal to its plain version (M={M}, "
+                    f"{wname})")
+            require(float(got[m, :].abs().max()) == 0.0
+                    and float(got[:, m].abs().max()) == 0.0,
+                    "K8 bc_pad pad row and column exactly 0")
 
         u_rm, b_rm = to_rm(u4), to_rm(b4)
         for symmetric in (True, False):

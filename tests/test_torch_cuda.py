@@ -6,9 +6,9 @@ machine (which has no JAX, so the JAX conftest is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The kernels keep the plain versions' operation order and are built with
--fmad=false: K1, K2 and K3 are held bitwise equal to their plain versions
-(torch.equal); the others to the JAX package's own bounds for these kernels
-(tests/test_packed_cycle.py, tests/test_packed_df.py).
+-fmad=false: K1, K2, K3, K5, K6 and K8 are held bitwise equal to their
+plain versions (torch.equal); K4 and K9 to the JAX package's own bounds for
+these kernels (tests/test_packed_cycle.py, tests/test_packed_df.py).
 """
 
 import numpy as np
@@ -142,15 +142,18 @@ def _fields_at(dev, side, seed):
 K89_SIDES = pytest.mark.parametrize("side", [201, 8191])
 
 
-@K89_SIDES
-def test_residual_restrict_kernel(dev, side):
+@pytest.mark.parametrize("weights", ["five", "nine"])
+@pytest.mark.parametrize("side", [201, 2047, 8191])
+def test_residual_restrict_kernel(dev, side, weights):
+    """K8 bitwise equal to its plain version at M = 101 (ragged: 4-byte
+    copies, edge tiles), 1024 and 4096; pad row and column exactly 0."""
     m, (u4, b4) = _fields_at(dev, side, side)
-    w33 = poisson_const_w33(side, 1)[0]
+    w33 = _weights(weights, side)
     K.reset_launch_counts()
     got = K.fused_residual_restrict_packed(u4, b4, w33, m)
     torch.cuda.synchronize()
     assert K.launch_counts()["fused_residual_restrict_packed"] == 1
-    assert _rel(got, residual_restrict_plain(u4, b4, w33, m)) <= 1e-5
+    assert torch.equal(got, residual_restrict_plain(u4, b4, w33, m))
     assert float(got[m, :].abs().max()) == float(got[:, m].abs().max()) \
         == 0.0
 
@@ -218,8 +221,8 @@ def _rbgs_op(var, side, dev):
 @pytest.mark.parametrize("symmetric", [True, False])
 @pytest.mark.parametrize("var", [False, True], ids=["K5", "K6"])
 def test_rbgs_kernels(dev, var, symmetric, side):
-    """K5/K6 against their plain version at sides with a ragged last
-    tile (31 < one tile, 255 and 1023 not multiples of 32)."""
+    """K5/K6 bitwise equal to their plain version at sides with a ragged
+    last tile (31 < one tile, 255 and 1023 not multiples of 32)."""
     S = _rbgs_op(var, side, dev)
     rng = np.random.default_rng(side)
     u, b = (torch.as_tensor(rng.standard_normal((side, side)),
@@ -230,7 +233,27 @@ def test_rbgs_kernels(dev, var, symmetric, side):
     torch.cuda.synchronize()
     name = "fused_gs4_sweep_var" if var else "fused_gs4_sweep_const"
     assert K.launch_counts()[name] == 1
-    assert _rel(got, fused_gs4_sweep_plain(S, u, b, 0.9, symmetric)) <= 2e-6
+    assert torch.equal(got, fused_gs4_sweep_plain(S, u, b, 0.9, symmetric))
+
+
+@pytest.mark.parametrize("omega", [1.0, 0.9])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("planes", ["jump", "random"])
+@pytest.mark.parametrize("side", [127, 1000, 1023, 4095])
+def test_var_sweep_kernel(dev, side, planes, symmetric, omega):
+    """K6 bitwise equal to its plain version: the jump planes and random
+    positive planes, an even side (1000) and odd ones, 4095 the path's."""
+    g = torch.Generator(device=dev).manual_seed(side)
+    if planes == "jump":
+        c = varcoef.jump_planes(side, device=dev)
+    else:
+        c = torch.rand((3, 3, side, side), generator=g, device=dev) + 0.5
+        c[1, 1] += 8.0
+    S = Stencil2D(side=side, c=c)
+    u, b = (torch.randn((side, side), generator=g, device=dev)
+            for _ in range(2))
+    got = K.fused_gs4_sweep(S, u, b, omega, symmetric)
+    assert torch.equal(got, fused_gs4_sweep_plain(S, u, b, omega, symmetric))
 
 
 def test_var_solve_on_the_card(dev):

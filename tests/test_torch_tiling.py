@@ -1,5 +1,5 @@
-"""The tiled algorithm of the packed CUDA kernels K1, K2 and K3, emulated in
-plain PyTorch on the CPU, against the plain versions they are held to.
+"""The tiled algorithm of the packed CUDA kernels K1, K2, K3 and K8, emulated
+in plain PyTorch on the CPU, against the plain versions they are held to.
 
 Each kernel block copies a window of TJ x TI tile cells of all four packed
 quarters plus a ring of GJ rows and GI columns (zero outside the domain),
@@ -7,10 +7,11 @@ runs the color steps on the window without ever updating its outermost
 cells, and keeps the tile (csrc/packed_common.cuh). The values next to the
 window's edge go wrong, and the wrong values spread inwards with the color
 steps; the ring must hold them off the cells the block stores (K1, K3) or
-reads for its residual and restriction (K2). This file shows, where there
-is no card, that the shipped rings are exact (bitwise equal to
-gs4_sweep_packed, up_leg_plain and down_leg_plain) and that one row or
-column less is not.
+reads for its residual and restriction (K2). K8 runs no color steps: its
+ring only has to cover the residual's and the restriction's reach. This
+file shows, where there is no card, that the shipped rings are exact
+(bitwise equal to gs4_sweep_packed, up_leg_plain, down_leg_plain and
+residual_restrict_plain) and that one row or column less is not.
 
 Sizes: M = 101 and 129 with the kernels' 32 x 64 tiles, so that edge tiles
 and a ragged M occur. f32, random fields from numpy, three weight patterns
@@ -20,8 +21,10 @@ and a ragged M occur. f32, random fields from numpy, three weight patterns
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
+                                                    residual_restrict_plain,
                                                     up_leg_plain)
 from amg_tpu_torch.sparse.packed import COLORS, gs4_sweep_packed
 
@@ -35,6 +38,13 @@ torch.set_num_threads(1)
 TILE = (32, 64)
 RING = {"K1": (2, 4), "K3": (2, 4), "K2": (6, 8)}
 LEAST = {"K1": (2, 4), "K3": (2, 4), "K2": (3, 5)}
+# K8 (csrc/packed_cycle.cu, on K3's tiling Up): its tile and ring, and the
+# least ring. The kernel computes every quarter's residual on the tile's
+# (TJ+1) x (TI+1) cells without a bounds test, which reads 2 rows and
+# columns past the tile; the restriction needs only 1 (reads past the
+# window below read 0).
+RR_TILE = (32, 64)
+RR_RING, RR_LEAST = (2, 4), (1, 1)
 
 FIVE = ((0.0, 1.0, 0.0), (1.0, -4.0, 1.0), (0.0, 1.0, 0.0))
 NINE = ((-0.5, -1.0, -0.5), (-1.0, 6.0, -1.0), (-0.5, -1.0, -0.5))
@@ -229,3 +239,49 @@ def test_least_ring(kind, M):
     assert not _exact(kind, M, "nine", True, (GJ - 1, GI))
     assert not _exact(kind, M, "nine", True, (GJ, GI - 1))
     assert RING[kind][0] >= GJ and RING[kind][1] >= GI
+
+
+def tiled_rr(u4, b4, w33, m: int, ring: tuple):
+    """K8 as its blocks compute it: each RR_TILE with ``ring`` = (GJ, GI),
+    the residual of every quarter on the cells the tile's restriction reads,
+    then the restriction; a read outside the window reads 0."""
+    M = m + 1
+    TJ, TI = RR_TILE
+    GJ, GI = ring
+    bc = torch.zeros((M, M), dtype=u4.dtype)
+    for Jt in range(0, M, TJ):
+        for It in range(0, M, TI):
+            J0, I0 = Jt - GJ, It - GI
+            U, B = (F.pad(_window(f, J0, I0, TJ + 2 * GJ, TI + 2 * GI),
+                          (2, 2, 2, 2)) for f in (u4, b4))
+            c = _residual_restrict_window(U, B, w33, M, J0 - 2, I0 - 2,
+                                          GJ + 2, GI + 2, TJ, TI)
+            tj, ti = min(TJ, M - Jt), min(TI, M - It)
+            bc[Jt:Jt + tj, It:It + ti] = c[:tj, :ti]
+    bc[m, :] = 0.0
+    bc[:, m] = 0.0
+    return bc
+
+
+def _rr_exact(M, weights, ring):
+    m, u4, b4, _ = _fields(M, 2 * M + len(weights))
+    w33 = WEIGHTS[weights]
+    return torch.equal(tiled_rr(u4, b4, w33, m, ring),
+                       residual_restrict_plain(u4, b4, w33, m))
+
+
+@pytest.mark.parametrize("M", [101, 129])
+@pytest.mark.parametrize("weights", list(WEIGHTS))
+def test_rr_shipped_ring_is_exact(weights, M):
+    assert _rr_exact(M, weights, RR_RING)
+
+
+@pytest.mark.parametrize("M", [101, 129])
+def test_rr_least_ring(M):
+    """K8's least ring is exact for every weight pattern; one ghost row or
+    column less is not (9-point weights)."""
+    GJ, GI = RR_LEAST
+    assert all(_rr_exact(M, w, RR_LEAST) for w in WEIGHTS)
+    assert not _rr_exact(M, "nine", (GJ - 1, GI))
+    assert not _rr_exact(M, "nine", (GJ, GI - 1))
+    assert RR_RING[0] >= GJ and RR_RING[1] >= GI
