@@ -3,7 +3,8 @@
 The port never imports JAX: callers convert their JAX arrays with
 ``numpy.asarray`` first, and these functions build the port's objects from
 the numpy arrays. Used by the tests to start both implementations from the
-same state.
+same state. Like every entry point of the port, ``device`` None means
+``"cuda"`` and raises without a CUDA device; the inputs are checked first.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from amg_tpu_torch.ops.doublefloat import DF32
 from amg_tpu_torch.parallel.structured_dist import DistConfig
 from amg_tpu_torch.structured import PACKED_MIN_SIDE, StencilHierarchy
+from amg_tpu_torch.utils.device import resolve_device
 
 
 def hierarchy_from_numpy(sides, w33s, coarse_lu, coarse_piv, P1s,
@@ -30,6 +32,7 @@ def hierarchy_from_numpy(sides, w33s, coarse_lu, coarse_piv, P1s,
 
     ``jax.scipy.linalg.lu_factor`` returns 0-based pivots;
     ``torch.linalg.lu_solve`` expects LAPACK's 1-based int32 pivots."""
+    device = resolve_device(device)
     lu = torch.tensor(np.asarray(coarse_lu), device=device)
     piv = torch.tensor(np.asarray(coarse_piv).astype(np.int32) + 1,
                        device=device)
@@ -52,9 +55,9 @@ def dist_hierarchy_from_numpy(cfg_fields: dict, sub_sides, sub_w33s,
     fields = {k: v for k, v in cfg_fields.items() if k in names}
     for k in ("sides", "blocks", "w33s"):
         fields[k] = tuple(fields[k])
-    sub_hier = hierarchy_from_numpy(sub_sides, sub_w33s, coarse_lu,
-                                    coarse_piv, sub_P1s, device=device)
-    return DistConfig(**fields), sub_hier
+    cfg = DistConfig(**fields)
+    return cfg, hierarchy_from_numpy(sub_sides, sub_w33s, coarse_lu,
+                                     coarse_piv, sub_P1s, device=device)
 
 
 def planes_from_numpy(c, device=None) -> torch.Tensor:
@@ -62,7 +65,7 @@ def planes_from_numpy(c, device=None) -> torch.Tensor:
     c = np.asarray(c)
     if c.ndim != 4 or c.shape[:2] != (3, 3) or c.shape[2] != c.shape[3]:
         raise ValueError(f"planes must be (3, 3, n, n), got {c.shape}")
-    return torch.tensor(c, device=device)
+    return torch.tensor(c, device=resolve_device(device))
 
 
 def df32_from_numpy(hi, lo, device=None) -> DF32:
@@ -72,5 +75,6 @@ def df32_from_numpy(hi, lo, device=None) -> DF32:
     if hi.dtype != np.float32 or lo.dtype != np.float32:
         raise ValueError(f"df32 components must be float32, got "
                          f"{hi.dtype} and {lo.dtype}")
+    device = resolve_device(device)
     return DF32(hi=torch.tensor(hi, device=device),
                 lo=torch.tensor(lo, device=device))

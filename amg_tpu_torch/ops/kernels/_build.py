@@ -44,8 +44,8 @@ _SIGNATURES = {
     "amg_up_leg": (_P, _P, _P, _P, _I, _W9, _F, _F, _I, _P),
     "amg_residual_restrict": (_P, _P, _P, _I, _W9, _P),
     "amg_packed_sweep_rm": (_P, _P, _P, _I, _W9, _F, _F, _I, _P),
-    "amg_df_residual": (_P, _P, _P, _P, _P, _P, _I, _W9, _P),
-    "amg_df_partials_count": (_I,),
+    "amg_df_residual_rss": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _W9, _P),
+    "amg_df_block_count": (_I,),
     "amg_rbgs_sweep_const": (_P, _P, _P, _I, _W9, _F, _F, _I, _P),
     "amg_rbgs_sweep_var": (_P, _P, _P, _P, _I, _F, _I, _P),
     "amg_halo_exchange": (_P,),      # csrc/halo.cu HaloCall, packed

@@ -3,9 +3,11 @@
 Port of the TPU kernel ``amg_tpu/ops/pallas/packed_df.py``
 ``fused_df_residual_rss``: the pow2-weight TwoSum-cascade residual
 r = b - A u in double-float32, writing only r.hi (the V-cycles smooth r.hi;
-r.lo feeds only the rss) and per-block partials of sum(hi^2 + 2 hi lo),
-which the wrapper sums in f64. The plain version is
-``sparse.packed._df_residual_pow2_packed`` followed by ``df_rss_fast``.
+r.lo feeds only the rss) and sum(hi^2 + 2 hi lo) as an f64 value, in one
+launch: the kernel's last block sums the per-block f64 partials in a fixed
+order, picked by a ticket counter that each launch leaves at 0. The plain
+version is ``sparse.packed._df_residual_pow2_packed`` followed by
+``df_rss_fast``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,20 @@ from amg_tpu_torch.sparse.packed import _df_residual_pow2_packed
 def df_residual_rss_plain(w33, b4_df: DF32, u4_df: DF32, m: int):
     r = _df_residual_pow2_packed(w33, b4_df, u4_df, m)
     return r.hi, df_rss_fast(r)
+
+
+# (device index, raw stream) -> the kernel's ticket counter: one int32,
+# zeroed once; each launch leaves it at 0, and launches on one stream are
+# ordered, so they can share it
+_COUNTERS: dict = {}
+
+
+def _counter(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    c = _COUNTERS.get(key)
+    if c is None:
+        c = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return c
 
 
 def fused_df_residual_rss(w33, b4_df: DF32, u4_df: DF32, m: int):
@@ -39,15 +55,18 @@ def fused_df_residual_rss(w33, b4_df: DF32, u4_df: DF32, m: int):
     if dev.type == "cpu":
         return df_residual_rss_plain(w33, b4_df, u4_df, m)
     lib = library()
+    stream = stream_of(u4_df.hi)
     r_hi = torch.empty_like(u4_df.hi)
-    partials = torch.empty(lib.amg_df_partials_count(M), dtype=torch.float32,
+    partials = torch.empty(lib.amg_df_block_count(M), dtype=torch.float64,
                            device=dev)
-    check(lib.amg_df_residual(
+    rss = torch.empty((), dtype=torch.float64, device=dev)
+    check(lib.amg_df_residual_rss(
         b4_df.hi.data_ptr(), b4_df.lo.data_ptr(), u4_df.hi.data_ptr(),
-        u4_df.lo.data_ptr(), r_hi.data_ptr(), partials.data_ptr(), M,
-        weights(w33), stream_of(r_hi)), "amg_df_residual")
+        u4_df.lo.data_ptr(), r_hi.data_ptr(), partials.data_ptr(),
+        _counter(dev, stream).data_ptr(), rss.data_ptr(), M, weights(w33),
+        stream), "amg_df_residual_rss")
     fused_df_residual_rss.launches += 1
-    return r_hi, partials.to(torch.float64).sum()
+    return r_hi, rss
 
 
 fused_df_residual_rss.launches = 0

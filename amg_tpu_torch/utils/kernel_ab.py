@@ -12,13 +12,19 @@ both libraries' C entry points are then called directly (pointers, weights
 and the stream prepared once, so the host cost is the ctypes call), on the
 same random packed fields at each side's M = (side + 1) / 2, for K1
 (amg_packed_sweep), K2 (amg_down_leg), K3 (amg_up_leg), K8
-(amg_residual_restrict) and K9 (amg_packed_sweep_rm), and on random
-unpacked (side, side) fields for K5 (amg_rbgs_sweep_const, the Poisson
-weights) and K6 (amg_rbgs_sweep_var, on varcoef.jump_planes, or with
-``--random-planes`` on random positive planes); every sweep symmetric with
-omega 1. Each pair is checked bitwise equal, then timed with CUDA events
-over ``reps`` back-to-back launches in turns other, this, this, other
-(each build's better of two).
+(amg_residual_restrict), K9 (amg_packed_sweep_rm) and K4 (the df32
+residual + rss on packed df32 fields, always the Poisson weights: they must
+be powers of two), and on random unpacked (side, side) fields for K5
+(amg_rbgs_sweep_const, the Poisson weights) and K6 (amg_rbgs_sweep_var, on
+varcoef.jump_planes, or with ``--random-planes`` on random positive
+planes); every sweep symmetric with omega 1. Each pair is checked bitwise
+equal (K4: r.hi bitwise, the rss within 1e-5 relative), then timed with
+CUDA events over ``reps`` back-to-back launches in turns other, this,
+this, other (each build's better of two).
+K4 is called by the signature its build exports: ``amg_df_residual_rss``
+(one launch writes r.hi and the f64 rss), or a build before it,
+``amg_df_residual`` (f32 per-block partials), followed by the f64 sum its
+wrapper launched (``partials.to(float64).sum()``), which is timed with it.
 The packed kernels' weights are the 5-point Poisson ones at the side, or
 with ``--nine`` a 9-point set (the zero pattern of the Galerkin levels).
 Prints one line per kernel and size and, last, one JSON object with the
@@ -47,7 +53,11 @@ from amg_tpu_torch.sparse.packed import pack
 ENTRIES = {"amg_packed_sweep": "K1", "amg_down_leg": "K2",
            "amg_up_leg": "K3", "amg_residual_restrict": "K8",
            "amg_packed_sweep_rm": "K9", "amg_rbgs_sweep_const": "K5",
-           "amg_rbgs_sweep_var": "K6"}
+           "amg_rbgs_sweep_var": "K6", "amg_df_residual_rss": "K4"}
+# K4's entry points in builds before amg_df_residual_rss
+_P, _I = _build._P, _build._I
+OLD_DF = {"amg_df_residual": (_P, _P, _P, _P, _P, _P, _I, _build._W9, _P),
+          "amg_df_partials_count": (_I,)}
 
 
 def build_other(root: Path) -> ctypes.CDLL:
@@ -68,11 +78,59 @@ def build_other(root: Path) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {root}:\n{proc.stderr}")
     lib = ctypes.CDLL(str(out))
-    for name in ENTRIES:
-        fn = getattr(lib, name)
-        fn.argtypes = list(_build._SIGNATURES[name])
-        fn.restype = ctypes.c_int
+    for name, argtypes in {**_build._SIGNATURES, **OLD_DF}.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib
+
+
+def df_launch(lib, side: int, dev, rng):
+    """K4's (launch, (r_hi, rss), inputs) by ``lib``'s own signature."""
+    m = (side - 1) // 2
+    M = m + 1
+
+    def field(scale=1.0):
+        x = torch.as_tensor(rng.standard_normal((side, side)) * scale,
+                            dtype=torch.float32, device=dev)
+        return pack(x, m)
+    bh, bl, uh, ul = field(), field(1e-8), field(), field(1e-8)
+    w9 = _build.weights(poisson_const_w33(side, 1)[0])
+    s = _build.stream_of(bh)
+    p = torch.Tensor.data_ptr
+    r_hi = torch.empty_like(bh)
+    if hasattr(lib, "amg_df_residual_rss"):
+        parts = torch.empty(lib.amg_df_block_count(M), dtype=torch.float64,
+                            device=dev)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        rss = torch.empty((), dtype=torch.float64, device=dev)
+        a = (p(bh), p(bl), p(uh), p(ul), p(r_hi), p(parts), p(counter),
+             p(rss), M, w9, s)
+
+        def launch():
+            _build.check(lib.amg_df_residual_rss(*a), "amg_df_residual_rss")
+        held = (counter, parts)
+    else:
+        parts = torch.empty(lib.amg_df_partials_count(M),
+                            dtype=torch.float32, device=dev)
+        rss = torch.empty(1, dtype=torch.float64, device=dev)
+        a = (p(bh), p(bl), p(uh), p(ul), p(r_hi), p(parts), M, w9, s)
+
+        def launch():
+            _build.check(lib.amg_df_residual(*a), "amg_df_residual")
+            torch.sum(parts.to(torch.float64), 0, keepdim=True, out=rss)
+        held = (parts,)
+    return launch, (r_hi, rss), (bh, bl, uh, ul, *held)
+
+
+def same_outputs(name: str, ref, outs) -> bool:
+    """Bitwise equal outputs; K4's rss (summed in another order by
+    another design) within 1e-5 relative."""
+    if name == "amg_df_residual_rss":
+        a, b = float(ref[1].reshape(())), float(outs[1].reshape(()))
+        return torch.equal(ref[0], outs[0]) and abs(a - b) <= 1e-5 * abs(a)
+    return all(torch.equal(r, o) for r, o in zip(ref, outs))
 
 
 NINE_POINT = ((-0.5, -1.0, -0.5), (-1.0, 6.0, -1.0), (-0.5, -1.0, -0.5))
@@ -136,6 +194,7 @@ def calls(lib, side: int, dev, nine: bool = False,
         def launch(fn=fn, a=a, name=name):
             _build.check(fn(*a), name)
         out[name] = (launch, outs, (u4, b4, uc, u_rm, b_rm, u2, b2, c))
+    out["amg_df_residual_rss"] = df_launch(lib, side, dev, rng)
     return out
 
 
@@ -184,7 +243,7 @@ def main(argv=None) -> int:
                 fa()
                 ref = [o.clone() for o in outs_a]
                 fb()
-                same = all(torch.equal(r, o) for r, o in zip(ref, outs_b))
+                same = same_outputs(name, ref, outs_b)
                 a1 = time_ms(fa, args.reps)
                 b1 = time_ms(fb, args.reps)
                 b2 = time_ms(fb, args.reps)

@@ -5,9 +5,10 @@
 Builds the port's CUDA kernels (K1-K9) from amg_tpu_torch/csrc, checks
 each against its plain PyTorch version on the card and times both (K1, K2
 and K3 bitwise at M = 513, 512, 2048 and 4096 and timed at the last three;
-K5 and K6 bitwise at n = 1000, 1023 and 4095; K8 bitwise at M = 101 and
-4096; K7 per call against index_select and on the device, in a CUDA graph),
-then
+K4's r.hi bitwise at M = 101, 129, 512, 2048 and 4096 and timed at the last
+three; K5 and K6 bitwise at n = 1000, 1023 and 4095; K8 bitwise at M = 101
+and 4096; K7 per call against index_select and on the device, in a CUDA
+graph), then
 drives the solves through the user entry points with an independent f64
 residual check and the kernels' launch counts:
 
@@ -54,7 +55,7 @@ from amg_tpu_torch import (DistStructuredSolver, StructuredSolver,
                            build_stencil_hierarchy_device, poisson,
                            solve_pcg_device, varcoef, vcycle_packed)
 from amg_tpu_torch.ops import kernels as K
-from amg_tpu_torch.ops.doublefloat import DF32
+from amg_tpu_torch.ops.doublefloat import DF32, is_pow2_weights
 from amg_tpu_torch.ops.kernels import _build
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
                                                     residual_restrict_plain,
@@ -73,7 +74,10 @@ from amg_tpu_torch.structured import PACKED_MIN_SIDE, level_plan
 from amg_tpu_torch.utils.profiling import _device_us
 
 TOL = 1e-7
-PARITY_SIDES = (1023, 4095)            # K4: M = 512 and 2048
+# K4: M = 101 and 129 (ragged: 4-byte copies, edge tiles), then the timed
+# sizes M = 512, 2048 and 4096 (the 1023^2, 4095^2 and 8191^2 fine levels)
+PARITY_SIDES = (201, 257, 1023, 4095, 8191)
+DF_TIMED = (1023, 4095, 8191)
 # K1, K2, K3 (the windowed kernels): M = 513 (ragged: 4-byte copies, edge
 # tiles), then the timed sizes M = 512, 2048 (the legs' fine levels) and
 # 4096 (8191^2's fine level)
@@ -111,13 +115,13 @@ PCG_CARD_CPU_REL = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# Kernel-vs-plain bounds, max|kernel - plain| / max|plain|, for the kernels
-# not held bitwise (K1, K2, K3, K5, K6 and K8 are: torch.equal). They are
-# the JAX package's own interpret-mode bounds for these kernels
-# (tests/test_packed_cycle.py, tests/test_packed_df.py): room for f32
-# reassociation. The kernels keep the plain versions' operation order and
-# are built with -fmad=false, so 0 is expected. K9 takes the sweep's bound.
-BOUND = {"sweep_u": 2e-6, "df_rhi": 1e-6, "df_rss": 1e-5}
+# Kernel-vs-plain bounds, max|kernel - plain| / max|plain|, for the outputs
+# not held bitwise (K1, K2, K3, K5, K6, K8 and K4's r.hi are:
+# torch.equal). They are the JAX package's own interpret-mode bounds for
+# these kernels (tests/test_packed_cycle.py, tests/test_packed_df.py): K4's
+# rss is summed in another order than the plain version's row sums; K9
+# takes the sweep's bound.
+BOUND = {"sweep_u": 2e-6, "df_rss": 1e-5}
 
 KERNEL_INFO = {
     "fused_gs4_sweep_packed": ("amg_tpu_torch/csrc/packed_sweep.cu",
@@ -233,43 +237,54 @@ def interleaved(name: str, size: str, kern, plain, reps: int, times: dict):
 
 def parity_and_timing(dev):
     """Phases 2 and 3 for K4 (K1, K2, K3: windowed_parity_and_timing): the
-    kernel against its plain version, and both timed, at the main path's
-    M = 512 and 2048. Returns max_abs_err, {kernel: (kernel ms, plain ms)}
-    and {kernel: bound} at M = 2048."""
-    errs = {"fused_df_residual_rss": 0.0}
-    times, bounds = {}, {}
+    kernel against its plain version at PARITY_SIDES (r.hi bitwise, pad
+    cells exactly 0, the rss within BOUND["df_rss"] and the same bits on a
+    repeated call), and both timed at DF_TIMED. Returns max_abs_err,
+    {kernel: (kernel ms, plain ms)} and {kernel: bound} at M = 2048, and
+    {kernel: {M: (ms, bound ms)}}."""
+    name = "fused_df_residual_rss"
+    errs = {name: 0.0}
+    times, bounds, by_m = {}, {}, {name: {}}
     for side in PARITY_SIDES:
         M = (side + 1) // 2
         w33 = poisson_const_w33(side, 1)[0]
+        if not is_pow2_weights(w33):   # the ragged sides are not 2^k - 1
+            w33 = ((0.0, -1.0, 0.0), (-1.0, 4.0, -1.0), (0.0, -1.0, 0.0))
         m, f = packed_fields(side, seed=side, dev=dev)
         u_df, b_df = DF32(hi=f(), lo=f(1e-8)), DF32(hi=f(), lo=f(1e-8))
 
         rh, rss = K.fused_df_residual_rss(w33, b_df, u_df, m)
         rh_ref, rss_ref = df_residual_rss_plain(w33, b_df, u_df, m)
-        d, r = rel_err(rh, rh_ref)
+        rh2, rss2 = K.fused_df_residual_rss(w33, b_df, u_df, m)
+        d, _ = rel_err(rh, rh_ref)
+        same = torch.equal(rh, rh_ref)
         rss_rel = abs(float(rss) - float(rss_ref)) / float(rss_ref)
-        errs["fused_df_residual_rss"] = max(errs["fused_df_residual_rss"], d)
-        print(f"parity K4 df residual M={M}: r.hi max_abs {d:.3e} rel "
-              f"{r:.3e} (bound {BOUND['df_rhi']}); rss rel {rss_rel:.3e} "
-              f"(bound {BOUND['df_rss']})")
-        require(r <= BOUND["df_rhi"] and rss_rel <= BOUND["df_rss"],
-                "K4 df residual parity")
-        require(float(rh[3][m, :].abs().max()) == 0.0
-                and float(rh[3][:, m].abs().max()) == 0.0,
-                "K4 pad cells exactly 0")
-
+        again = torch.equal(rh2, rh) and torch.equal(rss2, rss)
+        errs[name] = max(errs[name], d)
+        print(f"parity K4 df residual M={M}: r.hi bitwise equal {same} "
+              f"(max_abs {d:.3e}); rss {float(rss):.17e} against "
+              f"{float(rss_ref):.17e}, rel {rss_rel:.3e} (bound "
+              f"{BOUND['df_rss']}); repeated call same bits {again}")
+        require(same, f"K4 r.hi bitwise equal to its plain version (M={M})")
+        require(rss_rel <= BOUND["df_rss"], f"K4 rss within bound (M={M})")
+        require(again, f"K4 reproducible (M={M})")
+        require(pads_zero(rh, m), f"K4 pad cells exactly 0 (M={M})")
+        if side not in DF_TIMED:
+            continue
         t = {}
-        interleaved("fused_df_residual_rss", f"M={M}",
+        interleaved(name, f"M={M}",
                     lambda: K.fused_df_residual_rss(w33, b_df, u_df, m),
                     lambda: df_residual_rss_plain(w33, b_df, u_df, m),
                     50 if M <= 512 else 20, t)
+        # b.hi, b.lo, u.hi, u.lo read, r.hi and the f64 rss written; 5
+        # TwoSum-cascade terms of 10 ops, a TwoSum, the square
+        bnd = bound(5 * u_df.hi.nbytes + 8, 60 * side * side)
+        by_m[name][M] = (t[name][0], bnd[0])
         if M == 2048:
             times.update(t)
-            n_parts = _build.library().amg_df_partials_count(M)
-            # 5 TwoSum-cascade terms of 10 ops, a TwoSum, the square
-            bounds["fused_df_residual_rss"] = bound(
-                5 * u_df.hi.nbytes + 4 * n_parts, 60 * side * side)
-    return errs, times, bounds
+            bounds[name] = bnd
+        del u_df, b_df, rh, rh_ref, rh2
+    return errs, times, bounds, by_m
 
 
 def down_leg_bound(w33, side: int, f4: int) -> tuple[float, str]:
@@ -386,11 +401,13 @@ def windowed_parity_and_timing(dev):
 
 def rbgs_parity_and_timing(dev):
     """K5/K6 bitwise against their plain version at RBGS_SIDES: symmetric
-    and forward, omega 1 and 0.9; K5 on the Poisson weights, K6 on the
-    jump-coefficient planes and on random positive planes. Times both at
-    n = 4095 (the path's size), K5 on Poisson and K6 on the jump planes."""
+    and forward, omega 1 and 0.9; K5 on the Poisson and on 9-point weights,
+    K6 on the jump-coefficient planes and on random positive planes. Times
+    both at n = 4095 (the path's size), K5 on Poisson and K6 on the jump
+    planes, and K5 also at n = 1023; returns K5's {n: (ms, bound ms)}
+    too."""
     errs = {"fused_gs4_sweep_const": 0.0, "fused_gs4_sweep_var": 0.0}
-    times, bounds = {}, {}
+    times, bounds, k5_by_n = {}, {}, {}
     for side in RBGS_SIDES:
         g = torch.Generator(device=dev).manual_seed(side)
         u = torch.randn((side, side), generator=g, device=dev)
@@ -399,6 +416,7 @@ def rbgs_parity_and_timing(dev):
         rand[1, 1] += 8.0
         w33 = poisson_const_w33(side, 1)[0]
         ops = {"K5 poisson": Stencil2D.const(w33, side),
+               "K5 nine": Stencil2D.const(WINDOW_WEIGHTS["nine"], side),
                "K6 jump": Stencil2D(side=side, c=varcoef.jump_planes(
                    side, device=dev)),
                "K6 random": Stencil2D(side=side, c=rand)}
@@ -418,6 +436,15 @@ def rbgs_parity_and_timing(dev):
                     require(same, f"{label} bitwise equal to its plain "
                             f"version (n={side}, symmetric={symmetric}, "
                             f"omega={omega})")
+        cells = side * side
+        k5_bound = bound(3 * u.nbytes, sweep_ops(w33, cells))
+        if side == 1023:
+            t = {}
+            S = ops["K5 poisson"]
+            interleaved("fused_gs4_sweep_const", f"n={side}",
+                        lambda: K.fused_gs4_sweep(S, u, b),
+                        lambda: fused_gs4_sweep_plain(S, u, b), 50, t)
+            k5_by_n[side] = (t["fused_gs4_sweep_const"][0], k5_bound[0])
         if side == 4095:
             for label, name in (("K5 poisson", "fused_gs4_sweep_const"),
                                 ("K6 jump", "fused_gs4_sweep_var")):
@@ -426,14 +453,13 @@ def rbgs_parity_and_timing(dev):
                             lambda: K.fused_gs4_sweep(S, u, b),
                             lambda: fused_gs4_sweep_plain(S, u, b), 20,
                             times)
-            cells = side * side
-            bounds["fused_gs4_sweep_const"] = bound(3 * u.nbytes,
-                                                    sweep_ops(w33, cells))
+            bounds["fused_gs4_sweep_const"] = k5_bound
+            k5_by_n[side] = (times["fused_gs4_sweep_const"][0], k5_bound[0])
             # 8 off-diagonal terms and a division per update
             bounds["fused_gs4_sweep_var"] = bound(
                 3 * u.nbytes + ops["K6 jump"].c.nbytes, cells * 2 * 22)
         del ops, rand
-    return errs, times, bounds
+    return errs, times, bounds, k5_by_n
 
 
 def split_rm_parity_and_timing(dev):
@@ -1125,12 +1151,13 @@ def main() -> int:
     print(_build.build_log())
 
     # phases 2-3: parity and timing, kernel against plain
-    errs, times, bounds = parity_and_timing(dev)
-    e123, t123, b123, by_m = windowed_parity_and_timing(dev)
+    errs, times, bounds, by_m = parity_and_timing(dev)
+    e123, t123, b123, by_m123 = windowed_parity_and_timing(dev)
     errs.update(e123)
     times.update(t123)
     bounds.update(b123)
-    e56, t56, b56 = rbgs_parity_and_timing(dev)
+    by_m.update(by_m123)
+    e56, t56, b56, k5_by_n = rbgs_parity_and_timing(dev)
     errs.update(e56)
     times.update(t56)
     bounds.update(b56)
@@ -1177,6 +1204,11 @@ def main() -> int:
             entry["ms_by_M"] = {str(M): t for M, (t, _) in by_m[name].items()}
             entry["bound_ms_by_M"] = {str(M): bm
                                       for M, (_, bm) in by_m[name].items()}
+        if name == "fused_gs4_sweep_const":
+            # K5 works on unpacked (n, n) fields: by side n
+            entry["ms_by_n"] = {str(n): t for n, (t, _) in k5_by_n.items()}
+            entry["bound_ms_by_n"] = {str(n): bm
+                                      for n, (_, bm) in k5_by_n.items()}
         if name == "fused_gs4_sweep_rm":
             # launches stays the path count (0); the parity phase's own
             # launches are reported apart

@@ -6,9 +6,10 @@ machine (which has no JAX, so the JAX conftest is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The kernels keep the plain versions' operation order and are built with
--fmad=false: K1, K2, K3, K5, K6 and K8 are held bitwise equal to their
-plain versions (torch.equal); K4 and K9 to the JAX package's own bounds for
-these kernels (tests/test_packed_cycle.py, tests/test_packed_df.py).
+-fmad=false: K1, K2, K3, K5, K6, K8 and K4's r.hi are held bitwise equal
+to their plain versions (torch.equal); K4's rss (summed in another order)
+and K9 to the JAX package's own bounds for these kernels
+(tests/test_packed_cycle.py, tests/test_packed_df.py).
 """
 
 import numpy as np
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 from amg_tpu_torch import (DistStructuredSolver, StructuredSolver, poisson,
                            varcoef)
 from amg_tpu_torch.ops import kernels as K
-from amg_tpu_torch.ops.doublefloat import DF32
+from amg_tpu_torch.ops.doublefloat import DF32, is_pow2_weights
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
                                                     residual_restrict_plain,
                                                     up_leg_plain)
@@ -120,13 +121,31 @@ def test_leg_kernels(dev, side, symmetric, weights):
         assert _pads_zero(got, m)
 
 
-def test_df_kernel(dev):
-    b_df = DF32(_field(dev, 5), _field(dev, 6, 1e-8))
-    u_df = DF32(_field(dev, 7), _field(dev, 8, 1e-8))
-    rh, rss = K.fused_df_residual_rss(W33, b_df, u_df, M_)
-    rh_ref, rss_ref = df_residual_rss_plain(W33, b_df, u_df, M_)
-    assert _rel(rh, rh_ref) <= 1e-6
+# M = 101 and 129 (ragged: 4-byte copies, edge tiles), 512, 2048 and 4096
+# (the 1023^2, 4095^2 and 8191^2 fine levels)
+@pytest.mark.parametrize("side", [201, 257, 1023, 4095, 8191])
+def test_df_kernel(dev, side):
+    """K4: r.hi bitwise equal to the plain version's, pad cells exactly 0,
+    the rss within 1e-5 relative and the same bits on a repeated call."""
+    m = (side - 1) // 2
+    w33 = poisson_const_w33(side, 1)[0]
+    if not is_pow2_weights(w33):     # the ragged sides are not 2^k - 1
+        w33 = ((0.0, -1.0, 0.0), (-1.0, 4.0, -1.0), (0.0, -1.0, 0.0))
+    rng = np.random.default_rng(side)
+
+    def f(scale=1.0):
+        x = rng.standard_normal((side, side)) * scale
+        return pack(torch.as_tensor(x, dtype=torch.float32, device=dev), m)
+    b_df = DF32(f(), f(1e-8))
+    u_df = DF32(f(), f(1e-8))
+    rh, rss = K.fused_df_residual_rss(w33, b_df, u_df, m)
+    rh_ref, rss_ref = df_residual_rss_plain(w33, b_df, u_df, m)
+    assert torch.equal(rh, rh_ref)
+    assert _pads_zero(rh, m)
+    assert rss.dtype == torch.float64 and rss.shape == ()
     assert abs(float(rss) - float(rss_ref)) <= 1e-5 * float(rss_ref)
+    rh2, rss2 = K.fused_df_residual_rss(w33, b_df, u_df, m)
+    assert torch.equal(rh2, rh) and float(rss2) == float(rss)
 
 
 def _fields_at(dev, side, seed):
@@ -234,6 +253,23 @@ def test_rbgs_kernels(dev, var, symmetric, side):
     name = "fused_gs4_sweep_var" if var else "fused_gs4_sweep_const"
     assert K.launch_counts()[name] == 1
     assert torch.equal(got, fused_gs4_sweep_plain(S, u, b, 0.9, symmetric))
+
+
+@pytest.mark.parametrize("omega", [1.0, 0.9])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("weights", ["five", "nine", "other"])
+@pytest.mark.parametrize("side", [127, 1000, 1023, 4095])
+def test_const_sweep_kernel(dev, side, weights, symmetric, omega):
+    """K5 bitwise equal to its plain version (di outer, dj inner, zero
+    weights skipped) on each weight pattern it instantiates: the Poisson
+    5-point weights, 9-point ones and another zero pattern; an even side
+    (1000) and odd ones, 4095 the path's."""
+    S = Stencil2D.const(_weights(weights, side), side)
+    g = torch.Generator(device=dev).manual_seed(side + len(weights))
+    u, b = (torch.randn((side, side), generator=g, device=dev)
+            for _ in range(2))
+    got = K.fused_gs4_sweep(S, u, b, omega, symmetric)
+    assert torch.equal(got, fused_gs4_sweep_plain(S, u, b, omega, symmetric))
 
 
 @pytest.mark.parametrize("omega", [1.0, 0.9])

@@ -56,7 +56,8 @@ def test_interop_round_trip():
     jh = _jax_hier(side)
     th = hierarchy_from_numpy(
         jh.sides, [lv.w33 for lv in jh.levels], np.asarray(jh.coarse_lu),
-        np.asarray(jh.coarse_piv), [np.asarray(P) for P in jh.P1s])
+        np.asarray(jh.coarse_piv), [np.asarray(P) for P in jh.P1s],
+        device=CPU)
     own = tst.build_stencil_hierarchy_device(side, dtype=torch.float64,
                                            device=CPU)
     assert th.sides == own.sides and th.w33s == own.w33s
@@ -72,7 +73,7 @@ def test_interop_round_trip():
     hi = np.random.default_rng(0).standard_normal((4, 8, 8)).astype(
         np.float32)
     lo = (hi * 1e-8).astype(np.float32)
-    d = df32_from_numpy(hi, lo)
+    d = df32_from_numpy(hi, lo, device=CPU)
     np.testing.assert_array_equal(d.hi.numpy(), hi)
     np.testing.assert_array_equal(d.lo.numpy(), lo)
     with pytest.raises(ValueError):

@@ -1,6 +1,8 @@
-"""The tiled algorithm of K6, the variable-coefficient fused sweep on
-unpacked (n, n) fields (csrc/rbgs_var.cu), emulated in plain PyTorch on the
-CPU against fused_gs4_sweep_plain, the version it is held to.
+"""The tiled algorithm of K5 and K6, the constant and variable-coefficient
+fused sweeps on unpacked (n, n) fields (csrc/rbgs_sweep.cu,
+csrc/rbgs_var.cu, their block in csrc/rbgs_common.cuh), emulated in plain
+PyTorch on the CPU against fused_gs4_sweep_plain, the version they are
+held to.
 
 A block copies a window of u and b around a TJ x TI tile (zero outside the
 grid), runs the color steps in the window and keeps the tile. Cells next to
@@ -15,11 +17,16 @@ shows, where there is no card, that
   symmetric, 2 / 2 / 4 / 4 forward) and its per-phase update regions (the
   trapezoid: each step updates only the cells of its color that can still
   reach the tile), copied from the kernel's margin table;
-* each entry of that table is the least: one smaller is not exact.
+* each entry of that table is the least: one smaller is not exact;
+* K5's block, the same window and regions with K5's own arithmetic (the
+  constant weights summed di outer, dj inner, zero weights skipped: a
+  ``Stencil2D.const`` operand) and its own tile, is exact too, and with any
+  entry of the shared table one smaller it is not.
 
-Sizes: n = 127 and 255 and a ragged even n = 200 with the kernel's 32 x 64
-tile; 5-point and 9-point constant planes, the jump planes and random
-positive planes; f32; symmetric and forward; omega 1 and 0.9.
+Sizes: n = 127 and 255 and a ragged even n = 200 with the kernels' tiles
+(K6 32 x 64, K5 32 x 114); 5-point and 9-point constant planes, the jump
+planes and random positive planes (K6), 5-point and 9-point weights (K5);
+f32; symmetric and forward; omega 1 and 0.9.
 """
 
 import numpy as np
@@ -33,10 +40,11 @@ from amg_tpu_torch.sparse.stencil import FOUR_COLORS, Stencil2D
 torch.set_num_threads(1)
 
 TILE = (32, 64)                     # csrc/rbgs_var.cu kTJ, kTI
+K5_TILE = (32, 114)                 # csrc/rbgs_sweep.cu kTJ, kTI
 # window margins around the tile (rows above, below, columns left, right)
 LEAST = {True: (3, 2, 7, 6), False: (1, 2, 3, 4)}
 SHIPPED = {True: (4, 2, 8, 6), False: (2, 2, 4, 4)}
-# a copy of csrc/rbgs_var.cu margin(), whose comment points back here: per
+# a copy of csrc/rbgs_common.cuh margin(), whose comment points back here: per
 # load phase, rows above and below the tile and columns left / right for
 # even, then odd columns
 MARGINS = {True: ((2, 1, 6, 5, 5, 4), (1, 0, 4, 3, 3, 2),
@@ -71,24 +79,28 @@ def _window(f, j0: int, i0: int, H: int, W: int):
     return S
 
 
-def _region(margins, sym: bool, k: int, pi: int, Jt: int, It: int, J, I):
+def _region(margins, sym: bool, k: int, pi: int, Jt: int, It: int, J, I,
+            tile=TILE):
     """Cells of the load phase of step k with column parity pi: absolute
     rows J and columns I against the phase's ``margins`` around the tile."""
     top, bot, l0, r0, l1, r1 = margins[PHASE[sym][k]]
     left, right = (l1, r1) if pi else (l0, r0)
-    TJ, TI = TILE
+    TJ, TI = tile
     rows = (J >= Jt - top) & (J <= Jt + TJ - 1 + bot)
     cols = (I >= It - left) & (I <= It + TI - 1 + right)
     return rows.reshape(-1, 1) & cols.reshape(1, -1)
 
 
-def tiled(c, u, b, omega: float, sym: bool, ring: tuple, margins=None):
-    """K6 as its blocks compute it: each TILE with the window margins
-    ``ring``; every inner window cell of the step's color updated, or, given
-    per-phase ``margins`` (MARGINS[sym] for the kernel's), only those in the
-    load phase regions."""
+def tiled(c, u, b, omega: float, sym: bool, ring: tuple, margins=None,
+          tile=TILE):
+    """K6 (``c`` (3,3,n,n) planes) or K5 (``c`` a w33 tuple) as its blocks
+    compute it: each ``tile`` with the window margins ``ring``; every inner
+    window cell of the step's color updated, or, given per-phase
+    ``margins`` (MARGINS[sym] for the kernels'), only those in the load
+    phase regions."""
     n = u.shape[-1]
-    TJ, TI = TILE
+    TJ, TI = tile
+    const = not isinstance(c, torch.Tensor)
     top, bot, left, right = ring
     H, W = TJ + top + bot, TI + left + right
     order = list(FOUR_COLORS) + (list(FOUR_COLORS)[::-1] if sym else [])
@@ -97,23 +109,31 @@ def tiled(c, u, b, omega: float, sym: bool, ring: tuple, margins=None):
         for It in range(0, n, TI):
             j0, i0 = Jt - top, It - left
             U, B = _window(u, j0, i0, H, W), _window(b, j0, i0, H, W)
-            C = _window(c, j0, i0, H, W)
             J = torch.arange(j0 + 1, j0 + H - 1)    # inner window cells
             I = torch.arange(i0 + 1, i0 + W - 1)
             real = (((J >= 0) & (J < n)).reshape(-1, 1)
                     & ((I >= 0) & (I < n)).reshape(1, -1))
             inner = (slice(1, H - 1), slice(1, W - 1))
-            inv = 1.0 / C[1, 1][inner]
+            if const:      # K5: di outer, dj inner, zero weights skipped
+                terms = [((dj, di), c[dj + 1][di + 1]) for di in (-1, 0, 1)
+                         for dj in (-1, 0, 1)
+                         if (dj, di) != (0, 0) and c[dj + 1][di + 1] != 0.0]
+                inv = 1.0 / c[1][1]
+            else:          # K6: OFFSETS order, the planes' coefficients
+                C = _window(c, j0, i0, H, W)
+                terms = [((dj, di), C[dj + 1, di + 1][inner])
+                         for dj, di in OFFSETS]
+                inv = 1.0 / C[1, 1][inner]
             for k, (pj, pi) in enumerate(order):
                 acc = torch.zeros((H - 2, W - 2), dtype=u.dtype)
-                for dj, di in OFFSETS:
-                    acc = acc + C[dj + 1, di + 1][inner] * U[
-                        1 + dj:H - 1 + dj, 1 + di:W - 1 + di]
+                for (dj, di), w in terms:
+                    acc = acc + w * U[1 + dj:H - 1 + dj, 1 + di:W - 1 + di]
                 delta = (B[inner] - acc) * inv - U[inner]
                 mask = (real & ((J % 2) == pj).reshape(-1, 1)
                         & ((I % 2) == pi).reshape(1, -1))
                 if margins is not None:
-                    mask = mask & _region(margins, sym, k, pi, Jt, It, J, I)
+                    mask = mask & _region(margins, sym, k, pi, Jt, It, J,
+                                          I, tile)
                 U[inner] = torch.where(mask, U[inner] + omega * delta,
                                        U[inner])
             tj, ti = min(TJ, n - Jt), min(TI, n - It)
@@ -137,6 +157,22 @@ def _exact(n: int, planes: str, sym: bool, ring, omega=0.9,
 @pytest.mark.parametrize("n", [127, 255, 200])
 def test_shipped_block_is_exact(n, planes, sym, omega):
     assert _exact(n, planes, sym, SHIPPED[sym], omega, MARGINS[sym])
+
+
+@pytest.mark.parametrize("omega", [1.0, 0.9])
+@pytest.mark.parametrize("sym", [True, False], ids=["symmetric", "forward"])
+@pytest.mark.parametrize("weights", ["five", "nine"])
+@pytest.mark.parametrize("n", [127, 255, 200])
+def test_k5_shipped_block_is_exact(n, weights, sym, omega):
+    """K5's block (the shared window and regions, K5's tile) with K5's own
+    arithmetic, bitwise against fused_gs4_sweep_plain's constant path."""
+    w33 = FIVE if weights == "five" else NINE
+    rng = np.random.default_rng(n + 7 * len(weights))
+    u, b = (torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32)
+            for _ in range(2))
+    want = fused_gs4_sweep_plain(Stencil2D.const(w33, n), u, b, omega, sym)
+    got = tiled(w33, u, b, omega, sym, SHIPPED[sym], MARGINS[sym], K5_TILE)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("sym", [True, False], ids=["symmetric", "forward"])
@@ -164,3 +200,20 @@ def test_least_margin(sym, phase, field):
     less = [list(m) for m in MARGINS[sym]]
     less[phase][field] -= 1
     assert not _exact(127, "random", sym, SHIPPED[sym], margins=less)
+
+
+@pytest.mark.parametrize("field", range(6))
+@pytest.mark.parametrize("sym,phase", [(True, 0), (True, 1), (True, 2),
+                                       (False, 0), (False, 1)])
+def test_k5_least_margin(sym, phase, field):
+    """The shared margin table is the least for K5 too: with 9-point
+    constant weights (every term present) and one entry one smaller, K5's
+    block is not exact."""
+    less = [list(m) for m in MARGINS[sym]]
+    less[phase][field] -= 1
+    rng = np.random.default_rng(3)
+    u, b = (torch.tensor(rng.standard_normal((127, 127)),
+                         dtype=torch.float32) for _ in range(2))
+    want = fused_gs4_sweep_plain(Stencil2D.const(NINE, 127), u, b, 0.9, sym)
+    got = tiled(NINE, u, b, 0.9, sym, SHIPPED[sym], less, K5_TILE)
+    assert not torch.equal(got, want)

@@ -248,7 +248,7 @@ def test_plane_interop_round_trip():
         jh.sides, [None] * len(jh.sides), np.asarray(jh.coarse_lu),
         np.asarray(jh.coarse_piv), [np.asarray(P) for P in jh.P1s],
         planes=[np.asarray(lv.c) for lv in jh.levels], smoother="packed",
-        packed_min_side=100)
+        packed_min_side=100, device=CPU)
     own = tst.build_stencil_hierarchy_planes(t, device=CPU,
                                              smoother="packed",
                                              packed_min_side=100)
@@ -275,7 +275,8 @@ def test_var_vcycle_packed_matches_jax():
     th = hierarchy_from_numpy(
         jh.sides, [None] * len(jh.sides), np.asarray(jh.coarse_lu),
         np.asarray(jh.coarse_piv), [np.asarray(P) for P in jh.P1s],
-        planes=[np.asarray(lv.c) for lv in jh.levels], smoother="packed")
+        planes=[np.asarray(lv.c) for lv in jh.levels], smoother="packed",
+        device=CPU)
     b = _field(side, 12, np.float32)
     want = np.asarray(jst.vcycle_packed(jh, jnp.zeros_like(jnp.asarray(b)),
                                         jnp.asarray(b)))
