@@ -14,6 +14,12 @@ constant-coefficient Poisson problem and for variable coefficients:
     v = StructuredSolver(2047, A_planes=varcoef.jump_planes(2047))
     u, stats = v.solve_ir_device(poisson.rhs(2047).reshape(2047, 2047))
 
+with the other smoothers (``smoother="masked"``, ``"strided"``,
+``"chebyshev"``, ``"fused"``), a scipy fine matrix (``A_fine=``, its
+hierarchy built on the host by ``build_stencil_hierarchy``), a zero start
+(``fmg=False``) and the host-stepped ``solve_ir``; the one-shot loops
+``solve_stencil`` and ``solve_ir`` of the JAX package;
+
 the AMG-preconditioned conjugate gradient of ``amg_tpu.krylov``:
 
     h = build_stencil_hierarchy_device(4095, smoother="packed")
@@ -36,15 +42,21 @@ from amg_tpu_torch.krylov import solve_pcg_device, solve_pcg_stencil
 from amg_tpu_torch.models import poisson, varcoef
 from amg_tpu_torch.ops.doublefloat import DF32
 from amg_tpu_torch.parallel.structured_dist import DistStructuredSolver
+from amg_tpu_torch.sparse.stencil import Stencil2D
 from amg_tpu_torch.structured import (SolveResult, StencilHierarchy,
                                       StructuredSolver,
+                                      build_fine_stencil_f64,
+                                      build_stencil_hierarchy,
                                       build_stencil_hierarchy_device,
                                       build_stencil_hierarchy_planes,
-                                      vcycle_packed)
-from amg_tpu_torch.utils.metrics import rss_from_residual
+                                      solve_ir, solve_stencil, vcycle_packed,
+                                      vcycle_stencil)
+from amg_tpu_torch.utils.metrics import rss, rss_from_residual
 
-__all__ = ["DF32", "DistStructuredSolver", "SolveResult",
-           "StencilHierarchy", "StructuredSolver",
-           "build_stencil_hierarchy_device", "build_stencil_hierarchy_planes",
-           "poisson", "rss_from_residual", "solve_pcg_device",
-           "solve_pcg_stencil", "varcoef", "vcycle_packed"]
+__all__ = ["DF32", "DistStructuredSolver", "SolveResult", "Stencil2D",
+           "StencilHierarchy", "StructuredSolver", "build_fine_stencil_f64",
+           "build_stencil_hierarchy", "build_stencil_hierarchy_device",
+           "build_stencil_hierarchy_planes", "poisson", "rss",
+           "rss_from_residual", "solve_ir", "solve_pcg_device",
+           "solve_pcg_stencil", "solve_stencil", "varcoef", "vcycle_packed",
+           "vcycle_stencil"]

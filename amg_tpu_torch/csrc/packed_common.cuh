@@ -5,15 +5,14 @@
 //   gidx / real_cell / set_smem_once    x   x   x   x   x
 //   neighbour_acc                       x   x   x   x   x
 //   gs_update                           x   x   x       x
-//   Tiling, load_window, window_inside  x   x   x   x
+//   Tiling, load_window, window_inside  x   x   x   x   x
 //     (the windowed block)
-//   window_sweep, store_tile            x   x   x
+//   window_sweep, store_tile            x   x   x       x
 //   residual_cell / restrict_cell,          x       x
 //     tile_residual, store_restriction
-//   load_tile / store_interior,                         x   (32 x 32 block,
-//     color_steps, sweep_block                              K9's rows)
 //
-// K1 packed_sweep.cu, K2/K3/K8 packed_cycle.cu, K9 packed_rm.cu.
+// K1 and K9 packed_sweep.cu (one kernel, two layouts), K2/K3/K8
+// packed_cycle.cu.
 //
 // Layout (amg_tpu_torch/sparse/packed.py): a field holds four (M, M) f32
 // quarters, quarter a = 2*pj + pi holding the points (2J+pj, 2I+pi). With
@@ -22,8 +21,8 @@
 // of ops/kernels/packed_rm.py) at J*4M + q*M + I. Quarter a's real cells
 // are J < Mj, I < Mi with Mj = M - pj, Mi = M - pi; every other cell is a
 // pad cell that stays exactly 0, and a read outside [0, M)^2 reads 0.
-// Together they are the Dirichlet boundary. Shared-memory tiles are always
-// [4][W][W], whatever the layout in device memory.
+// Together they are the Dirichlet boundary. Shared-memory windows are
+// always [4][H][W], whatever the layout in device memory.
 //
 // Temporal blocking: a block holds a tile of all four quarters plus a ghost
 // ring in shared memory and runs all the color steps there. The window's
@@ -31,32 +30,29 @@
 // the wrong values spread inwards with the color steps; the ring keeps them
 // off the cells the block stores.
 //
-// The windowed block (Tiling, K1, K2, K3): a TJ x TI tile in a window of
-// H = TJ + 2 GJ rows and W = TI + 2 GI columns. The color steps update the
-// window's inner (H-2) x (W-2) cells and never its outermost ones, so every
-// update reads inside the window without a bounds test. How far do the
-// wrong values reach? A color step of parity (pj, pi) reads fine neighbours
-// at most one fine row and column away, so along a chain of steps a wrong
-// value moves one fine row only where the row parity changes and one fine
-// column where the column parity changes. In the 8 steps 00 01 10 11 11 10
-// 01 00 the row parity changes twice and the column parity up to six times
-// (9-point weights; twice with 5-point ones). From the frozen outer cells
-// (fine rows and columns 0-1 of each edge) the wrong values therefore stay
-// in the outer 2 packed rows and 4 packed columns: GJ = 2, GI = 4 keep a
-// sweep's tile exact (K1, K3). K2's residual reads one fine point further
-// and its restriction one cell past the tile: GJ >= 3, GI >= 5 (it takes 6
-// and 8). K8 has no color steps: the restriction reads the residual one
-// cell past the tile, and the residual it reads reads u one more cell out
-// at most, so GJ = GI = 1 is exact; it takes 2 and 4, because it computes
-// every quarter's residual on the tile's (TJ+1) x (TI+1) cells without a
-// bounds test (2 cells past the tile) and keeps 16-byte rows.
+// The windowed block (Tiling; every kernel here): a TJ x TI tile in a
+// window of H = TJ + 2 GJ rows and W = TI + 2 GI columns. The color steps
+// update the window's inner (H-2) x (W-2) cells and never its outermost
+// ones, so every update reads inside the window without a bounds test. How
+// far do the wrong values reach? A color step of parity (pj, pi) reads fine
+// neighbours at most one fine row and column away, so along a chain of
+// steps a wrong value moves one fine row only where the row parity changes
+// and one fine column where the column parity changes. In the 8 steps 00
+// 01 10 11 11 10 01 00 the row parity changes twice and the column parity
+// up to six times (9-point weights; twice with 5-point ones). From the
+// frozen outer cells (fine rows and columns 0-1 of each edge) the wrong
+// values therefore stay in the outer 2 packed rows and 4 packed columns:
+// GJ = 2, GI = 4 keep a sweep's tile exact (K1, K3, K9). K2's residual
+// reads one fine point further and its restriction one cell past the tile:
+// GJ >= 3, GI >= 5 (it takes 6 and 8). K8 has no color steps: the
+// restriction reads the residual one cell past the tile, and the residual
+// it reads reads u one more cell out at most, so GJ = GI = 1 is exact; it
+// takes 2 and 4, because it computes every quarter's residual on the
+// tile's (TJ+1) x (TI+1) cells without a bounds test (2 cells past the
+// tile) and keeps 16-byte rows. The layout changes only the addresses of
+// the window's rows in device memory, not what the block computes.
 // tests/test_torch_tiling.py emulates the blocks on the CPU: these rings
 // are bitwise exact, one row or one column less is not.
-//
-// The 32 x 32 block (sweep_block, K9 only): a T x T tile with a ring of
-// G = 8 in a (T+2G)^2 window whose every real cell is updated, reads
-// outside the window taken as 0; G = 8 is one packed cell per color step,
-// far more than exactness needs.
 //
 // Arithmetic order equals the plain PyTorch version term by term, and the
 // library is built with -fmad=false, so no product is contracted into an
@@ -70,8 +66,6 @@
 #include <type_traits>
 
 namespace amg {
-
-constexpr int kThreads = 256;
 
 // Device-memory layouts of a packed field (see above).
 constexpr int kQuarterMajor = 0;
@@ -140,25 +134,6 @@ template <int Lay = kQuarterMajor>
 __device__ __forceinline__ size_t gidx(int q, int J, int I, int M) {
   if (Lay == kRowGrouped) return ((size_t)J * 4 + q) * M + I;
   return ((size_t)q * M + J) * M + I;
-}
-
-// S[4][W][W] <- the four quarters' [J0, J0+W) x [I0, I0+W) windows, zero
-// outside [0, M)^2. Neighbouring threads read neighbouring columns, which
-// are contiguous in both layouts.
-template <int W, int Lay = kQuarterMajor>
-__device__ void load_tile(float* S, const float* __restrict__ g, int M,
-                          int J0, int I0) {
-  for (int L = threadIdx.x; L < 4 * W * W; L += blockDim.x) {
-    const int q = L / (W * W);
-    const int rem = L - q * W * W;
-    const int r = rem / W;
-    const int c = rem - r * W;
-    const int J = J0 + r;
-    const int I = I0 + c;
-    float v = 0.f;
-    if (J >= 0 && J < M && I >= 0 && I < M) v = g[gidx<Lay>(q, J, I, M)];
-    S[L] = v;
-  }
 }
 
 // Off-diagonal accumulation at cell (r, c) of color (PJ, PI) of a [4][H][W]
@@ -254,11 +229,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// S[4][H][W] <- the four quarters' [J0, J0+H) x [I0, I0+W) windows of g,
-// 0 outside [0, M)^2, as cp.async copies in flight (the caller waits).
-// vec: 16-byte copies (M % 4 == 0, I0 % 4 == 0, g 16-byte aligned), so a
-// chunk lies wholly inside or outside [0, M).
-template <class Tl>
+// S[4][H][W] <- the four quarters' [J0, J0+H) x [I0, I0+W) windows of g
+// in layout Lay, 0 outside [0, M)^2, as cp.async copies in flight (the
+// caller waits). vec: 16-byte copies (M % 4 == 0, I0 % 4 == 0, g 16-byte
+// aligned), so a chunk lies wholly inside or outside [0, M); a quarter's
+// row segment starts at a multiple of 4 floats in both layouts.
+template <class Tl, int Lay = kQuarterMajor>
 __device__ __forceinline__ void load_window(float* S,
                                             const float* __restrict__ g,
                                             int M, int J0, int I0, bool vec) {
@@ -276,8 +252,8 @@ __device__ __forceinline__ void load_window(float* S,
       const int J = J0 + qr - q * Tl::H;
       const int I = I0 + 4 * ch;
       const bool in = J >= 0 && J < M && I >= 0 && I < M;
-      cp_async(S + qr * Tl::W + 4 * ch, in ? g + gidx(q, J, I, M) : g, 16,
-               in);
+      cp_async(S + qr * Tl::W + 4 * ch,
+               in ? g + gidx<Lay>(q, J, I, M) : g, 16, in);
     }
   } else {
     const int I = I0 + threadIdx.x;
@@ -288,8 +264,8 @@ __device__ __forceinline__ void load_window(float* S,
       const int q = qr / Tl::H;
       const int J = J0 + qr - q * Tl::H;
       const bool in = J >= 0 && J < M && I >= 0 && I < M;
-      cp_async(S + qr * Tl::W + threadIdx.x, in ? g + gidx(q, J, I, M) : g,
-               4, in);
+      cp_async(S + qr * Tl::W + threadIdx.x,
+               in ? g + gidx<Lay>(q, J, I, M) : g, 4, in);
     }
   }
 }
@@ -339,9 +315,10 @@ __device__ void window_sweep(float* U, const float* B, const Stencil& st,
   }
 }
 
-// The four quarters' [Jt, Jt+TJ) x [It, It+TI) of out <- the window's tile:
-// 16-byte stores where the tile lies inside [0, M)^2 and vec holds.
-template <class Tl>
+// The four quarters' [Jt, Jt+TJ) x [It, It+TI) of out (layout Lay) <- the
+// window's tile: 16-byte stores where the tile lies inside [0, M)^2 and vec
+// holds.
+template <class Tl, int Lay = kQuarterMajor>
 __device__ __forceinline__ void store_tile(const float* U,
                                            float* __restrict__ out, int M,
                                            int Jt, int It, bool vec) {
@@ -355,7 +332,7 @@ __device__ __forceinline__ void store_tile(const float* U,
       const int q = L / (Tl::TJ * Tl::TI / 4);
       const int r = (L / (Tl::TI / 4)) % Tl::TJ;
       const int c = 4 * (L % (Tl::TI / 4));
-      *reinterpret_cast<float4*>(out + gidx(q, Jt + r, It + c, M)) =
+      *reinterpret_cast<float4*>(out + gidx<Lay>(q, Jt + r, It + c, M)) =
           *reinterpret_cast<const float4*>(
               U + (q * Tl::H + Tl::GJ + r) * Tl::W + Tl::GI + c);
     }
@@ -366,7 +343,7 @@ __device__ __forceinline__ void store_tile(const float* U,
       const int r = (L / Tl::TI) % Tl::TJ;
       const int c = L % Tl::TI;
       if (Jt + r < M && It + c < M)
-        out[gidx(q, Jt + r, It + c, M)] =
+        out[gidx<Lay>(q, Jt + r, It + c, M)] =
             U[(q * Tl::H + Tl::GJ + r) * Tl::W + Tl::GI + c];
     }
   }
@@ -385,78 +362,6 @@ inline int by_weight_pattern(const float* w9, Launch launch) {
     default:
       return launch(std::integral_constant<int, kAnyWeights>());
   }
-}
-
-// One GS color step on the window: u_a += omega * ((b_a - acc)/diag - u_a)
-// at every real cell of quarter a. The step reads only the other three
-// quarters, so updating quarter a in place is race-free.
-template <int W, int PJ, int PI>
-__device__ void color_step(float* U, const float* B, const Stencil& st,
-                           int M, int J0, int I0) {
-  constexpr int a = 2 * PJ + PI;
-  float* Ua = U + a * W * W;
-  const float* Ba = B + a * W * W;
-  for (int L = threadIdx.x; L < W * W; L += blockDim.x) {
-    const int r = L / W;
-    const int c = L - r * W;
-    if (!real_cell(a, J0 + r, I0 + c, M)) continue;
-    const float acc = neighbour_acc<W, W, PJ, PI>(U, st, r, c);
-    Ua[L] = gs_update(Ua[L], Ba[L], acc, st);
-  }
-}
-
-// The 4 (or, symmetric, 8) color steps 00 01 10 11 [11 10 01 00].
-template <int W>
-__device__ void color_steps(float* U, const float* B, const Stencil& st,
-                            int M, int J0, int I0, int symmetric) {
-  const int n = symmetric ? 8 : 4;
-  for (int k = 0; k < n; ++k) {
-    switch (k < 4 ? k : 7 - k) {
-      case 0: color_step<W, 0, 0>(U, B, st, M, J0, I0); break;
-      case 1: color_step<W, 0, 1>(U, B, st, M, J0, I0); break;
-      case 2: color_step<W, 1, 0>(U, B, st, M, J0, I0); break;
-      default: color_step<W, 1, 1>(U, B, st, M, J0, I0); break;
-    }
-    __syncthreads();
-  }
-}
-
-// The four quarters' [Jt, Jt+T) x [It, It+T) <- the T x T interior of the
-// window (offset G).
-template <int T, int G, int Lay = kQuarterMajor>
-__device__ void store_interior(const float* U, float* __restrict__ g, int M,
-                               int Jt, int It) {
-  constexpr int W = T + 2 * G;
-  for (int L = threadIdx.x; L < 4 * T * T; L += blockDim.x) {
-    const int q = L / (T * T);
-    const int rem = L - q * T * T;
-    const int r = rem / T;
-    const int c = rem - r * T;
-    const int J = Jt + r;
-    const int I = It + c;
-    if (J < M && I < M) g[gidx<Lay>(q, J, I, M)] = U[(q * W + G + r) * W + G + c];
-  }
-}
-
-// The 32 x 32 block of the row-grouped sweep (K9): load u and b with the
-// ghost ring, run the color steps, store the tile. The block's tile is
-// (blockIdx.y, blockIdx.x); shared memory holds 2 * 4 * (T+2G)^2 floats.
-template <int T, int G, int Lay>
-__device__ void sweep_block(const float* __restrict__ u,
-                            const float* __restrict__ b,
-                            float* __restrict__ out, int M,
-                            const Stencil& st, int symmetric) {
-  constexpr int W = T + 2 * G;
-  extern __shared__ float smem[];
-  float* U = smem;
-  float* B = smem + 4 * W * W;
-  const int Jt = blockIdx.y * T;
-  const int It = blockIdx.x * T;
-  load_tile<W, Lay>(U, u, M, Jt - G, It - G);
-  load_tile<W, Lay>(B, b, M, Jt - G, It - G);
-  __syncthreads();
-  color_steps<W>(U, B, st, M, Jt - G, It - G, symmetric);
-  store_interior<T, G, Lay>(U, out, M, Jt, It);
 }
 
 // Residual of color (PJ, PI) at cell (r, c) of a [4][H][W] window,

@@ -22,13 +22,17 @@ from amg_tpu_torch.utils.device import resolve_device
 
 def hierarchy_from_numpy(sides, w33s, coarse_lu, coarse_piv, P1s,
                          device=None, planes=None, smoother: str = "masked",
-                         packed_min_side: int = PACKED_MIN_SIDE
-                         ) -> StencilHierarchy:
+                         packed_min_side: int = PACKED_MIN_SIDE,
+                         masks=None, lam_maxes=None) -> StencilHierarchy:
     """A StencilHierarchy from a JAX hierarchy's arrays: ``coarse_lu`` and
     ``coarse_piv`` from ``jax.scipy.linalg.lu_factor``, ``P1s`` the dense
-    transfer matrices, ``sides`` its static metadata, and either ``w33s``
-    (a constant hierarchy) or ``planes``, one (3,3,n,n) array per level
-    (a variable one; ``w33s`` then all None).
+    transfer matrices, ``sides`` its static metadata, ``w33s`` its levels'
+    constant weights (None on a variable level) and ``planes``, one
+    (3,3,n,n) array per level, where the levels have them (a variable or
+    host-built hierarchy). A host-built hierarchy also carries ``masks``,
+    one (4,n,n) array per level, and any hierarchy its Chebyshev bounds
+    ``lam_maxes`` (floats), so that a test can start the port from JAX's
+    power-iteration estimates.
 
     ``jax.scipy.linalg.lu_factor`` returns 0-based pivots;
     ``torch.linalg.lu_solve`` expects LAPACK's 1-based int32 pivots."""
@@ -39,9 +43,12 @@ def hierarchy_from_numpy(sides, w33s, coarse_lu, coarse_piv, P1s,
     P1s = [torch.tensor(np.asarray(P), device=device) for P in P1s]
     if planes is not None:
         planes = [planes_from_numpy(c, device) for c in planes]
+    if masks is not None:
+        masks = [torch.tensor(np.asarray(m), device=device) for m in masks]
     return StencilHierarchy(sides, w33s, lu, piv, P1s, planes=planes,
                             smoother=smoother,
-                            packed_min_side=packed_min_side)
+                            packed_min_side=packed_min_side, masks=masks,
+                            lam_maxes=lam_maxes)
 
 
 def dist_hierarchy_from_numpy(cfg_fields: dict, sub_sides, sub_w33s,

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``amg_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` into one shared library with a plain
-C interface, loaded with ``ctypes``: no PyTorch headers are compiled, so a
-build takes seconds. The library goes to ``build/amg_tpu_torch/`` beside
+Each source is compiled by its own ``nvcc``, all started together, and the
+objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes``: no PyTorch headers are compiled, so a build takes
+seconds. The library goes to ``build/amg_tpu_torch/`` beside
 the package, under a name that carries a hash of the sources and flags, so
 a stale build is never loaded. Nothing is built when the package is
 imported: the first kernel launch calls :func:`library`.
@@ -30,8 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "amg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,26 +78,46 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def compile_library(sources, out: Path) -> str:
+    """Compile ``sources`` with one ``nvcc`` each, all at once, link the
+    objects into the shared library ``out`` (moved into place whole) and
+    return the commands, the time and the compilers' reports. Raises
+    RuntimeError with nvcc's messages if a step fails."""
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(Path(tmp) / f"{p.stem}.o") for p in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                for p, o in zip(sources, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        reports = [p.communicate() for p in procs]
+        link = [nvcc, "-shared", "-o", str(Path(tmp) / "lib.so"), *objs]
+        for cmd, proc, (_, err) in zip(cmds, procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stderr}")
+        os.replace(Path(tmp) / "lib.so", out)
+    log = [f"seconds: {time.perf_counter() - t0:.2f} ({len(cmds)} nvcc in "
+           f"parallel, then the link)"]
+    for cmd, (so, se) in zip(cmds, reports):
+        log.append(f"{' '.join(cmd)}\n{so}{se}")
+    return "\n".join(log)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libamg_kernels_{_digest()}.so"
     if not so.exists():
-        nvcc = _nvcc()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        (BUILD_DIR / f"{so.stem}.log").write_text(
-            f"{' '.join(cmd)}\nseconds: {time.perf_counter() - t0:.2f}\n"
-            f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
+        log = compile_library(_sources(), so)
+        (BUILD_DIR / f"{so.stem}.log").write_text(log)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

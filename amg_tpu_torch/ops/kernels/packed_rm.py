@@ -1,5 +1,6 @@
 """K9: the fused four-color GS sweep on row-grouped fields
-(``csrc/packed_rm.cu``).
+(``csrc/packed_sweep.cu`` ``amg_packed_sweep_rm``: K1's kernel on the
+other layout).
 
 Port of the TPU kernel ``amg_tpu/ops/pallas/packed_rm.py``
 ``fused_gs4_sweep_rm``: K1's sweep (``packed_rbgs.py``) on the (M, 4M)

@@ -42,7 +42,6 @@ import dataclasses
 import functools
 
 import numpy as np
-import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
@@ -54,8 +53,8 @@ from amg_tpu_torch.ops.kernels.halo import (rdma_halo_exchange,
 from amg_tpu_torch.ops.transfer import linear_interp_1d
 from amg_tpu_torch.sparse.stencil import FOUR_COLORS, W2D, Stencil2D
 from amg_tpu_torch.structured import (SolveResult, StencilHierarchy,
-                                      _not_yet, max_levels_for_side,
-                                      vcycle_stencil)
+                                      _not_yet, galerkin_chain,
+                                      max_levels_for_side, vcycle_stencil)
 from amg_tpu_torch.utils.device import resolve_device
 
 HALO_MODES = ("overlap", "sweep", "step", "rdma", "packed")
@@ -388,17 +387,6 @@ def _visible_devices() -> int:
     return n
 
 
-def _galerkin_chain(A_fine, sides) -> list:
-    """The scipy Galerkin RAP chain under the tensor-product bilinear
-    transfer, on the host (multigrid.hpp:211-243)."""
-    mats = [A_fine.tocsr()]
-    for l in range(len(sides) - 1):
-        P1 = linear_interp_1d(sides[l], sides[l + 1])
-        P2 = sp.kron(P1, P1).tocsr()
-        mats.append((P2.T @ (mats[-1] @ P2)).tocsr())
-    return mats
-
-
 def build_dist_hierarchy(side: int, n_levels: int | None = None,
                          n_devices: int | None = None, dtype=torch.float32,
                          A_fine=None, force_var: bool = False, device=None):
@@ -422,7 +410,7 @@ def build_dist_hierarchy(side: int, n_levels: int | None = None,
                          f"level to shard over {n_devices} slabs")
     if A_fine is None:
         A_fine = poisson.laplacian_scipy(side)
-    mats = _galerkin_chain(A_fine, sides)
+    mats = galerkin_chain(A_fine, sides)
     w33s = []
     for l, A in enumerate(mats):
         w33 = Stencil2D.from_scipy(A, sides[l], dtype=dtype).w33

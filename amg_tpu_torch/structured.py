@@ -1,19 +1,27 @@
 """Structured-grid multigrid solver for 2-D 9-point problems: the PyTorch
-port of ``amg_tpu/structured.py``'s single-device solver.
+port of ``amg_tpu/structured.py``.
 
-Two operator families, as in the JAX package:
+Three ways to build a hierarchy, as in the JAX package:
 
-* the constant-coefficient Poisson problem, ``StructuredSolver(side)``: a
-  device-built constant-stencil hierarchy (static 3x3 weights per level,
-  no coefficient planes);
-* a variable-coefficient problem, ``StructuredSolver(side,
-  A_planes=planes)`` with (3,3,n,n) fine planes (models/varcoef.py): a
-  Galerkin plane hierarchy coarsened on the device (ops/rap.py).
+* ``build_stencil_hierarchy_device``: the constant-coefficient Poisson
+  problem with closed-form constant stencils (static 3x3 weights per
+  level, no coefficient planes); ``StructuredSolver(side)``;
+* ``build_stencil_hierarchy_planes``: a variable-coefficient operator
+  given as (3,3,n,n) fine planes (models/varcoef.py), coarsened by the
+  Galerkin plane contraction on the device (ops/rap.py);
+  ``StructuredSolver(side, A_planes=planes)``;
+* ``build_stencil_hierarchy``: any 9-point fine matrix in scipy form,
+  coarsened by the scipy Galerkin chain on the host, with planes, color
+  masks and the detected constant stencils on every level;
+  ``StructuredSolver(side, A_fine=A)`` and the strided smoother.
 
-Both get a dense LU on the coarsest level, a full-multigrid start and a
-defect-correction loop running 3 f32 V-cycles per refine, with the
-residual in double-float32 (``precision="df32"``, the default) or native
-f64 (``precision="f64"``).
+All get a dense LU on the coarsest level. ``StructuredSolver`` runs a
+full-multigrid start (or, ``fmg=False``, a zero start) and a
+defect-correction loop of 3 f32 V-cycles per refine, with the residual in
+double-float32 (``precision="df32"``, the default) or native f64
+(``precision="f64"``); ``solve_ir`` steps the same refine from the host
+with an f64 residual. The free functions ``solve_stencil`` and
+``solve_ir`` are the JAX package's one-shot loops.
 
 Smoothers (``smoother=``):
 
@@ -27,6 +35,10 @@ Smoothers (``smoother=``):
 * ``"fused"``: the unpacked V-cycle with masked four-color sweeps, and on
   levels of side >= FUSED_MIN_SIDE the fused sweep kernel K5 (constant) or
   K6 (variable).
+* ``"masked"``, ``"strided"``, ``"chebyshev"``: the unpacked V-cycle with
+  full-grid masked four-color sweeps, four-color sweeps on strided
+  sub-lattices, or the degree-4 Chebyshev smoother on each level's
+  lambda_max bound. All three are plain PyTorch, as in JAX.
 
 Which machinery runs on which level is decided once, from the sides and
 the options, in :func:`level_plan` (``StructuredSolver.plan``). On CPU
@@ -38,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -45,6 +58,7 @@ from torch import nn
 from amg_tpu_torch.ops.doublefloat import (DF32, df_add_f32, df_residual,
                                            df_residual_const, df_rss,
                                            df_rss_fast, is_pow2_weights)
+from amg_tpu_torch.models import poisson
 from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
                                        fused_down_leg_packed, fused_gs4_sweep,
                                        fused_gs4_sweep_packed,
@@ -52,14 +66,18 @@ from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
                                        fused_up_leg_packed)
 from amg_tpu_torch.ops.rap import (interp1d_dense, planes_to_dense,
                                    poisson_const_w33, rap_stencil_planes)
+from amg_tpu_torch.ops.transfer import linear_interp_1d
 from amg_tpu_torch.sparse.packed import (df_residual_const_packed,
                                          gs4_sweep_packed,
                                          gs4_sweep_packed_var, pack,
                                          pack_planes, prolong_add_packed,
                                          residual_packed, residual_packed_var,
                                          restrict_packed, unpack)
-from amg_tpu_torch.sparse.stencil import (Stencil2D, color_masks_iota,
-                                          const_planes, gs4_sweep_masked)
+from amg_tpu_torch.sparse.stencil import (Stencil2D, chebyshev_smooth,
+                                          color_masks, color_masks_iota,
+                                          const_lam_max, const_planes,
+                                          estimate_lam_max, gs4_sweep,
+                                          gs4_sweep_masked)
 from amg_tpu_torch.utils.device import resolve_device
 from amg_tpu_torch.utils.metrics import rss_from_residual
 
@@ -90,38 +108,52 @@ class SolveResult:
 
 
 class StencilHierarchy(nn.Module):
-    """Level hierarchy: constant (``w33s`` static weight tuples, no planes)
-    or variable (``planes``: one (3,3,n,n) tensor per level, ``w33s`` all
-    None).
+    """Level hierarchy: each level has constant weights (``w33s``, static
+    tuples), planes (``planes``: one (3,3,n,n) tensor per level), or both
+    (a host-built level whose planes were detected constant; its
+    operators then use the weights). Without planes every level needs
+    weights.
 
     Buffers: the coarsest level's LU factors (``coarse_lu``, LAPACK
     1-based ``coarse_piv``), the dense 1-D transfer matrices ``P1_l``
     (side_l x side_{l+1}; restriction and prolongation are P1^T X P1 and
-    P1 X P1^T because P2d = kron(P1, P1)), the planes ``c_l`` of a variable
-    hierarchy and, when ``smoother == "packed"``, their color-packed form
-    ``cp_l`` on the levels of side >= ``packed_min_side`` except the
-    coarsest, packed once here rather than in every V-cycle.
+    P1 X P1^T because P2d = kron(P1, P1)), the planes ``c_l``, the (4,n,n)
+    color masks ``mask_l`` of a host-built hierarchy (a level without
+    them builds its masks in each sweep) and, when ``smoother ==
+    "packed"``, the color-packed planes ``cp_l`` of the levels without
+    weights of side >= ``packed_min_side`` except the coarsest, packed
+    once here rather than in every V-cycle. ``lam_maxes``: per-level
+    lambda_max(D^-1 A) bounds for the Chebyshev smoother, or None.
     """
 
     def __init__(self, sides, w33s, coarse_lu, coarse_piv, P1s, planes=None,
                  smoother: str = "masked",
-                 packed_min_side: int = PACKED_MIN_SIDE):
+                 packed_min_side: int = PACKED_MIN_SIDE, masks=None,
+                 lam_maxes=None):
         super().__init__()
-        if len(P1s) != len(sides) - 1 or len(w33s) != len(sides):
+        L = len(sides)
+        if len(P1s) != L - 1 or len(w33s) != L:
             raise ValueError("need one w33 per level and one P1 per pair")
-        if (planes is None) == any(w is None for w in w33s):
-            raise ValueError("a hierarchy has weights or planes on every "
-                             "level")
+        if planes is None and any(w is None for w in w33s):
+            raise ValueError("a level without weights needs its planes")
+        for name, per_level in (("planes", planes), ("masks", masks),
+                                ("lam_maxes", lam_maxes)):
+            if per_level is not None and len(per_level) != L:
+                raise ValueError(f"need {name} on every level")
         self.sides = tuple(int(s) for s in sides)
         self.w33s = tuple(w33s)
         self.smoother = smoother
+        self.lam_maxes = (None if lam_maxes is None
+                          else tuple(float(x) for x in lam_maxes))
         self.register_buffer("coarse_lu", coarse_lu)
         self.register_buffer("coarse_piv", coarse_piv)
         for l, P in enumerate(P1s):
             self.register_buffer(f"P1_{l}", P)
+        for l, m in enumerate(masks or ()):
+            self.register_buffer(f"mask_{l}", m)
         for l, c in enumerate(planes or ()):
             self.register_buffer(f"c_{l}", c)
-            if (smoother == "packed" and l < len(sides) - 1
+            if (smoother == "packed" and self.w33s[l] is None and l < L - 1
                     and self.sides[l] >= packed_min_side):
                 self.register_buffer(f"cp_{l}",
                                      pack_planes(c, (self.sides[l] - 1) // 2))
@@ -140,9 +172,16 @@ class StencilHierarchy(nn.Module):
                      for l in range(self.n_levels - 1))
 
     @property
+    def masks(self) -> tuple:
+        """Per-level stored color masks (None where none are stored)."""
+        return tuple(getattr(self, f"mask_{l}", None)
+                     for l in range(self.n_levels))
+
+    @property
     def levels(self) -> tuple:
         """Per-level Stencil2D operators (views of the current buffers)."""
-        return tuple(Stencil2D(side=s, w33=w, c=getattr(self, f"c_{l}", None))
+        return tuple(Stencil2D(side=s, w33=w, c=getattr(self, f"c_{l}", None),
+                               const_dtype=self.coarse_lu.dtype)
                      for l, (s, w) in enumerate(zip(self.sides, self.w33s)))
 
     def packed_planes(self, l: int) -> torch.Tensor:
@@ -189,20 +228,71 @@ def _factor_coarse(c: torch.Tensor, device):
     return lu.to(device), piv.to(device)
 
 
+def galerkin_chain(A_fine, sides) -> list:
+    """The scipy Galerkin RAP chain A_{l+1} = P^T A_l P under the
+    tensor-product bilinear transfer P = kron(P1, P1), on the host
+    (multigrid.hpp:211-243): one CSR matrix per level. JAX may take its
+    native C++ RAP here, which sums the same terms in another order."""
+    mats = [A_fine.tocsr()]
+    for l in range(len(sides) - 1):
+        P1 = linear_interp_1d(sides[l], sides[l + 1])
+        P2 = sp.kron(P1, P1).tocsr()
+        mats.append((P2.T @ (mats[-1] @ P2)).tocsr())
+    return mats
+
+
+def build_stencil_hierarchy(side: int, n_levels: int | None = None,
+                            dtype=torch.float32, A_fine=None,
+                            smoother: str = "masked", device=None
+                            ) -> StencilHierarchy:
+    """The hierarchy of a 9-point fine matrix (None: the Poisson matrix of
+    ``side``) built on the host: the scipy Galerkin chain, every level's
+    planes in ``dtype`` with its constant stencil detected
+    (``Stencil2D.from_scipy``), the coarsest level's dense LU, the
+    transfers and every level's (4,n,n) color masks; with
+    ``smoother="chebyshev"`` each level's lambda_max bound (the analytic
+    one on constant levels, else the power-iteration estimate). ``device``
+    None means ``"cuda"``."""
+    device = resolve_device(device)
+    sides = _level_sides(side, n_levels)
+    if A_fine is None:
+        A_fine = poisson.laplacian_scipy(side)
+    mats = galerkin_chain(A_fine, sides)
+    levels = [Stencil2D.from_scipy(M, s, dtype=dtype, device=device)
+              for M, s in zip(mats, sides)]
+    lu, piv = torch.linalg.lu_factor(torch.as_tensor(mats[-1].toarray(),
+                                                     dtype=dtype))
+    P1s = [interp1d_dense(sides[l], sides[l + 1], dtype, device)
+           for l in range(len(sides) - 1)]
+    lam_maxes = None
+    if smoother == "chebyshev":
+        lam_maxes = [const_lam_max(S.w33) if S.w33 is not None
+                     else float(estimate_lam_max(S)) for S in levels]
+    return StencilHierarchy(
+        sides, [S.w33 for S in levels], lu.to(device), piv.to(device), P1s,
+        planes=[S.c for S in levels], smoother=smoother,
+        masks=[color_masks(s, dtype, device) for s in sides],
+        lam_maxes=lam_maxes)
+
+
 def build_stencil_hierarchy_device(side: int, n_levels: int | None = None,
                                    dtype=torch.float32, device=None,
                                    smoother: str = "masked"
                                    ) -> StencilHierarchy:
     """The Poisson hierarchy with closed-form constant stencils
     (ops/rap.poisson_const_w33) on every level: no coefficient planes or
-    masks are stored. ``device`` None means ``"cuda"``."""
+    masks are stored; with ``smoother="chebyshev"`` the analytic
+    lambda_max bounds. ``device`` None means ``"cuda"``."""
     device = resolve_device(device)
     sides = _level_sides(side, n_levels)
     w33s = poisson_const_w33(side, len(sides))
     lu, piv = _factor_coarse(const_planes(w33s[-1], sides[-1], dtype), device)
     P1s = [interp1d_dense(sides[l], sides[l + 1], dtype, device)
            for l in range(len(sides) - 1)]
-    return StencilHierarchy(sides, w33s, lu, piv, P1s, smoother=smoother)
+    lam_maxes = ([const_lam_max(w) for w in w33s]
+                 if smoother == "chebyshev" else None)
+    return StencilHierarchy(sides, w33s, lu, piv, P1s, smoother=smoother,
+                            lam_maxes=lam_maxes)
 
 
 def build_stencil_hierarchy_planes(c_fine: torch.Tensor,
@@ -215,7 +305,9 @@ def build_stencil_hierarchy_planes(c_fine: torch.Tensor,
     Galerkin chain as the closed-form plane contraction
     (ops/rap.rap_stencil_planes), run on ``device`` (None means
     ``"cuda"``) in ``dtype``. The levels keep their planes: no constant
-    stencil is detected, as in the JAX package."""
+    stencil is detected, as in the JAX package. With
+    ``smoother="chebyshev"`` each level's lambda_max is the power-iteration
+    estimate (``estimate_lam_max``, seed 0)."""
     device = resolve_device(device)
     side = int(c_fine.shape[-1])
     sides = _level_sides(side, n_levels)
@@ -225,9 +317,14 @@ def build_stencil_hierarchy_planes(c_fine: torch.Tensor,
     lu, piv = _factor_coarse(planes[-1], device)
     P1s = [interp1d_dense(sides[l], sides[l + 1], dtype, device)
            for l in range(len(sides) - 1)]
+    lam_maxes = None
+    if smoother == "chebyshev":
+        lam_maxes = [float(estimate_lam_max(Stencil2D(side=s, c=c)))
+                     for s, c in zip(sides, planes)]
     return StencilHierarchy(sides, [None] * len(sides), lu, piv, P1s,
                             planes=planes, smoother=smoother,
-                            packed_min_side=packed_min_side)
+                            packed_min_side=packed_min_side,
+                            lam_maxes=lam_maxes)
 
 
 def restrict_mm(r2, P1):
@@ -247,14 +344,30 @@ def _fused_level(smoother: str, side: int) -> bool:
 
 def _smooth(hier: StencilHierarchy, l: int, u2, b2, sweeps: int,
             omega: float, symmetric: bool):
-    """GS sweeps on a non-packed level: the fused sweep kernel on the
-    fused levels, masked four-color sweeps elsewhere."""
+    """Smoothing on a non-packed level, in the JAX package's order: the
+    strided sweep; the degree-4 Chebyshev smoother (where the level has a
+    lambda_max bound: stored, or analytic on a constant level); the fused
+    sweep kernel on the fused levels; masked four-color sweeps with the
+    stored masks, or masks built here."""
     S = hier.levels[l]
+    if hier.smoother == "strided":
+        for _ in range(sweeps):
+            u2 = gs4_sweep(S, u2, b2, omega, symmetric)
+        return u2
+    if hier.smoother == "chebyshev" and (hier.lam_maxes is not None
+                                         or S.w33 is not None):
+        lam = (hier.lam_maxes[l] if hier.lam_maxes is not None
+               else const_lam_max(S.w33))
+        for _ in range(sweeps):
+            u2 = chebyshev_smooth(S, u2, b2, lam, degree=4)
+        return u2
     if _fused_level(hier.smoother, S.side):
         for _ in range(sweeps):
             u2 = fused_gs4_sweep(S, u2, b2, omega, symmetric)
         return u2
-    masks = color_masks_iota(S.side, b2.dtype, b2.device)
+    masks = hier.masks[l]
+    if masks is None:
+        masks = color_masks_iota(S.side, b2.dtype, b2.device)
     for _ in range(sweeps):
         u2 = gs4_sweep_masked(S, u2, b2, masks, omega, symmetric)
     return u2
@@ -299,8 +412,11 @@ def level_plan(sides, pre_sweeps: int, post_sweeps: int, min_side: int,
     """Per-level choice of machinery, decided once from the sides:
 
     * ``direct``: the coarsest level's LU solve;
-    * ``masked``: the masked four-color cycle (side < min_side, or any
-      non-fused level of a smoother="fused" solve);
+    * ``masked``: the masked four-color cycle (side < min_side, any
+      non-fused level of a smoother="fused" solve, every level of a
+      smoother="masked" one);
+    * ``strided`` / ``chebyshev``: the unpacked cycle with that smoother
+      (smoother="strided" / "chebyshev", every level);
     * ``packed``: plain PyTorch packed ops, constant stencil;
     * ``packed_var``: plain PyTorch packed ops on packed planes;
     * ``legs``: the fused down/up legs (K2/K3), constant levels of side
@@ -324,6 +440,8 @@ def level_plan(sides, pre_sweeps: int, post_sweeps: int, min_side: int,
         elif smoother == "fused":
             kinds.append(("fused_var" if var else "fused_const")
                          if _fused_level(smoother, s) else "masked")
+        elif smoother != "packed":
+            kinds.append(smoother)
         elif s < min_side:
             kinds.append("masked")
         elif var:
@@ -455,6 +573,89 @@ def fmg_stencil(hier: StencilHierarchy, b2, cycles_per_level: int = 1,
     return u
 
 
+def solve_stencil(hier: StencilHierarchy, b2, u0=None,
+                  tolerance: float = 1e-9,
+                  compute_error_every_n_iters: int = 5, n_iters: int = 100,
+                  pre_sweeps: int = 1, post_sweeps: int = 1,
+                  omega: float = 1.0, symmetric: bool = True,
+                  device=None) -> SolveResult:
+    """V-cycles on the hierarchy's own precision with the reference's
+    stopping rule (multigrid.hpp:311-337): the rss of the fine level is
+    read every ``compute_error_every_n_iters`` V-cycles (0: only after
+    ``n_iters``) and each reading goes into ``history``. ``b2`` goes to
+    ``device`` (None: ``"cuda"``), where the hierarchy must be."""
+    device = resolve_device(device)
+    if hier.coarse_lu.device.type != device.type:
+        raise ValueError(f"the hierarchy is on {hier.coarse_lu.device}, "
+                         f"the solve on {device}")
+    b2 = torch.as_tensor(b2, device=device)
+    S0 = hier.levels[0]
+    u = torch.zeros_like(b2) if u0 is None else torch.as_tensor(
+        u0, device=device)
+    every = compute_error_every_n_iters
+    it, error = 0, 100.0
+    history = []
+    while it < n_iters and error > tolerance:
+        k = (min(every - (it % every), n_iters - it) if every
+             else n_iters - it)
+        for _ in range(k):
+            u = vcycle_stencil(hier, u, b2, pre_sweeps, post_sweeps, omega,
+                               symmetric)
+        it += k
+        if every and it % every == 0:
+            error = float(rss_from_residual(b2 - S0.matvec2(u)))
+            history.append((it, error))
+    return SolveResult(u=u, iterations=it, error=error,
+                       converged=error <= tolerance, history=history)
+
+
+def build_fine_stencil_f64(side: int, device=None) -> Stencil2D:
+    """The Poisson fine operator in f64 planes, from its scipy matrix;
+    ``device`` None means ``"cuda"``."""
+    return Stencil2D.from_scipy(poisson.laplacian_scipy(side), side,
+                                dtype=torch.float64,
+                                device=resolve_device(device))
+
+
+def solve_ir(side: int, b2_f64, hier32: StencilHierarchy | None = None,
+             tolerance: float = 1e-9, n_refine: int = 30,
+             cycles_per_refine: int = 2, device=None,
+             **cycle_kw) -> SolveResult:
+    """Mixed-precision iterative refinement of the Poisson problem: f32
+    V-cycles (``cycle_kw`` their options) inside an f64 defect correction.
+    Each refine reads the f64 rss, stops at ``tolerance``, else adds
+    ``cycles_per_refine`` V-cycles' correction; ``iterations`` counts the
+    V-cycles. ``hier32`` None: the host-built masked f32 hierarchy.
+    ``device`` None means ``"cuda"``."""
+    device = resolve_device(device)
+    if hier32 is None:
+        hier32 = build_stencil_hierarchy(side, dtype=torch.float32,
+                                         device=device)
+    A64 = build_fine_stencil_f64(side, device)
+    b64 = torch.as_tensor(b2_f64, device=device)
+    u = torch.zeros_like(b64)
+    history = []
+    it = 0
+    error = 100.0
+    for _ in range(n_refine):
+        r = b64 - A64.matvec2(u)
+        error = float(rss_from_residual(r))
+        history.append((it, error))
+        if error <= tolerance:
+            break
+        e = torch.zeros(r.shape, dtype=torch.float32, device=device)
+        r32 = r.to(torch.float32)
+        for _ in range(cycles_per_refine):
+            e = vcycle_stencil(hier32, e, r32, **cycle_kw)
+        u = u + e.to(torch.float64)
+        it += cycles_per_refine
+    return SolveResult(u=u, iterations=it, error=error,
+                       converged=error <= tolerance, history=history)
+
+
+SMOOTHERS = ("auto", "packed", "fused", "masked", "strided", "chebyshev")
+
+
 def _not_yet(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to amg_tpu_torch yet (ROADMAP.md: {item})")
@@ -465,36 +666,44 @@ class StructuredSolver:
     are built once, then solves are cheap to repeat.
 
     Same defaults as the JAX solver: ``smoother="auto"``,
-    ``precision="df32"``, ``fmg=True``, ``cycles_per_refine=3``. A
-    variable-coefficient operator comes in as ``A_planes``, (3,3,n,n)
-    planes (models/varcoef.py). The solve loop runs on the host with one
-    device-to-host read of the rss per refine. ``device`` None means
-    ``"cuda"``; pass ``device="cpu"`` to run on the CPU.
+    ``precision="df32"``, ``fmg=True``, ``cycles_per_refine=3``. The fine
+    operator is the Poisson matrix of ``side``, ``A_planes`` ((3,3,n,n)
+    planes, models/varcoef.py; its hierarchy is built on the device) or
+    ``A_fine`` (a scipy matrix; its hierarchy is built on the host).
+    ``device_setup`` None takes JAX's rule: the Poisson hierarchy is
+    built on the device unless the smoother is "strided" or ``A_fine`` is
+    given; False builds it on the host. ``config=`` (a SolverConfig) is
+    not ported. The solve loops run on the host with one device-to-host
+    read of the rss per refine. ``device`` None means ``"cuda"``; pass
+    ``device="cpu"`` to run on the CPU.
 
     Loops, as in the JAX package: the packed df32 loop for a constant
     operator with a packed smoother (side >= packed_min_side, >= 2
     levels); the unpacked df32 loop otherwise (variable operators, the
-    fused smoother, small sides); the f64 loop for ``precision="f64"``.
+    unpacked smoothers, small sides); the f64 loop for
+    ``precision="f64"``; ``solve_ir``, the host-stepped refine with an
+    f64 residual, whatever the precision.
     """
 
     def __init__(self, side: int, n_levels: int | None = None,
                  smoother: str = "auto", pre_sweeps: int = 1,
                  post_sweeps: int = 1, omega: float = 1.0,
                  symmetric: bool = True, cycles_per_refine: int = 3,
-                 A_fine=None, A_planes=None, fmg: bool = True,
-                 precision: str = "df32",
+                 A_fine=None, A_planes=None,
+                 device_setup: bool | None = None, fmg: bool = True,
+                 precision: str = "df32", config=None,
                  packed_min_side: int = PACKED_MIN_SIDE, device=None):
-        if smoother not in ("auto", "packed", "fused"):
-            raise _not_yet(f"smoother={smoother!r}",
-                           "Queue 1 item 10, remaining structured variants")
-        if A_fine is not None:
-            raise _not_yet("A_fine (a scipy fine matrix; pass A_planes)",
-                           "Queue 1 item 10, build_stencil_hierarchy")
+        if config is not None:
+            raise _not_yet("config= (a SolverConfig; pass the options)",
+                           "Queue 1 item 12, config.py")
+        if smoother not in SMOOTHERS:
+            raise ValueError(f"unknown smoother {smoother!r}; expected one "
+                             f"of {SMOOTHERS}")
         if precision not in ("df32", "f64"):
             raise ValueError(f"unknown precision {precision!r}; "
                              "expected 'df32' or 'f64'")
-        if not fmg:
-            raise _not_yet("fmg=False", "Queue 1 item 6, StructuredSolver")
+        if A_fine is not None and A_planes is not None:
+            raise ValueError("pass A_fine or A_planes, not both")
         self.side = side
         self.device = resolve_device(device)
         self.pre_sweeps = pre_sweeps
@@ -504,11 +713,15 @@ class StructuredSolver:
         self.cycles_per_refine = cycles_per_refine
         self.packed_min_side = packed_min_side
         self.precision = precision
-        # smoother="auto" is packed levels, WITH the fused kernels on a
-        # constant operator; variable operators and an explicit "packed"
-        # keep the plain packed ops (as in JAX)
-        self.fused_packed = smoother == "auto" and A_planes is None
-        self.smoother = "fused" if smoother == "fused" else "packed"
+        self.fmg = fmg
+        # smoother="auto" is packed levels, WITH the fused kernels on the
+        # Poisson operator; other operators and an explicit "packed" keep
+        # the plain packed ops (as in JAX)
+        self.fused_packed = (smoother == "auto" and A_fine is None
+                             and A_planes is None)
+        self.smoother = "packed" if smoother == "auto" else smoother
+        if device_setup is None:
+            device_setup = A_fine is None and self.smoother != "strided"
         if self.device.type == "cuda":
             # the refine count depends on the f32 transfer matmuls'
             # precision (amg_tpu/structured.py fmg_stencil note): no TF32
@@ -522,19 +735,28 @@ class StructuredSolver:
             self.hier = build_stencil_hierarchy_planes(
                 A_planes, n_levels, device=self.device,
                 smoother=self.smoother, packed_min_side=packed_min_side)
-            # the fine operator in the precision the loop reads, only
-            c64 = A_planes.to(device=self.device, dtype=torch.float64)
-            self.w33 = None
-            self.A64 = Stencil2D(side=side, c=c64) if precision == "f64" \
-                else None
-            self.c_df = DF32.from_f64(c64) if precision == "df32" else None
-        else:
+            self.A64 = Stencil2D(side=side, c=A_planes.to(
+                device=self.device, dtype=torch.float64))
+        elif device_setup and A_fine is None:
             self.hier = build_stencil_hierarchy_device(
                 side, n_levels, device=self.device, smoother=self.smoother)
             # the f64 fine operator as exact static weights
-            self.w33 = poisson_const_w33(side, 1)[0]
-            self.A64 = Stencil2D.const(self.w33, side)
-            self.c_df = None
+            self.A64 = Stencil2D.const(poisson_const_w33(side, 1)[0], side,
+                                       torch.float64)
+        else:
+            if A_fine is None:
+                A_fine = poisson.laplacian_scipy(side)
+            self.hier = build_stencil_hierarchy(
+                side, n_levels, torch.float32, A_fine, self.smoother,
+                self.device)
+            self.A64 = Stencil2D.from_scipy(A_fine, side,
+                                            dtype=torch.float64,
+                                            device=self.device)
+        self.device_setup = device_setup
+        # a constant fine operator's df32 residual reads its weights only
+        self.w33 = self.A64.w33
+        self.c_df = (DF32.from_f64(self.A64.c)
+                     if self.w33 is None and precision == "df32" else None)
         self.m = (side - 1) // 2
         # the packed loop keeps the whole solve state color-packed
         self.packed_loop = (precision == "df32" and self.w33 is not None
@@ -553,7 +775,7 @@ class StructuredSolver:
     # -- pieces of the solve loop ------------------------------------------
 
     def _vcycle(self, u2, b2, level: int = 0, packed_in: bool = False):
-        if self.smoother == "fused":
+        if self.smoother != "packed":
             return vcycle_stencil(self.hier, u2, b2, self.pre_sweeps,
                                   self.post_sweeps, self.omega,
                                   self.symmetric, _level=level)
@@ -571,8 +793,10 @@ class StructuredSolver:
         return e
 
     def _fmg(self, b32):
-        """The unpacked loops' nested-iteration start (an f32 FMG pass
-        from the fine level, the JAX defaults for min_side and fused)."""
+        """The unpacked loops' start: an f32 FMG pass from the fine level
+        (the JAX defaults for min_side and fused), or 0 with fmg=False."""
+        if not self.fmg:
+            return torch.zeros_like(b32)
         return fmg_stencil(self.hier, b32, 1, self.pre_sweeps,
                            self.post_sweeps, self.omega, self.symmetric)
 
@@ -590,7 +814,9 @@ class StructuredSolver:
     def _fmg_start(self, b4: DF32) -> DF32:
         """Nested-iteration start with the fine level packed: restrict b to
         level 1, FMG the coarse hierarchy, prolong back, then one packed
-        fine-level V-cycle."""
+        fine-level V-cycle; 0 with fmg=False."""
+        if not self.fmg:
+            return DF32.from_f32(torch.zeros_like(b4.hi))
         bc = restrict_packed(b4.hi, self.m)
         uc = fmg_stencil(self.hier, bc, 1, self.pre_sweeps,
                          self.post_sweeps, self.omega, self.symmetric,
@@ -737,13 +963,47 @@ class StructuredSolver:
                            converged=err_v <= tol_eff,
                            history=[(iters, err_v)])
 
-    def warmup(self) -> None:
-        """One solve on a zero rhs: builds the CUDA kernels on first use."""
+    def _refine_step(self, u64: torch.Tensor, b64: torch.Tensor):
+        """One host-stepped refine: ``(u + cycles(b - A u), rss(u))``, the
+        f64 residual's rss of the iterate it started from."""
+        r = b64 - self.A64.matvec2(u64)
+        err = rss_from_residual(r)
+        return u64 + self._cycles(r.to(torch.float32)).to(torch.float64), err
+
+    def _residual_rss(self, u64: torch.Tensor, b64: torch.Tensor):
+        return rss_from_residual(b64 - self.A64.matvec2(u64))
+
+    def warmup(self, refine_step: bool = False) -> None:
+        """One solve on a zero rhs, which builds the CUDA kernels on first
+        use; ``refine_step=True`` runs one host-stepped refine first."""
         z = torch.zeros((self.side, self.side), dtype=torch.float64,
                         device=self.device)
+        if refine_step:
+            float(self._refine_step(z, z)[1])
         _, stats = self.solve_ir_device(z, 1e-7, 40)
         stats.tolist()
 
-    def solve_ir(self, b2_f64, tolerance: float = 1e-7, n_refine: int = 40):
-        raise _not_yet("solve_ir (the host-stepped refine_step loop)",
-                       "Queue 1 item 6, StructuredSolver")
+    def solve_ir(self, b2_f64, tolerance: float = 1e-7,
+                 n_refine: int = 40) -> SolveResult:
+        """The host-stepped refine loop from u = 0 (no FMG start), with
+        the JAX loop's lagged semantics: each step returns the corrected
+        iterate and the rss of the one it started from, and the
+        correction is kept only while that rss is above ``tolerance``, so
+        the stopping step's cycles run and are discarded. ``history``
+        holds (V-cycles so far, rss) of every step; ``iterations`` the
+        V-cycles of the kept corrections."""
+        b64 = self._b64(b2_f64)
+        u = torch.zeros_like(b64)
+        history = []
+        it = 0
+        error = float("inf")
+        for _ in range(n_refine):
+            u_next, err = self._refine_step(u, b64)
+            error = float(err)          # the one host sync of the step
+            history.append((it, error))
+            if error <= tolerance:
+                break
+            u = u_next
+            it += self.cycles_per_refine
+        return SolveResult(u=u, iterations=it, error=error,
+                           converged=error <= tolerance, history=history)

@@ -71,12 +71,7 @@ def build_other(root: Path) -> ctypes.CDLL:
         h.update(p.read_bytes())
     out = _build.BUILD_DIR / "ab" / f"lib_{h.hexdigest()[:16]}.so"
     if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-               *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {root}:\n{proc.stderr}")
+        _build.compile_library(srcs, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in {**_build._SIGNATURES, **OLD_DF}.items():
         if hasattr(lib, name):

@@ -8,6 +8,8 @@ kernel, launch count and idle share, from ``torch.profiler``.
         [--halo rdma|sweep|overlap|step]
     python -m amg_tpu_torch.utils.profiling --sides 2047 4095 --pcg \
         --tol 1e-5
+    python -m amg_tpu_torch.utils.profiling --sides 4095 \
+        [--smoother masked|strided|chebyshev] [--no-fmg] [--solve-ir]
 
 For each side: one warm solve is timed, then a second one is traced. The
 constant problem's packed loop runs prepare_b -> solve_ir_device_prepared
@@ -15,7 +17,10 @@ constant problem's packed loop runs prepare_b -> solve_ir_device_prepared
 other loops run solve_ir_device; ``--dist D`` the distributed solve on D
 row slabs of the card (DistStructuredSolver.solve_ir_fused); ``--pcg``
 the f32 PCG (solve_pcg_device, fused=True, on the packed hierarchy),
-whose "refines" are its iterations. Device busy time is the sum of the GPU
+whose "refines" are its iterations; ``--no-fmg`` starts the refine loop
+from zero (fmg=False); ``--solve-ir`` runs the host-stepped
+StructuredSolver.solve_ir (f64 residual, from zero), whose "refines" are
+its steps, the stopping one included. Device busy time is the sum of the GPU
 kernels' and copies' own times in the trace (one stream, so they do not
 overlap); the idle share is 1 - busy / (untraced wall). Needs a CUDA
 device.
@@ -42,7 +47,8 @@ def profile_solve(side: int, device="cuda", top: int = 12,
                   var: bool = False, smoother: str = "auto",
                   precision: str = "df32", tol: float = 1e-7,
                   dist: int = 0, halo: str = "rdma",
-                  pcg: bool = False) -> dict:
+                  pcg: bool = False, fmg: bool = True,
+                  solve_ir: bool = False) -> dict:
     """Trace one warm solve at ``side``; returns the summary it prints."""
     from amg_tpu_torch import (DistStructuredSolver, StructuredSolver,
                                build_stencil_hierarchy_device, poisson,
@@ -68,10 +74,13 @@ def profile_solve(side: int, device="cuda", top: int = 12,
     else:
         planes = varcoef.jump_planes(side, device=device) if var else None
         s = StructuredSolver(side, A_planes=planes, smoother=smoother,
-                             precision=precision, device=device)
-        s.warmup()
+                             precision=precision, fmg=fmg, device=device)
+        s.warmup(refine_step=solve_ir)
 
         def solve():
+            if solve_ir:
+                r = s.solve_ir(b2, tolerance=tol)
+                return r.error, len(r.history)
             if not s.packed_loop:
                 return s.solve_ir_device(b2, tolerance=tol)[1].tolist()
             u4, stats = s.solve_ir_device_prepared(s.prepare_b(b2),
@@ -102,7 +111,7 @@ def profile_solve(side: int, device="cuda", top: int = 12,
     summary = {
         "side": side, "var": var, "smoother": smoother,
         "precision": precision, "tol": tol, "dist": dist, "halo": halo,
-        "pcg": pcg,
+        "pcg": pcg, "fmg": fmg, "solve_ir": solve_ir,
         "wall_s": wall_plain, "wall_traced_s": wall,
         "refines": int(it), "rss": err, "device_busy_s": busy_us * 1e-6,
         "idle_share": 1.0 - busy_us * 1e-6 / wall_plain,
@@ -115,7 +124,8 @@ def profile_solve(side: int, device="cuda", top: int = 12,
     }
     what = ("pcg f32 fused" if pcg else
             f"dist D={dist} halo={halo}" if dist else
-            f"var={var} smoother={smoother} precision={precision}")
+            f"var={var} smoother={smoother} precision={precision} "
+            f"fmg={fmg}{' solve_ir' if solve_ir else ''}")
     print(f"side {side} {what} tol={tol:g}: wall {wall_plain:.6f} s (traced {wall:.6f} s), "
           f"refines {int(it)}, rss "
           f"{err:.3e}, device busy {summary['device_busy_s']:.6f} s, "
@@ -135,7 +145,8 @@ def main() -> None:
     ap.add_argument("--var", action="store_true",
                     help="the jump-coefficient problem (a = 100)")
     ap.add_argument("--smoother", default="auto",
-                    choices=["auto", "packed", "fused"])
+                    choices=["auto", "packed", "fused", "masked",
+                             "strided", "chebyshev"])
     ap.add_argument("--precision", default="df32", choices=["df32", "f64"])
     ap.add_argument("--tol", type=float, default=1e-7)
     ap.add_argument("--dist", type=int, default=0, metavar="D",
@@ -144,13 +155,18 @@ def main() -> None:
                     choices=["rdma", "sweep", "overlap", "step"])
     ap.add_argument("--pcg", action="store_true",
                     help="the f32 AMG-preconditioned CG (fused=True)")
+    ap.add_argument("--no-fmg", action="store_true",
+                    help="start the refine loop from zero (fmg=False)")
+    ap.add_argument("--solve-ir", action="store_true",
+                    help="the host-stepped StructuredSolver.solve_ir")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     for side in args.sides:
         profile_solve(side, var=args.var, smoother=args.smoother,
                       precision=args.precision, tol=args.tol,
-                      dist=args.dist, halo=args.halo, pcg=args.pcg)
+                      dist=args.dist, halo=args.halo, pcg=args.pcg,
+                      fmg=not args.no_fmg, solve_ir=args.solve_ir)
 
 
 if __name__ == "__main__":

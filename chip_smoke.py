@@ -7,10 +7,11 @@ each against its plain PyTorch version on the card and times both (K1, K2
 and K3 bitwise at M = 513, 512, 2048 and 4096 and timed at the last three;
 K4's r.hi bitwise at M = 101, 129, 512, 2048 and 4096 and timed at the last
 three; K5 and K6 bitwise at n = 1000, 1023 and 4095; K8 bitwise at M = 101
-and 4096; K7 per call against index_select and on the device, in a CUDA
-graph), then
-drives the solves through the user entry points with an independent f64
-residual check and the kernels' launch counts:
+and 4096; K9 bitwise, and to K1 through the layouts, at M = 101, 512,
+2048 and 4096 and timed in turns with K1 at the last two; K7 per call
+against index_select and on the device, in a CUDA graph), then drives the
+solves through the user entry points with an independent f64 residual
+check and the kernels' launch counts:
 
 * the constant-coefficient Poisson df32 solve (StructuredSolver ->
   prepare_b -> solve_ir_device_prepared -> finalize_u) at 1023^2 and
@@ -25,17 +26,23 @@ residual check and the kernels' launch counts:
 * the constant problem with smoother="fused" at 4095^2 (K5);
 * the card against the port's own CPU solve at 1023^2 (constant) and
   255^2 (variable);
+* at 4095^2 the host-stepped solve_ir (K2/K3) and the packed loop with
+  fmg=False (K2-K4), and smoother="masked", "strided" and "chebyshev"
+  (no kernel);
+* host-built hierarchies: the jump operator as a scipy matrix (A_fine) at
+  2047^2, and the card against the CPU for solve_stencil (f64, 1023^2,
+  1e-9) and the free solve_ir (511^2);
 * the distributed solve (DistStructuredSolver, 4 row slabs on the card)
   at 4095^2 with halo="rdma" (K7) and "sweep", one V-cycle per halo mode
   at 1023^2 on 8 slabs, and the card against the CPU at 255^2.
 
 K9, the sweep on the row-grouped layout, is on no path (no JAX solver
-calls it): it is checked against its plain version and against K1, and
-timed with the layout conversions. Any failed check raises, so the exit
-code is non-zero. The line before the last of stdout is the card's name
-and power limit, the one before it the kernels' JSON; the last line is
-one JSON object with "ok" and the device. Needs a CUDA device and nvcc; imports neither JAX nor the JAX
-package.
+calls it): its launches are those of its parity phase. Each phase prints
+its seconds. Any failed check raises, so the exit code is non-zero. The
+line before the last of stdout is the card's name and power limit, the
+one before it the kernels' JSON; the last line is one JSON object with
+"ok" and the device. Needs a CUDA device and nvcc; imports neither JAX
+nor the JAX package.
 """
 
 from __future__ import annotations
@@ -52,8 +59,10 @@ import torch
 import torch.nn.functional as F
 
 from amg_tpu_torch import (DistStructuredSolver, StructuredSolver,
+                           build_stencil_hierarchy,
                            build_stencil_hierarchy_device, poisson,
-                           solve_pcg_device, varcoef, vcycle_packed)
+                           solve_ir, solve_pcg_device, solve_stencil,
+                           varcoef, vcycle_packed)
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32, is_pow2_weights
 from amg_tpu_torch.ops.kernels import _build
@@ -99,8 +108,15 @@ HALO_SHAPES = ((4, 1024, 4095, 10), (2, 10, 31, 10), (8, 10, 31, 10),
 K7_GRAPH_LAUNCHES = 20
 DIST_SIDE, DIST_SLABS = 4095, 4
 SPLIT_SIDE = 8191                      # the split fine level, M = 4096
-K89_SIDES = (201, 8191)                # M = 101 (ragged) and 4096
+K8_SIDES = (201, 8191)                 # M = 101 (ragged) and 4096
+# K9: M = 101 (ragged), 512, 2048, 4096; timed at the last two
+K9_SIDES = (201, 1023, 4095, 8191)
+K9_TIMED = (4095, 8191)
 PCG_SIDES = (2047, 4095)               # bench.py pcg_stats
+REFINE_SIDE = 4095       # solve_ir, fmg=False and the unpacked smoothers
+HOST_JUMP_SIDE = 2047    # the jump operator given as a scipy matrix
+STENCIL_SIDE = 1023      # solve_stencil, f64, card against CPU
+FREE_IR_SIDE = 511       # the free solve_ir, card against CPU
 PCG_TOL = 1e-5
 PCG_TPU_ITERS = 5                      # BENCH_r05.json, TPU v5e, both sides
 # max|u - u_df32| / max|u_df32| of the f32 PCG at tol 1e-5 (H100 readings
@@ -115,13 +131,12 @@ PCG_CARD_CPU_REL = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# Kernel-vs-plain bounds, max|kernel - plain| / max|plain|, for the outputs
-# not held bitwise (K1, K2, K3, K5, K6, K8 and K4's r.hi are:
-# torch.equal). They are the JAX package's own interpret-mode bounds for
-# these kernels (tests/test_packed_cycle.py, tests/test_packed_df.py): K4's
-# rss is summed in another order than the plain version's row sums; K9
-# takes the sweep's bound.
-BOUND = {"sweep_u": 2e-6, "df_rss": 1e-5}
+# Kernel-vs-plain bound, |kernel - plain| / |plain|, for the one output
+# not held bitwise (K1, K2, K3, K5, K6, K8, K9 and K4's r.hi are:
+# torch.equal): K4's rss, summed in another order than the plain
+# version's row sums; the JAX package's own interpret-mode bound for that
+# kernel (tests/test_packed_df.py).
+BOUND = {"df_rss": 1e-5}
 
 KERNEL_INFO = {
     "fused_gs4_sweep_packed": ("amg_tpu_torch/csrc/packed_sweep.cu",
@@ -141,7 +156,7 @@ KERNEL_INFO = {
     "fused_residual_restrict_packed": (
         "amg_tpu_torch/csrc/packed_cycle.cu",
         "amg_tpu/ops/pallas/packed_cycle.py:300"),
-    "fused_gs4_sweep_rm": ("amg_tpu_torch/csrc/packed_rm.cu",
+    "fused_gs4_sweep_rm": ("amg_tpu_torch/csrc/packed_sweep.cu",
                            "amg_tpu/ops/pallas/packed_rm.py:224"),
 }
 # no JAX solver calls the row-grouped sweep, so no path of the port does:
@@ -462,17 +477,14 @@ def rbgs_parity_and_timing(dev):
     return errs, times, bounds, k5_by_n
 
 
-def split_rm_parity_and_timing(dev):
-    """K8 (bitwise, 5- and 9-point weights) and K9 against their plain
-    versions at K89_SIDES (M = 101 and 4096), K9 through to_rm / from_rm
-    against K1 on the same fields, pad cells exactly 0. At M = 4096 both are timed against their plain
-    versions, K9 against K1, and to_rm + from_rm alone: does the
-    row-grouped layout pay for its conversions on the card? Returns
-    max_abs_err, the times, the bounds and K9's parity launches."""
-    errs = {"fused_residual_restrict_packed": 0.0, "fused_gs4_sweep_rm": 0.0}
-    times, bounds = {}, {}
-    k9_launches = 0
-    for side in K89_SIDES:
+def split_parity_and_timing(dev):
+    """K8 against its plain version at K8_SIDES (M = 101 and 4096),
+    bitwise on 5- and 9-point weights, bc_pad's pad row and column exactly
+    0, and timed against it at M = 4096. Returns max_abs_err, the times and
+    the bound."""
+    name = "fused_residual_restrict_packed"
+    errs, times, bounds = {name: 0.0}, {}, {}
+    for side in K8_SIDES:
         M = (side + 1) // 2
         w33 = poisson_const_w33(side, 1)[0]
         m, f = packed_fields(side, seed=side + 2, dev=dev)
@@ -482,8 +494,7 @@ def split_rm_parity_and_timing(dev):
             ref = residual_restrict_plain(u4, b4, w, m)
             d, r = rel_err(got, ref)
             same = torch.equal(got, ref)
-            errs["fused_residual_restrict_packed"] = max(
-                errs["fused_residual_restrict_packed"], d)
+            errs[name] = max(errs[name], d)
             print(f"parity K8 residual+restrict M={M} {wname}: max_abs "
                   f"{d:.3e} rel {r:.3e}, bitwise equal {same}")
             require(same, f"K8 bitwise equal to its plain version (M={M}, "
@@ -491,63 +502,88 @@ def split_rm_parity_and_timing(dev):
             require(float(got[m, :].abs().max()) == 0.0
                     and float(got[:, m].abs().max()) == 0.0,
                     "K8 bc_pad pad row and column exactly 0")
-
-        u_rm, b_rm = to_rm(u4), to_rm(b4)
-        for symmetric in (True, False):
-            n0 = K.fused_gs4_sweep_rm.launches
-            got = K.fused_gs4_sweep_rm(u_rm, b_rm, w33, m, 0.9, symmetric)
-            k9_launches += K.fused_gs4_sweep_rm.launches - n0
-            ref = fused_gs4_sweep_rm_plain(u_rm, b_rm, w33, m, 0.9,
-                                           symmetric)
-            k1 = K.fused_gs4_sweep_packed(u4, b4, w33, m, 0.9, symmetric)
-            d, r = rel_err(got, ref)
-            d1, r1 = rel_err(from_rm(got), k1)
-            errs["fused_gs4_sweep_rm"] = max(errs["fused_gs4_sweep_rm"], d)
-            print(f"parity K9 rm sweep M={M} symmetric={symmetric} "
-                  f"omega=0.9: max_abs {d:.3e} rel {r:.3e}; against K1 via "
-                  f"from_rm max_abs {d1:.3e} rel {r1:.3e} (bound "
-                  f"{BOUND['sweep_u']}); bitwise equal "
-                  f"{torch.equal(got, ref) and torch.equal(from_rm(got), k1)}")
-            require(r <= BOUND["sweep_u"] and r1 <= BOUND["sweep_u"],
-                    "K9 parity against its plain version and K1")
-            g4 = from_rm(got)
-            require(float(g4[1][:, m].abs().max()) == 0.0
-                    and float(g4[2][m, :].abs().max()) == 0.0
-                    and float(g4[3][m, :].abs().max()) == 0.0
-                    and float(g4[3][:, m].abs().max()) == 0.0,
-                    "K9 pad cells exactly 0")
-
         if M == 4096:
-            interleaved("fused_residual_restrict_packed", f"M={M}",
+            interleaved(name, f"M={M}",
                         lambda: K.fused_residual_restrict_packed(
                             u4, b4, w33, m),
                         lambda: residual_restrict_plain(u4, b4, w33, m), 20,
                         times)
-            interleaved("fused_gs4_sweep_rm", f"M={M}",
+            # u and b read, the (M, M) bc_pad written; the restriction's
+            # 4 ops a cell as in the down leg's bound
+            f4, cells = u4.nbytes, side * side
+            bounds[name] = bound(2 * f4 + f4 // 4,
+                                 residual_ops(w33, cells) + 4 * cells)
+        del u4, b4, got, ref
+    return errs, times, bounds
+
+
+def rm_parity_and_timing(dev):
+    """K9 against its plain version and, through to_rm / from_rm, against
+    K1 on the same fields at K9_SIDES (M = 101, 512, 2048, 4096), bitwise,
+    on the 5-point Poisson weights and WINDOW_WEIGHTS, symmetric and
+    forward, omega 0.9 and 1, pad cells exactly 0. At K9_TIMED it is timed
+    against its plain version and in turns with K1 beside its bound; at
+    M = 4096 also to_rm + from_rm alone (does the row-grouped layout pay
+    for its conversions on the card?). Returns max_abs_err, the times and
+    bound at M = 4096, {M: (ms, bound ms)} and K9's launches here."""
+    name = "fused_gs4_sweep_rm"
+    err, times, bounds, by_m, launches = 0.0, {}, {}, {}, 0
+    for side in K9_SIDES:
+        M = (side + 1) // 2
+        w33 = poisson_const_w33(side, 1)[0]
+        m, f = packed_fields(side, seed=side + 5, dev=dev)
+        u4, b4 = f(), f()
+        u_rm, b_rm = to_rm(u4), to_rm(b4)
+        for label, w in (("five", w33), *WINDOW_WEIGHTS.items()):
+            for symmetric in (True, False):
+                for omega in (0.9, 1.0):
+                    n0 = K.fused_gs4_sweep_rm.launches
+                    got = K.fused_gs4_sweep_rm(u_rm, b_rm, w, m, omega,
+                                               symmetric)
+                    launches += K.fused_gs4_sweep_rm.launches - n0
+                    ref = fused_gs4_sweep_rm_plain(u_rm, b_rm, w, m, omega,
+                                                   symmetric)
+                    k1 = K.fused_gs4_sweep_packed(u4, b4, w, m, omega,
+                                                  symmetric)
+                    d, _ = rel_err(got, ref)
+                    g4 = from_rm(got)
+                    same = torch.equal(got, ref)
+                    same_k1 = torch.equal(g4, k1)
+                    err = max(err, d)
+                    print(f"parity K9 rm sweep M={M} {label}-point "
+                          f"symmetric={symmetric} omega={omega}: max_abs "
+                          f"{d:.3e}; bitwise equal {same}, to K1 through "
+                          f"from_rm {same_k1}")
+                    require(same and same_k1, "K9 bitwise equal to its "
+                            "plain version and to K1")
+                    require(pads_zero(g4, m), "K9 pad cells exactly 0")
+        if side in K9_TIMED:
+            t = {}
+            interleaved(name, f"M={M}",
                         lambda: K.fused_gs4_sweep_rm(u_rm, b_rm, w33, m),
                         lambda: fused_gs4_sweep_rm_plain(u_rm, b_rm, w33, m),
-                        20, times)
+                        20, t)
             k1_ms, k9_ms = alternating(
                 lambda: K.fused_gs4_sweep_packed(u4, b4, w33, m),
                 lambda: K.fused_gs4_sweep_rm(u_rm, b_rm, w33, m), 20)
-            conv_ms = min(time_ms(lambda: from_rm(to_rm(u4)), 10),
-                          time_ms(lambda: from_rm(to_rm(u4)), 10))
+            bnd = bound(3 * u4.nbytes, sweep_ops(w33, side * side))
+            by_m[M] = (t[name][0], bnd[0])
             print(f"time K9 against K1 M={M}: K9 {k9_ms:.4f} ms, K1 "
-                  f"{k1_ms:.4f} ms (K9/K1 {k9_ms / k1_ms:.3f}); to_rm + "
-                  f"from_rm of one field {conv_ms:.4f} ms; a solve that "
-                  f"kept its state row-grouped would convert u and b once "
-                  f"each way ({2 * conv_ms:.4f} ms) and gain "
-                  f"{k1_ms - k9_ms:.4f} ms per sweep")
-            f4 = u4.nbytes          # one packed (4, M, M) f32 field
-            cells = side * side
-            # u and b read, the (M, M) bc_pad written; the restriction's
-            # 4 ops a cell as in the down leg's bound
-            bounds["fused_residual_restrict_packed"] = bound(
-                2 * f4 + f4 // 4, residual_ops(w33, cells) + 4 * cells)
-            bounds["fused_gs4_sweep_rm"] = bound(3 * f4, sweep_ops(w33,
-                                                                   cells))
+                  f"{k1_ms:.4f} ms (K9/K1 {k9_ms / k1_ms:.3f}); K9 against "
+                  f"its bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                  f"{bnd[0] / k9_ms:.1%}")
+            if M == 4096:
+                times.update(t)
+                bounds[name] = bnd
+                conv_ms = min(time_ms(lambda: from_rm(to_rm(u4)), 10),
+                              time_ms(lambda: from_rm(to_rm(u4)), 10))
+                print(f"time to_rm + from_rm M={M}: {conv_ms:.4f} ms a "
+                      f"field; a solve that kept its state row-grouped "
+                      f"would convert u and b once each way "
+                      f"({2 * conv_ms:.4f} ms) and gain "
+                      f"{k1_ms - k9_ms:.4f} ms a sweep")
         del u4, b4, u_rm, b_rm, got, ref, k1
-    return errs, times, bounds, k9_launches
+    return {name: err}, times, bounds, {name: by_m}, launches
 
 
 def f64_rss(u: torch.Tensor, b: torch.Tensor, side: int) -> float:
@@ -693,16 +729,19 @@ def vcycle_launches(plan: tuple, start: int) -> Counter:
     return Counter(k for kind in plan[start:] for k in per_kind.get(kind, ()))
 
 
-def solve_launches(plan: tuple, sides: tuple, it: int) -> Counter:
+def solve_launches(plan: tuple, sides: tuple, it: int,
+                   fmg: bool = True) -> Counter:
     """Launches of one packed df32 solve of ``it`` refines: the FMG start
-    runs one V-cycle from each packed level below the fine one, then the
-    fine V-cycle, then 3 per refine; K4 once per refine and once more."""
+    (fmg=True) runs one V-cycle from each packed level below the fine one,
+    then the fine V-cycle; then 3 per refine; K4 once per refine and once
+    more."""
     c = Counter()
-    for l in range(1, len(sides) - 1):
-        if sides[l] >= PACKED_MIN_SIDE:
-            c.update(vcycle_launches(plan, l))
+    if fmg:
+        for l in range(1, len(sides) - 1):
+            if sides[l] >= PACKED_MIN_SIDE:
+                c.update(vcycle_launches(plan, l))
     for k, n in vcycle_launches(plan, 0).items():
-        c[k] += n * (1 + 3 * it)
+        c[k] += n * (int(fmg) + 3 * it)
     c["fused_df_residual_rss"] = it + 1
     return c
 
@@ -920,6 +959,149 @@ def var_solves(dev, launches: dict):
           f"{du:.3e} (bound {bnd:.3e})")
     require(it_gpu == it_cpu, "same var refine count on GPU and CPU")
     require(du <= bnd, "var GPU and CPU solutions within the residual bound")
+
+
+def refine_solves(dev, launches: dict):
+    """The constant problem at 4095^2 (legs on 4095, 2047, 1023): the
+    host-stepped solve_ir (f64 residual, 3 V-cycles a step, from u = 0;
+    the stopping step's cycles run too, as in JAX) and the packed loop
+    with fmg=False; refines, rss, an independent f64 rss, launch counts
+    from the plan, median wall of 3."""
+    side = REFINE_SIDE
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    s = StructuredSolver(side, device=dev)
+    s.warmup(refine_step=True)
+    res, c = drive(lambda: s.solve_ir(b2, TOL), launches)
+    steps = len(res.history)
+    ind = f64_rss(res.u, b2, side)
+    print(f"solve_ir {side}^2: steps {steps}, refines kept "
+          f"{res.iterations // s.cycles_per_refine}, V-cycles "
+          f"{res.iterations}, rss {res.error:.6e}, independent f64 rss "
+          f"{ind:.6e}, history {res.history}, launches {c}")
+    require(bool(torch.isfinite(res.u).all())
+            and res.u.shape == (side, side), "solve_ir: finite u")
+    require(res.converged and res.error <= TOL and ind <= TOL,
+            f"solve_ir {side}^2 converged to {TOL}")
+    want = vcycle_launches(s.plan, 0)
+    for k in ("fused_down_leg_packed", "fused_up_leg_packed"):
+        require(c[k] == want[k] * s.cycles_per_refine * steps,
+                f"solve_ir: {k} = legs levels x 3 x steps")
+    require(sum(n for k, n in c.items() if k not in want) == 0,
+            "solve_ir: no other kernel (its residual is plain f64)")
+    med, walls = wall_median(lambda: s.solve_ir(b2, TOL), 3)
+    print(f"solve wall solve_ir {side}^2: median of 3 {med:.6f} s "
+          f"(all {walls})")
+    del s
+
+    s = StructuredSolver(side, fmg=False, device=dev)
+    s.warmup()
+    (u, err, it), c = drive(lambda: solve_once(s, b2), launches)
+    ind = f64_rss(u, b2, side)
+    print(f"solve fmg=False {side}^2: refines {it} (from the FMG start: "
+          f"3), rss {err:.6e}, independent f64 rss {ind:.6e}, launches {c}")
+    require(bool(torch.isfinite(u).all()), "fmg=False: finite u")
+    require(err <= TOL and ind <= TOL, f"fmg=False {side}^2 converged")
+    want = solve_launches(s.plan, s.hier.sides, it, fmg=False)
+    require(all(c[k] == want[k] for k in c),
+            "fmg=False: K2 = K3 = legs levels x 3 it, K4 = it + 1")
+    med, walls = wall_median(lambda: solve_once(s, b2), 3)
+    print(f"solve wall fmg=False {side}^2: median of 3 {med:.6f} s "
+          f"(all {walls})")
+    del s
+
+
+def smoother_solves(dev, launches: dict):
+    """The constant problem at 4095^2 with each unpacked smoother through
+    solve_ir_device (the unpacked df32 loop): plain PyTorch on every
+    level, as in JAX, so no kernel runs; refines, rss, an independent f64
+    rss, median wall of 3."""
+    side = REFINE_SIDE
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    for sm in ("masked", "strided", "chebyshev"):
+        t0 = time.perf_counter()
+        s = StructuredSolver(side, smoother=sm, device=dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        (u, err, it), c = drive(lambda: solve_device(s, b2, TOL), launches)
+        ind = f64_rss(u, b2, side)
+        print(f"solve smoother={sm} {side}^2: device_setup "
+              f"{s.device_setup}, setup {setup:.2f} s, refines {it}, "
+              f"V-cycles {it * s.cycles_per_refine}, rss {err:.6e}, "
+              f"independent f64 rss {ind:.6e}, launches {c}")
+        require(bool(torch.isfinite(u).all()), f"{sm}: finite u")
+        require(err <= TOL and ind <= TOL, f"{sm} {side}^2 converged")
+        require(sum(c.values()) == 0, f"{sm}: no kernel")
+        med, walls = wall_median(lambda: solve_device(s, b2, TOL), 3)
+        print(f"solve wall smoother={sm} {side}^2: median of 3 {med:.6f} s "
+              f"(all {walls})")
+        del s
+
+
+def host_solves(dev, launches: dict):
+    """Host-built hierarchies: the jump operator given as a scipy matrix
+    (A_fine) at 2047^2 beside the A_planes solve of the same operator;
+    then the card against the CPU: solve_stencil on an f64 masked
+    hierarchy at 1023^2 to 1e-9 and the free solve_ir at 511^2."""
+    side = HOST_JUMP_SIDE
+    A = varcoef.jump_scipy(side, a_in=100.0)
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    t0 = time.perf_counter()
+    s = StructuredSolver(side, A_fine=A, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    (u, err, it), c = drive(lambda: solve_device(s, b2, TOL), launches)
+    r = b2.cpu().numpy().reshape(-1) - A @ u.cpu().numpy().reshape(-1)
+    ind = float(r @ r)
+    planes = varcoef.jump_planes(side, a_in=100.0, device=dev)
+    _, err_p, it_p = solve_device(
+        StructuredSolver(side, A_planes=planes, device=dev), b2, TOL)
+    print(f"solve jump A_fine {side}^2 (host hierarchy): plan {s.plan}, "
+          f"setup {setup:.2f} s, refines {it} (A_planes: {it_p}, rss "
+          f"{err_p:.6e}), rss {err:.6e}, independent f64 rss {ind:.6e}, "
+          f"launches {c}")
+    require(not s.device_setup and s.w33 is None, "A_fine: host build")
+    require(err <= TOL and ind <= TOL, f"jump A_fine {side}^2 converged")
+    require(sum(c.values()) == 0, "jump A_fine: no kernel")
+    med, walls = wall_median(lambda: solve_device(s, b2, TOL), 3)
+    print(f"solve wall jump A_fine {side}^2: median of 3 {med:.6f} s "
+          f"(all {walls})")
+    del s, planes
+
+    side = STENCIL_SIDE
+    b_cpu = poisson.rhs(side, device="cpu").reshape(side, side)
+    runs = {}
+    for d in (dev, "cpu"):
+        h = build_stencil_hierarchy(side, dtype=torch.float64, device=d)
+        runs[str(d)] = solve_stencil(h, b_cpu.to(d), tolerance=1e-9,
+                                     device=d)
+    rg, rc = runs[str(dev)], runs["cpu"]
+    ug = rg.u.cpu()
+    du = float((ug - rc.u).abs().max())
+    bnd = solution_bound(f64_rss(ug, b_cpu, side),
+                         f64_rss(rc.u, b_cpu, side), side)
+    print(f"gpu vs cpu solve_stencil f64 masked {side}^2 tol 1e-9: "
+          f"V-cycles {rg.iterations} / {rc.iterations}, history "
+          f"{rg.history} / {rc.history}, max|du| {du:.3e} (bound {bnd:.3e})")
+    require(rg.converged and rc.converged and rg.error <= 1e-9,
+            "solve_stencil converged to 1e-9")
+    require(f64_rss(ug, b_cpu, side) <= 1e-9, "solve_stencil: independent "
+            "f64 rss <= 1e-9")
+    require(rg.iterations == rc.iterations
+            and [i for i, _ in rg.history] == [i for i, _ in rc.history],
+            "solve_stencil: same V-cycles on GPU and CPU")
+    require(du <= bnd, "solve_stencil GPU and CPU within the bound")
+
+    side = FREE_IR_SIDE
+    b_cpu = poisson.rhs(side, device="cpu").reshape(side, side)
+    rg = solve_ir(side, b_cpu.to(dev), tolerance=1e-9, device=dev)
+    rc = solve_ir(side, b_cpu, tolerance=1e-9, device="cpu")
+    print(f"gpu vs cpu free solve_ir {side}^2 tol 1e-9: V-cycles "
+          f"{rg.iterations} / {rc.iterations}, rss {rg.error:.6e} / "
+          f"{rc.error:.6e}")
+    require(rg.converged and rc.converged, "free solve_ir converged")
+    require(rg.iterations == rc.iterations
+            and len(rg.history) == len(rc.history),
+            "free solve_ir: same counts on GPU and CPU")
 
 
 def halo_parity_and_timing(dev):
@@ -1151,6 +1333,7 @@ def main() -> int:
     print(_build.build_log())
 
     # phases 2-3: parity and timing, kernel against plain
+    t0 = time.perf_counter()
     errs, times, bounds, by_m = parity_and_timing(dev)
     e123, t123, b123, by_m123 = windowed_parity_and_timing(dev)
     errs.update(e123)
@@ -1165,19 +1348,26 @@ def main() -> int:
         halo_parity_and_timing(dev)
     times.update(t7)
     bounds.update(b7)
-    e89, t89, b89, k9_launches = split_rm_parity_and_timing(dev)
-    errs.update(e89)
-    times.update(t89)
-    bounds.update(b89)
+    e8, t8, b8 = split_parity_and_timing(dev)
+    errs.update(e8)
+    times.update(t8)
+    bounds.update(b8)
+    e9, t9, b9, by_m9, k9_launches = rm_parity_and_timing(dev)
+    errs.update(e9)
+    times.update(t9)
+    bounds.update(b9)
+    by_m.update(by_m9)
+    print(f"phase parity and timing: {time.perf_counter() - t0:.1f} s")
 
     # phases 4-6: every path through the user entry points, each with the
     # launch counts set to 0 just before it and read just after
     launches = {k: 0 for k in KERNEL_INFO}
-    const_solves(dev, launches)
-    split_solve(dev, launches)
-    pcg_solves(dev, launches)
-    var_solves(dev, launches)
-    dist_solves(dev, launches)
+    for phase in (const_solves, split_solve, pcg_solves, var_solves,
+                  refine_solves, smoother_solves, host_solves, dist_solves):
+        t0 = time.perf_counter()
+        phase(dev, launches)
+        torch.cuda.synchronize()
+        print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s")
     require(all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
             f"every kernel launched on its path: {launches}")
     for k, why in OFF_PATH.items():

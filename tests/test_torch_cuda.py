@@ -6,10 +6,10 @@ machine (which has no JAX, so the JAX conftest is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The kernels keep the plain versions' operation order and are built with
--fmad=false: K1, K2, K3, K5, K6, K8 and K4's r.hi are held bitwise equal
-to their plain versions (torch.equal); K4's rss (summed in another order)
-and K9 to the JAX package's own bounds for these kernels
-(tests/test_packed_cycle.py, tests/test_packed_df.py).
+-fmad=false: K1, K2, K3, K5, K6, K8, K9 and K4's r.hi are held bitwise
+equal to their plain versions (torch.equal), K9 also to K1 through the
+layout conversions; K4's rss (summed in another order) to the JAX
+package's own bound for that kernel (tests/test_packed_df.py).
 """
 
 import numpy as np
@@ -156,11 +156,6 @@ def _fields_at(dev, side, seed):
                for _ in range(2)]
 
 
-# M = 101 (not a multiple of the 32-cell tile) and M = 4096 (the 8191^2
-# fine level)
-K89_SIDES = pytest.mark.parametrize("side", [201, 8191])
-
-
 @pytest.mark.parametrize("weights", ["five", "nine"])
 @pytest.mark.parametrize("side", [201, 2047, 8191])
 def test_residual_restrict_kernel(dev, side, weights):
@@ -177,23 +172,26 @@ def test_residual_restrict_kernel(dev, side, weights):
         == 0.0
 
 
-@K89_SIDES
+@pytest.mark.parametrize("omega", [0.9, 1.0])
 @pytest.mark.parametrize("symmetric", [True, False])
-def test_rm_sweep_kernel(dev, side, symmetric):
-    """K9 against its plain version, and through the layouts against K1
-    on the same fields."""
+@pytest.mark.parametrize("weights", ["five", "nine", "other"])
+@pytest.mark.parametrize("side", [201, 1023, 4095, 8191])
+def test_rm_sweep_kernel(dev, side, weights, symmetric, omega):
+    """K9 bitwise equal to its plain version, and through the layouts to
+    K1 on the same fields, at M = 101 (ragged: 4-byte copies, edge tiles),
+    512, 2048 and 4096; pad cells exactly 0."""
     m, (u4, b4) = _fields_at(dev, side, side + 1)
-    w33 = poisson_const_w33(side, 1)[0]
+    w33 = _weights(weights, side)
     u_rm, b_rm = to_rm(u4), to_rm(b4)
     K.reset_launch_counts()
-    got = K.fused_gs4_sweep_rm(u_rm, b_rm, w33, m, 0.9, symmetric)
+    got = K.fused_gs4_sweep_rm(u_rm, b_rm, w33, m, omega, symmetric)
     torch.cuda.synchronize()
     assert K.launch_counts()["fused_gs4_sweep_rm"] == 1
-    assert _rel(got, fused_gs4_sweep_rm_plain(u_rm, b_rm, w33, m, 0.9,
-                                              symmetric)) <= 2e-6
-    k1 = K.fused_gs4_sweep_packed(u4, b4, w33, m, 0.9, symmetric)
-    assert _rel(from_rm(got), k1) <= 2e-6
-    assert float(from_rm(got)[3][m, :].abs().max()) == 0.0
+    assert torch.equal(got, fused_gs4_sweep_rm_plain(u_rm, b_rm, w33, m,
+                                                     omega, symmetric))
+    k1 = K.fused_gs4_sweep_packed(u4, b4, w33, m, omega, symmetric)
+    assert torch.equal(from_rm(got), k1)
+    assert _pads_zero(from_rm(got), m)
 
 
 def test_split_vcycle_on_the_card(dev):
@@ -228,6 +226,32 @@ def test_solve_goes_through_the_kernels(dev):
     counts = K.launch_counts()
     assert counts["fused_down_leg_packed"] == 1 + 3 * it
     assert counts["fused_df_residual_rss"] == it + 1
+
+
+# (case, StructuredSolver options, entry point): the options and loops
+# without a kernel of their own, on the card against the CPU
+VARIANTS = [("solve_ir", {}, "solve_ir"),
+            ("fmg_false", {"fmg": False}, "solve_ir_fused"),
+            ("masked", {"smoother": "masked"}, "solve_ir_fused"),
+            ("strided", {"smoother": "strided"}, "solve_ir_fused"),
+            ("chebyshev", {"smoother": "chebyshev"}, "solve_ir_fused")]
+
+
+@pytest.mark.parametrize("case,kw,entry", VARIANTS,
+                         ids=[v[0] for v in VARIANTS])
+def test_variants_on_the_card(dev, case, kw, entry):
+    """solve_ir, fmg=False and the unpacked smoothers at 255^2: on the card
+    the port's CPU solve's V-cycle count and history check points."""
+    side = 255
+    b2 = poisson.rhs(side, device="cpu").reshape(side, side)
+
+    def run(d):
+        s = StructuredSolver(side, device=d, **kw)
+        return getattr(s, entry)(b2.to(d), tolerance=1e-7)
+    res, ref = run(dev), run("cpu")
+    assert res.converged and res.u.is_cuda and res.error <= 1e-7
+    assert res.iterations == ref.iterations
+    assert [i for i, _ in res.history] == [i for i, _ in ref.history]
 
 
 def _rbgs_op(var, side, dev):

@@ -45,6 +45,17 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
                      "parallel.structured_dist", "ops.kernels.halo",
                      "ops.transfer", "ops.kernels.packed_rm", "krylov"):
             assert "amg_tpu_torch." + name in sys.modules, name
+        for name in ("build_stencil_hierarchy", "solve_stencil", "solve_ir",
+                     "build_fine_stencil_f64", "rss", "Stencil2D",
+                     "vcycle_stencil"):
+            assert name in amg_tpu_torch.__all__, name
+            assert callable(getattr(amg_tpu_torch, name)), name
+        from amg_tpu_torch.sparse import stencil
+        for name in ("gs4_sweep", "gs4_color_update", "color_masks",
+                     "jacobi_sweep", "dinv_matvec2", "estimate_lam_max",
+                     "const_lam_max", "chebyshev_smooth", "restrict_fw",
+                     "prolong"):
+            assert callable(getattr(stencil, name)), name
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "amg_tpu"))
         assert not bad, bad

@@ -199,23 +199,51 @@ def test_budget_exhaustion_and_rtol():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"smoother": "chebyshev"}, {"fmg": False}, {"A_fine": object()},
+    {"smoother": "chebyshev"}, {"fmg": False}, {"A_fine": "poisson"},
     {"smoother": "strided"}, {"smoother": "masked"},
 ])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.StructuredSolver(255, device=CPU, **kwargs)
+    """The options the port once refused now build and solve (against JAX:
+    tests/test_torch_solver_*.py); given with config= (a SolverConfig,
+    still unported) each raises naming its ROADMAP item."""
+    side = 255
+    if "A_fine" in kwargs:
+        kwargs = {"A_fine": tpoisson.laplacian_scipy(side)}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        tst.StructuredSolver(side, device=CPU, config=object(), **kwargs)
+    s = tst.StructuredSolver(side, device=CPU, **kwargs)
+    res = s.solve_ir_fused(tpoisson.rhs(side, device=CPU).reshape(side, side),
+                           tolerance=1e-7)
+    assert res.converged and res.error <= 1e-7
 
 
 def test_unported_entry_points_raise():
+    """solve_ir, once refused, runs the host-stepped refine; the
+    prepared-rhs path still refuses a solver without the packed loop, and
+    an unknown precision or smoother raises."""
     s = tst.StructuredSolver(255, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.solve_ir(tpoisson.rhs(255, device=CPU).reshape(255, 255))
+    res = s.solve_ir(tpoisson.rhs(255, device=CPU).reshape(255, 255))
+    assert res.converged and res.error <= 1e-7
+    assert res.iterations == s.cycles_per_refine * (len(res.history) - 1)
     with pytest.raises(ValueError):        # below packed_min_side
         tst.StructuredSolver(127, device=CPU).prepare_b(
             tpoisson.rhs(127, device=CPU).reshape(127, 127))
+    with pytest.raises(ValueError):        # an unpacked smoother
+        tst.StructuredSolver(255, smoother="masked", device=CPU).prepare_b(
+            tpoisson.rhs(255, device=CPU).reshape(255, 255))
     with pytest.raises(ValueError):
         tst.StructuredSolver(255, precision="f16", device=CPU)
+    with pytest.raises(ValueError):
+        tst.StructuredSolver(255, smoother="jacobi", device=CPU)
+
+
+def test_warmup_refine_step():
+    s = tst.StructuredSolver(127, device=CPU)
+    s.warmup(refine_step=True)
+    z = torch.zeros((127, 127), dtype=torch.float64)
+    u, err = s._refine_step(z, z)
+    assert float(err) == 0.0 and float(u.abs().max()) == 0.0
+    assert float(s._residual_rss(z, z)) == 0.0
 
 
 def _default_device_calls():
@@ -227,6 +255,13 @@ def _default_device_calls():
         "build_stencil_hierarchy_planes":
             lambda: tst.build_stencil_hierarchy_planes(
                 torch.zeros(3, 3, 63, 63)),
+        "build_stencil_hierarchy":
+            lambda: tst.build_stencil_hierarchy(31),
+        "build_fine_stencil_f64": lambda: tst.build_fine_stencil_f64(31),
+        "solve_stencil": lambda: tst.solve_stencil(
+            tst.build_stencil_hierarchy(31, device=CPU),
+            torch.zeros(31, 31)),
+        "solve_ir": lambda: tst.solve_ir(31, torch.zeros(31, 31)),
         "poisson.rhs": lambda: tpoisson.rhs(63),
         "varcoef.jump_planes": lambda: tvar.jump_planes(63),
     }
