@@ -33,6 +33,17 @@ device (``halo="rdma"``: the exchange is a CUDA kernel):
     d = DistStructuredSolver(4095, n_devices=4, halo="rdma")
     res = d.solve_ir_fused(poisson.rhs(4095).reshape(4095, 4095), 1e-7)
 
+and the reference-parity ELL pipeline of ``amg_tpu.multigrid`` (the
+reference's Multigrid object, its smoothers and interpolators, a host or
+device Galerkin chain), in plain PyTorch as in JAX:
+
+    A, b = poisson.poisson2d(35)                    # device="cuda"
+    amg = Multigrid(None, SparseGaussSeidel(), A, b, 8, 1e-9, 5, 100)
+    res = amg.solve()                               # 35 V-cycles
+
+The ELL names are those of ``amg_tpu/__init__.py``; its ``enable_x64``
+has no counterpart (torch takes the dtype of each tensor).
+
 Entry points run on the card unless given ``device="cpu"``. The
 hand-written CUDA kernels (``ops/kernels``, sources in ``csrc``) build
 with ``nvcc`` at their first launch, never at import.
@@ -40,10 +51,19 @@ with ``nvcc`` at their first launch, never at import.
 
 from amg_tpu_torch.krylov import solve_pcg_device, solve_pcg_stencil
 from amg_tpu_torch.models import poisson, varcoef
+from amg_tpu_torch.multigrid import (Hierarchy, Level, Multigrid, SolveResult,
+                                     build_hierarchy, galerkin_rap,
+                                     n_H_dofs_from_n_h_dofs, solve, vcycle)
 from amg_tpu_torch.ops.doublefloat import DF32
+from amg_tpu_torch.ops.smoothers import (Jacobi, MulticolorGaussSeidel,
+                                         SmootherResult, SparseGaussSeidel,
+                                         SuccessiveOverRelaxation)
+from amg_tpu_torch.ops.transfer import (BilinearInterpolator2D,
+                                        InterpolatorBase, LinearInterpolator)
 from amg_tpu_torch.parallel.structured_dist import DistStructuredSolver
+from amg_tpu_torch.sparse.ell import ELL
 from amg_tpu_torch.sparse.stencil import Stencil2D
-from amg_tpu_torch.structured import (SolveResult, StencilHierarchy,
+from amg_tpu_torch.structured import (StencilHierarchy,
                                       StructuredSolver,
                                       build_fine_stencil_f64,
                                       build_stencil_hierarchy,
@@ -53,10 +73,15 @@ from amg_tpu_torch.structured import (SolveResult, StencilHierarchy,
                                       vcycle_stencil)
 from amg_tpu_torch.utils.metrics import rss, rss_from_residual
 
-__all__ = ["DF32", "DistStructuredSolver", "SolveResult", "Stencil2D",
-           "StencilHierarchy", "StructuredSolver", "build_fine_stencil_f64",
-           "build_stencil_hierarchy", "build_stencil_hierarchy_device",
-           "build_stencil_hierarchy_planes", "poisson", "rss",
-           "rss_from_residual", "solve_ir", "solve_pcg_device",
-           "solve_pcg_stencil", "solve_stencil", "varcoef", "vcycle_packed",
-           "vcycle_stencil"]
+__all__ = ["BilinearInterpolator2D", "DF32", "DistStructuredSolver", "ELL",
+           "Hierarchy", "InterpolatorBase", "Jacobi", "Level",
+           "LinearInterpolator", "MulticolorGaussSeidel", "Multigrid",
+           "SmootherResult", "SolveResult", "SparseGaussSeidel", "Stencil2D",
+           "StencilHierarchy", "StructuredSolver",
+           "SuccessiveOverRelaxation", "build_fine_stencil_f64",
+           "build_hierarchy", "build_stencil_hierarchy",
+           "build_stencil_hierarchy_device", "build_stencil_hierarchy_planes",
+           "galerkin_rap", "n_H_dofs_from_n_h_dofs", "poisson", "rss",
+           "rss_from_residual", "solve", "solve_ir", "solve_pcg_device",
+           "solve_pcg_stencil", "solve_stencil", "varcoef", "vcycle",
+           "vcycle_packed", "vcycle_stencil"]

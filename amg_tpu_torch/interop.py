@@ -14,8 +14,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from amg_tpu_torch.multigrid import Hierarchy, Level
+from amg_tpu_torch.ops.coarse import pivots_from_jax, setup_coarse_solver
 from amg_tpu_torch.ops.doublefloat import DF32
+from amg_tpu_torch.ops.smoothers import MulticolorGaussSeidel
 from amg_tpu_torch.parallel.structured_dist import DistConfig
+from amg_tpu_torch.sparse.ell import ELL
 from amg_tpu_torch.structured import PACKED_MIN_SIDE, StencilHierarchy
 from amg_tpu_torch.utils.device import resolve_device
 
@@ -38,8 +42,7 @@ def hierarchy_from_numpy(sides, w33s, coarse_lu, coarse_piv, P1s,
     ``torch.linalg.lu_solve`` expects LAPACK's 1-based int32 pivots."""
     device = resolve_device(device)
     lu = torch.tensor(np.asarray(coarse_lu), device=device)
-    piv = torch.tensor(np.asarray(coarse_piv).astype(np.int32) + 1,
-                       device=device)
+    piv = pivots_from_jax(coarse_piv, device)
     P1s = [torch.tensor(np.asarray(P), device=device) for P in P1s]
     if planes is not None:
         planes = [planes_from_numpy(c, device) for c in planes]
@@ -85,3 +88,41 @@ def df32_from_numpy(hi, lo, device=None) -> DF32:
     device = resolve_device(device)
     return DF32(hi=torch.tensor(hi, device=device),
                 lo=torch.tensor(lo, device=device))
+
+
+def ell_from_numpy(data, cols, shape, device=None) -> ELL:
+    """An ELL from a JAX ELL's arrays: ``data`` (n_rows, K) values kept in
+    their dtype, ``cols`` (n_rows, K) int column indices, ``shape``
+    (n_rows, n_cols)."""
+    data, cols = np.asarray(data), np.asarray(cols)
+    shape = tuple(int(s) for s in shape)
+    if data.ndim != 2 or cols.shape != data.shape or data.shape[0] != shape[0]:
+        raise ValueError(f"ELL data {data.shape} and cols {cols.shape} must "
+                         f"be (n_rows, K) with n_rows = shape[0] of {shape}")
+    if not np.issubdtype(cols.dtype, np.integer):
+        raise ValueError(f"ELL cols must be integers, got {cols.dtype}")
+    device = resolve_device(device)
+    return ELL(data=torch.tensor(data, device=device),
+               cols=torch.tensor(cols.astype(np.int64), device=device),
+               shape=shape)
+
+
+def ell_hierarchy_from_numpy(levels, smoother=None, device=None) -> Hierarchy:
+    """An ELL ``Hierarchy`` from a JAX hierarchy's arrays: ``levels`` holds
+    one dict a level, ``{"A": ..., "P": ..., "R": ...}``, each a
+    ``(data, cols, shape)`` triple (P and R None or absent on the
+    coarsest). The smoother's per-level state (default
+    MulticolorGaussSeidel) and the coarse LU are rebuilt, as
+    ``load_hierarchy`` rebuilds them."""
+    if smoother is None:
+        smoother = MulticolorGaussSeidel()
+
+    def ell(spec):
+        return None if spec is None else ell_from_numpy(*spec, device=device)
+
+    out = []
+    for spec in levels:
+        A = ell(spec["A"])
+        out.append(Level(A=A, P=ell(spec.get("P")), R=ell(spec.get("R")),
+                         smoother_state=smoother.setup(A)))
+    return Hierarchy(out, setup_coarse_solver(out[-1].A))

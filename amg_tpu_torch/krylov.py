@@ -20,6 +20,7 @@ import torch
 from amg_tpu_torch.structured import (PACKED_MIN_SIDE, SolveResult,
                                       StencilHierarchy, level_plan,
                                       vcycle_packed, vcycle_stencil)
+from amg_tpu_torch.utils.debugging import check_rss
 from amg_tpu_torch.utils.metrics import rss_from_residual
 
 
@@ -82,12 +83,12 @@ def solve_pcg_stencil(hier: StencilHierarchy, b2: torch.Tensor,
     u, p, rz = u0, z, _dot(r, z)
     tol = _tolerance(tolerance, b2.dtype)
     it = 0
-    error = float(rss_from_residual(r))
+    error = check_rss(float(rss_from_residual(r)))
     history = [(0, error)]
     while it < n_iters and error > tol:
         u, r, z, p, rz = _step(A_neg, precond, u, r, z, p, rz)
         it += 1
-        error = float(rss_from_residual(r))
+        error = check_rss(float(rss_from_residual(r)))
         history.append((it, error))
     return SolveResult(u=u, iterations=it, error=error,
                        converged=error <= tol, history=history)
@@ -113,7 +114,7 @@ def solve_pcg_device(hier: StencilHierarchy, b2: torch.Tensor,
     u, p, rz = torch.zeros_like(b2), z, _dot(r, z)
     err = rss_from_residual(r)
     it = 0
-    while float(err) > tol and it < n_iters:   # the one host sync
+    while check_rss(float(err)) > tol and it < n_iters:  # one host sync
         u, r, z, p, rz = _step(A_neg, precond, u, r, z, p, rz)
         err = rss_from_residual(r)
         it += 1

@@ -1,12 +1,13 @@
 """2-D Poisson model problem: grid spacing, forcing vector and the host
 scipy Laplacian.
 
-PyTorch port of ``amg_tpu/models/poisson.py`` (all but the ELL
-``laplacian``). The forcing is evaluated in numpy exactly as the reference
-does, so ``rhs`` is bitwise equal to ``amg_tpu.models.poisson.rhs`` (same
-grid, same column-major dof order: ``b[j*n + i] = f(x[j+1], x[i+1])``).
-The scipy matrices are the distributed solver's setup input
-(parallel/structured_dist.py), built on the host as in the JAX package.
+PyTorch port of ``amg_tpu/models/poisson.py``. The forcing is evaluated
+in numpy exactly as the reference does, so ``rhs`` is bitwise equal to
+``amg_tpu.models.poisson.rhs`` (same grid, same column-major dof order:
+``b[j*n + i] = f(x[j+1], x[i+1])``); ``rhs_device`` evaluates it on the
+device. The scipy matrices are the host setup input (the distributed
+solver, the ELL hierarchy), built on the host as in the JAX package;
+``laplacian`` is the same matrix as an ELL (K = 5).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from amg_tpu_torch.sparse.ell import ELL
 from amg_tpu_torch.utils.device import resolve_device
 
 # Two boundary points flank each direction (reference: grid.hpp:22).
@@ -57,6 +59,13 @@ def laplacian_scipy(n: int) -> sp.csr_matrix:
                     [-n, -1, 0, 1, n], format="csr")
 
 
+def laplacian(n: int, dtype=torch.float64, device=None) -> ELL:
+    """5-point Laplacian as an ELL matrix (K = 5) on ``device`` (None
+    means ``"cuda"``)."""
+    return ELL.from_scipy(laplacian_scipy(n), dtype=dtype,
+                          device=resolve_device(device))
+
+
 def default_forcing(x, y):
     """Default forcing ``f(x,y) = 5 exp(-10 (x^2 + y^2))`` (grid.hpp:110-112)."""
     return 5.0 * np.exp(-10.0 * (x * x + y * y))
@@ -73,3 +82,33 @@ def rhs(n: int, f=default_forcing, dtype=torch.float64,
     X, Y = np.meshgrid(interior, interior, indexing="ij")  # X varies with j
     b = f(X, Y).reshape(-1)
     return torch.as_tensor(b).to(dtype=dtype, device=device)
+
+
+def default_forcing_torch(x, y):
+    """``default_forcing`` in torch ops, for evaluation on the device."""
+    return 5.0 * torch.exp(-10.0 * (x * x + y * y))
+
+
+def rhs_device(n: int, f=default_forcing_torch, dtype=torch.float64,
+               device=None) -> torch.Tensor:
+    """Forcing vector b evaluated on the device: the grid and traversal of
+    :func:`rhs` (``b[j*n + i] = f(x[j+1], x[i+1])``) from a device
+    grid, so no host array of n^2 values is built or copied. ``f`` takes
+    torch tensors. Values agree with :func:`rhs` to f64 roundoff (the grid
+    is the same, the exp is torch's)."""
+    device = resolve_device(device)
+    num = n + N_BOUNDARY_POINTS
+    # numpy's linspace arithmetic (i * step + start, the end point set), so
+    # the grid is rhs's bit for bit; torch.linspace rounds otherwise
+    domain = torch.arange(num, dtype=dtype, device=device) * (
+        2.0 / (num - 1)) - 1.0
+    domain[-1] = 1.0
+    interior = domain[1:-1]
+    X, Y = torch.meshgrid(interior, interior, indexing="ij")
+    return f(X, Y).reshape(-1).to(dtype)
+
+
+def poisson2d(n: int, f=default_forcing, dtype=torch.float64, device=None):
+    """(A_ell, b) for the n x n interior Poisson problem."""
+    device = resolve_device(device)
+    return laplacian(n, dtype, device), rhs(n, f, dtype, device)

@@ -55,6 +55,7 @@ from amg_tpu_torch.sparse.stencil import FOUR_COLORS, W2D, Stencil2D
 from amg_tpu_torch.structured import (SolveResult, StencilHierarchy,
                                       _not_yet, galerkin_chain,
                                       max_levels_for_side, vcycle_stencil)
+from amg_tpu_torch.utils.debugging import check_rss
 from amg_tpu_torch.utils.device import resolve_device
 
 HALO_MODES = ("overlap", "sweep", "step", "rdma", "packed")
@@ -519,6 +520,8 @@ class DistStructuredSolver:
     ``solve_ir_device`` and ``solve_ir_fused`` the df32 defect correction
     (``cycles_per_refine`` V-cycles in ``dtype`` per refine), a host loop
     with one host sync per refine where JAX runs one device program.
+    ``config`` (a config.MeshConfig) gives ``n_devices``, ``halo`` and
+    ``cycles_per_refine`` where the argument is None.
     """
 
     def __init__(self, side: int, n_levels: int | None = None,
@@ -528,8 +531,16 @@ class DistStructuredSolver:
                  halo: str | None = None, force_var: bool = False,
                  cycles_per_refine: int | None = None, config=None,
                  device=None):
+        # a config.MeshConfig gives n_devices, halo and cycles_per_refine
+        # where the argument is None (JAX's rule,
+        # amg_tpu/parallel/structured_dist.py:849-866)
         if config is not None:
-            raise _not_yet("config=MeshConfig", "Queue 1 item 12, config.py")
+            if n_devices is None:
+                n_devices = config.n_devices
+            if halo is None:
+                halo = getattr(config, "halo", None)
+            if cycles_per_refine is None:
+                cycles_per_refine = getattr(config, "cycles_per_refine", None)
         self.device = resolve_device(device)
         if halo is None:
             halo = "overlap" if self.device.type == "cuda" else "step"
@@ -581,7 +592,7 @@ class DistStructuredSolver:
 
     def rss(self, u_pad, b_pad) -> float:
         r = b_pad - _matvec_const(self.cfg.w33s[0], u_pad, self.side)
-        return float((r * r).sum(dim=(1, 2)).sum())      # psum
+        return check_rss(float((r * r).sum(dim=(1, 2)).sum()))  # psum
 
     def solve(self, b2, tolerance=1e-7, compute_error_every_n_iters=5,
               n_iters=100) -> SolveResult:
@@ -644,7 +655,7 @@ class DistStructuredSolver:
         err, it = float("inf"), 0
         while err > tolerance and it < n_refine:
             r = self._residual(b_df, u)
-            err = float(df_rss(r))
+            err = check_rss(float(df_rss(r)))
             u = df_add_f32(u, self._cycles(r.hi))
             it += 1
         final = df_rss(self._residual(b_df, u))
@@ -678,7 +689,7 @@ class DistStructuredSolver:
         history, it, error = [], 0, float("inf")
         for _ in range(n_refine):
             r = self._residual(b_df, u)
-            error = float(df_rss(r))
+            error = check_rss(float(df_rss(r)))
             history.append((it, error))
             if error <= tolerance:
                 break

@@ -48,8 +48,6 @@ drives the CPU tests.
 
 from __future__ import annotations
 
-import dataclasses
-
 import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
@@ -59,6 +57,7 @@ from amg_tpu_torch.ops.doublefloat import (DF32, df_add_f32, df_residual,
                                            df_residual_const, df_rss,
                                            df_rss_fast, is_pow2_weights)
 from amg_tpu_torch.models import poisson
+from amg_tpu_torch.multigrid import SolveResult
 from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
                                        fused_down_leg_packed, fused_gs4_sweep,
                                        fused_gs4_sweep_packed,
@@ -78,6 +77,7 @@ from amg_tpu_torch.sparse.stencil import (Stencil2D, chebyshev_smooth,
                                           const_lam_max, const_planes,
                                           estimate_lam_max, gs4_sweep,
                                           gs4_sweep_masked)
+from amg_tpu_torch.utils.debugging import check_rss
 from amg_tpu_torch.utils.device import resolve_device
 from amg_tpu_torch.utils.metrics import rss_from_residual
 
@@ -94,17 +94,6 @@ PACKED_MIN_SIDE = 200
 FUSED_PACKED_MIN_SIDE = 1023
 FUSED_MIN_SIDE = 3000
 SPLIT_MIN_SIDE = 8191
-
-
-@dataclasses.dataclass
-class SolveResult:
-    """Outcome of a solve (amg_tpu/multigrid.py SolveResult)."""
-
-    u: torch.Tensor
-    iterations: int
-    error: float
-    converged: bool
-    history: list  # (iteration, rss) at each check
 
 
 class StencilHierarchy(nn.Module):
@@ -603,7 +592,7 @@ def solve_stencil(hier: StencilHierarchy, b2, u0=None,
                                symmetric)
         it += k
         if every and it % every == 0:
-            error = float(rss_from_residual(b2 - S0.matvec2(u)))
+            error = check_rss(float(rss_from_residual(b2 - S0.matvec2(u))))
             history.append((it, error))
     return SolveResult(u=u, iterations=it, error=error,
                        converged=error <= tolerance, history=history)
@@ -639,7 +628,7 @@ def solve_ir(side: int, b2_f64, hier32: StencilHierarchy | None = None,
     error = 100.0
     for _ in range(n_refine):
         r = b64 - A64.matvec2(u)
-        error = float(rss_from_residual(r))
+        error = check_rss(float(rss_from_residual(r)))
         history.append((it, error))
         if error <= tolerance:
             break
@@ -672,10 +661,14 @@ class StructuredSolver:
     ``A_fine`` (a scipy matrix; its hierarchy is built on the host).
     ``device_setup`` None takes JAX's rule: the Poisson hierarchy is
     built on the device unless the smoother is "strided" or ``A_fine`` is
-    given; False builds it on the host. ``config=`` (a SolverConfig) is
-    not ported. The solve loops run on the host with one device-to-host
-    read of the rss per refine. ``device`` None means ``"cuda"``; pass
-    ``device="cpu"`` to run on the CPU.
+    given; False builds it on the host. ``config`` (a
+    config.StructuredConfig) gives ``smoother``, ``pre_sweeps``,
+    ``post_sweeps``, ``omega``, ``symmetric``, ``cycles_per_refine`` and
+    ``packed_min_side`` where the argument is None: an explicit argument
+    first, then the config, then the default (JAX's rule,
+    amg_tpu/structured.py:704-740). The solve loops run on the host with
+    one device-to-host read of the rss per refine. ``device`` None means
+    ``"cuda"``; pass ``device="cpu"`` to run on the CPU.
 
     Loops, as in the JAX package: the packed df32 loop for a constant
     operator with a packed smoother (side >= packed_min_side, >= 2
@@ -686,16 +679,28 @@ class StructuredSolver:
     """
 
     def __init__(self, side: int, n_levels: int | None = None,
-                 smoother: str = "auto", pre_sweeps: int = 1,
-                 post_sweeps: int = 1, omega: float = 1.0,
-                 symmetric: bool = True, cycles_per_refine: int = 3,
+                 smoother: str | None = None, pre_sweeps: int | None = None,
+                 post_sweeps: int | None = None, omega: float | None = None,
+                 symmetric: bool | None = None,
+                 cycles_per_refine: int | None = None,
                  A_fine=None, A_planes=None,
                  device_setup: bool | None = None, fmg: bool = True,
                  precision: str = "df32", config=None,
-                 packed_min_side: int = PACKED_MIN_SIDE, device=None):
-        if config is not None:
-            raise _not_yet("config= (a SolverConfig; pass the options)",
-                           "Queue 1 item 12, config.py")
+                 packed_min_side: int | None = None, device=None):
+        def resolve(name, explicit, default):
+            if explicit is not None:
+                return explicit
+            v = getattr(config, name, None)
+            return default if v is None else v
+
+        smoother = resolve("smoother", smoother, "auto")
+        pre_sweeps = resolve("pre_sweeps", pre_sweeps, 1)
+        post_sweeps = resolve("post_sweeps", post_sweeps, 1)
+        omega = resolve("omega", omega, 1.0)
+        symmetric = resolve("symmetric", symmetric, True)
+        cycles_per_refine = resolve("cycles_per_refine", cycles_per_refine, 3)
+        packed_min_side = resolve("packed_min_side", packed_min_side,
+                                  PACKED_MIN_SIDE)
         if smoother not in SMOOTHERS:
             raise ValueError(f"unknown smoother {smoother!r}; expected one "
                              f"of {SMOOTHERS}")
@@ -862,7 +867,8 @@ class StructuredSolver:
         it = 0
         while err > tol_eff and it < n_refine:
             r = self._df_residual(b_df, u)
-            err = float(df_rss_fast(r))     # the one host sync of the refine
+            # the one host sync of the refine
+            err = check_rss(float(df_rss_fast(r)))
             u = df_add_f32(u, self._cycles(r.hi))
             it += 1
         final = df_rss(self._df_residual(b_df, u))
@@ -883,7 +889,7 @@ class StructuredSolver:
         it = 0
         while err > tol_eff and it < n_refine:
             r = b64 - self.A64.matvec2(u)
-            err = float(rss_from_residual(r))
+            err = check_rss(float(rss_from_residual(r)))
             u = u + self._cycles(r.to(torch.float32)).to(torch.float64)
             it += 1
         final = rss_from_residual(b64 - self.A64.matvec2(u))
@@ -925,7 +931,7 @@ class StructuredSolver:
         it = 0
         while err > tol_eff and it < n_refine:
             r_hi, err_t = self._residual_hi_rss(b4_df, u4)
-            err = float(err_t)      # the one host sync of the refine
+            err = check_rss(float(err_t))  # the refine's one host sync
             if err > tol_eff:
                 e4 = torch.zeros_like(r_hi)
                 for _ in range(self.cycles_per_refine):
@@ -999,7 +1005,7 @@ class StructuredSolver:
         error = float("inf")
         for _ in range(n_refine):
             u_next, err = self._refine_step(u, b64)
-            error = float(err)          # the one host sync of the step
+            error = check_rss(float(err))  # the step's one host sync
             history.append((it, error))
             if error <= tolerance:
                 break

@@ -1,0 +1,59 @@
+"""Numerics debugging helpers: determinism, non-finite values, agreement
+across slabs.
+
+PyTorch port of ``amg_tpu/utils/debugging.py``. JAX's NaN check
+(``jax_debug_nans``) inspects every jitted output; here the flag makes the
+port's solve loops raise ``FloatingPointError`` when the rss they read on
+the host anyway is not finite, so it adds no device sync.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+_NAN_CHECKS = False
+
+
+def enable_nan_checks():
+    """Make the solve loops raise on a non-finite rss."""
+    global _NAN_CHECKS
+    _NAN_CHECKS = True
+
+
+def disable_nan_checks():
+    global _NAN_CHECKS
+    _NAN_CHECKS = False
+
+
+def check_rss(error: float) -> float:
+    """``error`` (an rss already on the host), after raising
+    FloatingPointError if the checks are on and it is not finite."""
+    if _NAN_CHECKS and not math.isfinite(error):
+        raise FloatingPointError(f"non-finite rss {error}")
+    return error
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def assert_reproducible(fn, *args, runs: int = 2):
+    """Assert that ``fn(*args)`` returns the same bits on every run; returns
+    the first result as numpy."""
+    outs = [_host(fn(*args)) for _ in range(runs)]
+    for o in outs[1:]:
+        np.testing.assert_array_equal(outs[0], o)
+    return outs[0]
+
+
+def assert_shards_consistent(arr):
+    """Assert that a value replicated across the slabs of a distributed
+    solver (``DistStructuredSolver``: the slabs are axis 0 of its tensors)
+    holds the same bits on every slab."""
+    vals = _host(arr)
+    for v in vals[1:]:
+        np.testing.assert_array_equal(vals[0], v)

@@ -1,5 +1,9 @@
-"""Where a solve's time goes on the GPU: wall time, device busy time by
-kernel, launch count and idle share, from ``torch.profiler``.
+"""Profiling: where a solve's time goes on the GPU, and the helpers of
+``amg_tpu/utils/profiling.py`` (``Roofline``, ``KernelStats``,
+``time_fn``, ``trace``) with the H100's peaks in place of the TPU's.
+
+``profile_solve`` and the command line report wall time, device busy time
+by kernel, launch count and idle share, from ``torch.profiler``:
 
     python -m amg_tpu_torch.utils.profiling --sides 1023 4095
     python -m amg_tpu_torch.utils.profiling --sides 4095 --var --tol 1e-5 \
@@ -29,10 +33,88 @@ device.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+
+@dataclasses.dataclass(frozen=True)
+class Roofline:
+    """Peak rates for roofline context. Defaults: the NVIDIA H100 80GB
+    HBM3 (SXM) data sheet, 3.35 TB/s of HBM and 67 TFLOP/s of f32 outside
+    the tensor cores, at the full 700 W; override for another card."""
+
+    hbm_gbps: float = 3350.0
+    f32_tflops: float = 67.0
+
+    def stencil_sweep_sol_s(self, n_points: int, n_planes: int = 9,
+                            bytes_per: int = 4, passes: float = 12.0):
+        """Speed-of-light seconds of one fused stencil sweep: ``passes``
+        full-field memory transfers (9 coefficient planes + b + u read, u
+        written)."""
+        return passes * n_points * bytes_per / (self.hbm_gbps * 1e9)
+
+
+@dataclasses.dataclass
+class KernelStats:
+    name: str
+    seconds: float
+    nnz: int
+    sweeps: int = 1
+
+    @property
+    def nnz_per_s(self) -> float:
+        return self.nnz * self.sweeps / self.seconds
+
+    def summary(self, roofline: Roofline | None = None,
+                n_points: int | None = None) -> str:
+        s = (f"{self.name}: {self.seconds * 1e3:.3f} ms, "
+             f"{self.nnz_per_s / 1e9:.2f} Gnnz/s")
+        if roofline and n_points:
+            sol = roofline.stencil_sweep_sol_s(n_points)
+            s += f" ({100 * sol / (self.seconds / self.sweeps):.0f}% of SoL)"
+        return s
+
+
+def _sync(out) -> None:
+    """Wait for the device work behind ``out`` (a tensor or a tuple/list
+    of them) when it is on a CUDA device."""
+    ts = out if isinstance(out, (tuple, list)) else (out,)
+    for t in ts:
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+
+
+def time_fn(fn, *args, iters: int = 10, warmup: int = 2) -> float:
+    """Mean wall seconds of ``fn(*args)``, after ``warmup`` calls; the
+    timed loop ends in ``torch.cuda.synchronize()`` when the result is on
+    the card."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    _sync(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    _sync(out)
+    return (time.perf_counter() - t0) / iters
+
+
+@contextlib.contextmanager
+def trace(path: str | None = None):
+    """A ``torch.profiler`` trace of the block (CPU, and the card when
+    there is one); yields the profiler, and writes a Chrome trace to
+    ``path`` if given."""
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield prof
+    if path is not None:
+        prof.export_chrome_trace(path)
 
 
 def _device_us(evt) -> float:

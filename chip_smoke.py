@@ -32,6 +32,15 @@ check and the kernels' launch counts:
 * host-built hierarchies: the jump operator as a scipy matrix (A_fine) at
   2047^2, and the card against the CPU for solve_stencil (f64, 1023^2,
   1e-9) and the free solve_ir (511^2);
+* the reference-parity ELL pipeline (plain PyTorch, no kernel): the
+  testlib numbers at 35^2 (Multigrid with symmetric GS: 35 V-cycles to
+  rss 7.19199e-11; the standalone GS: 900 sweeps) and the other
+  smoothers under Multigrid; at 1023^2 Multigrid with the bilinear
+  transfer and multicolor GS (host scipy RAP) to 1e-9 and the device RAP
+  hierarchy (build_hierarchy_device, 12 levels) for 20 V-cycles, with the
+  setup split, walls, device busy and launches, and the value rebuild
+  against a fresh build; both at 255^2 on the card against the CPU (the
+  device RAP's levels bitwise);
 * the distributed solve (DistStructuredSolver, 4 row slabs on the card)
   at 4095^2 with halo="rdma" (K7) and "sweep", one V-cycle per halo mode
   at 1023^2 on 8 slabs, and the card against the CPU at 255^2.
@@ -58,11 +67,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from amg_tpu_torch import (DistStructuredSolver, StructuredSolver,
-                           build_stencil_hierarchy,
-                           build_stencil_hierarchy_device, poisson,
+from torch.profiler import ProfilerActivity, profile
+
+from amg_tpu_torch import (ELL, BilinearInterpolator2D, DistStructuredSolver,
+                           Jacobi, MulticolorGaussSeidel, Multigrid,
+                           SparseGaussSeidel, StructuredSolver,
+                           SuccessiveOverRelaxation, build_stencil_hierarchy,
+                           build_stencil_hierarchy_device, poisson, solve,
                            solve_ir, solve_pcg_device, solve_stencil,
                            varcoef, vcycle_packed)
+from amg_tpu_torch.multigrid import (build_hierarchy_device,
+                                     rebuild_hierarchy_values)
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32, is_pow2_weights
 from amg_tpu_torch.ops.kernels import _build
@@ -80,6 +95,7 @@ from amg_tpu_torch.parallel.structured_dist import ghost_rows
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
 from amg_tpu_torch.sparse.stencil import Stencil2D
 from amg_tpu_torch.structured import PACKED_MIN_SIDE, level_plan
+from amg_tpu_torch.utils.coloring import greedy_coloring
 from amg_tpu_torch.utils.profiling import _device_us
 
 TOL = 1e-7
@@ -117,6 +133,21 @@ REFINE_SIDE = 4095       # solve_ir, fmg=False and the unpacked smoothers
 HOST_JUMP_SIDE = 2047    # the jump operator given as a scipy matrix
 STENCIL_SIDE = 1023      # solve_stencil, f64, card against CPU
 FREE_IR_SIDE = 511       # the free solve_ir, card against CPU
+# the ELL pipeline: the reference's testlib problem (BASELINE.md:11-16), the
+# general path at bench.py's headline side (benchmarks/scenarios.py
+# large_multicolor), and the card against the CPU at 255^2
+ELL_TESTLIB_SIDE, ELL_TESTLIB_LEVELS = 35, 8
+ELL_TESTLIB_DOFS = [1225, 612, 305, 152, 75, 37, 18, 8]
+ELL_TESTLIB_CYCLES, ELL_TESTLIB_RSS, ELL_TESTLIB_SWEEPS = 35, 7.19199e-11, 900
+ELL_SIDE = 1023
+ELL_BILINEAR_LEVELS = 9           # 1023 -> 511 -> ... -> 3
+ELL_DEVICE_LEVELS = 12            # the flattened structure, down to 510 dofs
+ELL_DEVICE_COARSEST = 510
+ELL_DEVICE_CYCLES, ELL_DEVICE_EVERY = 20, 5
+ELL_CHECK_SIDE, ELL_CHECK_BILINEAR, ELL_CHECK_DEVICE = 255, 7, 10
+ELL_TOL = 1e-9
+ELL_CARD_CPU_REL = 1e-10          # rss history, card against the CPU
+ELL_REBUILD_REL = 1e-13           # rebuild against a fresh build
 PCG_TOL = 1e-5
 PCG_TPU_ITERS = 5                      # BENCH_r05.json, TPU v5e, both sides
 # max|u - u_df32| / max|u_df32| of the f32 PCG at tol 1e-5 (H100 readings
@@ -1228,6 +1259,271 @@ def k7_levels(cfg) -> int:
     return sum(1 for B in cfg.blocks if B >= G) if cfg.n_devices > 1 else 0
 
 
+def ell_rss(u: torch.Tensor, b: torch.Tensor, side: int) -> float:
+    """Independent f64 rss of a flat ELL solve of the Poisson problem."""
+    return f64_rss(u.reshape(side, side).double(),
+                   b.reshape(side, side).double(), side)
+
+
+def traced(fn):
+    """(result, device busy s, GPU launches) of one run under
+    torch.profiler."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    gpu = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (out, sum(_device_us(e) for e in gpu) * 1e-6,
+            sum(e.count for e in gpu))
+
+
+def residual_rounding(A: ELL, u: torch.Tensor, b: torch.Tensor) -> float:
+    """gamma_{K+1} || |b| + |A| |u| ||_2: the bound on the 2-norm of the
+    rounding error of one evaluation of b - A u (K entries a row)."""
+    k1 = A.row_width + 1
+    eps = torch.finfo(A.dtype).eps / 2
+    absAu = torch.sum(A.data.abs() * u.abs()[A.cols], dim=1)
+    return k1 * eps / (1 - k1 * eps) * float(torch.linalg.norm(b.abs()
+                                                               + absAu))
+
+
+def history_close(h1: list, h2: list, g: float) -> tuple[bool, float]:
+    """Same check points, and each rss within ELL_CARD_CPU_REL relative or
+    within what one rounding of the residual moves it by, 2 sqrt(rss) g:
+    near convergence the residual is mostly rounding, and one ulp of
+    difference in an iterate (another summation order, another LU) moves
+    the rss by more than 1e-10 relative. Returns (ok, the largest
+    relative difference)."""
+    rel = max((abs(e1 - e2) / e2 for (_, e1), (_, e2) in zip(h1, h2)),
+              default=0.0)
+    ok = [i for i, _ in h1] == [i for i, _ in h2] and all(
+        abs(e1 - e2) <= ELL_CARD_CPU_REL * e2 + 2 * e2 ** 0.5 * g
+        for (_, e1), (_, e2) in zip(h1, h2))
+    return ok, rel
+
+
+def ell_testlib(dev):
+    """The reference's testlib numbers through Multigrid and the
+    standalone symmetric GS, and each other smoother under Multigrid."""
+    n = ELL_TESTLIB_SIDE
+    A, b = poisson.poisson2d(n, device=dev)
+    amg = Multigrid(None, SparseGaussSeidel(), A, b, ELL_TESTLIB_LEVELS,
+                    ELL_TOL, 5, 100, device=dev)
+    dofs = [amg.get_n_dofs(l) for l in range(ELL_TESTLIB_LEVELS)]
+    res = amg.solve(verbose=False)
+    ind = ell_rss(res.u, b, n)
+    print(f"ell testlib {n}^2 Multigrid(SparseGaussSeidel): dofs {dofs}, "
+          f"V-cycles {res.iterations}, rss {res.error:.6e}, independent f64 "
+          f"rss {ind:.6e}, history {res.history}")
+    require(dofs == ELL_TESTLIB_DOFS, "testlib dof sequence 1225 -> ... -> 8")
+    require(res.converged and res.iterations == ELL_TESTLIB_CYCLES,
+            f"testlib: {ELL_TESTLIB_CYCLES} V-cycles")
+    require(abs(res.error / ELL_TESTLIB_RSS - 1) <= 1e-3
+            and abs(ind / res.error - 1) <= 1e-6,
+            f"testlib rss {ELL_TESTLIB_RSS} within 1e-3")
+    gs = SparseGaussSeidel(ELL_TOL, 100, 1000).smooth(A, torch.zeros_like(b),
+                                                      b)
+    ind_gs = ell_rss(gs.u, b, n)
+    diff = float(torch.linalg.norm(res.u - gs.u))
+    scale = min(float(torch.linalg.norm(res.u)),
+                float(torch.linalg.norm(gs.u)))
+    print(f"ell testlib {n}^2 standalone SparseGaussSeidel: sweeps "
+          f"{gs.iterations}, rss {gs.error:.6e}, independent f64 rss "
+          f"{ind_gs:.6e}; |u_amg - u_gs| / |u| {diff / scale:.3e}")
+    require(gs.converged and gs.iterations == ELL_TESTLIB_SWEEPS
+            and gs.error < ELL_TOL and ind_gs < ELL_TOL,
+            f"testlib: {ELL_TESTLIB_SWEEPS} GS sweeps to rss < 1e-9")
+    require(diff <= 1e-6 * scale, "AMG and GS solutions within 1e-6")
+    for sm in (Jacobi(omega=0.9, n_iters=2),
+               SuccessiveOverRelaxation(omega=1.5), MulticolorGaussSeidel()):
+        r = Multigrid(None, sm, A, b, ELL_TESTLIB_LEVELS, ELL_TOL, 5, 100,
+                      device=dev).solve(verbose=False)
+        ind = ell_rss(r.u, b, n)
+        print(f"ell testlib {n}^2 Multigrid({type(sm).__name__}): V-cycles "
+              f"{r.iterations}, rss {r.error:.6e}, independent f64 rss "
+              f"{ind:.6e}")
+        require(r.converged and ind <= ELL_TOL,
+                f"Multigrid({type(sm).__name__}) converged")
+
+
+def ell_bilinear(dev, A, b, side: int, levels: int, time_it: bool):
+    """(a): Multigrid with the bilinear transfer and multicolor GS, the
+    Galerkin chain in host scipy. Returns the result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amg = Multigrid(BilinearInterpolator2D(side), MulticolorGaussSeidel(), A,
+                    b, levels, ELL_TOL, 1, 100, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    res = amg.solve(verbose=False)
+    if not time_it:
+        return res
+    h = amg.hierarchy
+    ind = ell_rss(res.u, b, side)
+    split = {k: round(v, 4) for k, v in h.setup_seconds.items()}
+    t0 = time.perf_counter()
+    rows = 0
+    for lev in h.levels:
+        greedy_coloring(lev.A.cols.cpu().numpy(), lev.A.data.cpu().numpy(),
+                        lev.A.n_rows)
+        rows += lev.A.n_rows
+    t_color = time.perf_counter() - t0
+    print(f"ell (a) bilinear {side}^2 {levels} levels "
+          f"{[l.A.n_rows for l in h.levels]}: setup {setup:.3f} s "
+          f"(rap {split['rap']}, upload {split['upload']}, smoother "
+          f"coloring + panels {split['smoother']}, lu {split['lu']}), "
+          f"greedy_coloring alone {t_color:.3f} s over {rows} rows")
+    print(f"ell (a) bilinear {side}^2: V-cycles {res.iterations}, rss "
+          f"{res.error:.6e}, independent f64 rss {ind:.6e}")
+    require(res.converged and ind <= ELL_TOL,
+            f"(a) bilinear {side}^2 converged to {ELL_TOL}")
+
+    def again():
+        return solve(h, amg.smoother, amg.b, tolerance=ELL_TOL,
+                     compute_error_every_n_iters=1, n_iters=100)
+
+    med, walls = wall_median(again, 3)
+    r, busy, n_gpu = traced(again)
+    print(f"ell (a) bilinear {side}^2 solve wall: median of 3 {med:.6f} s "
+          f"(all {walls}), {med / r.iterations * 1e3:.3f} ms per V-cycle, "
+          f"device busy {busy:.6f} s, idle share {1 - busy / med:.4f}, GPU "
+          f"launches {n_gpu} ({n_gpu / r.iterations:.1f} per V-cycle)")
+    require(r.iterations == res.iterations, "(a) repeat: same V-cycles")
+    return res
+
+
+def ell_device(dev, A, b, levels: int, time_it: bool):
+    """(b): the device Galerkin chain over the flattened LinearInterpolator
+    structure, multicolor GS for a fixed count of V-cycles. Returns
+    (result, hierarchy, plans)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hier, plans = build_hierarchy_device(A, levels, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    sm = MulticolorGaussSeidel()
+
+    def run():   # tolerance 0: a fixed count of V-cycles
+        return solve(hier, sm, b, tolerance=0.0,
+                     compute_error_every_n_iters=ELL_DEVICE_EVERY,
+                     n_iters=ELL_DEVICE_CYCLES)
+
+    res = run()
+    if not time_it:
+        return res, hier, plans
+    side = ELL_SIDE
+    split = {k: round(v, 4) for k, v in hier.setup_seconds.items()}
+    ind = ell_rss(res.u, b, side)
+    print(f"ell (b) device RAP {side}^2 {levels} levels: dofs "
+          f"{[l.A.n_rows for l in hier.levels]}, K "
+          f"{[l.A.row_width for l in hier.levels]}, setup {setup:.3f} s "
+          f"(rap {split['rap']}, upload {split['upload']}, smoother "
+          f"coloring + panels {split['smoother']}, lu {split['lu']})")
+    print(f"ell (b) device RAP {side}^2: {res.iterations} V-cycles, rss "
+          f"history {res.history}, independent f64 rss {ind:.6e} (the "
+          f"flattened transfer coarsens one index only: no convergence "
+          f"expected)")
+    require(hier.levels[-1].A.n_rows == ELL_DEVICE_COARSEST,
+            f"(b) coarsest level {ELL_DEVICE_COARSEST} dofs")
+    require(res.iterations == ELL_DEVICE_CYCLES
+            and len(res.history) == ELL_DEVICE_CYCLES // ELL_DEVICE_EVERY
+            and bool(torch.isfinite(res.u).all())
+            and abs(ind - res.error) <= 1e-6 * res.error + 1e-12,
+            "(b) fixed V-cycles, finite u, rss checked independently")
+    med, walls = wall_median(run, 3)
+    _, busy, n_gpu = traced(run)
+    print(f"ell (b) device RAP {side}^2 solve wall: median of 3 {med:.6f} s "
+          f"(all {walls}), {med / ELL_DEVICE_CYCLES * 1e3:.3f} ms per "
+          f"V-cycle, device busy {busy:.6f} s, idle share "
+          f"{1 - busy / med:.4f}, GPU launches {n_gpu}")
+    return res, hier, plans
+
+
+def ell_rebuild(dev, A, hier, plans, levels: int):
+    """rebuild_hierarchy_values with the fine values scaled by 2.5: equal
+    to a fresh device build of the scaled operator, bitwise run to run."""
+    scaled = A.data * 2.5
+
+    def rebuild():
+        return rebuild_hierarchy_values(hier, plans, scaled)
+
+    rebuild()
+    med, _ = wall_median(rebuild, 3)
+    h1, h2 = rebuild(), rebuild()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh, _ = build_hierarchy_device(
+        ELL(data=scaled, cols=A.cols, shape=A.shape), levels, device=dev)
+    torch.cuda.synchronize()
+    t_fresh = time.perf_counter() - t0
+    rel = max(float((l1.A.data - lf.A.data).abs().max()
+                    / lf.A.data.abs().max())
+              for l1, lf in zip(h1.levels, fresh.levels))
+    bitwise = all(torch.equal(l1.A.data, l2.A.data)
+                  and all(torch.equal(x, y) for x, y in zip(
+                      l1.smoother_state.data + l1.smoother_state.diag,
+                      l2.smoother_state.data + l2.smoother_state.diag))
+                  for l1, l2 in zip(h1.levels, h2.levels))
+    bitwise = bitwise and torch.equal(h1.coarse.lu, h2.coarse.lu)
+    print(f"ell rebuild_hierarchy_values {ELL_SIDE}^2 x 2.5: median of 3 "
+          f"{med:.6f} s against a fresh build_hierarchy_device "
+          f"{t_fresh:.3f} s; max |rebuild - fresh| / max|fresh| {rel:.3e}, "
+          f"bitwise run to run {bitwise}")
+    require(rel <= ELL_REBUILD_REL, "rebuild equals a fresh build")
+    require(bitwise, "rebuild bitwise equal run to run")
+
+
+def ell_solves(dev, launches: dict):
+    """The reference-parity ELL pipeline through the user entry points,
+    plain PyTorch (no kernel of K1-K9): the testlib numbers at 35^2; at
+    1023^2 (a) Multigrid with the bilinear transfer (host scipy RAP) to
+    1e-9 and (b) the device RAP hierarchy for a fixed 20 V-cycles, and the
+    value rebuild; at 255^2 (a) and (b) on the card against the CPU."""
+
+    def body():
+        ell_testlib(dev)
+        A, b = poisson.poisson2d(ELL_SIDE, device=dev)
+        ell_bilinear(dev, A, b, ELL_SIDE, ELL_BILINEAR_LEVELS, True)
+        _, hier, plans = ell_device(dev, A, b, ELL_DEVICE_LEVELS, True)
+        ell_rebuild(dev, A, hier, plans, ELL_DEVICE_LEVELS)
+        del hier, plans
+        n = ELL_CHECK_SIDE
+        runs, levels = {}, {}
+        for d in (dev, "cpu"):
+            A, b = poisson.poisson2d(n, device=d)
+            res_b, hier, _ = ell_device(d, A, b, ELL_CHECK_DEVICE, False)
+            runs[str(d)] = (
+                ell_bilinear(d, A, b, n, ELL_CHECK_BILINEAR, False), res_b)
+            levels[str(d)] = [lev.A.data.cpu() for lev in hier.levels]
+        # the device RAP sums each coarse slot in a fixed order
+        same = all(torch.equal(x, y) for x, y in zip(levels[str(dev)],
+                                                      levels["cpu"]))
+        print(f"ell gpu vs cpu device RAP {n}^2: {len(levels['cpu'])} "
+              f"levels bitwise equal {same}")
+        require(same, "device RAP levels bitwise equal on the card and CPU")
+        for name, rg, rc in zip(("(a) bilinear", "(b) device RAP"),
+                                runs[str(dev)], runs["cpu"]):
+            g = residual_rounding(A, rc.u, b)
+            ok, rel = history_close(rg.history, rc.history, g)
+            du = float((rg.u.cpu() - rc.u).abs().max())
+            bnd = solution_bound(rg.error, rc.error, n)
+            print(f"ell gpu vs cpu {name} {n}^2: V-cycles {rg.iterations} "
+                  f"/ {rc.iterations}, rss history {rg.history} / "
+                  f"{rc.history}, largest relative difference {rel:.3e}, "
+                  f"residual rounding {g:.3e}, max|du| {du:.3e} (bound "
+                  f"{bnd:.3e})")
+            require(rg.iterations == rc.iterations and ok,
+                    f"ell {name} {n}^2: the card's counts and rss history "
+                    f"those of the CPU (within {ELL_CARD_CPU_REL} or the "
+                    f"residual's rounding)")
+            require(du <= bnd, f"ell {name} {n}^2: card and CPU solutions "
+                    f"within the residual bound")
+
+    _, c = drive(body, launches)
+    require(sum(c.values()) == 0, f"the ELL path launches no kernel: {c}")
+
+
 def dist_solves(dev, launches: dict):
     """Phase 6: the distributed solve through DistStructuredSolver on
     DIST_SLABS row slabs of the card. At 4095^2, solve_ir_fused with
@@ -1363,7 +1659,8 @@ def main() -> int:
     # launch counts set to 0 just before it and read just after
     launches = {k: 0 for k in KERNEL_INFO}
     for phase in (const_solves, split_solve, pcg_solves, var_solves,
-                  refine_solves, smoother_solves, host_solves, dist_solves):
+                  refine_solves, smoother_solves, host_solves, ell_solves,
+                  dist_solves):
         t0 = time.perf_counter()
         phase(dev, launches)
         torch.cuda.synchronize()

@@ -29,6 +29,7 @@ from amg_tpu.parallel import structured_dist as J
 from amg_tpu.sparse import stencil as jstencil
 
 from amg_tpu_torch import structured as tst
+from amg_tpu_torch.config import MeshConfig
 from amg_tpu_torch.interop import dist_hierarchy_from_numpy
 from amg_tpu_torch.models import poisson as tpoisson
 from amg_tpu_torch.ops import transfer as ttransfer
@@ -231,10 +232,14 @@ def test_unported_options_raise():
     def make(**kw):
         return T.DistStructuredSolver(31, n_devices=2, device=CPU, **kw)
 
-    for kw in ({"halo": "packed"}, {"force_var": True},
-               {"config": object()}):
+    for kw in ({"halo": "packed"}, {"force_var": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make(**kw)
+    # config=, once refused, gives what the arguments leave None
+    d = make(config=MeshConfig(n_devices=4, halo="sweep",
+                               cycles_per_refine=3))
+    assert (d.cfg.n_devices, d.cfg.halo, d.cycles_per_refine) == \
+        (2, "sweep", 3)
     A = tpoisson.laplacian_scipy(31) @ sp.diags(np.linspace(1.0, 2.0,
                                                             31 * 31))
     with pytest.raises(NotImplementedError, match="variable-coefficient"):

@@ -43,13 +43,34 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         import chip_smoke
         for name in ("models.varcoef", "ops.kernels.rbgs", "utils.device",
                      "parallel.structured_dist", "ops.kernels.halo",
-                     "ops.transfer", "ops.kernels.packed_rm", "krylov"):
+                     "ops.transfer", "ops.kernels.packed_rm", "krylov",
+                     "sparse.ell", "utils.coloring", "ops.coarse",
+                     "ops.smoothers", "ops.ell_rap", "multigrid", "config",
+                     "utils.checkpoint", "utils.profiling",
+                     "utils.debugging"):
             assert "amg_tpu_torch." + name in sys.modules, name
         for name in ("build_stencil_hierarchy", "solve_stencil", "solve_ir",
                      "build_fine_stencil_f64", "rss", "Stencil2D",
-                     "vcycle_stencil"):
+                     "vcycle_stencil", "ELL", "Hierarchy", "Level",
+                     "Multigrid", "build_hierarchy", "galerkin_rap",
+                     "n_H_dofs_from_n_h_dofs", "solve", "vcycle", "Jacobi",
+                     "MulticolorGaussSeidel", "SmootherResult",
+                     "SparseGaussSeidel", "SuccessiveOverRelaxation",
+                     "BilinearInterpolator2D", "InterpolatorBase",
+                     "LinearInterpolator", "SolveResult"):
             assert name in amg_tpu_torch.__all__, name
             assert callable(getattr(amg_tpu_torch, name)), name
+        from amg_tpu_torch import structured
+        assert structured.SolveResult is amg_tpu_torch.SolveResult
+        from amg_tpu_torch.models import poisson
+        for name in ("laplacian", "rhs_device", "poisson2d"):
+            assert callable(getattr(poisson, name)), name
+        from amg_tpu_torch import interop
+        for name in ("ell_from_numpy", "ell_hierarchy_from_numpy"):
+            assert callable(getattr(interop, name)), name
+        from amg_tpu_torch.utils import profiling
+        for name in ("Roofline", "KernelStats", "time_fn", "trace"):
+            assert callable(getattr(profiling, name)), name
         from amg_tpu_torch.sparse import stencil
         for name in ("gs4_sweep", "gs4_color_update", "color_masks",
                      "jacobi_sweep", "dinv_matvec2", "estimate_lam_max",

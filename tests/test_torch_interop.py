@@ -15,7 +15,11 @@ import pytest
 import torch
 
 from amg_tpu_torch import interop
+from amg_tpu_torch.models import poisson
+from amg_tpu_torch.multigrid import Hierarchy, _map_tensors
+from amg_tpu_torch.ops.transfer import LinearInterpolator
 from amg_tpu_torch.parallel.structured_dist import DistConfig
+from amg_tpu_torch.sparse.ell import ELL
 from amg_tpu_torch.structured import build_stencil_hierarchy_device
 
 torch.set_num_threads(1)
@@ -54,6 +58,19 @@ def _cfg():
         w33s=(((0.0, -1.0, 0.0), (-1.0, 4.0, -1.0), (0.0, -1.0, 0.0)),)))
 
 
+def _ell_arrays(M):
+    E = ELL.from_scipy(M, device="cpu")
+    return E.data.numpy(), E.cols.numpy().astype(np.int32), E.shape
+
+
+def _ell_levels():
+    """A two-level ELL hierarchy's arrays, int32 columns as JAX keeps them."""
+    A = poisson.laplacian_scipy(5)
+    P, R = LinearInterpolator().make_operators_scipy(25, 12)
+    return [{"A": _ell_arrays(A), "P": _ell_arrays(P), "R": _ell_arrays(R)},
+            {"A": _ell_arrays((R @ A @ P).tocsr())}]
+
+
 CALLS = {
     "hierarchy_from_numpy":
         lambda **kw: interop.hierarchy_from_numpy(*_hier_arrays(), **kw),
@@ -63,12 +80,22 @@ CALLS = {
     "planes_from_numpy": lambda **kw: interop.planes_from_numpy(_planes(),
                                                                 **kw),
     "df32_from_numpy": lambda **kw: interop.df32_from_numpy(*_df(), **kw),
+    "ell_from_numpy": lambda **kw: interop.ell_from_numpy(
+        *_ell_arrays(poisson.laplacian_scipy(4)), **kw),
+    "ell_hierarchy_from_numpy":
+        lambda **kw: interop.ell_hierarchy_from_numpy(_ell_levels(), **kw),
 }
 
 
 def _tensors(out):
     if isinstance(out, torch.Tensor):
         return [out]
+    if isinstance(out, ELL):
+        return [out.data, out.cols]
+    if isinstance(out, Hierarchy):
+        ts = []
+        _map_tensors((out.levels, out.coarse), ts.append)
+        return ts
     if isinstance(out, torch.nn.Module):
         return list(out.buffers())
     if isinstance(out, tuple) and len(out) == 2 and isinstance(
@@ -95,3 +122,19 @@ def test_bad_input_raises_before_the_device(no_cuda):
     hi, lo = _df()
     with pytest.raises(ValueError):
         interop.df32_from_numpy(hi.astype(np.float64), lo)
+    data, cols, shape = _ell_arrays(poisson.laplacian_scipy(4))
+    with pytest.raises(ValueError):
+        interop.ell_from_numpy(data, cols[:, :-1], shape)
+    with pytest.raises(ValueError):
+        interop.ell_from_numpy(data, cols.astype(np.float64), shape)
+
+
+def test_ell_hierarchy_keeps_the_arrays():
+    levels = _ell_levels()
+    h = interop.ell_hierarchy_from_numpy(levels, device="cpu")
+    assert h.n_levels == 2 and h.levels[1].P is None
+    for lev, spec in zip(h.levels, levels):
+        data, cols, shape = spec["A"]
+        assert lev.A.shape == shape and lev.A.cols.dtype == torch.int64
+        np.testing.assert_array_equal(lev.A.data.numpy(), data)
+        np.testing.assert_array_equal(lev.A.cols.numpy(), cols)

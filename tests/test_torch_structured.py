@@ -19,6 +19,7 @@ from amg_tpu import structured as jst
 from amg_tpu.models import poisson as jpoisson
 
 from amg_tpu_torch import structured as tst
+from amg_tpu_torch.config import StructuredConfig
 from amg_tpu_torch.interop import df32_from_numpy, hierarchy_from_numpy
 from amg_tpu_torch.models import poisson as tpoisson
 from amg_tpu_torch.ops.kernels import _build
@@ -204,13 +205,15 @@ def test_budget_exhaustion_and_rtol():
 ])
 def test_unported_options_raise(kwargs):
     """The options the port once refused now build and solve (against JAX:
-    tests/test_torch_solver_*.py); given with config= (a SolverConfig,
-    still unported) each raises naming its ROADMAP item."""
+    tests/test_torch_solver_*.py); config=, once refused too, gives what
+    the arguments leave None and never overrides an explicit option."""
     side = 255
     if "A_fine" in kwargs:
         kwargs = {"A_fine": tpoisson.laplacian_scipy(side)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tst.StructuredSolver(side, device=CPU, config=object(), **kwargs)
+    c = tst.StructuredSolver(side, device=CPU, config=StructuredConfig(
+        smoother="packed", cycles_per_refine=2), **kwargs)
+    assert c.cycles_per_refine == 2
+    assert c.smoother == kwargs.get("smoother", "packed")
     s = tst.StructuredSolver(side, device=CPU, **kwargs)
     res = s.solve_ir_fused(tpoisson.rhs(side, device=CPU).reshape(side, side),
                            tolerance=1e-7)
