@@ -18,7 +18,9 @@ from amg_tpu_torch.multigrid import Hierarchy, Level
 from amg_tpu_torch.ops.coarse import pivots_from_jax, setup_coarse_solver
 from amg_tpu_torch.ops.doublefloat import DF32
 from amg_tpu_torch.ops.smoothers import MulticolorGaussSeidel
+from amg_tpu_torch.parallel.ell_dist import ShardedOp
 from amg_tpu_torch.parallel.structured_dist import DistConfig
+from amg_tpu_torch.sparse.stencil import color_masks
 from amg_tpu_torch.sparse.ell import ELL
 from amg_tpu_torch.structured import PACKED_MIN_SIDE, StencilHierarchy
 from amg_tpu_torch.utils.device import resolve_device
@@ -55,19 +57,61 @@ def hierarchy_from_numpy(sides, w33s, coarse_lu, coarse_piv, P1s,
 
 
 def dist_hierarchy_from_numpy(cfg_fields: dict, sub_sides, sub_w33s,
-                              coarse_lu, coarse_piv, sub_P1s, device=None):
+                              coarse_lu, coarse_piv, sub_P1s, device=None,
+                              sub_planes=None):
     """The port's ``(DistConfig, sub-hierarchy)`` from a JAX distributed
     hierarchy: ``cfg_fields`` the JAX ``DistConfig``'s fields as a dict
     (``dataclasses.asdict``; its TPU interpret-mode setting is dropped),
     and the replicated sub-hierarchy's sides, constant weights, LU factors
-    and dense transfer matrices as numpy."""
+    and dense transfer matrices as numpy; ``sub_planes``, one (3,3,n,n)
+    array a level, where its levels are variable (they then get JAX's
+    stored color masks too). The sharded levels' planes come through
+    ``dist_planes_from_numpy``."""
     names = {f.name for f in dataclasses.fields(DistConfig)}
     fields = {k: v for k, v in cfg_fields.items() if k in names}
     for k in ("sides", "blocks", "w33s"):
         fields[k] = tuple(fields[k])
     cfg = DistConfig(**fields)
+    masks = None
+    if sub_planes is not None:
+        dtype = torch.as_tensor(np.array(coarse_lu)).dtype
+        masks = [color_masks(s, dtype, resolve_device(device))
+                 for s in sub_sides]
     return cfg, hierarchy_from_numpy(sub_sides, sub_w33s, coarse_lu,
-                                     coarse_piv, sub_P1s, device=device)
+                                     coarse_piv, sub_P1s, device=device,
+                                     planes=sub_planes, masks=masks)
+
+
+def dist_planes_from_numpy(c, n_devices: int, device=None) -> torch.Tensor:
+    """A sharded variable level's planes from JAX's (3, 3, n_pad, n) array
+    (``build_dist_hierarchy``'s coefficients, identity padding rows) as
+    the port's (3, 3, D, B, n) slabs, dtype kept."""
+    c = np.asarray(c)
+    if c.ndim != 4 or c.shape[:2] != (3, 3) or c.shape[2] % n_devices:
+        raise ValueError(f"planes must be (3, 3, n_pad, n) with n_pad a "
+                         f"multiple of {n_devices}, got {c.shape}")
+    return torch.tensor(c.reshape(3, 3, n_devices, -1, c.shape[3]),
+                        device=resolve_device(device))
+
+
+def sharded_op_from_numpy(data, cols, B_row: int, B_x: int, W: int,
+                          device=None) -> ShardedOp:
+    """A ShardedOp from a JAX ``ShardedOp``'s arrays: ``data`` and
+    ``cols`` (D * B_row, K) in window coordinates (values kept in their
+    dtype), as the port's (D, B_row, K) slabs."""
+    data, cols = np.asarray(data), np.asarray(cols)
+    if data.ndim != 2 or cols.shape != data.shape or data.shape[0] % B_row:
+        raise ValueError(f"ShardedOp data {data.shape} and cols "
+                         f"{cols.shape} must be (D * {B_row}, K)")
+    if cols.min() < 0 or cols.max() >= B_x + 2 * W:
+        raise ValueError(f"ShardedOp cols must lie in [0, {B_x + 2 * W})")
+    device = resolve_device(device)
+    D, K = data.shape[0] // B_row, data.shape[1]
+    return ShardedOp(
+        data=torch.tensor(data.reshape(D, B_row, K), device=device),
+        cols=torch.tensor(cols.astype(np.int64).reshape(D, B_row, K),
+                          device=device),
+        B_row=int(B_row), B_x=int(B_x), W=int(W))
 
 
 def planes_from_numpy(c, device=None) -> torch.Tensor:

@@ -46,14 +46,16 @@ def _preconditioner(hier: StencilHierarchy, fused: bool = False,
     return lambda r: -cycle(hier, torch.zeros_like(r), r)
 
 
-def _step(A_neg, precond, u, r, z, p, rz):
-    """One PCG iteration; ``rz`` is (r, z) carried from the last one."""
+def _step(A_neg, precond, u, r, z, p, rz, dot=_dot):
+    """One PCG iteration; ``rz`` is (r, z) carried from the last one.
+    ``dot`` is the inner product (the distributed solvers' sums over the
+    slabs and processes)."""
     Ap = A_neg(p)
-    alpha = rz / _dot(p, Ap)
+    alpha = rz / dot(p, Ap)
     u = u + alpha * p
     r = r - alpha * Ap
     z = precond(r)
-    rz_new = _dot(r, z)
+    rz_new = dot(r, z)
     p = z + (rz_new / rz) * p
     return u, r, z, p, rz_new
 

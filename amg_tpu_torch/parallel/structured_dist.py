@@ -1,23 +1,26 @@
 """Distributed structured multigrid: row-partitioned V-cycles with ghost-
 strip exchanges and coarse-level agglomeration.
 
-PyTorch port of ``amg_tpu/parallel/structured_dist.py``, constant-
-coefficient levels. The 2-D grid is cut into D contiguous row slabs, the
-mesh. The JAX package runs one program per device under ``shard_map``; here
-the mesh is a leading slab axis: the padded (n_pad, n) field is viewed as
-(D, B, n) and every per-slab function runs on all D slabs in one set of
-batched tensor ops, so a level costs the same launches for any D. The
-collectives become tensor ops on that axis:
+PyTorch port of ``amg_tpu/parallel/structured_dist.py``: constant- and
+variable-coefficient sharded levels. The 2-D grid is cut into D contiguous
+row slabs, the mesh. The JAX package runs one program per device under
+``shard_map``; here the mesh is a leading slab axis: the padded (n_pad, n)
+field is viewed as (D, B, n) and every per-slab function runs on all D
+slabs in one set of batched tensor ops, so a level costs the same launches
+for any D. The collectives become tensor ops on that axis:
 
 * ``lax.axis_index`` is a (D, 1, 1) row offset, ``slab * B``;
 * ``lax.ppermute`` by h is a shift by h along the slab axis, zero-filled;
 * ``all_gather(tiled=True)`` is a reshape, ``psum`` a sum.
 
-All D slabs live on one device (``device``): on the card a mesh of slabs,
-whose ``halo="rdma"`` exchange is the CUDA kernel K7 (ops/kernels/halo.py),
-a put that addresses every slab from one base pointer and the slab stride
-(slabs on peer cards will need per-slab pointers: ROADMAP Queue 1 item
-13).
+In one process all D slabs live on one device (``device``): on the card a
+mesh of slabs, whose ``halo="rdma"`` exchange is the CUDA kernel K7
+(ops/kernels/halo.py), a put that addresses every slab from one base
+pointer and the slab stride. Under a process group (parallel/launch.py)
+each process holds D/P consecutive slabs and the exchanges, sums and
+gathers go through launch.py's collectives; K7 is single-process only
+(slabs in other processes need its pointer-table form: ROADMAP Queue 1
+item 13).
 
 Layout invariants (``build_dist_hierarchy``), as in the JAX package:
 
@@ -25,7 +28,8 @@ Layout invariants (``build_dist_hierarchy``), as in the JAX package:
   local row parity is the global one and the four colors align;
 * ``B_{l+1} = B_l / 2``: a coarse slab depends on its own fine slab plus
   one halo row (restriction) and one coarse halo row (prolongation);
-* padding rows (global row >= side) keep u = 0 and a zero residual.
+* padding rows (global row >= side) keep u = 0 and a zero residual; on a
+  variable level their planes are an identity row.
 
 Halo modes (``halo=``): ``"sweep"`` one G-row ghost-strip exchange of
 (u, b) per smoothing call, the color steps run on the extended slab
@@ -33,7 +37,12 @@ Halo modes (``halo=``): ``"sweep"`` one G-row ghost-strip exchange of
 restriction that follow; ``"overlap"`` the same with the slab interior
 swept apart from two boundary bands (bitwise equal; JAX's accelerator
 default); ``"rdma"`` the same with K7 as the exchange where it is single-
-hop; ``"step"`` a one-row halo before every color step (JAX's CPU default).
+hop; ``"packed"`` the same exchange with the color steps run color-packed
+(sparse/packed.py pack_rect; the iterates of ``"sweep"`` up to the order
+of the floating-point sums); ``"step"`` a one-row halo before every color
+step (JAX's CPU default). Variable levels take one strip exchange of
+(u, b) per smoothing call under every mode but ``"step"``, on planes
+whose strips were exchanged once, when the solver was built.
 """
 
 from __future__ import annotations
@@ -45,13 +54,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from amg_tpu_torch.krylov import _step, _tolerance
 from amg_tpu_torch.models import poisson
 from amg_tpu_torch.ops.doublefloat import (DF32, df_add, df_add_f32,
                                            df_apply_const, df_neg, df_rss)
 from amg_tpu_torch.ops.kernels.halo import (rdma_halo_exchange,
                                             rdma_halo_exchange_plain)
 from amg_tpu_torch.ops.transfer import linear_interp_1d
-from amg_tpu_torch.sparse.stencil import FOUR_COLORS, W2D, Stencil2D
+from amg_tpu_torch.parallel import launch
+from amg_tpu_torch.sparse.packed import (pack_rect, packed_steps_window,
+                                         unpack_rect)
+from amg_tpu_torch.sparse.stencil import (FOUR_COLORS, W2D, Stencil2D,
+                                          color_masks)
 from amg_tpu_torch.structured import (SolveResult, StencilHierarchy,
                                       _not_yet, galerkin_chain,
                                       max_levels_for_side, vcycle_stencil)
@@ -62,13 +76,15 @@ HALO_MODES = ("overlap", "sweep", "step", "rdma", "packed")
 
 
 # ---------------------------------------------------------------------------
-# Slab-axis helpers: every field is (D, R, n), slab d's row r is global row
-# d * B + r (+ a window offset).
+# Slab-axis helpers: every field is (D, R, n), D the slabs this process
+# holds; slab d's row r is global row (first slab + d) * B + r (+ a window
+# offset).
 
 
 def _row0(D: int, B: int, device) -> torch.Tensor:
     """Each slab's first global row, (D, 1, 1): ``lax.axis_index * B``."""
-    return (torch.arange(D, device=device) * B).reshape(D, 1, 1)
+    return ((torch.arange(D, device=device) + launch.first_slab(D)) * B
+            ).reshape(D, 1, 1)
 
 
 def _global_rows(D: int, B: int, R: int, device):
@@ -80,9 +96,11 @@ def _global_rows(D: int, B: int, R: int, device):
 def _halo(u):
     """(top, bot): each slab's neighbour rows above and below, (D, 1, n),
     zeros at the line's ends (JAX ``_halo``)."""
-    z = torch.zeros_like(u[:1, :1])
-    return (torch.cat([z, u[:-1, -1:]], dim=0),
-            torch.cat([u[1:, :1], z], dim=0))
+    D, B, n = u.shape
+    above, below = (e[None] for e in
+                    launch.edges(u.reshape(D * B, n), 1, dim=0))
+    return (torch.cat([above, u[:-1, -1:]], dim=0),
+            torch.cat([u[1:, :1], below], dim=0))
 
 
 def _conv9_const(w33, x):
@@ -111,20 +129,22 @@ def _extend(strips, u, b, G: int):
 
 def _windows(x, G: int):
     """Each slab with the G global rows above and below it, zeros beyond
-    the line's ends: (D, B + 2G, n), a view of the padded field. Reaches
-    as many neighbour slabs as G needs."""
-    D, B, n = x.shape
-    full = F.pad(x.reshape(D * B, n), (0, 0, G, G))
-    return full.unfold(0, B + 2 * G, B).transpose(1, 2)
+    the line's ends: (..., D, B + 2G, n) from (..., D, B, n), a view of
+    the padded field. Reaches as many neighbour slabs as G needs."""
+    D, B, n = x.shape[-3:]
+    full = launch.frame(x.reshape(*x.shape[:-3], D * B, n), G)
+    return full.unfold(-2, B + 2 * G, B).transpose(-1, -2)
 
 
 def _exchange_strips(u, b, G: int):
-    """One ghost-strip exchange of u and b (JAX ``_exchange_strips``):
-    single-hop (G <= B) through K7's plain version, multi-hop (G > B, tiny
-    slabs) as windows of the padded field."""
-    if G <= u.shape[1]:
-        return _extend(rdma_halo_exchange_plain((u, b), G), u, b, G)
-    return _windows(u, G), _windows(b, G)
+    """One ghost-strip exchange of u and b (JAX ``_exchange_strips``): in
+    one process single-hop (G <= B) through K7's plain version; multi-hop
+    (G > B, tiny slabs) or across processes, u and b ride one exchange as
+    windows of the padded field."""
+    if launch.process_count() > 1 or G > u.shape[1]:
+        ub = _windows(torch.stack([u, b]), G)
+        return ub[0], ub[1]
+    return _extend(rdma_halo_exchange_plain((u, b), G), u, b, G)
 
 
 def ghost_rows(sweeps: int, symmetric: bool) -> int:
@@ -226,13 +246,140 @@ def _gs4_sweep_rdma_const(w33, u, b, side: int, sweeps: int, omega: float,
     return u_ext, b_ext, G
 
 
+def _gs4_sweep_packed_const(w33, u, b, side: int, sweeps: int,
+                            omega: float, symmetric: bool):
+    """The ghost sweep with its color steps run color-packed: after the
+    one strip exchange the extended slabs are packed into parity quarters
+    (pack_rect), the steps evaluate the stencil only at the points they
+    update, and the slabs are unpacked for the residual and restriction
+    that follow. The ghost sweep's contract, its iterates up to the order
+    of the floating-point sums."""
+    D, B, n = u.shape
+    G = ghost_rows(sweeps, symmetric)
+    u_ext, b_ext = _exchange_strips(u, b, G)
+    m = (n - 1) // 2
+    u4 = packed_steps_window(w33, pack_rect(u_ext, m), pack_rect(b_ext, m),
+                             _row0(D, B, u.device) - G,  # even: B, G even
+                             side, sweeps, omega, symmetric)
+    return unpack_rect(u4, m), b_ext, G
+
+
 GHOST_SWEEPS = {"sweep": _gs4_sweep_ghost_const,
                 "overlap": _gs4_sweep_overlap_const,
-                "rdma": _gs4_sweep_rdma_const}
+                "rdma": _gs4_sweep_rdma_const,
+                "packed": _gs4_sweep_packed_const}
+
+
+# ---------------------------------------------------------------------------
+# Variable-coefficient levels: (3, 3, D, B, n) planes, an identity row on
+# every padding row. Under a ghost mode the plane strips are exchanged once
+# (the planes do not change during a solve; JAX exchanges them in every
+# V-cycle and XLA hoists that out of its solve loops), and each smoothing
+# call pays one (u, b) strip exchange, as on a constant level.
+
+
+def var_ghost_rows(cfg) -> int:
+    """The one G of every variable level: it serves the pre-smooth, the
+    residual and the post-smooth (a deeper strip is always valid)."""
+    return max(ghost_rows(cfg.pre_sweeps, cfg.symmetric),
+               ghost_rows(cfg.post_sweeps, cfg.symmetric))
+
+
+def _exchange_planes(c, G: int):
+    """(3, 3, D, B, n) planes -> (3, 3, D, B + 2G, n) with the neighbour
+    slabs' ghost strips, zeros beyond the line's ends (the Dirichlet
+    boundary); multi-hop when G > B."""
+    return _windows(c, G) if G else c
+
+
+def extend_planes(cfg, planes) -> tuple:
+    """Each variable level's planes with their ghost strips (None on a
+    constant level), contiguous: what a solver keeps for its V-cycles."""
+    G = var_ghost_rows(cfg)
+    return tuple(None if c is None else _exchange_planes(c, G).contiguous()
+                 for c in planes)
+
+
+def _conv9_window(c_ext, x):
+    """9-point A x on (D, R, n) windows with their (3, 3, D, R, n) planes;
+    zero padding supplies the window and boundary truncation."""
+    R, n = x.shape[-2:]
+    xp = F.pad(x, (1, 1, 1, 1))
+    out = torch.zeros_like(x)
+    for dj in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            out = out + c_ext[dj + 1, di + 1] * xp[
+                ..., 1 + dj:1 + dj + R, 1 + di:1 + di + n]
+    return out
+
+
+def _masked_steps_var(c_ext, x, bx, sweeps: int, omega: float,
+                      symmetric: bool):
+    """Masked color steps on windows with variable coefficients. Rows with
+    a zero diagonal (window padding beyond the line's ends) never update
+    (the reference's zero-diagonal guard, smoother.hpp:136); padding rows
+    have an identity row and b = 0, so they stay 0. Local parity is the
+    global one because B and G are even."""
+    R, n = x.shape[-2:]
+    row_par = torch.arange(R, device=x.device).reshape(R, 1) % 2
+    col_par = torch.arange(n, device=x.device).reshape(1, n) % 2
+    diag = c_ext[1, 1]
+    nz = diag != 0
+    inv = torch.where(nz, 1.0 / torch.where(nz, diag, 1.0), 0.0)
+    order = list(FOUR_COLORS)
+    if symmetric:
+        order = order + order[::-1]
+    for _ in range(sweeps):
+        for pj, pi in order:
+            r = bx - _conv9_window(c_ext, x)
+            mask = (row_par == pj) & (col_par == pi)
+            x = x + torch.where(mask, (omega * r) * inv, 0.0)
+    return x
+
+
+def _gs4_sweep_ghost_var(c_ext, u, b, sweeps: int, omega: float,
+                         symmetric: bool, G: int):
+    """``sweeps`` GS sweeps on a variable level with ONE (u, b) strip
+    exchange, the ghost sweep's contract: rows [G-2, G+B+2) of u_ext are
+    exact when G >= steps + 2. Returns (u_ext, b_ext)."""
+    u_ext, b_ext = _exchange_strips(u, b, G)
+    return (_masked_steps_var(c_ext, u_ext, b_ext, sweeps, omega,
+                              symmetric), b_ext)
 
 
 # ---------------------------------------------------------------------------
 # halo="step": a one-row halo before every color step.
+
+
+def _matvec_var(c, u):
+    """A u on the slabs of a variable level, (3, 3, D, B, n) planes, with a
+    1-row halo (JAX ``_matvec_local``); padding rows are identity rows."""
+    D, B, n = u.shape
+    top, bot = _halo(u)
+    up = F.pad(torch.cat([top, u, bot], dim=1), (1, 1))
+    out = torch.zeros_like(u)
+    for dj in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            out = out + c[dj + 1, di + 1] * up[
+                :, 1 + dj:1 + dj + B, 1 + di:1 + di + n]
+    return out
+
+
+def _gs4_sweep_local_var(c, u, b, omega: float, symmetric: bool):
+    """One GS sweep on a variable level with a halo exchange before each
+    color step (JAX ``_gs4_sweep_local``)."""
+    D, B, n = u.shape
+    row_par = torch.arange(B, device=u.device).reshape(1, B, 1) % 2
+    col_par = torch.arange(n, device=u.device).reshape(1, 1, n) % 2
+    inv_diag = 1.0 / c[1, 1]
+    order = list(FOUR_COLORS)
+    if symmetric:
+        order = order + order[::-1]
+    for pj, pi in order:
+        r = b - _matvec_var(c, u)
+        mask = ((row_par == pj) & (col_par == pi)).to(u.dtype)
+        u = u + (omega * mask) * (r * inv_diag)
+    return u
 
 
 def _matvec_const(w33, u, side: int):
@@ -313,11 +460,12 @@ def _prolong_local(uc, B: int, n: int):
 
 
 def _prolong_from_replicated(uc_full, B: int, n: int, Bc: int, D: int):
-    """Prolongate the replicated coarse field onto every slab: each slab's
-    coarse rows plus the row above, gathered as windows of the padded
-    field (JAX's per-device ``dynamic_slice``)."""
+    """Prolongate the replicated coarse field onto this process's slabs of
+    D: each slab's coarse rows plus the row above, gathered as windows of
+    the padded field (JAX's per-device ``dynamic_slice``)."""
     ucp = F.pad(uc_full, (0, 0, 1, D * Bc - uc_full.shape[0]))
     block = ucp.unfold(0, Bc + 1, Bc).transpose(1, 2)   # (D, Bc + 1, nc)
+    block = launch.device_mesh_1d(D).local(block)
     return _prolong_from_z(_scatter_coarse(block, B, n), B, n)
 
 
@@ -391,16 +539,17 @@ def _visible_devices() -> int:
 def build_dist_hierarchy(side: int, n_levels: int | None = None,
                          n_devices: int | None = None, dtype=torch.float32,
                          A_fine=None, force_var: bool = False, device=None):
-    """Host setup: the plan, every level's constant weights from the scipy
-    RAP chain (``Stencil2D.from_scipy`` in ``dtype``), and the replicated
-    coarse sub-hierarchy (levels n_sharded..) as a masked-smoother
-    ``StencilHierarchy`` on ``device`` (None: ``"cuda"``) with the dense LU
-    of the coarsest level. Returns ``(cfg, sub_hier)``; the JAX package's
-    per-level coefficient placeholders have no counterpart."""
+    """Host setup: the plan, the scipy RAP chain, each sharded level's
+    constant weights (``Stencil2D.from_scipy`` in ``dtype``) or, on a
+    variable level (a non-constant ``A_fine``, or every sharded level with
+    ``force_var``), its (3, 3, D, B, n) planes on ``device`` with an
+    identity row on every padding row; and the replicated coarse
+    sub-hierarchy (levels n_sharded..) as a masked-smoother
+    ``StencilHierarchy`` with the dense LU of the coarsest level, with its
+    planes and masks where a level is variable. ``device`` None means
+    ``"cuda"``. Returns ``(cfg, planes, sub_hier)``, ``planes`` one entry a
+    sharded level, None on a constant one (JAX's placeholder)."""
     device = resolve_device(device)
-    if force_var:
-        raise _not_yet("force_var (variable-coefficient sharded levels)",
-                       "Queue 1 item 13, structured_dist")
     if n_devices is None:
         n_devices = _visible_devices()
     if n_levels is None:
@@ -412,26 +561,38 @@ def build_dist_hierarchy(side: int, n_levels: int | None = None,
     if A_fine is None:
         A_fine = poisson.laplacian_scipy(side)
     mats = galerkin_chain(A_fine, sides)
-    w33s = []
-    for l, A in enumerate(mats):
-        w33 = Stencil2D.from_scipy(A, sides[l], dtype=dtype).w33
-        if w33 is None:
-            raise _not_yet(f"a variable-coefficient level (side {sides[l]}"
-                           "; a non-constant A_fine)",
-                           "Queue 1 item 13, structured_dist")
-        w33s.append(w33)
+    stencils = [Stencil2D.from_scipy(A, s, dtype=dtype)
+                for A, s in zip(mats, sides)]
+    w33s, planes = [], []
+    for l in range(Ls):
+        S, n = stencils[l], sides[l]
+        w33s.append(None if force_var else S.w33)
+        if w33s[-1] is not None:
+            planes.append(None)
+            continue
+        cp = torch.zeros((3, 3, n_devices * blocks[l], n), dtype=dtype)
+        cp[:, :, :n] = S.c
+        cp[1, 1, n:] = 1.0                      # identity rows on padding
+        planes.append(cp.reshape(3, 3, n_devices, blocks[l], n).to(device))
     lu, piv = torch.linalg.lu_factor(
         torch.as_tensor(mats[-1].toarray(), dtype=dtype))
+    subs = stencils[Ls:]
     sub_sides = sides[Ls:]
     P1s = [torch.as_tensor(linear_interp_1d(sub_sides[i], sub_sides[i + 1]
                                             ).toarray(),
                            dtype=dtype, device=device)
            for i in range(len(sub_sides) - 1)]
-    sub_hier = StencilHierarchy(sub_sides, w33s[Ls:], lu.to(device),
-                                piv.to(device), P1s, smoother="masked")
+    var_kw = {}
+    if any(S.w33 is None for S in subs):
+        var_kw = dict(planes=[S.c.to(device) for S in subs],
+                      masks=[color_masks(s, dtype, device)
+                             for s in sub_sides])
+    sub_hier = StencilHierarchy(sub_sides, [S.w33 for S in subs],
+                                lu.to(device), piv.to(device), P1s,
+                                smoother="masked", **var_kw)
     cfg = DistConfig(n_devices=n_devices, sides=sides, blocks=blocks,
-                     n_sharded=Ls, w33s=tuple(w33s[:Ls]))
-    return cfg, sub_hier
+                     n_sharded=Ls, w33s=tuple(w33s))
+    return cfg, tuple(planes), sub_hier
 
 
 # ---------------------------------------------------------------------------
@@ -439,22 +600,42 @@ def build_dist_hierarchy(side: int, n_levels: int | None = None,
 
 
 def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
-                recv: dict | None = None):
+                recv: dict | None = None, planes=None, planes_ext=None):
     """One V-cycle on (D, B_0, n_0) slabs (JAX ``_vcycle_local`` on every
     slab at once): the sharded down-leg, one V-cycle of the replicated
     sub-hierarchy from zero, the sharded up-leg. ``recv``: the caller's
     dict of ``halo="rdma"`` receive buffers, kept across calls (None: new
-    ones for this V-cycle)."""
-    D, Ls = cfg.n_devices, cfg.n_sharded
+    ones for this V-cycle). ``planes``: each sharded level's planes (None
+    on a constant level; build_dist_hierarchy), for the slabs in ``u``;
+    ``planes_ext``: the same with their ghost strips (extend_planes; None:
+    exchanged here, as JAX does in every V-cycle)."""
+    D, Ls = u.shape[0], cfg.n_sharded
     ghost = GHOST_SWEEPS.get(cfg.halo)
     if ghost is None and cfg.halo != "step":
         raise ValueError(f"halo mode {cfg.halo!r} has no sweep here")
     if cfg.halo == "rdma":
         ghost = functools.partial(ghost, recv={} if recv is None else recv)
+    var = [w is None for w in cfg.w33s]
+    if any(var) and planes is None:
+        raise ValueError("a variable-coefficient level needs its planes")
+    Gv = None
+    if ghost is not None and any(var):
+        Gv = var_ghost_rows(cfg)
+        if planes_ext is None:
+            planes_ext = extend_planes(cfg, planes)
     us, bs = [u] + [None] * (Ls - 1), [b] + [None] * (Ls - 1)
 
     def smooth_only(l, u_, b_, sweeps):
         w33, B, side = cfg.w33s[l], cfg.blocks[l], cfg.sides[l]
+        if var[l] and Gv is not None:
+            u_ext, _ = _gs4_sweep_ghost_var(planes_ext[l], u_, b_, sweeps,
+                                            cfg.omega, cfg.symmetric, Gv)
+            return u_ext[:, Gv:Gv + B]
+        if var[l]:
+            for _ in range(sweeps):
+                u_ = _gs4_sweep_local_var(planes[l], u_, b_, cfg.omega,
+                                          cfg.symmetric)
+            return u_
         if ghost is not None:
             u_ext, _, G = ghost(w33, u_, b_, side, sweeps, cfg.omega,
                                 cfg.symmetric)
@@ -471,16 +652,31 @@ def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
         Bc = cfg.blocks[l + 1] if l < Ls - 1 else B // 2
         if ghost is not None:
             # one exchange covers pre-smooth, residual and restriction:
-            # ghost rows at distance <= 2 are still exact after the sweep
-            u_ext, b_ext, G = ghost(w33, us[l], bs[l], side, cfg.pre_sweeps,
-                                    cfg.omega, cfg.symmetric)
+            # ghost rows at distance <= 2 are still exact after the sweep;
+            # the residual on slab rows 0..B, from window rows G-1..G+B+1
+            if var[l]:
+                G, c_ext = Gv, planes_ext[l]
+                u_ext, b_ext = _gs4_sweep_ghost_var(
+                    c_ext, us[l], bs[l], cfg.pre_sweeps, cfg.omega,
+                    cfg.symmetric, G)
+                au = _conv9_window(c_ext[:, :, :, G - 1:G + B + 2],
+                                   u_ext[:, G - 1:G + B + 2])
+            else:
+                u_ext, b_ext, G = ghost(w33, us[l], bs[l], side,
+                                        cfg.pre_sweeps, cfg.omega,
+                                        cfg.symmetric)
+                au = _conv9_const(w33, u_ext[:, G - 1:G + B + 2])
             us[l] = u_ext[:, G:G + B]
-            # residual on slab rows 0..B, from window rows G-1..G+B+1
-            r01 = (b_ext[:, G:G + B + 1]
-                   - _conv9_const(w33, u_ext[:, G - 1:G + B + 2])[:, 1:B + 2])
+            r01 = b_ext[:, G:G + B + 1] - au[:, 1:B + 2]
             r01 = torch.where(_global_rows(D, B, B + 1, u.device) < side,
                               r01, 0.0)
             coarse = _restrict_from_ext(r01, Bc, nc, nc)
+        elif var[l]:
+            for _ in range(cfg.pre_sweeps):
+                us[l] = _gs4_sweep_local_var(planes[l], us[l], bs[l],
+                                             cfg.omega, cfg.symmetric)
+            coarse = _restrict_local(bs[l] - _matvec_var(planes[l], us[l]),
+                                     Bc, nc, nc)
         else:
             for _ in range(cfg.pre_sweeps):
                 us[l] = _gs4_sweep_local_const(w33, us[l], bs[l], side,
@@ -489,8 +685,8 @@ def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
                                      Bc, nc, nc)
         if l < Ls - 1:
             bs[l + 1], us[l + 1] = coarse, torch.zeros_like(coarse)
-        else:
-            b_repl = coarse.reshape(D * Bc, nc)[:nc]     # all_gather
+        else:                                            # all_gather
+            b_repl = launch.all_gather_slabs(coarse).reshape(-1, nc)[:nc]
     # the agglomerated levels, computed once for every slab
     u_repl = vcycle_stencil(sub_hier, torch.zeros_like(b_repl), b_repl,
                             cfg.pre_sweeps, cfg.post_sweeps, cfg.omega,
@@ -498,7 +694,8 @@ def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
     for l in range(Ls - 1, -1, -1):
         B, n = cfg.blocks[l], cfg.sides[l]
         if l == Ls - 1:
-            us[l] = us[l] + _prolong_from_replicated(u_repl, B, n, B // 2, D)
+            us[l] = us[l] + _prolong_from_replicated(u_repl, B, n, B // 2,
+                                                     cfg.n_devices)
         else:
             us[l] = us[l] + _prolong_local(us[l + 1], B, n)
         us[l] = smooth_only(l, us[l], bs[l], cfg.post_sweeps)
@@ -510,18 +707,24 @@ def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
 
 
 class DistStructuredSolver:
-    """Row-partitioned structured Poisson solver over a mesh of D slabs on
-    one device (JAX ``DistStructuredSolver``, constant-coefficient levels).
+    """Row-partitioned structured Poisson solver over a mesh of D slabs
+    (JAX ``DistStructuredSolver``).
 
     ``n_devices`` is the number of slabs (None: the visible CUDA devices);
-    ``halo`` None is ``"overlap"`` on the card and ``"step"`` on the CPU,
-    as JAX picks by backend; ``device`` None is ``"cuda"`` (raises without
-    one). ``solve`` is the reference's V-cycle loop; ``solve_ir``,
-    ``solve_ir_device`` and ``solve_ir_fused`` the df32 defect correction
-    (``cycles_per_refine`` V-cycles in ``dtype`` per refine), a host loop
-    with one host sync per refine where JAX runs one device program.
-    ``config`` (a config.MeshConfig) gives ``n_devices``, ``halo`` and
-    ``cycles_per_refine`` where the argument is None.
+    in one process all D live on ``device``, under a process group
+    (parallel/launch.py) each process holds D/P of them and ``unpad``
+    gathers the field. ``halo`` None is ``"overlap"`` on the card and
+    ``"step"`` on the CPU, as JAX picks by backend; ``device`` None is
+    ``"cuda"`` (raises without one). ``A_fine`` (a scipy matrix) or
+    ``force_var`` gives variable-coefficient sharded levels. ``solve`` is
+    the reference's V-cycle loop and ``solve_pcg`` the AMG-preconditioned
+    CG, a host loop with one host sync per iteration where JAX runs one
+    device program; on a constant fine level ``solve_ir``,
+    ``solve_ir_device`` and ``solve_ir_fused`` are the df32 defect
+    correction (``cycles_per_refine`` V-cycles in ``dtype`` per refine),
+    with one host sync per refine. ``config`` (a config.MeshConfig) gives
+    ``n_devices``, ``halo`` and ``cycles_per_refine`` where the argument
+    is None.
     """
 
     def __init__(self, side: int, n_levels: int | None = None,
@@ -546,19 +749,30 @@ class DistStructuredSolver:
             halo = "overlap" if self.device.type == "cuda" else "step"
         if halo not in HALO_MODES:
             raise ValueError(f"unknown halo mode {halo!r}")
-        if halo == "packed":
-            raise _not_yet("halo='packed' (pack_rect, packed_steps_window)",
-                           "Queue 1 item 13, structured_dist")
+        if halo == "rdma" and launch.process_count() > 1:
+            raise _not_yet("halo='rdma' across processes (K7 addresses "
+                           "every slab from one base pointer; slabs in "
+                           "other processes need its pointer-table form)",
+                           "Queue 1 item 13")
         if self.device.type == "cuda":
             # the sub-hierarchy's transfer matmuls in full f32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        cfg, self.sub_hier = build_dist_hierarchy(
+        cfg, planes, self.sub_hier = build_dist_hierarchy(
             side, n_levels, n_devices, dtype, A_fine, force_var=force_var,
             device=self.device)
         self.cfg = dataclasses.replace(
             cfg, pre_sweeps=pre_sweeps, post_sweeps=post_sweeps,
             omega=omega, symmetric=symmetric, halo=halo)
+        self.mesh = launch.device_mesh_1d(cfg.n_devices)
+        # this process's slabs of each variable level's planes, and their
+        # ghost strips, exchanged once here
+        self.planes = tuple(None if c is None
+                            else self.mesh.local(c, dim=2).contiguous()
+                            for c in planes)
+        self.planes_ext = None
+        if halo != "step" and any(c is not None for c in planes):
+            self.planes_ext = extend_planes(self.cfg, self.planes)
         self.dtype = dtype
         self.side = side
         self.cycles_per_refine = (2 if cycles_per_refine is None
@@ -576,23 +790,39 @@ class DistStructuredSolver:
         out = torch.zeros((self.n_pad, self.side), dtype=dtype,
                           device=self.device)
         out[:self.side] = self._tensor(f2).to(dtype)
-        return out.reshape(self.cfg.n_devices, self.cfg.blocks[0], self.side)
+        return self.mesh.local(out.reshape(self.cfg.n_devices,
+                                           self.cfg.blocks[0], self.side))
 
     def pad_field(self, f2) -> torch.Tensor:
-        """(side, side) -> (D, B_0, side) slabs in ``dtype``, zero padding
-        rows."""
+        """(side, side) -> this process's (D/P, B_0, side) slabs in
+        ``dtype``, zero padding rows."""
         return self._pad(f2, self.dtype)
 
     def unpad(self, f) -> torch.Tensor:
-        """(D, B_0, side) slabs -> the (side, side) field (a view)."""
+        """Slabs -> the (side, side) field: a view in one process, gathered
+        from every process under a process group."""
+        f = launch.all_gather_slabs(f)
         return f.reshape(self.n_pad, self.side)[:self.side]
 
     def vcycle(self, u_pad, b_pad):
-        return vcycle_dist(self.cfg, self.sub_hier, u_pad, b_pad, self._recv)
+        return vcycle_dist(self.cfg, self.sub_hier, u_pad, b_pad, self._recv,
+                           self.planes, self.planes_ext)
+
+    def _matvec(self, u_pad):
+        """A u on the fine slabs (padding rows identity)."""
+        if self.planes[0] is not None:
+            return _matvec_var(self.planes[0], u_pad)
+        return _matvec_const(self.cfg.w33s[0], u_pad, self.side)
+
+    @staticmethod
+    def _dot(x, y) -> torch.Tensor:
+        """sum(x * y) over every slab: per slab, then over the slabs and
+        the processes (psum)."""
+        return launch.psum((x * y).sum(dim=(1, 2)).sum())
 
     def rss(self, u_pad, b_pad) -> float:
-        r = b_pad - _matvec_const(self.cfg.w33s[0], u_pad, self.side)
-        return check_rss(float((r * r).sum(dim=(1, 2)).sum()))  # psum
+        r = b_pad - self._matvec(u_pad)
+        return check_rss(float(self._dot(r, r)))
 
     def solve(self, b2, tolerance=1e-7, compute_error_every_n_iters=5,
               n_iters=100) -> SolveResult:
@@ -615,11 +845,40 @@ class DistStructuredSolver:
         return SolveResult(u=self.unpad(u), iterations=it, error=error,
                            converged=error <= tolerance, history=history)
 
-    def solve_pcg(self, b2, tolerance: float = 1e-5, n_iters: int = 100):
-        raise _not_yet("DistStructuredSolver.solve_pcg", "Queue 1 item 9, "
-                       "Krylov, then item 13")
+    def solve_pcg(self, b2, tolerance: float = 1e-5, n_iters: int = 100
+                  ) -> SolveResult:
+        """AMG-preconditioned CG on the negated (SPD) system, M^-1 minus
+        one V-cycle from zero, in ``dtype`` (JAX ``pcg_fn``): the inner
+        products and the rss summed over the slabs, the rss of the
+        recurrence residual checked against ``tolerance`` (in ``dtype``)
+        once per iteration, the one host sync. Constant and variable fine
+        levels; one history entry, as JAX."""
+        b = self.pad_field(b2)
+        tol = _tolerance(tolerance, b.dtype)
 
-    # -- the df32 defect correction -----------------------------------------
+        def precond(r):
+            return -self.vcycle(torch.zeros_like(r), r)
+
+        r = -b
+        z = precond(r)
+        u, p, rz = torch.zeros_like(b), z, self._dot(r, z)
+        err, it = self._dot(r, r), 0
+        while check_rss(float(err)) > tol and it < n_iters:
+            u, r, z, p, rz = _step(lambda x: -self._matvec(x), precond, u,
+                                   r, z, p, rz, dot=self._dot)
+            err = self._dot(r, r)
+            it += 1
+        error = float(err)
+        return SolveResult(u=self.unpad(u), iterations=it, error=error,
+                           converged=error <= tolerance,
+                           history=[(it, error)])
+
+    # -- the df32 defect correction (constant fine level) -------------------
+
+    def _need_const(self, name: str, hint: str = ""):
+        if self.cfg.w33s[0] is None:
+            raise NotImplementedError(
+                f"{name} requires a constant-stencil fine level{hint}")
 
     def _split_b(self, b2) -> DF32:
         """The rhs as padded df32 slabs: an f64 rhs splits exactly into
@@ -633,6 +892,9 @@ class DistStructuredSolver:
 
     def _residual(self, b_df: DF32, u_df: DF32) -> DF32:
         return _df_residual_const(self.cfg.w33s[0], b_df, u_df, self.side)
+
+    def _rss_df(self, r: DF32) -> torch.Tensor:
+        return launch.psum(df_rss(r))
 
     def _cycles(self, r_hi):
         """cycles_per_refine V-cycles on A e = r from e = 0, in ``dtype``;
@@ -650,15 +912,16 @@ class DistStructuredSolver:
         the carried rss lags one correction; the final rss is recomputed.
         Returns ``(u_hi, u_lo, stats)``: padded f32 slabs and the f64
         tensor ``[final_rss, refines]``."""
+        self._need_const("solve_ir_device")
         b_df = self._split_b(b2)
         u = DF32.from_f32(torch.zeros_like(b_df.hi))
         err, it = float("inf"), 0
         while err > tolerance and it < n_refine:
             r = self._residual(b_df, u)
-            err = check_rss(float(df_rss(r)))
+            err = check_rss(float(self._rss_df(r)))
             u = df_add_f32(u, self._cycles(r.hi))
             it += 1
-        final = df_rss(self._residual(b_df, u))
+        final = self._rss_df(self._residual(b_df, u))
         stats = torch.stack([final, torch.tensor(float(it),
                                                  dtype=torch.float64,
                                                  device=final.device)])
@@ -684,12 +947,14 @@ class DistStructuredSolver:
         """The host-stepped defect correction: each refine's rss is checked
         before its V-cycles run, so it stops as soon as the rss is at the
         tolerance."""
+        self._need_const("solve_ir", "; use solve() or the ELL distributed "
+                         "path for variable coefficients")
         b_df = self._split_b(b2)
         u = DF32.from_f32(torch.zeros_like(b_df.hi))
         history, it, error = [], 0, float("inf")
         for _ in range(n_refine):
             r = self._residual(b_df, u)
-            error = check_rss(float(df_rss(r)))
+            error = check_rss(float(self._rss_df(r)))
             history.append((it, error))
             if error <= tolerance:
                 break

@@ -1,6 +1,6 @@
 """Color-packed four-color Gauss-Seidel pipeline, as plain PyTorch ops.
 
-PyTorch port of ``amg_tpu/sparse/packed.py:39-215, 274-364``. These
+PyTorch port of ``amg_tpu/sparse/packed.py:39-364``. These
 functions are the CPU path of the solver, the plain versions the CUDA
 kernels of ``amg_tpu_torch/ops/kernels`` are checked against, and the ops
 of the packed levels below the kernels' threshold on the GPU.
@@ -54,12 +54,13 @@ def unpack(u4: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def _shift(q: torch.Tensor, sJ: int, sI: int) -> torch.Tensor:
-    """out[J, I] = q[J+sJ, I+sI], zero outside (sJ, sI in {-1,0,1})."""
+    """out[..., J, I] = q[..., J+sJ, I+sI], zero outside (sJ, sI in
+    {-1,0,1})."""
     if sJ == 0 and sI == 0:
         return q
-    M, N = q.shape
+    M, N = q.shape[-2:]
     qp = F.pad(q, (1, 1, 1, 1))
-    return qp[1 + sJ:1 + sJ + M, 1 + sI:1 + sI + N]
+    return qp[..., 1 + sJ:1 + sJ + M, 1 + sI:1 + sI + N]
 
 
 def _valid(pj: int, pi: int, m: int, dtype, device=None) -> torch.Tensor:
@@ -114,6 +115,64 @@ def gs4_sweep_packed(u4: torch.Tensor, b4: torch.Tensor, w33, m: int,
         delta = (b4[a] - acc) * inv_diag - u4[a]
         mask = _valid(pj, pi, m, u4.dtype, u4.device)
         u4[a] = u4[a] + (omega * mask) * delta
+    return u4
+
+
+def pack_rect(u2: torch.Tensor, m: int) -> torch.Tensor:
+    """(..., R, n) row slabs, R even and n = 2m+1 -> (4, ..., R/2, M)
+    color-packed: the distributed form, where a slab keeps its own (even)
+    row count and its columns span the grid side. Leading axes (the slabs)
+    go between the color axis and the quarter, so ``u4[a]`` is every
+    slab's quarter a."""
+    R, n = u2.shape[-2:]
+    if R % 2 or n != 2 * m + 1:
+        raise ValueError(f"pack_rect expects even rows and side {2*m+1}, "
+                         f"got {tuple(u2.shape)}")
+    M = m + 1
+    lead = u2.shape[:-2]
+    k = len(lead)
+    u2p = F.pad(u2, (0, 1))                        # (..., R, 2M)
+    v = u2p.reshape(*lead, R // 2, 2, M, 2)        # (..., J, pj, I, pi)
+    v = v.permute(k + 1, k + 3, *range(k), k, k + 2)
+    return v.reshape(4, *lead, R // 2, M)
+
+
+def unpack_rect(u4: torch.Tensor, m: int) -> torch.Tensor:
+    """(4, ..., R/2, M) color-packed slabs -> (..., R, n) (inverse of
+    pack_rect; a strided view)."""
+    R2, M = u4.shape[-2:]
+    lead = u4.shape[1:-2]
+    k = len(lead)
+    v = u4.reshape(2, 2, *lead, R2, M)             # (pj, pi, ..., J, I)
+    v = v.permute(*range(2, k + 2), k + 2, 0, k + 3, 1)
+    return v.reshape(*lead, 2 * R2, 2 * M)[..., :2 * m + 1]
+
+
+def packed_steps_window(w33, u4, b4, row0, side: int, sweeps: int,
+                        omega: float, symmetric: bool) -> torch.Tensor:
+    """Color-packed GS steps on row windows (the packed form of
+    structured_dist._masked_steps_const): quarter cell (a = 2pj+pi, J, I)
+    of a window is global point (row0 + 2J + pj, 2I + pi); points outside
+    [0, side)^2 never update, and the rows near the window edges go
+    invalid, for the caller's ghost margin to discard. ``row0`` is an int
+    or a tensor that broadcasts against the (..., R/2, M) quarters (one
+    offset a slab), and even, so that local parity is global parity."""
+    R2, M = u4.shape[-2:]
+    inv_diag = 1.0 / w33[1][1]
+    iJ = torch.arange(R2, device=u4.device).reshape(R2, 1)
+    iI = torch.arange(M, device=u4.device).reshape(1, M)
+    order = list(COLORS)
+    if symmetric:
+        order = order + order[::-1]
+    u4 = u4.clone()
+    for _ in range(sweeps):
+        for pj, pi in order:
+            a = 2 * pj + pi
+            row_g = row0 + 2 * iJ + pj
+            valid = (row_g >= 0) & (row_g < side) & (2 * iI + pi < side)
+            acc = _acc(u4, w33, pj, pi)
+            delta = (b4[a] - acc) * inv_diag - u4[a]
+            u4[a] = u4[a] + torch.where(valid, omega * delta, 0.0)
     return u4
 
 

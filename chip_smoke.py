@@ -43,7 +43,21 @@ check and the kernels' launch counts:
   device RAP's levels bitwise);
 * the distributed solve (DistStructuredSolver, 4 row slabs on the card)
   at 4095^2 with halo="rdma" (K7) and "sweep", one V-cycle per halo mode
-  at 1023^2 on 8 slabs, and the card against the CPU at 255^2.
+  at 1023^2 on 8 slabs, and the card against the CPU at 255^2;
+* the rest of the distributed layer, plain PyTorch (no kernel of K1-K9):
+  the jump problem on variable sharded levels (4095^2, 4 slabs, f64,
+  solve to 1e-7; "sweep" against "step" at 1023^2 on 8 slabs; the card
+  against the CPU at 255^2), halo="packed" against "sweep" (4095^2,
+  solve_ir_fused), the distributed PCG (4095^2 f32 to 1e-5 on the
+  "packed" solver; the jump problem at 255^2 in f64, the card against
+  the CPU on the solver of the var check), EllDistSolver
+  (1023^2 on 4 slabs: the bilinear pipeline under "step" and "strips"
+  against the single-device Multigrid's history, its f32 solve_ir and
+  f64 solve_pcg; the flat reference pipeline, 20 V-cycles against the
+  single-device Multigrid), and 2 processes under gloo on the one card,
+  each holding 2 of 4 slabs, against one process (the launch path, not
+  NCCL; with a card a process they take nccl); each with its wall,
+  setup, idle share and launches a V-cycle.
 
 K9, the sweep on the row-grouped layout, is on no path (no JAX solver
 calls it): its launches are those of its parity phase. Each phase prints
@@ -57,9 +71,12 @@ nor the JAX package.
 from __future__ import annotations
 
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -70,7 +87,8 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from amg_tpu_torch import (ELL, BilinearInterpolator2D, DistStructuredSolver,
-                           Jacobi, MulticolorGaussSeidel, Multigrid,
+                           Jacobi, LinearInterpolator,
+                           MulticolorGaussSeidel, Multigrid,
                            SparseGaussSeidel, StructuredSolver,
                            SuccessiveOverRelaxation, build_stencil_hierarchy,
                            build_stencil_hierarchy_device, poisson, solve,
@@ -91,6 +109,8 @@ from amg_tpu_torch.ops.kernels.packed_rm import (from_rm,
                                                  to_rm)
 from amg_tpu_torch.ops.kernels.rbgs import fused_gs4_sweep_plain
 from amg_tpu_torch.ops.rap import poisson_const_w33
+from amg_tpu_torch.parallel import launch
+from amg_tpu_torch.parallel.ell_dist import EllDistSolver
 from amg_tpu_torch.parallel.structured_dist import ghost_rows
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
 from amg_tpu_torch.sparse.stencil import Stencil2D
@@ -168,6 +188,25 @@ F32_OPS_PER_S = 67e12
 # version's row sums; the JAX package's own interpret-mode bound for that
 # kernel (tests/test_packed_df.py).
 BOUND = {"df_rss": 1e-5}
+
+# the rest of the distributed layer (plain PyTorch): the jump problem on
+# 4 slabs at 4095^2, one V-cycle per halo mode at 1023^2 on 8 slabs, the
+# card against the CPU at 255^2; the ELL solver on 4 slabs at 1023^2; two
+# processes, each with 2 of 4 slabs (1023^2 structured, 255^2 ELL)
+DIST_VAR_SIDE, DIST_VAR_TOL = 4095, 1e-7
+DIST_VCYCLE_SIDE, DIST_VCYCLE_SLABS = 1023, 8
+DIST_CHECK_SIDE, DIST_CHECK_TOL = 255, 1e-9
+ELL_DIST_SLABS = 4
+ELL_A_CYCLES = 7                  # the single-device Multigrid (a)
+ELL_FLAT_LEVELS, ELL_FLAT_CYCLES = 12, 20
+MP_PROCS, MP_SLABS, MP_CYCLES = 2, 4, 10
+MP_SIDE, MP_ELL_SIDE, MP_ELL_LEVELS = 1023, 255, 7
+MP_RTOL = 1e-12                   # only the order of the sums differs
+MP_TIMEOUT = 300                  # seconds, for both workers
+TRACE_CYCLES = 2                  # the traced window of a distributed path
+# what later phases print beside their own numbers: the single-device
+# PCG's iterations (pcg_solves), the ELL (a) history (ell_solves)
+RECORD = {}
 
 KERNEL_INFO = {
     "fused_gs4_sweep_packed": ("amg_tpu_torch/csrc/packed_sweep.cu",
@@ -861,6 +900,7 @@ def pcg_solves(dev, launches: dict):
         b32 = b2.to(torch.float32)
         pcg(hier, b32)                          # warm the allocator
         (u, err, it), c = drive(lambda: pcg(hier, b32), launches)
+        RECORD[f"pcg {side}"] = it
         ind = f64_rss(u.double(), b32.double(), side)
         # what f32 can hold: the df32 solve's u rounded to f32
         u64 = solve_once(StructuredSolver(side, device=dev), b2)[0]
@@ -1267,14 +1307,16 @@ def ell_rss(u: torch.Tensor, b: torch.Tensor, side: int) -> float:
 
 def traced(fn):
     """(result, device busy s, GPU launches) of one run under
-    torch.profiler."""
+    torch.profiler. NCCL's kernels wait for their peers on a stream of
+    their own: they count as launches, not as busy time."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     gpu = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (out, sum(_device_us(e) for e in gpu) * 1e-6,
+    return (out, sum(_device_us(e) for e in gpu
+                     if not e.key.startswith("nccl")) * 1e-6,
             sum(e.count for e in gpu))
 
 
@@ -1484,7 +1526,8 @@ def ell_solves(dev, launches: dict):
     def body():
         ell_testlib(dev)
         A, b = poisson.poisson2d(ELL_SIDE, device=dev)
-        ell_bilinear(dev, A, b, ELL_SIDE, ELL_BILINEAR_LEVELS, True)
+        RECORD["ell (a)"] = ell_bilinear(dev, A, b, ELL_SIDE,
+                                         ELL_BILINEAR_LEVELS, True).history
         _, hier, plans = ell_device(dev, A, b, ELL_DEVICE_LEVELS, True)
         ell_rebuild(dev, A, hier, plans, ELL_DEVICE_LEVELS)
         del hier, plans
@@ -1564,6 +1607,8 @@ def dist_solves(dev, launches: dict):
             print(f"dist solve wall {side}^2 D={D} halo=rdma: median of 3 "
                   f"{med:.6f} s (all {walls})")
         results[halo] = (refines, res.u)
+        if halo == "sweep":     # dist_const_solves holds "packed" to it
+            RECORD[f"dist sweep {side}"] = res
         del s
     require(results["rdma"][0] == results["sweep"][0],
             "rdma and sweep take the same refines")
@@ -1608,6 +1653,394 @@ def dist_solves(dev, launches: dict):
     require(r_gpu.iterations == r_cpu.iterations,
             "dist: same refines on GPU and CPU")
     require(du <= bnd, "dist GPU and CPU solutions within the bound")
+
+
+# ---------------------------------------------------------------------------
+# The rest of the distributed layer: plain PyTorch, no kernel of K1-K9.
+
+
+def new_path(label: str, run, cycles, setup: float, launches: dict,
+             window=None, window_cycles: int = TRACE_CYCLES):
+    """One run of a path under drive (K1-K9 must launch 0 times), its wall
+    (median of 3) and one traced window (``window``, ``window_cycles``
+    V-cycles; None: the run) for the device busy time, the idle share and
+    the GPU launches per V-cycle. ``cycles(result)``: the run's V-cycles.
+    Returns the run's result."""
+    out, c = drive(run, launches)
+    require(sum(c.values()) == 0, f"{label}: K1-K9 launch 0 times: {c}")
+    n = cycles(out)
+    med, walls = wall_median(run, 3)
+    if window is None:
+        window, window_cycles, w_med = run, n, med
+    else:
+        w_med = wall_median(window, 3)[0]
+    _, busy, n_gpu = traced(window)
+    print(f"{label}: setup {setup:.3f} s, {n} V-cycles, wall median of 3 "
+          f"{med:.6f} s (all {walls}), {med / n * 1e3:.3f} ms per V-cycle; "
+          f"traced window of {window_cycles} V-cycles: wall {w_med:.6f} s, "
+          f"device busy {busy:.6f} s, idle share {1 - busy / w_med:.4f}, "
+          f"GPU launches {n_gpu / window_cycles:.1f} per V-cycle")
+    return out
+
+
+def timed_build(make):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = make()
+    torch.cuda.synchronize()
+    return s, time.perf_counter() - t0
+
+
+def dist_window(s, b2):
+    """TRACE_CYCLES V-cycles of a distributed solver from zero."""
+    bp = s.pad_field(b2)
+
+    def run():
+        u = torch.zeros_like(bp)
+        for _ in range(TRACE_CYCLES):
+            u = s.vcycle(u, bp)
+        return u
+    return run
+
+
+def card_against_cpu(dev, make, runs: dict, planes, side: int):
+    """The same solves on the card and on the CPU, one solver built on
+    each: for each ``label -> run(solver, b)`` of ``runs`` the same count,
+    and solutions within the residual bound (the rss by
+    f64_rss_planes)."""
+    b_cpu = poisson.rhs(side, device="cpu").reshape(side, side)
+    solvers = {d: make(d) for d in (dev, "cpu")}
+    for label, run in runs.items():
+        g, c = (run(s, b_cpu.to(d)) for d, s in solvers.items())
+        du = float((g.u.cpu() - c.u).abs().max())
+        bnd = solution_bound(f64_rss_planes(g.u.cpu(), b_cpu, planes),
+                             f64_rss_planes(c.u, b_cpu, planes), side)
+        print(f"{label} gpu vs cpu {side}^2: iterations {g.iterations} / "
+              f"{c.iterations}, rss {g.error:.6e} / {c.error:.6e}, max|du| "
+              f"{du:.3e} (bound {bnd:.3e})")
+        require(g.iterations == c.iterations,
+                f"{label}: the same iterations on the card and the CPU")
+        require(du <= bnd, f"{label}: card and CPU within the residual "
+                "bound")
+
+
+def dist_var_solves(dev, launches: dict):
+    """The jump problem (a = 100) on variable sharded levels: at 4095^2 on
+    4 slabs, f64, halo="sweep", solve() to 1e-7 with an independent f64
+    rss on the planes; one f64 V-cycle at 1023^2 on 8 slabs, "sweep"
+    against "step" (JAX's contract: the same iterates); the card against
+    the CPU at 255^2, solve() and the f64 solve_pcg to 1e-9 on one solver
+    a device."""
+    side, D = DIST_VAR_SIDE, DIST_SLABS
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    s, setup = timed_build(lambda: DistStructuredSolver(
+        side, n_devices=D, dtype=torch.float64, halo="sweep",
+        A_fine=varcoef.jump_scipy(side), device=dev))
+    require(all(w is None for w in s.cfg.w33s),
+            "jump: every sharded level variable")
+    res = new_path(f"dist var {side}^2 D={D} f64 sweep solve", lambda:
+                   s.solve(b2, tolerance=DIST_VAR_TOL),
+                   lambda r: r.iterations, setup, launches,
+                   dist_window(s, b2))
+    ind = f64_rss_planes(res.u, b2, varcoef.jump_planes(
+        side, dtype=torch.float64, device=dev))
+    print(f"dist var {side}^2 D={D}: blocks {s.cfg.blocks}, sub-hierarchy "
+          f"sides {s.sub_hier.sides}, V-cycles {res.iterations}, rss "
+          f"history {res.history}, independent f64 rss on the planes "
+          f"{ind:.6e}")
+    require(bool(torch.isfinite(res.u).all()) and res.u.shape == (side,
+                                                                  side),
+            f"dist var: finite u of shape ({side}, {side})")
+    require(res.converged and abs(ind / res.error - 1) <= 1e-6,
+            f"dist var {side}^2 converged to {DIST_VAR_TOL:g}, rss checked "
+            "independently")
+    del s, res
+
+    side, D = DIST_VCYCLE_SIDE, DIST_VCYCLE_SLABS
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    us = {}
+    for halo in ("sweep", "step"):
+        s = DistStructuredSolver(side, n_devices=D, dtype=torch.float64,
+                                 halo=halo, A_fine=varcoef.jump_scipy(side),
+                                 device=dev)
+        bp = s.pad_field(b2)
+        us[halo], c = drive(lambda: s.unpad(s.vcycle(torch.zeros_like(bp),
+                                                     bp)), launches)
+        require(sum(c.values()) == 0, f"dist var V-cycle {halo}: no kernel")
+    d, r = rel_err(us["step"], us["sweep"])
+    print(f"dist var V-cycle {side}^2 D={D} f64: step against sweep max_abs "
+          f"{d:.3e} rel {r:.3e}, bitwise equal "
+          f"{torch.equal(us['step'], us['sweep'])}")
+    require(bool(((us["step"] - us["sweep"]).abs()
+                  <= 1e-14 + 1e-12 * us["sweep"].abs()).all()),
+            "var step within rtol 1e-12 / atol 1e-14 of sweep")
+
+    side = DIST_CHECK_SIDE
+    card_against_cpu(
+        dev, lambda d: DistStructuredSolver(
+            side, n_devices=DIST_SLABS, dtype=torch.float64, halo="sweep",
+            A_fine=varcoef.jump_scipy(side), device=d),
+        {"dist var solve": lambda s, b: s.solve(b, tolerance=DIST_CHECK_TOL),
+         "dist var pcg f64": lambda s, b: s.solve_pcg(
+             b, tolerance=DIST_CHECK_TOL)},
+        varcoef.jump_planes(side, dtype=torch.float64, device="cpu"), side)
+
+
+def dist_const_solves(dev, launches: dict):
+    """The constant problem at 4095^2 on 4 slabs with halo="packed" (the
+    color steps on packed slabs): solve_ir_fused to 1e-7 against the
+    "sweep" solve of phase dist_solves (the same refines, the two u within
+    the residual bound, an independent f64 rss); solve_pcg on the same
+    solver, f32 to 1e-5 (its iterations beside the single-device
+    solve_pcg_device's, the true f64 rss as bench.py prints it, u against
+    the df32 solution)."""
+    side, D = DIST_SIDE, DIST_SLABS
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    sweep = RECORD.pop(f"dist sweep {side}")
+    s, setup = timed_build(lambda: DistStructuredSolver(
+        side, n_devices=D, halo="packed", device=dev))
+    res = new_path(f"dist packed {side}^2 D={D} solve_ir_fused",
+                   lambda: s.solve_ir_fused(b2, tolerance=TOL),
+                   lambda r: r.iterations, setup, launches,
+                   dist_window(s, b2))
+    ind = f64_rss(res.u, b2, side)
+    du = float((res.u - sweep.u).abs().max())
+    bnd = solution_bound(res.error, sweep.error, side)
+    print(f"dist packed {side}^2 D={D}: refines "
+          f"{res.iterations // s.cycles_per_refine}, V-cycles "
+          f"{res.iterations} (sweep: {sweep.iterations}), rss "
+          f"{res.error:.6e} (sweep: {sweep.error:.6e}), independent f64 rss "
+          f"{ind:.6e}, max|u - u_sweep| {du:.3e} (bound {bnd:.3e})")
+    require(res.error <= TOL and ind <= TOL,
+            f"dist packed {side}^2 converged to {TOL}")
+    require(res.iterations == sweep.iterations,
+            "packed and sweep take the same refines")
+    require(du <= bnd, "packed and sweep u within the residual bound")
+
+    b32 = b2.to(torch.float32)
+    pcg = new_path(f"dist pcg {side}^2 D={D} f32 halo=packed",
+                   lambda: s.solve_pcg(b32, tolerance=PCG_TOL),
+                   lambda r: r.iterations + 1, setup, launches,
+                   dist_window(s, b32))
+    ind = f64_rss(pcg.u.double(), b32.double(), side)
+    _, rel_u = rel_err(pcg.u, sweep.u)
+    print(f"dist pcg {side}^2 D={D} f32 tol {PCG_TOL:g}: iterations "
+          f"{pcg.iterations} (single-device solve_pcg_device, phase "
+          f"pcg_solves: {RECORD.get(f'pcg {side}')}), recurrence rss "
+          f"{pcg.error:.6e}, true f64 rss {ind:.6e}, max|u - u_df32| / "
+          f"max|u_df32| {rel_u:.3e} (u_df32: the sweep solve's; setup: the "
+          f"packed solver's)")
+    require(bool(torch.isfinite(pcg.u).all()), "dist pcg: finite u")
+    require(pcg.converged, f"dist pcg {side}^2 converged to {PCG_TOL:g}")
+    # the recurrence rss does not hold the f32 iterate (pcg_solves); the
+    # df32 solution does
+    require(rel_u <= PCG_REL_U, f"dist pcg {side}^2 within {PCG_REL_U:g} "
+            "of the df32 solution")
+    del s, res, pcg, sweep
+
+
+def ell_dist_solves(dev, launches: dict):
+    """EllDistSolver on 4 slabs at 1023^2: the bilinear pipeline (9
+    levels, f64) to 1e-9 under "step" and "strips", each against the
+    single-device Multigrid (a)'s history (phase ell_solves) within the
+    residual-rounding rule; its f32 solve_ir to 1e-9 and f64 solve_pcg;
+    the flat reference pipeline (12 levels) for 20 V-cycles against the
+    single-device Multigrid over the same chain."""
+    side, D = ELL_SIDE, ELL_DIST_SLABS
+    A, b = poisson.poisson2d(side, device=dev)
+    ref = RECORD["ell (a)"]
+
+    def bilinear(halo, dtype=torch.float64):
+        return timed_build(lambda: EllDistSolver(
+            A, b, ELL_BILINEAR_LEVELS, n_devices=D, dtype=dtype,
+            interpolator=BilinearInterpolator2D(side), halo=halo,
+            device=dev))
+
+    def window(s):
+        def run():
+            bp = s.pad_vec(s.b)
+            u = torch.zeros_like(bp)
+            for _ in range(TRACE_CYCLES):
+                u = s.vcycle_once(u, bp)
+            return u
+        return run
+
+    for halo in ("step", "strips"):
+        s, setup = bilinear(halo)
+        label = f"ell dist bilinear {side}^2 D={D} {halo}"
+        res = new_path(label, lambda: s.solve(
+            tolerance=ELL_TOL, compute_error_every_n_iters=1),
+            lambda r: r.iterations, setup, launches, window(s))
+        ind = ell_rss(res.u, b, side)
+        g = residual_rounding(A, res.u, b)
+        ok, rel = history_close(res.history, ref, g)
+        print(f"{label}: sharded levels {s.Ls} (blocks {s.Bs[:s.Ls]}), "
+              f"strip depths {s._ext_meta}, V-cycles {res.iterations}, rss "
+              f"history {res.history} (single-device (a): {ref}; largest "
+              f"relative difference {rel:.3e}, residual rounding "
+              f"{g:.3e}), independent f64 rss {ind:.6e}")
+        require(res.converged and abs(ind / res.error - 1) <= 1e-6,
+                f"{label}: converged to {ELL_TOL}, rss checked")
+        require(res.iterations == ELL_A_CYCLES and ok,
+                f"{label}: the single-device (a) history")
+        require((s._ext_meta[0] is not None) == (halo == "strips"),
+                f"{label}: strips on the fine level iff halo='strips'")
+        if halo == "step":
+            pcg = new_path(f"ell dist pcg {side}^2 D={D} f64", lambda:
+                           s.solve_pcg(tolerance=ELL_TOL),
+                           lambda r: r.iterations + 1, setup, launches,
+                           window(s))
+            ind = ell_rss(pcg.u, b, side)
+            print(f"ell dist pcg {side}^2 D={D} f64: iterations "
+                  f"{pcg.iterations}, recurrence rss {pcg.error:.6e}, "
+                  f"independent f64 rss {ind:.6e}")
+            require(pcg.converged and ind <= 10 * ELL_TOL,
+                    "ell dist pcg converged")
+        del s
+
+    s, setup = bilinear("step", torch.float32)
+    res = new_path(f"ell dist solve_ir {side}^2 D={D} f32", lambda:
+                   s.solve_ir(tolerance=ELL_TOL), lambda r: r.iterations,
+                   setup, launches, window(s))
+    ind = ell_rss(res.u, b, side)
+    print(f"ell dist solve_ir {side}^2 D={D} f32: refines "
+          f"{len(res.history) - 1}, V-cycles {res.iterations}, rss history "
+          f"{res.history}, independent f64 rss {ind:.6e}")
+    # far below the tolerance the f64 check's own rounding is percents of
+    # the df32 rss: hold the check to the tolerance
+    require(res.converged and ind <= ELL_TOL,
+            "ell dist solve_ir converged to 1e-9, rss checked")
+    del s
+
+    L, n_cyc = ELL_FLAT_LEVELS, ELL_FLAT_CYCLES
+    s, setup = timed_build(lambda: EllDistSolver(A, b, L, n_devices=D,
+                                                 device=dev))
+    res = new_path(f"ell dist flat {side}^2 D={D} {L} levels", lambda:
+                   s.solve(tolerance=0.0, compute_error_every_n_iters=5,
+                           n_iters=n_cyc),
+                   lambda r: r.iterations, setup, launches, window(s))
+    single = Multigrid(LinearInterpolator(L), MulticolorGaussSeidel(), A, b,
+                       L, 0.0, 5, n_cyc, device=dev).solve(verbose=False)
+    g = residual_rounding(A, single.u, b)
+    ok, rel = history_close(res.history, single.history, g)
+    print(f"ell dist flat {side}^2 D={D}: sharded levels {s.Ls} of {L}, "
+          f"sizes {s.sizes}, rss history {res.history}; single-device "
+          f"Multigrid {single.history} (the device RAP chain's: 6.46e6, "
+          f"6.37e6, 5.97e6, 5.58e6); largest relative difference {rel:.3e}")
+    require(res.iterations == n_cyc and ok
+            and bool(torch.isfinite(res.u).all()),
+            "ell dist flat: the single-device history")
+
+
+def mp_runs(dev, report: bool) -> tuple[dict, list]:
+    """The runs the process phase compares: MP_CYCLES f64 V-cycles of
+    DistStructuredSolver(MP_SIDE) ("sweep") and of EllDistSolver
+    (MP_ELL_SIDE^2, the flat pipeline, "step") on MP_SLABS slabs, the rss
+    after each and the gathered field. Returns (arrays, report lines: with
+    ``report`` the setup, wall of the run, median of 3, and a traced
+    run)."""
+    out, lines = {}, []
+    b2 = poisson.rhs(MP_SIDE, device=dev).reshape(MP_SIDE, MP_SIDE)
+    A, b = poisson.poisson2d(MP_ELL_SIDE, device=dev)
+    cases = (("dist", lambda: DistStructuredSolver(
+        MP_SIDE, n_devices=MP_SLABS, dtype=torch.float64, halo="sweep",
+        device=dev), lambda s: (s.pad_field(b2), s.vcycle, s.rss,
+                                s.unpad)),
+             ("ell", lambda: EllDistSolver(A, b, MP_ELL_LEVELS,
+                                           n_devices=MP_SLABS, device=dev),
+              lambda s: (s.pad_vec(s.b), s.vcycle_once, s.rss,
+                         s.unpad_vec)))
+    for name, make, parts in cases:
+        s, setup = timed_build(make)
+        bp, vc, rss, gather = parts(s)
+
+        def run(n=MP_CYCLES):
+            u, hist = torch.zeros_like(bp), []
+            for _ in range(n):
+                u = vc(u, bp)
+                hist.append(rss(u, bp))
+            return np.array(hist), gather(u).cpu().numpy()
+
+        out[name + "_rss"], out[name + "_u"] = run()
+        if not report:
+            continue
+        med, walls = wall_median(run, 3)
+        w_med = wall_median(lambda: run(TRACE_CYCLES), 3)[0]
+        _, busy, n_gpu = traced(lambda: run(TRACE_CYCLES))
+        lines.append(f"{name}: setup {setup:.3f} s, {MP_CYCLES} V-cycles "
+                     f"wall median of 3 {med:.6f} s (all {walls}); traced "
+                     f"window of {TRACE_CYCLES} V-cycles: wall {w_med:.6f} "
+                     f"s, device busy {busy:.6f} s, idle share "
+                     f"{1 - busy / w_med:.4f}, GPU launches "
+                     f"{n_gpu / TRACE_CYCLES:.1f} per V-cycle")
+    return out, lines
+
+
+def mp_worker(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One process of the process phase (``chip_smoke.py --mp-worker``)."""
+    launch.initialize_distributed(f"localhost:{port}", world, rank)
+    K.reset_launch_counts()
+    out, lines = mp_runs(torch.device("cuda"), report=True)
+    counts = K.launch_counts()
+    for line in lines:
+        print(f"mp rank {rank}/{world} ({torch.distributed.get_backend()} "
+              f"on card {torch.cuda.current_device()}, "
+              f"{launch.device_mesh_1d(MP_SLABS).slabs_per_process} of "
+              f"{MP_SLABS} slabs) {line}")
+    require(sum(counts.values()) == 0, f"mp rank {rank}: no kernel")
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
+def mp_solves(dev, launches: dict, n_procs: int = MP_PROCS):
+    """``n_procs`` processes, each holding MP_SLABS / n_procs slabs, against
+    one process holding all: the same rss after each V-cycle and the same
+    gathered field within rtol 1e-12 (only the order of the sums differs).
+    On one card the processes share it under gloo: the launch path
+    (initialize_distributed, send/recv of the edge strips, all_reduce,
+    all_gather), not NCCL; with a card a process they take nccl. The
+    workers report the walls; the one process is the reference only."""
+    cards = torch.cuda.device_count()
+    print(f"mp: {n_procs} processes, {cards} card(s): "
+          + ("nccl, a card a process" if cards >= n_procs else
+             "gloo on one card exercises the launch path, not NCCL"))
+    (single, _), c = drive(lambda: mp_runs(dev, report=False), launches)
+    require(sum(c.values()) == 0, f"mp single process: no kernel: {c}")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-worker",
+             str(rank), str(n_procs), str(port), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(n_procs)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            raise RuntimeError(f"mp workers did not finish in {MP_TIMEOUT} s")
+        print(f"mp workers: {time.perf_counter() - t0:.1f} s from spawn to "
+              f"exit (start, CUDA context, setup, runs)")
+        for rank, (p, text) in enumerate(zip(procs, outs)):
+            print("\n".join(line for line in text.splitlines()
+                            if line.startswith("mp rank")))
+            require(p.returncode == 0,
+                    f"mp worker {rank} failed:\n{text[-3000:]}")
+        for rank in range(n_procs):
+            got = np.load(os.path.join(tmp, f"rank{rank}.npz"))
+            for key, want in single.items():
+                rel = float(np.max(np.abs(got[key] - want)
+                                   / np.maximum(np.abs(want), 1e-300)))
+                print(f"mp rank {rank} {key}: max relative difference to "
+                      f"one process {rel:.3e}")
+                require(np.allclose(got[key], want, rtol=MP_RTOL, atol=0),
+                        f"mp rank {rank} {key} within rtol {MP_RTOL:g}")
 
 
 def main() -> int:
@@ -1660,7 +2093,8 @@ def main() -> int:
     launches = {k: 0 for k in KERNEL_INFO}
     for phase in (const_solves, split_solve, pcg_solves, var_solves,
                   refine_solves, smoother_solves, host_solves, ell_solves,
-                  dist_solves):
+                  dist_solves, dist_var_solves, dist_const_solves,
+                  ell_dist_solves, mp_solves):
         t0 = time.perf_counter()
         phase(dev, launches)
         torch.cuda.synchronize()
@@ -1709,5 +2143,24 @@ def main() -> int:
     return 0
 
 
+def mp_only(procs: list) -> int:
+    """``chip_smoke.py --mp P [P ...]``: the process phase alone, once for
+    each P (with P cards visible the workers take nccl, a card each)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU "
+                           "only")
+    print(f"card: {card()}")
+    launches = {k: 0 for k in KERNEL_INFO}
+    for p in procs:
+        mp_solves(torch.device("cuda"), launches, p)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp"]:
+        sys.exit(mp_only([int(a) for a in sys.argv[2:]]))
+    if sys.argv[1:2] == ["--mp-worker"]:
+        mp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

@@ -114,12 +114,13 @@ def test_build_dist_hierarchy_matches_jax(side, D, dtype):
     1e-12."""
     jcfg, _, jsub = J.build_dist_hierarchy(side, n_devices=D,
                                            dtype=getattr(jnp, dtype))
-    cfg, sub = T.build_dist_hierarchy(side, n_devices=D,
-                                      dtype=getattr(torch, dtype),
-                                      device=CPU)
+    cfg, planes, sub = T.build_dist_hierarchy(side, n_devices=D,
+                                              dtype=getattr(torch, dtype),
+                                              device=CPU)
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert all(w is not None for w in cfg.w33s)
+    assert planes == (None,) * cfg.n_sharded   # JAX's placeholders
     assert sub.sides == jsub.sides
     assert sub.w33s == tuple(S.w33 for S in jsub.levels)
     for P1, jP1 in zip(sub.P1s, jsub.P1s):
@@ -160,7 +161,7 @@ def test_halo_rows_and_df_residual_match_jax(D):
     """The one-row halo (via the step-mode matvec) and the sharded df32
     residual with exact (hi, lo) weight pairs, bitwise."""
     side = 31
-    cfg, _ = T.build_dist_hierarchy(side, n_devices=D, device=CPU)
+    cfg, _, _ = T.build_dist_hierarchy(side, n_devices=D, device=CPU)
     B, w33 = cfg.blocks[0], cfg.w33s[0]
     rng = np.random.default_rng(D)
     fields = []
@@ -228,27 +229,33 @@ def test_halo_default_and_modes():
         T.DistStructuredSolver(31, n_devices=2, halo="ring", device=CPU)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
+    """What still raises: halo="rdma" across processes (K7's pointer-table
+    form, ROADMAP), and the df32 defect correction on a variable fine
+    level (JAX's own guard); config= gives what the arguments leave
+    None."""
     def make(**kw):
         return T.DistStructuredSolver(31, n_devices=2, device=CPU, **kw)
 
-    for kw in ({"halo": "packed"}, {"force_var": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(**kw)
-    # config=, once refused, gives what the arguments leave None
     d = make(config=MeshConfig(n_devices=4, halo="sweep",
                                cycles_per_refine=3))
     assert (d.cfg.n_devices, d.cfg.halo, d.cycles_per_refine) == \
         (2, "sweep", 3)
     A = tpoisson.laplacian_scipy(31) @ sp.diags(np.linspace(1.0, 2.0,
                                                             31 * 31))
-    with pytest.raises(NotImplementedError, match="variable-coefficient"):
-        make(A_fine=A)
-    with pytest.raises(NotImplementedError, match="Krylov"):
-        make().solve_pcg(np.zeros((31, 31)))
+    for kw in ({"A_fine": A}, {"force_var": True}):
+        s = make(**kw)
+        assert s.cfg.w33s[0] is None
+        for name in ("solve_ir", "solve_ir_device", "solve_ir_fused"):
+            with pytest.raises(NotImplementedError,
+                               match="constant-stencil fine level"):
+                getattr(s, name)(np.zeros((31, 31)))
     # a constant A_fine is the Poisson operator again
     assert make(A_fine=tpoisson.laplacian_scipy(31)).cfg.w33s == \
         make().cfg.w33s
+    monkeypatch.setattr(T.launch, "process_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make(halo="rdma")
 
 
 def test_device_none_needs_cuda(monkeypatch):

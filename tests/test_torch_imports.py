@@ -47,7 +47,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
                      "sparse.ell", "utils.coloring", "ops.coarse",
                      "ops.smoothers", "ops.ell_rap", "multigrid", "config",
                      "utils.checkpoint", "utils.profiling",
-                     "utils.debugging"):
+                     "utils.debugging", "parallel.ell_dist",
+                     "parallel.launch"):
             assert "amg_tpu_torch." + name in sys.modules, name
         for name in ("build_stencil_hierarchy", "solve_stencil", "solve_ir",
                      "build_fine_stencil_f64", "rss", "Stencil2D",
@@ -66,8 +67,16 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         for name in ("laplacian", "rhs_device", "poisson2d"):
             assert callable(getattr(poisson, name)), name
         from amg_tpu_torch import interop
-        for name in ("ell_from_numpy", "ell_hierarchy_from_numpy"):
+        for name in ("ell_from_numpy", "ell_hierarchy_from_numpy",
+                     "sharded_op_from_numpy", "dist_planes_from_numpy"):
             assert callable(getattr(interop, name)), name
+        from amg_tpu_torch.parallel import ell_dist, launch
+        for mod, names in ((ell_dist, ("EllDistSolver", "ShardedOp",
+                                       "build_ext_panels")),
+                           (launch, ("initialize_distributed",
+                                     "device_mesh_1d"))):
+            for name in names:
+                assert callable(getattr(mod, name)), name
         from amg_tpu_torch.utils import profiling
         for name in ("Roofline", "KernelStats", "time_fn", "trace"):
             assert callable(getattr(profiling, name)), name

@@ -18,6 +18,7 @@ from amg_tpu_torch import interop
 from amg_tpu_torch.models import poisson
 from amg_tpu_torch.multigrid import Hierarchy, _map_tensors
 from amg_tpu_torch.ops.transfer import LinearInterpolator
+from amg_tpu_torch.parallel.ell_dist import ShardedOp
 from amg_tpu_torch.parallel.structured_dist import DistConfig
 from amg_tpu_torch.sparse.ell import ELL
 from amg_tpu_torch.structured import build_stencil_hierarchy_device
@@ -84,13 +85,17 @@ CALLS = {
         *_ell_arrays(poisson.laplacian_scipy(4)), **kw),
     "ell_hierarchy_from_numpy":
         lambda **kw: interop.ell_hierarchy_from_numpy(_ell_levels(), **kw),
+    "dist_planes_from_numpy": lambda **kw: interop.dist_planes_from_numpy(
+        np.zeros((3, 3, 16, SIDE)), 2, **kw),
+    "sharded_op_from_numpy": lambda **kw: interop.sharded_op_from_numpy(
+        np.ones((8, 3)), np.zeros((8, 3), np.int32), 4, 4, 1, **kw),
 }
 
 
 def _tensors(out):
     if isinstance(out, torch.Tensor):
         return [out]
-    if isinstance(out, ELL):
+    if isinstance(out, (ELL, ShardedOp)):
         return [out.data, out.cols]
     if isinstance(out, Hierarchy):
         ts = []
@@ -127,6 +132,11 @@ def test_bad_input_raises_before_the_device(no_cuda):
         interop.ell_from_numpy(data, cols[:, :-1], shape)
     with pytest.raises(ValueError):
         interop.ell_from_numpy(data, cols.astype(np.float64), shape)
+    with pytest.raises(ValueError):
+        interop.dist_planes_from_numpy(np.zeros((3, 3, 15, SIDE)), 2)
+    with pytest.raises(ValueError):
+        interop.sharded_op_from_numpy(np.ones((8, 3)),
+                                      np.full((8, 3), 6), 4, 4, 1)
 
 
 def test_ell_hierarchy_keeps_the_arrays():
