@@ -49,6 +49,11 @@ _SIGNATURES = {
     "amg_rbgs_sweep_const": (_P, _P, _P, _I, _W9, _F, _F, _I, _P),
     "amg_rbgs_sweep_var": (_P, _P, _P, _P, _I, _F, _I, _P),
     "amg_halo_exchange": (_P,),      # csrc/halo.cu HaloCall, packed
+    "amg_halo_exchange_peer": (_P,),             # HaloPeerCall, packed
+    "amg_ipc_alloc": (_I, ctypes.c_longlong, _P, _P),
+    "amg_ipc_open": (_I, _P, _P),
+    "amg_ipc_close": (_I, _P),
+    "amg_ipc_free": (_I, _P),
 }
 
 

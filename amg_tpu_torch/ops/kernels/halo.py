@@ -16,15 +16,27 @@ the result is the (D, 2G, P*w) receive strips: rows [0, G) the previous
 slab's last G rows, rows [G, 2G) the next slab's first G rows, zeros at the
 line's ends. ``out=`` takes a contiguous receive buffer the caller owns, so
 a call allocates nothing. The plain version is the single-hop ghost-strip
-exchange in torch, which the CPU path and ``halo="sweep"`` run.
+exchange in torch.
 
 The call is lean on the host, since the kernel's bytes take less time than
 its launch: no per-slab loop, and one C call whose one argument is the
 packed scalars.
+
+Across processes (``rdma_halo_exchange_peer``) each process holds D/P
+consecutive slabs, and one launch also puts the strips at the ends of its
+block straight into the receive memory of processes p-1 and p+1, mapped
+through CUDA IPC, and waits on flags there for theirs: the TPU kernel's
+remote copies under semaphores. ``PeerStrips`` is that memory for one
+exchange shape, made and released by every process together
+(``parallel/launch.py`` ``open_peer_strips``). The plain version is the
+strip exchange across the processes, ``launch.strips``, one batch of
+send/recv. On the card there is no fallback to it: a failed mapping, a
+launch error or a wait that times out (``PEER_TIMEOUT_S``) raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 from array import array
 
 import torch
@@ -33,33 +45,34 @@ from amg_tpu_torch.ops.kernels._build import check, library, stream_of
 
 MAX_SLABS = 65535   # csrc/halo.cu: the grid's y extent
 MAX_PARTS = 2
+CHUNK = 256         # csrc/halo.cu THREADS: the columns behind one flag
+PEER_TIMEOUT_S = 60.0   # how long a launch waits for a neighbour's strips
+_ALIGN = 256
 
 
 def _parts(slabs) -> tuple:
     return (slabs,) if isinstance(slabs, torch.Tensor) else tuple(slabs)
 
 
-def rdma_halo_exchange_plain(slabs, G: int) -> torch.Tensor:
+def rdma_halo_exchange_plain(slabs, G: int, above: torch.Tensor | None = None,
+                             below: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """The single-hop exchange with tensor ops: a shift by one slab along
-    the slab axis, zero-filled at the ends, of each slab's last and first G
-    rows. Any dtype, any device."""
+    the slab axis of each slab's last and first G rows; beyond the ends
+    the (G, P*w) rows ``above`` the first slab and ``below`` the last
+    (None: zeros, the line's ends). Any dtype, any device."""
     x = torch.cat(_parts(slabs), dim=2)
     B = x.shape[1]
-    z = torch.zeros_like(x[:1, :G])
-    top = torch.cat([z, x[:-1, B - G:]], dim=0)
-    bot = torch.cat([x[1:, :G], z], dim=0)
+    z = torch.zeros_like(x[0, :G])
+    top = torch.cat([(z if above is None else above)[None], x[:-1, B - G:]])
+    bot = torch.cat([x[1:, :G], (z if below is None else below)[None]])
     return torch.cat([top, bot], dim=1)
 
 
-def rdma_halo_exchange(slabs, G: int, out: torch.Tensor | None = None
-                       ) -> torch.Tensor:
-    """The (D, 2G, P*w) receive strips of (D, B, w) slabs (one tensor, or a
-    tuple of two of one shape, dtype, device and strides, rows contiguous),
-    1 <= G <= B, into ``out`` (a contiguous (D, 2G, P*w) tensor of their
-    dtype and device, overlapping no slab) or a new tensor. CPU tensors
-    take the plain version; CUDA tensors launch K7 (f32 or f64) on the
-    current stream."""
-    parts = (slabs,) if isinstance(slabs, torch.Tensor) else tuple(slabs)
+def _checked(slabs, G: int) -> tuple:
+    """(parts, D, B, w, strides) of slabs the kernels take; raises on the
+    rest."""
+    parts = _parts(slabs)
     x0 = parts[0]
     if x0.dim() != 3:
         raise ValueError(f"slabs must be (D, B, w), got {tuple(x0.shape)}")
@@ -75,7 +88,8 @@ def rdma_halo_exchange(slabs, G: int, out: torch.Tensor | None = None
         if (x1.shape != x0.shape or x1.dtype != x0.dtype
                 or x1.device != x0.device):
             raise ValueError("slab parts must share shape, dtype and device")
-        if x1.stride() != st:
+        # one slab: its stride is never used
+        if x1.stride()[D == 1:] != st[D == 1:]:
             raise ValueError(f"slab parts must share strides, got {st} and "
                              f"{x1.stride()}")
     if st[2] != 1 and w > 1:
@@ -83,6 +97,23 @@ def rdma_halo_exchange(slabs, G: int, out: torch.Tensor | None = None
     if not 1 <= G <= B:
         raise ValueError(f"single-hop exchange needs 1 <= G <= B, got "
                          f"G={G}, B={B}")
+    if not (x0.is_cpu or x0.is_cuda):
+        raise ValueError(f"unsupported device {x0.device}")
+    if x0.is_cuda and x0.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"K7 takes float32 or float64, got {x0.dtype}")
+    return parts, D, B, w, st
+
+
+def rdma_halo_exchange(slabs, G: int, out: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """The (D, 2G, P*w) receive strips of (D, B, w) slabs (one tensor, or a
+    tuple of two of one shape, dtype, device and strides, rows contiguous),
+    1 <= G <= B, into ``out`` (a contiguous (D, 2G, P*w) tensor of their
+    dtype and device, overlapping no slab) or a new tensor. CPU tensors
+    take the plain version; CUDA tensors launch K7 (f32 or f64) on the
+    current stream."""
+    parts, D, B, w, st = _checked(slabs, G)
+    x0, P = parts[0], len(parts)
     W = P * w
     if out is not None and (out.shape != (D, 2 * G, W)
                             or out.dtype != x0.dtype
@@ -94,10 +125,6 @@ def rdma_halo_exchange(slabs, G: int, out: torch.Tensor | None = None
     if x0.is_cpu:
         strips = rdma_halo_exchange_plain(parts, G)
         return strips if out is None else out.copy_(strips)
-    if not x0.is_cuda:
-        raise ValueError(f"unsupported device {x0.device}")
-    if x0.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"K7 takes float32 or float64, got {x0.dtype}")
     if out is None:
         out = torch.empty((D, 2 * G, W), dtype=x0.dtype, device=x0.device)
     # csrc/halo.cu HaloCall, packed
@@ -111,3 +138,101 @@ def rdma_halo_exchange(slabs, G: int, out: torch.Tensor | None = None
 
 
 rdma_halo_exchange.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Across processes.
+
+
+def _align(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def peer_layout(D: int, G: int, W: int, elsize: int) -> dict:
+    """Byte offsets in one process's allocation for an exchange of D slabs
+    (this process's) with strips G x W (csrc/halo.cu, the peer form):
+    ``out`` (D, 2G, W) at 0, the receive ``slots`` [2][2][G][W], the
+    ``flags`` [2][chunks] and two counter words; ``nbytes`` in all."""
+    chunks = -(-W // CHUNK)
+    slots = _align(D * 2 * G * W * elsize)
+    flags = _align(slots + 4 * G * W * elsize)
+    return dict(chunks=chunks, out=0, slots=slots, flags=flags,
+                nbytes=flags + 4 * (2 * chunks + 2))
+
+
+# HaloPeerCall's fields (csrc/halo.cu), in order
+(_SRC0, _SRC1, _SLAB, _PITCH, _DST, _DST_SLAB, _D, _B, _G, _W, _PARTS,
+ _ELSIZE, _STREAM, _SLOTS, _ABOVE_SLOTS, _BELOW_SLOTS, _FLAGS, _ABOVE_FLAGS,
+ _BELOW_FLAGS, _STATUS, _TIMEOUT) = range(21)
+
+
+class PeerStrips:
+    """K7's memory across processes for one exchange shape: D slabs of
+    this process, strips of G rows of width W (u and b side by side), in
+    ``dtype``, laid out by ``peer_layout`` in ``mem`` (``launch.PeerMemory``
+    of ``peer_layout(...)["nbytes"]`` bytes, which the neighbours have
+    mapped; ``launch.open_peer_strips`` makes both). ``out`` is the
+    (D, 2G, W) receive strips a call returns; ``status`` the host words a
+    timed-out wait writes, shared by the strips opened together."""
+
+    def __init__(self, D: int, G: int, W: int, dtype, mem,
+                 status: torch.Tensor, timeout_s: float):
+        es = torch.empty((), dtype=dtype).element_size()
+        lay = peer_layout(D, G, W, es)
+        self.shape, self.dtype, self.status = (D, 2 * G, W), dtype, status
+        self.mem = m = mem
+        self.out = m.local[:D * 2 * G * W * es].view(dtype).view(self.shape)
+        slots = lambda base: base + lay["slots"] if base else 0  # noqa: E731
+        flags = lambda base: base + lay["flags"] if base else 0  # noqa: E731
+        self.call = array("q", [0] * 21)
+        c = self.call
+        c[_DST], c[_DST_SLAB], c[_D], c[_G] = m.base, 2 * G * W, D, G
+        c[_ELSIZE], c[_STATUS] = es, status.data_ptr()
+        c[_SLOTS], c[_FLAGS] = slots(m.base), flags(m.base)
+        c[_ABOVE_SLOTS], c[_ABOVE_FLAGS] = slots(m.above), flags(m.above)
+        c[_BELOW_SLOTS], c[_BELOW_FLAGS] = slots(m.below), flags(m.below)
+        c[_TIMEOUT] = int(timeout_s * 1e9)
+        self._timed_out = (ctypes.c_int * 2).from_address(status.data_ptr())
+
+    def check(self) -> None:
+        """Raise if a wait of these strips (or of any opened with them)
+        timed out: a neighbour did not put its strips in time."""
+        if self._timed_out[0]:
+            raise RuntimeError(
+                f"K7 across processes: a wait for a neighbour's strips "
+                f"timed out (epoch {self._timed_out[1]}); the neighbour "
+                f"process stopped or fell behind by more than the bound")
+
+
+def rdma_halo_exchange_peer(slabs, G: int, strips: PeerStrips | None = None
+                            ) -> torch.Tensor:
+    """``rdma_halo_exchange`` of this process's (D/P, B, w) slabs across
+    the process group: the (D/P, 2G, P*w) receive strips, the ones at the
+    ends of its block from processes p-1 and p+1. CPU tensors take the
+    plain version (``strips`` unused). CUDA tensors launch K7's peer form
+    on the current stream into ``strips.out`` (``strips``: the shape's
+    PeerStrips, which every process of the group calls in the same
+    order)."""
+    parts, D, B, w, st = _checked(slabs, G)
+    x0, P = parts[0], len(parts)
+    if x0.is_cpu:
+        # the plain version is a collective, in the layer above this one
+        from amg_tpu_torch.parallel.launch import strips as plain
+        return plain(torch.cat(parts, dim=2), G)
+    if strips is None:
+        raise ValueError("K7 across processes on the card needs the "
+                         "exchange's PeerStrips (launch.open_peer_strips)")
+    if (strips.shape != (D, 2 * G, P * w) or strips.dtype != x0.dtype
+            or strips.out.device != x0.device):
+        raise ValueError(f"strips are {strips.shape} {strips.dtype} on "
+                         f"{strips.out.device}, the slabs need "
+                         f"{(D, 2 * G, P * w)} {x0.dtype} on {x0.device}")
+    strips.check()
+    c = strips.call
+    c[_SRC0], c[_SRC1] = x0.data_ptr(), parts[1].data_ptr() if P == 2 else 0
+    c[_SLAB], c[_PITCH], c[_B], c[_W], c[_PARTS] = st[0], st[1], B, w, P
+    c[_STREAM] = stream_of(x0)
+    check(library().amg_halo_exchange_peer(c.buffer_info()[0]),
+          "amg_halo_exchange_peer")
+    rdma_halo_exchange.launches += 1
+    return strips.out

@@ -14,7 +14,14 @@ the layer below turns the slab-axis ops into ``torch.distributed`` calls:
   host memory under gloo;
 * the rss and the inner products (``psum``): ``all_reduce``;
 * the agglomeration gather and the gathered field
-  (``all_gather_slabs``): ``all_gather``.
+  (``all_gather_slabs``): ``all_gather``;
+* the ghost strips of the slabs (``strips``): ``edges`` and a shift by
+  one slab, the plain version of K7's peer form;
+* card memory that the neighbour processes address directly
+  (``peer_buffers``, ``free_peer_buffers``; ``open_peer_strips``,
+  ``close_peer_strips`` lay K7's peer form out in it, ``halo="rdma"``):
+  one ``cudaMalloc`` a buffer, its CUDA IPC handle exchanged once through
+  ``all_gather_object``, the neighbours' opened.
 
 The process group is torch.distributed's default group: a process that
 has called ``initialize_distributed`` (or ``init_process_group``) with
@@ -24,12 +31,18 @@ any other runs them in one process, on the slab axis alone.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+from amg_tpu_torch.ops.kernels._build import check, library
+from amg_tpu_torch.ops.kernels.halo import (PEER_TIMEOUT_S, PeerStrips,
+                                            peer_layout,
+                                            rdma_halo_exchange_plain)
 
 
 def initialize_distributed(coordinator_address: str | None = None,
@@ -185,6 +198,16 @@ def frame(x: torch.Tensor, G: int, dim: int = -2) -> torch.Tensor:
     return torch.cat([above, x, below], dim=dim)
 
 
+def strips(x: torch.Tensor, G: int) -> torch.Tensor:
+    """The (D, 2G, W) receive strips of this process's (D, B, W) slabs,
+    G <= B: rows [0, G) the previous slab's last G rows, rows [G, 2G) the
+    next slab's first G rows, the ones beyond the ends of the block from
+    processes p-1 and p+1 (``edges``), zeros at the line's ends."""
+    D, B, W = x.shape
+    above, below = edges(x.reshape(D * B, W), G, dim=0)
+    return rdma_halo_exchange_plain(x, G, above, below)
+
+
 def psum(t: torch.Tensor) -> torch.Tensor:
     """A partial sum (a 0-d tensor) summed over the processes."""
     if process_count() == 1:
@@ -204,3 +227,100 @@ def all_gather_slabs(x: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(w) for _ in range(P)]
     dist.all_gather(parts, w)
     return torch.cat(parts).to(x.device)
+
+
+# ---------------------------------------------------------------------------
+# Card memory the line neighbours address: the peer form of K7.
+
+
+class _CudaBytes:
+    """``nbytes`` bytes of card memory at ``ptr``, for ``torch.as_tensor``
+    (``__cuda_array_interface__``); the memory stays its owner's."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "strides": None, "version": 3}
+
+
+@dataclasses.dataclass
+class PeerMemory:
+    """One allocation of this process's card that processes p-1 and p+1
+    have mapped: ``local`` its bytes as a tensor, ``above`` and ``below``
+    the neighbours' allocations of the same size mapped here (0 beyond
+    the line's ends). ``free_peer_buffers`` releases it."""
+
+    local: torch.Tensor
+    above: int
+    below: int
+    base: int
+    device: int
+
+
+def peer_buffers(nbytes: int) -> PeerMemory:
+    """Collective: every process calls it with the same ``nbytes``. Each
+    makes a zeroed ``cudaMalloc`` of its own on its current card (not a
+    block of PyTorch's caching allocator: an IPC handle names a whole
+    allocation), the 64-byte IPC handles go round once, and each process
+    maps its line neighbours' allocations (with peer access when they lie
+    on another card). Raises if a step fails; there is no other path."""
+    if process_count() < 2:
+        raise RuntimeError("peer_buffers needs a process group of two or "
+                           "more processes")
+    lib = library()
+    dev = torch.cuda.current_device()
+    base, handle = ctypes.c_void_p(), ctypes.create_string_buffer(64)
+    check(lib.amg_ipc_alloc(dev, nbytes, ctypes.byref(base), handle),
+          "amg_ipc_alloc")
+    handles = [None] * process_count()
+    dist.all_gather_object(handles, handle.raw)
+    r = process_index()
+    mapped = []
+    for q in (r - 1, r + 1):
+        ptr = ctypes.c_void_p()
+        if 0 <= q < process_count():
+            check(lib.amg_ipc_open(dev, handles[q], ctypes.byref(ptr)),
+                  f"amg_ipc_open (process {q}'s memory)")
+        mapped.append(ptr.value or 0)
+    local = torch.as_tensor(_CudaBytes(base.value, nbytes),
+                            device=f"cuda:{dev}")
+    return PeerMemory(local, mapped[0], mapped[1], base.value, dev)
+
+
+def free_peer_buffers(mems) -> None:
+    """Collective: wait for this process's card, unmap the neighbours'
+    allocations, wait for every process to have done the same (so no
+    mapping of this process's memory is left), then free this process's.
+    The ``local`` tensors must not be used after."""
+    lib = library()
+    torch.cuda.synchronize()
+    for m in mems:
+        for ptr in (m.above, m.below):
+            if ptr:
+                check(lib.amg_ipc_close(m.device, ptr), "amg_ipc_close")
+        m.above = m.below = 0
+    dist.barrier()
+    for m in mems:
+        if m.base:
+            check(lib.amg_ipc_free(m.device, m.base), "amg_ipc_free")
+        m.base = 0
+
+
+def open_peer_strips(shapes, dtype, timeout_s: float = PEER_TIMEOUT_S
+                     ) -> dict:
+    """Collective, on the card: ``{(D, G, W): PeerStrips}``, K7's peer
+    memory for each exchange shape (every process asks for the same
+    shapes in the same order), with one status word between them."""
+    status = torch.zeros(2, dtype=torch.int32, pin_memory=True)
+    es = torch.empty((), dtype=dtype).element_size()
+    return {(D, G, W): PeerStrips(
+        D, G, W, dtype, peer_buffers(peer_layout(D, G, W, es)["nbytes"]),
+        status, timeout_s) for D, G, W in shapes}
+
+
+def close_peer_strips(strips: dict) -> None:
+    """Collective: release what ``open_peer_strips`` made (after the card
+    has finished with it), then raise if a wait had timed out."""
+    free_peer_buffers([s.mem for s in strips.values()])
+    for s in strips.values():
+        s.check()

@@ -18,9 +18,12 @@ mesh of slabs, whose ``halo="rdma"`` exchange is the CUDA kernel K7
 (ops/kernels/halo.py), a put that addresses every slab from one base
 pointer and the slab stride. Under a process group (parallel/launch.py)
 each process holds D/P consecutive slabs and the exchanges, sums and
-gathers go through launch.py's collectives; K7 is single-process only
-(slabs in other processes need its pointer-table form: ROADMAP Queue 1
-item 13).
+gathers go through launch.py's collectives; ``halo="rdma"`` there is K7's
+peer form, which also puts the strips at the ends of the process's block
+straight into the receive memory of its neighbour processes (on the same
+card or another) and waits on flags there, in one launch. Its memory is
+made when the solver is built, by every process together, and released
+by ``close()``.
 
 Layout invariants (``build_dist_hierarchy``), as in the JAX package:
 
@@ -59,7 +62,7 @@ from amg_tpu_torch.models import poisson
 from amg_tpu_torch.ops.doublefloat import (DF32, df_add, df_add_f32,
                                            df_apply_const, df_neg, df_rss)
 from amg_tpu_torch.ops.kernels.halo import (rdma_halo_exchange,
-                                            rdma_halo_exchange_plain)
+                                            rdma_halo_exchange_peer)
 from amg_tpu_torch.ops.transfer import linear_interp_1d
 from amg_tpu_torch.parallel import launch
 from amg_tpu_torch.sparse.packed import (pack_rect, packed_steps_window,
@@ -67,7 +70,7 @@ from amg_tpu_torch.sparse.packed import (pack_rect, packed_steps_window,
 from amg_tpu_torch.sparse.stencil import (FOUR_COLORS, W2D, Stencil2D,
                                           color_masks)
 from amg_tpu_torch.structured import (SolveResult, StencilHierarchy,
-                                      _not_yet, galerkin_chain,
+                                      galerkin_chain,
                                       max_levels_for_side, vcycle_stencil)
 from amg_tpu_torch.utils.debugging import check_rss
 from amg_tpu_torch.utils.device import resolve_device
@@ -137,14 +140,14 @@ def _windows(x, G: int):
 
 
 def _exchange_strips(u, b, G: int):
-    """One ghost-strip exchange of u and b (JAX ``_exchange_strips``): in
-    one process single-hop (G <= B) through K7's plain version; multi-hop
-    (G > B, tiny slabs) or across processes, u and b ride one exchange as
-    windows of the padded field."""
-    if launch.process_count() > 1 or G > u.shape[1]:
+    """One ghost-strip exchange of u and b (JAX ``_exchange_strips``):
+    single-hop (G <= B) as ``launch.strips``, across the processes when
+    there are several; multi-hop (G > B, tiny slabs) as windows of the
+    padded field, u and b in one exchange."""
+    if G > u.shape[1]:
         ub = _windows(torch.stack([u, b]), G)
         return ub[0], ub[1]
-    return _extend(rdma_halo_exchange_plain((u, b), G), u, b, G)
+    return _extend(launch.strips(torch.cat([u, b], dim=2), G), u, b, G)
 
 
 def ghost_rows(sweeps: int, symmetric: bool) -> int:
@@ -224,26 +227,60 @@ def _gs4_sweep_overlap_const(w33, u, b, side: int, sweeps: int,
 def _gs4_sweep_rdma_const(w33, u, b, side: int, sweeps: int, omega: float,
                           symmetric: bool, recv: dict):
     """The ghost sweep with K7 as the exchange: u and b ride one launch,
-    into the level's receive buffer, kept in ``recv`` by shape (its owner's
-    buffers: the exchange allocates nothing after the first; on one stream,
-    ``_extend`` has copied the strips out before the next exchange of the
-    shape writes them). JAX's rule: with one slab, or strips that span more
-    than one neighbour slab (G > B), the level takes the ghost sweep."""
+    into the receive buffer kept in ``recv`` by exchange shape (D, G, n)
+    (rdma_buffers; on one stream, ``_extend`` has copied the strips out
+    before the next exchange of the shape writes them). In one process
+    K7 puts between the slabs of the tensor; across processes on the card
+    its peer form also puts into the neighbour processes' memory; across
+    processes on the CPU the strips are its plain version,
+    ``launch.strips``. JAX's rule: with one slab in all, or strips that
+    span more than one neighbour slab (G > B), the level takes the ghost
+    sweep."""
     D, B, n = u.shape
     G = ghost_rows(sweeps, symmetric)
-    if D == 1 or G > B:
+    if D * launch.process_count() == 1 or G > B:
         return _gs4_sweep_ghost_const(w33, u, b, side, sweeps, omega,
                                       symmetric)
     u, b = u.contiguous(), b.contiguous()
-    out = recv.get((D, G, n))
-    if out is None:
-        out = recv[(D, G, n)] = torch.empty((D, 2 * G, 2 * n),
-                                            dtype=u.dtype, device=u.device)
-    u_ext, b_ext = _extend(rdma_halo_exchange((u, b), G, out=out), u, b, G)
+    if launch.process_count() == 1:
+        strips = rdma_halo_exchange((u, b), G, out=recv[(D, G, n)])
+    elif u.is_cuda:
+        strips = rdma_halo_exchange_peer((u, b), G, recv.get((D, G, n)))
+    else:
+        strips = launch.strips(torch.cat([u, b], dim=2), G)
+    u_ext, b_ext = _extend(strips, u, b, G)
     u_ext = _masked_steps_const(w33, u_ext, b_ext,
                                 _row0(D, B, u.device) - G, side, sweeps,
                                 omega, symmetric)
     return u_ext, b_ext, G
+
+
+def rdma_buffers(cfg, dtype, device) -> dict:
+    """K7's receive buffers of a solver under ``halo="rdma"``, by exchange
+    shape (D/P, G, n): one for each constant sharded level whose slabs
+    hold the G strip rows of its pre- or post-smoothing, with more than
+    one slab in all. In one process a (D, 2G, 2n) tensor each; across
+    processes on the card K7's peer memory (collective: every process
+    makes it together); across processes on the CPU none (the plain
+    exchange needs none)."""
+    if cfg.halo != "rdma" or cfg.n_devices == 1:
+        return {}
+    Dl = cfg.n_devices // launch.process_count()
+    shapes = []
+    for w33, B, n in zip(cfg.w33s, cfg.blocks, cfg.sides):
+        for sweeps in (cfg.pre_sweeps, cfg.post_sweeps):
+            G = ghost_rows(sweeps, cfg.symmetric)
+            if w33 is not None and G <= B and (Dl, G, n) not in shapes:
+                shapes.append((Dl, G, n))
+    if launch.process_count() == 1:
+        return {(D, G, n): torch.empty((D, 2 * G, 2 * n), dtype=dtype,
+                                       device=device)
+                for D, G, n in shapes}
+    if torch.device(device).type != "cuda" or not shapes:
+        return {}
+    peer = launch.open_peer_strips([(D, G, 2 * n) for D, G, n in shapes],
+                                   dtype)
+    return {(D, G, W // 2): s for (D, G, W), s in peer.items()}
 
 
 def _gs4_sweep_packed_const(w33, u, b, side: int, sweeps: int,
@@ -604,17 +641,22 @@ def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
     """One V-cycle on (D, B_0, n_0) slabs (JAX ``_vcycle_local`` on every
     slab at once): the sharded down-leg, one V-cycle of the replicated
     sub-hierarchy from zero, the sharded up-leg. ``recv``: the caller's
-    dict of ``halo="rdma"`` receive buffers, kept across calls (None: new
-    ones for this V-cycle). ``planes``: each sharded level's planes (None
-    on a constant level; build_dist_hierarchy), for the slabs in ``u``;
-    ``planes_ext``: the same with their ghost strips (extend_planes; None:
-    exchanged here, as JAX does in every V-cycle)."""
+    dict of ``halo="rdma"`` receive buffers (rdma_buffers), kept across
+    calls (None: rdma_buffers' for this V-cycle, in one process; across
+    processes on the card K7 needs the solver's). ``planes``: each
+    sharded level's planes (None on a constant level;
+    build_dist_hierarchy), for the slabs in ``u``; ``planes_ext``: the
+    same with their ghost strips (extend_planes; None: exchanged here, as
+    JAX does in every V-cycle)."""
     D, Ls = u.shape[0], cfg.n_sharded
     ghost = GHOST_SWEEPS.get(cfg.halo)
     if ghost is None and cfg.halo != "step":
         raise ValueError(f"halo mode {cfg.halo!r} has no sweep here")
     if cfg.halo == "rdma":
-        ghost = functools.partial(ghost, recv={} if recv is None else recv)
+        if recv is None:
+            recv = (rdma_buffers(cfg, u.dtype, u.device)
+                    if launch.process_count() == 1 else {})
+        ghost = functools.partial(ghost, recv=recv)
     var = [w is None for w in cfg.w33s]
     if any(var) and planes is None:
         raise ValueError("a variable-coefficient level needs its planes")
@@ -713,8 +755,11 @@ class DistStructuredSolver:
     ``n_devices`` is the number of slabs (None: the visible CUDA devices);
     in one process all D live on ``device``, under a process group
     (parallel/launch.py) each process holds D/P of them and ``unpad``
-    gathers the field. ``halo`` None is ``"overlap"`` on the card and
-    ``"step"`` on the CPU, as JAX picks by backend; ``device`` None is
+    gathers the field; there, with ``halo="rdma"`` on the card, the
+    solver holds memory its neighbour processes map, built with it and
+    released by ``close()``, which every process calls. ``halo`` None is
+    ``"overlap"`` on the card and ``"step"`` on the CPU, as JAX picks by
+    backend; ``device`` None is
     ``"cuda"`` (raises without one). ``A_fine`` (a scipy matrix) or
     ``force_var`` gives variable-coefficient sharded levels. ``solve`` is
     the reference's V-cycle loop and ``solve_pcg`` the AMG-preconditioned
@@ -749,11 +794,6 @@ class DistStructuredSolver:
             halo = "overlap" if self.device.type == "cuda" else "step"
         if halo not in HALO_MODES:
             raise ValueError(f"unknown halo mode {halo!r}")
-        if halo == "rdma" and launch.process_count() > 1:
-            raise _not_yet("halo='rdma' across processes (K7 addresses "
-                           "every slab from one base pointer; slabs in "
-                           "other processes need its pointer-table form)",
-                           "Queue 1 item 13")
         if self.device.type == "cuda":
             # the sub-hierarchy's transfer matmuls in full f32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -778,7 +818,19 @@ class DistStructuredSolver:
         self.cycles_per_refine = (2 if cycles_per_refine is None
                                   else cycles_per_refine)
         self.n_pad = self.cfg.n_devices * self.cfg.blocks[0]
-        self._recv = {}          # halo="rdma" receive buffers, by shape
+        # halo="rdma" receive buffers, by exchange shape; across processes
+        # on the card K7's peer memory, which close() releases
+        self._recv = rdma_buffers(self.cfg, dtype, self.device)
+        self._peer = launch.process_count() > 1 and bool(self._recv)
+
+    def close(self) -> None:
+        """Collective under a process group with ``halo="rdma"`` on the
+        card: release K7's peer memory (every process calls it, before the
+        group is destroyed), then raise if one of its waits timed out.
+        Nothing to do otherwise; the solver is not used after."""
+        if self._peer:
+            recv, self._recv, self._peer = self._recv, {}, False
+            launch.close_peer_strips(recv)
 
     def _tensor(self, f) -> torch.Tensor:
         """A tensor on the solver's device; numpy input is copied."""
@@ -800,8 +852,12 @@ class DistStructuredSolver:
 
     def unpad(self, f) -> torch.Tensor:
         """Slabs -> the (side, side) field: a view in one process, gathered
-        from every process under a process group."""
+        from every process under a process group (where K7's peer form
+        ran, after a check that none of its waits timed out)."""
         f = launch.all_gather_slabs(f)
+        if self._peer:
+            torch.cuda.current_stream(f.device).synchronize()
+            next(iter(self._recv.values())).check()
         return f.reshape(self.n_pad, self.side)[:self.side]
 
     def vcycle(self, u_pad, b_pad):

@@ -645,11 +645,6 @@ def solve_ir(side: int, b2_f64, hier32: StencilHierarchy | None = None,
 SMOOTHERS = ("auto", "packed", "fused", "masked", "strided", "chebyshev")
 
 
-def _not_yet(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to amg_tpu_torch yet (ROADMAP.md: {item})")
-
-
 class StructuredSolver:
     """Single-device structured solver: the hierarchy and the level plan
     are built once, then solves are cheap to repeat.

@@ -57,15 +57,24 @@ check and the kernels' launch counts:
   single-device Multigrid), and 2 processes under gloo on the one card,
   each holding 2 of 4 slabs, against one process (the launch path, not
   NCCL; with a card a process they take nccl); each with its wall,
-  setup, idle share and launches a V-cycle.
+  setup, idle share and launches a V-cycle;
+* in those 2 processes, K7's peer form (it puts into the other
+  process's memory, mapped through CUDA IPC): bitwise against its plain
+  version (launch.strips) in f32 and f64, a lost neighbour's bounded
+  wait, its per-exchange time against the plain exchange, and the
+  4095^2 D = 4 halo="rdma" solve across the processes
+  against the one-process run (the same V-cycles, u bitwise, K7 14 a
+  V-cycle in each process).
 
 K9, the sweep on the row-grouped layout, is on no path (no JAX solver
 calls it): its launches are those of its parity phase. Each phase prints
 its seconds. Any failed check raises, so the exit code is non-zero. The
 line before the last of stdout is the card's name and power limit, the
-one before it the kernels' JSON; the last line is one JSON object with
-"ok" and the device. Needs a CUDA device and nvcc; imports neither JAX
-nor the JAX package.
+one before it the kernels' JSON (K1-K9, then K7's peer form as
+rdma_halo_exchange_peer, from process 0); the last line is one JSON
+object with "ok" and the device. ``--mp P [P ...]`` runs the process
+phase alone for each P (with P cards, nccl and a card each). Needs a
+CUDA device and nvcc; imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -102,7 +111,8 @@ from amg_tpu_torch.ops.kernels import _build
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
                                                     residual_restrict_plain,
                                                     up_leg_plain)
-from amg_tpu_torch.ops.kernels.halo import rdma_halo_exchange_plain
+from amg_tpu_torch.ops.kernels.halo import (rdma_halo_exchange_peer,
+                                            rdma_halo_exchange_plain)
 from amg_tpu_torch.ops.kernels.packed_df import df_residual_rss_plain
 from amg_tpu_torch.ops.kernels.packed_rm import (from_rm,
                                                  fused_gs4_sweep_rm_plain,
@@ -143,6 +153,12 @@ HALO_SHAPES = ((4, 1024, 4095, 10), (2, 10, 31, 10), (8, 10, 31, 10),
                (4, 64, 256, 10))
 K7_GRAPH_LAUNCHES = 20
 DIST_SIDE, DIST_SLABS = 4095, 4
+# K7's peer form across the processes (global D slabs, B, n, G): the
+# 4095^2 D = 4 solve's fine level, then a small mesh; each process holds
+# D / P of the slabs
+PEER_SHAPES = ((4, 1024, 4095, 10), (8, 10, 31, 10))
+PEER_EPOCHS = 3                # calls per parity check: both slots, twice
+PEER_TIMEOUT_TEST_S = 0.5      # the bound of the deliberately lost wait
 SPLIT_SIDE = 8191                      # the split fine level, M = 4096
 K8_SIDES = (201, 8191)                 # M = 101 (ragged) and 4096
 # K9: M = 101 (ragged), 512, 2048, 4096; timed at the last two
@@ -181,6 +197,8 @@ PCG_CARD_CPU_REL = 1e-5
 # bytes over the first and its f32 operations over the second.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# NVLink 4 between two cards of one host: 900 GB/s in all, 450 each way
+NVLINK_BYTES_PER_S = 450e9
 
 # Kernel-vs-plain bound, |kernel - plain| / |plain|, for the one output
 # not held bitwise (K1, K2, K3, K5, K6, K8, K9 and K4's r.hi are:
@@ -202,7 +220,7 @@ ELL_FLAT_LEVELS, ELL_FLAT_CYCLES = 12, 20
 MP_PROCS, MP_SLABS, MP_CYCLES = 2, 4, 10
 MP_SIDE, MP_ELL_SIDE, MP_ELL_LEVELS = 1023, 255, 7
 MP_RTOL = 1e-12                   # only the order of the sums differs
-MP_TIMEOUT = 300                  # seconds, for both workers
+MP_TIMEOUT = 420                  # seconds, for all the workers
 TRACE_CYCLES = 2                  # the traced window of a distributed path
 # what later phases print beside their own numbers: the single-device
 # PCG's iterations (pcg_solves), the ELL (a) history (ell_solves)
@@ -1606,6 +1624,7 @@ def dist_solves(dev, launches: dict):
                 lambda: s.solve_ir_fused(b2, tolerance=TOL), 3)
             print(f"dist solve wall {side}^2 D={D} halo=rdma: median of 3 "
                   f"{med:.6f} s (all {walls})")
+            save_rdma_reference(RECORD["mp_dir"], res)
         results[halo] = (refines, res.u)
         if halo == "sweep":     # dist_const_solves holds "packed" to it
             RECORD[f"dist sweep {side}"] = res
@@ -1653,6 +1672,25 @@ def dist_solves(dev, launches: dict):
     require(r_gpu.iterations == r_cpu.iterations,
             "dist: same refines on GPU and CPU")
     require(du <= bnd, "dist GPU and CPU solutions within the bound")
+
+
+def save_rdma_reference(out_dir: str, res) -> None:
+    """The one-process DIST_SIDE^2 halo="rdma" solve's u and V-cycles, which
+    the process workers hold theirs to (no worker builds it again)."""
+    np.save(os.path.join(out_dir, "rdma_u.npy"), res.u.cpu().numpy())
+    with open(os.path.join(out_dir, "rdma_ref.json"), "w") as f:
+        json.dump({"iterations": res.iterations, "error": res.error}, f)
+
+
+def rdma_reference(dev, out_dir: str) -> None:
+    """save_rdma_reference for ``--mp``, where dist_solves does not run."""
+    side = DIST_SIDE
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    s = DistStructuredSolver(side, n_devices=DIST_SLABS, halo="rdma",
+                             device=dev)
+    save_rdma_reference(out_dir, s.solve_ir_fused(b2, tolerance=TOL))
+    del s
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1976,19 +2014,226 @@ def mp_runs(dev, report: bool) -> tuple[dict, list]:
     return out, lines
 
 
+def peer_parity(dev) -> tuple[float, list]:
+    """K7's peer form against its plain version (launch.strips), bitwise,
+    in f32 and f64 at PEER_SHAPES: every process makes the whole line's u
+    and b from one seed, exchanges its own slabs PEER_EPOCHS times with new
+    values (both receive slots, one of them twice), and holds the strips
+    to the plain version and that to the one-process exchange of the
+    whole line. Returns max_abs_err and the report lines."""
+    err, lines = 0.0, []
+    for D, B, n, G in PEER_SHAPES:
+        mesh = launch.device_mesh_1d(D)
+        Dl = mesh.slabs_per_process
+        for dtype in (torch.float32, torch.float64):
+            strips = launch.open_peer_strips([(Dl, G, 2 * n)], dtype)
+            g = torch.Generator(device=dev).manual_seed(D * B + n)
+            same = True
+            for _ in range(PEER_EPOCHS):
+                u, b = (torch.randn((D, B, n), generator=g, device=dev,
+                                    dtype=dtype) for _ in range(2))
+                part = (mesh.local(u), mesh.local(b))
+                got = rdma_halo_exchange_peer(part, G,
+                                              strips[(Dl, G, 2 * n)])
+                ref = launch.strips(torch.cat(part, dim=2), G)
+                whole = mesh.local(rdma_halo_exchange_plain((u, b), G))
+                same &= torch.equal(got, ref) and torch.equal(ref, whole)
+                err = max(err, float((got - ref).abs().max()))
+            launch.close_peer_strips(strips)
+            lines.append(f"parity K7 peer D={D} ({Dl} here) B={B} n={n} "
+                         f"G={G} {dtype}, {PEER_EPOCHS} exchanges: bitwise "
+                         f"equal to the plain version and to the "
+                         f"one-process exchange {same}")
+            require(same, f"K7 peer D={D} n={n} {dtype} bitwise equal")
+    return err, lines
+
+
+def peer_timeout_check(dev) -> list:
+    """A lost neighbour ends the wait: process 0 exchanges alone on strips
+    whose bound is PEER_TIMEOUT_TEST_S. Its launch ends, its next call
+    raises, and so does its close; the other processes only close."""
+    key = (1, 2, 8)
+    strips = launch.open_peer_strips([key], torch.float32,
+                                     timeout_s=PEER_TIMEOUT_TEST_S)
+    if launch.process_index() != 0:
+        launch.close_peer_strips(strips)
+        return []
+    x = torch.zeros((1, 4, 8), device=dev)
+    t0 = time.perf_counter()
+    rdma_halo_exchange_peer(x, 2, strips[key])
+    torch.cuda.synchronize()
+    waited = time.perf_counter() - t0
+    msgs = []
+    for fn in (lambda: rdma_halo_exchange_peer(x, 2, strips[key]),
+               lambda: launch.close_peer_strips(strips)):
+        try:
+            fn()
+            msgs.append(None)
+        except RuntimeError as exc:
+            msgs.append(str(exc))
+    require(all(m is not None and "timed out" in m for m in msgs)
+            and PEER_TIMEOUT_TEST_S <= waited < 30,
+            f"a lost neighbour: the wait ends after {PEER_TIMEOUT_TEST_S} "
+            f"s and raises ({waited:.3f} s, {msgs})")
+    return [f"K7 peer, neighbour lost: the launch returned after "
+            f"{waited:.3f} s (bound {PEER_TIMEOUT_TEST_S} s); the next call "
+            f"and close raised: {msgs[0]!r}"]
+
+
+def peer_timing(dev) -> tuple[dict, list]:
+    """K7's peer form at the path's shape (PEER_SHAPES[0], f32, u and b
+    apart, this process's slabs), per exchange (CUDA events, 50 launches)
+    against its plain version (launch.strips: launch.edges and the local
+    shift) and against the library's exchange alone (launch.edges: one
+    batch of torch.distributed send/recv), in turns (plain, kernel,
+    library, library, kernel, plain; the better of each pair); then its
+    device time, one launch in
+    a CUDA graph of K7_GRAPH_LAUNCHES replayed (every process replays
+    alike). The bound: the strips this process reads and writes at the
+    device memory's rate and, with its neighbours on other cards, its end
+    strips over NVLink."""
+    D, B, n, G = PEER_SHAPES[0]
+    Dl = launch.device_mesh_1d(D).slabs_per_process
+    W, key = 2 * n, (Dl, G, 2 * n)
+    g = torch.Generator(device=dev).manual_seed(7 + launch.process_index())
+    u, b = (torch.randn((Dl, B, n), generator=g, device=dev)
+            for _ in range(2))
+    x = torch.cat([u, b], dim=2).reshape(Dl * B, W)
+    strips = launch.open_peer_strips([key], torch.float32)
+    st = strips[key]
+
+    def kern():
+        return rdma_halo_exchange_peer((u, b), G, st)
+
+    def plain():
+        return launch.strips(torch.cat([u, b], dim=2), G)
+
+    def lib():
+        return launch.edges(x, G, 0)
+    ref = plain()
+    require(torch.equal(kern(), ref), "K7 peer equals the plain version")
+    order = ((plain, 10), (kern, 50), (lib, 10))
+    first = [time_ms(fn, reps) for fn, reps in order]
+    second = [time_ms(fn, reps) for fn, reps in order[::-1]][::-1]
+    pms, kms, lms = (min(a, b) for a, b in zip(first, second))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kern()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(K7_GRAPH_LAUNCHES):
+            kern()
+    st.out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(st.out, ref), "K7 peer's graph replay writes the "
+            "strips")
+    device_ms = min(time_ms(graph.replay, 10),
+                    time_ms(graph.replay, 10)) / K7_GRAPH_LAUNCHES
+    launch.close_peer_strips(strips)
+
+    r, P = launch.process_index(), launch.process_count()
+    ends = (r == 0) + (r == P - 1)       # strips zero-filled, not read
+    strip = G * W * u.element_size()
+    moved = (2 * Dl - ends + 2 * Dl) * strip
+    cards = torch.cuda.device_count() >= P
+    t_mem = moved / HBM_BYTES_PER_S * 1e3
+    t_link = (2 - ends) * strip / NVLINK_BYTES_PER_S * 1e3 if cards else 0.0
+    bnd = max(t_mem, t_link)
+    rate = ("NVLink 450 GB/s each way" if t_link > t_mem
+            else "HBM 3.35 TB/s")
+    size = f"D={D} ({Dl} here) B={B} n={n} G={G}"
+    rec = dict(ms=kms, plain_ms=pms, library_ms=lms, device_ms=device_ms,
+               bound_ms=bnd, bound_by="bytes", bound_rate=rate, bytes=moved)
+    return rec, [
+        f"time K7 peer {size}: per exchange {kms:.4f} ms against the plain "
+        f"version {pms:.4f} ms and the "
+        f"library's exchange alone (launch.edges, "
+        f"{torch.distributed.get_backend()}) {lms:.4f} ms, in turns; device "
+        f"{device_ms:.5f} ms a launch in a CUDA graph of "
+        f"{K7_GRAPH_LAUNCHES}; bound {bnd:.5f} ms ({moved / 1e6:.2f} MB, "
+        f"{rate})"]
+
+
+def peer_rdma_solve(dev, out_dir: str) -> tuple[dict, list]:
+    """The DIST_SIDE^2 D = DIST_SLABS halo="rdma" solve_ir_fused to TOL
+    across the processes: K7 (its peer form) 2 x 7 levels a V-cycle, no
+    other kernel, the one-process run's V-cycles and a bitwise equal u
+    (save_rdma_reference), an independent f64 rss; its wall (the median
+    of the checked run and two more) and a traced window of TRACE_CYCLES
+    V-cycles."""
+    side, D = DIST_SIDE, DIST_SLABS
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    s, setup = timed_build(lambda: DistStructuredSolver(
+        side, n_devices=D, halo="rdma", device=dev))
+    launches = {k: 0 for k in KERNEL_INFO}
+    t0 = time.perf_counter()
+    res, c = drive(lambda: s.solve_ir_fused(b2, tolerance=TOL), launches)
+    first = time.perf_counter() - t0
+    levels = k7_levels(s.cfg)
+    with open(os.path.join(out_dir, "rdma_ref.json")) as f:
+        ref = json.load(f)
+    ref_u = torch.from_numpy(np.load(os.path.join(out_dir, "rdma_u.npy")))
+    ind = f64_rss(res.u, b2, side)
+    same = torch.equal(res.u.cpu(), ref_u)
+    require(levels == 7 and c["rdma_halo_exchange"]
+            == 2 * levels * res.iterations,
+            f"K7 = 2 x 7 levels x V-cycles in each process: {c}")
+    require(sum(n for k, n in c.items() if k != "rdma_halo_exchange") == 0,
+            "rdma across processes: no other kernel")
+    require(res.error <= TOL and ind <= TOL, f"converged to {TOL}")
+    require(res.iterations == ref["iterations"] and same,
+            "the one-process V-cycles and a bitwise equal u")
+    walls = [first] + wall_median(
+        lambda: s.solve_ir_fused(b2, tolerance=TOL), 2)[1]
+    med = statistics.median(walls)
+    window = dist_window(s, b2)
+    w_med = wall_median(window, 3)[0]
+    _, busy, n_gpu = traced(window)
+    s.close()
+    per = c["rdma_halo_exchange"] / res.iterations
+    rec = dict(launches=c["rdma_halo_exchange"], vcycles=res.iterations,
+               wall=med, idle=1 - busy / w_med)
+    return rec, [
+        f"rdma {side}^2 D={D}: setup {setup:.3f} s, V-cycles "
+        f"{res.iterations} (one process {ref['iterations']}), rss "
+        f"{res.error:.6e}, independent f64 rss {ind:.6e}, u bitwise equal "
+        f"to one process's {same}, K7 {c['rdma_halo_exchange']} launches "
+        f"({per:.0f} a V-cycle); wall median of 3 {med:.6f} s (all "
+        f"{walls}); traced window of {TRACE_CYCLES} V-cycles: wall "
+        f"{w_med:.6f} s, device busy {busy:.6f} s, idle share "
+        f"{1 - busy / w_med:.4f}, GPU launches {n_gpu / TRACE_CYCLES:.1f} "
+        f"per V-cycle"]
+
+
 def mp_worker(rank: int, world: int, port: int, out_dir: str) -> None:
-    """One process of the process phase (``chip_smoke.py --mp-worker``)."""
+    """One process of the process phase (``chip_smoke.py --mp-worker``):
+    the plain paths (no kernel), then K7's peer form (parity, a lost
+    neighbour, timing) and the halo="rdma" solve."""
     launch.initialize_distributed(f"localhost:{port}", world, rank)
+    dev = torch.device("cuda")
     K.reset_launch_counts()
-    out, lines = mp_runs(torch.device("cuda"), report=True)
+    out, lines = mp_runs(dev, report=True)
     counts = K.launch_counts()
+    require(sum(counts.values()) == 0, f"mp rank {rank}: no kernel")
+    err, more = peer_parity(dev)
+    lines += more + peer_timeout_check(dev)
+    rec, more = peer_timing(dev)
+    lines += more
+    solve, more = peer_rdma_solve(dev, out_dir)
+    lines += more
+    rec.update(solve, max_abs_err=err)
     for line in lines:
         print(f"mp rank {rank}/{world} ({torch.distributed.get_backend()} "
               f"on card {torch.cuda.current_device()}, "
               f"{launch.device_mesh_1d(MP_SLABS).slabs_per_process} of "
               f"{MP_SLABS} slabs) {line}")
-    require(sum(counts.values()) == 0, f"mp rank {rank}: no kernel")
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
     torch.distributed.destroy_process_group()
 
 
@@ -1999,48 +2244,69 @@ def mp_solves(dev, launches: dict, n_procs: int = MP_PROCS):
     On one card the processes share it under gloo: the launch path
     (initialize_distributed, send/recv of the edge strips, all_reduce,
     all_gather), not NCCL; with a card a process they take nccl. The
-    workers report the walls; the one process is the reference only."""
+    workers report the walls; the one process is the reference only. Each
+    worker also checks K7's peer form and runs the halo="rdma" solve
+    against the one-process run that dist_solves (or rdma_reference) saved
+    in RECORD["mp_dir"]; rank 0's K7 numbers go to RECORD["k7_peer"]."""
     cards = torch.cuda.device_count()
     print(f"mp: {n_procs} processes, {cards} card(s): "
           + ("nccl, a card a process" if cards >= n_procs else
-             "gloo on one card exercises the launch path, not NCCL"))
+             "gloo on one card exercises the launch path, not NCCL")
+          + "; K7's peer form through CUDA IPC")
     (single, _), c = drive(lambda: mp_runs(dev, report=False), launches)
     require(sum(c.values()) == 0, f"mp single process: no kernel: {c}")
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mp-worker",
-             str(rank), str(n_procs), str(port), tmp],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for rank in range(n_procs)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
-        except subprocess.TimeoutExpired:
-            for p in procs:
-                p.kill()
-                p.communicate()
-            raise RuntimeError(f"mp workers did not finish in {MP_TIMEOUT} s")
-        print(f"mp workers: {time.perf_counter() - t0:.1f} s from spawn to "
-              f"exit (start, CUDA context, setup, runs)")
-        for rank, (p, text) in enumerate(zip(procs, outs)):
-            print("\n".join(line for line in text.splitlines()
-                            if line.startswith("mp rank")))
-            require(p.returncode == 0,
-                    f"mp worker {rank} failed:\n{text[-3000:]}")
-        for rank in range(n_procs):
-            got = np.load(os.path.join(tmp, f"rank{rank}.npz"))
-            for key, want in single.items():
-                rel = float(np.max(np.abs(got[key] - want)
-                                   / np.maximum(np.abs(want), 1e-300)))
-                print(f"mp rank {rank} {key}: max relative difference to "
-                      f"one process {rel:.3e}")
-                require(np.allclose(got[key], want, rtol=MP_RTOL, atol=0),
-                        f"mp rank {rank} {key} within rtol {MP_RTOL:g}")
+    out_dir = RECORD["mp_dir"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mp-worker",
+         str(rank), str(n_procs), str(port), out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(n_procs)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise RuntimeError(f"mp workers did not finish in {MP_TIMEOUT} s")
+    print(f"mp workers: {time.perf_counter() - t0:.1f} s from spawn to "
+          f"exit (start, CUDA context, setup, runs)")
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        print("\n".join(line for line in text.splitlines()
+                        if line.startswith("mp rank")))
+        require(p.returncode == 0,
+                f"mp worker {rank} failed:\n{text[-3000:]}")
+    for rank in range(n_procs):
+        got = np.load(os.path.join(out_dir, f"rank{rank}.npz"))
+        for key, want in single.items():
+            rel = float(np.max(np.abs(got[key] - want)
+                               / np.maximum(np.abs(want), 1e-300)))
+            print(f"mp rank {rank} {key}: max relative difference to "
+                  f"one process {rel:.3e}")
+            require(np.allclose(got[key], want, rtol=MP_RTOL, atol=0),
+                    f"mp rank {rank} {key} within rtol {MP_RTOL:g}")
+    with open(os.path.join(out_dir, "rank0.json")) as f:
+        rec = json.load(f)
+    RECORD.setdefault("k7_peer", {})[n_procs] = rec
+    print(f"K7 peer, {n_procs} processes, rank 0: {json.dumps(rec)}")
+
+
+def peer_entry(rec: dict, n_procs: int) -> dict:
+    """The kernels line's entry for K7's peer form (rank 0's numbers)."""
+    src, replaces = KERNEL_INFO["rdma_halo_exchange"]
+    return {"name": "rdma_halo_exchange_peer", "route": "cuda",
+            "source": src, "replaces": replaces,
+            "launches": rec["launches"], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "processes": n_procs,
+            "device_ms": rec["device_ms"],
+            "bound_rate": rec["bound_rate"]}
 
 
 def main() -> int:
@@ -2091,14 +2357,17 @@ def main() -> int:
     # phases 4-6: every path through the user entry points, each with the
     # launch counts set to 0 just before it and read just after
     launches = {k: 0 for k in KERNEL_INFO}
-    for phase in (const_solves, split_solve, pcg_solves, var_solves,
-                  refine_solves, smoother_solves, host_solves, ell_solves,
-                  dist_solves, dist_var_solves, dist_const_solves,
-                  ell_dist_solves, mp_solves):
-        t0 = time.perf_counter()
-        phase(dev, launches)
-        torch.cuda.synchronize()
-        print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as mp_dir:
+        RECORD["mp_dir"] = mp_dir
+        for phase in (const_solves, split_solve, pcg_solves, var_solves,
+                      refine_solves, smoother_solves, host_solves,
+                      ell_solves, dist_solves, dist_var_solves,
+                      dist_const_solves, ell_dist_solves, mp_solves):
+            t0 = time.perf_counter()
+            phase(dev, launches)
+            torch.cuda.synchronize()
+            print(f"phase {phase.__name__}: "
+                  f"{time.perf_counter() - t0:.1f} s")
     require(all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
             f"every kernel launched on its path: {launches}")
     for k, why in OFF_PATH.items():
@@ -2135,6 +2404,7 @@ def main() -> int:
             # launches are reported apart
             entry.update(path=None, parity_launches=k9_launches)
         kernels.append(entry)
+    kernels.append(peer_entry(RECORD["k7_peer"][MP_PROCS], MP_PROCS))
     print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {
@@ -2150,9 +2420,15 @@ def mp_only(procs: list) -> int:
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU "
                            "only")
     print(f"card: {card()}")
+    dev = torch.device("cuda")
     launches = {k: 0 for k in KERNEL_INFO}
-    for p in procs:
-        mp_solves(torch.device("cuda"), launches, p)
+    with tempfile.TemporaryDirectory() as mp_dir:
+        RECORD["mp_dir"] = mp_dir
+        rdma_reference(dev, mp_dir)
+        for p in procs:
+            mp_solves(dev, launches, p)
+    print(json.dumps({"kernels": [peer_entry(rec, p) for p, rec
+                                  in RECORD["k7_peer"].items()]}))
     return 0
 
 

@@ -229,9 +229,8 @@ def test_halo_default_and_modes():
         T.DistStructuredSolver(31, n_devices=2, halo="ring", device=CPU)
 
 
-def test_unported_options_raise(monkeypatch):
-    """What still raises: halo="rdma" across processes (K7's pointer-table
-    form, ROADMAP), and the df32 defect correction on a variable fine
+def test_unported_options_raise():
+    """What still raises: the df32 defect correction on a variable fine
     level (JAX's own guard); config= gives what the arguments leave
     None."""
     def make(**kw):
@@ -253,9 +252,6 @@ def test_unported_options_raise(monkeypatch):
     # a constant A_fine is the Poisson operator again
     assert make(A_fine=tpoisson.laplacian_scipy(31)).cfg.w33s == \
         make().cfg.w33s
-    monkeypatch.setattr(T.launch, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make(halo="rdma")
 
 
 def test_device_none_needs_cuda(monkeypatch):

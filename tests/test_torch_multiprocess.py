@@ -5,14 +5,17 @@ tests/test_torch_dist*.py and tests/test_torch_ell_dist.py check against
 amg_tpu).
 
 Each worker is this file run as a script, one process a rank. It runs 10
-f64 V-cycles of DistStructuredSolver (halo "sweep" and "step" on constant
-levels, "sweep" on the jump problem's variable levels) and of
+f64 V-cycles of DistStructuredSolver (halo "sweep", "step" and "rdma" on
+constant levels, "rdma" also at 63^2 on 4 slabs, whose fine slabs hold
+the strip rows, "sweep" on the jump problem's variable levels) and of
 EllDistSolver ("step" and "strips"), and a few PCG iterations, and writes
 the rss after each V-cycle and the field it gathered from every process.
 The exchanges are copies, so the V-cycle iterates are those of one
 process; only the order of the sums differs (an all_reduce of the
 processes' partial sums), so the rss and the fields agree within rtol
-1e-12. PCG feeds its sums back into the iterates: rtol 1e-10.
+1e-12. PCG feeds its sums back into the iterates: rtol 1e-10. On the CPU
+"rdma" runs K7's plain version, the strip exchange of "sweep": on every
+rank its field is "sweep"'s, bitwise.
 
     python tests/test_torch_multiprocess.py RANK WORLD PORT OUT_DIR
 """
@@ -50,8 +53,8 @@ def runs():
     b2 = poisson.rhs(SIDE, device="cpu").reshape(SIDE, SIDE)
     A, b = poisson.poisson2d(ELL_SIDE, device="cpu")
 
-    def dist(**kw):
-        return lambda: DistStructuredSolver(SIDE, n_devices=D,
+    def dist(side=SIDE, n_devices=D, **kw):
+        return lambda: DistStructuredSolver(side, n_devices=n_devices,
                                             dtype=torch.float64,
                                             device="cpu", **kw)
 
@@ -60,7 +63,8 @@ def runs():
                                      device="cpu")
 
     def cycles(s):
-        bp = s.pad_field(b2)
+        bp = s.pad_field(poisson.rhs(s.side, device="cpu").reshape(
+            s.side, s.side))
         u, rss = torch.zeros_like(bp), []
         for _ in range(CYCLES):
             u = s.vcycle(u, bp)
@@ -86,6 +90,9 @@ def runs():
     return {
         "dist_sweep": (dist(halo="sweep"), cycles),
         "dist_step": (dist(halo="step"), cycles),
+        "dist_rdma": (dist(halo="rdma"), cycles),
+        # slabs of 16 rows >= G = 10 on the fine level: K7's exchange
+        "dist_rdma_b16": (dist(halo="rdma", side=63, n_devices=4), cycles),
         "dist_var": (dist(halo="sweep", A_fine=varcoef.jump_scipy(SIDE)),
                      cycles),
         "dist_pcg": (dist(halo="sweep"), pcg),
@@ -98,7 +105,10 @@ def runs():
 def run_all() -> dict:
     out = {}
     for name, (make, run) in runs().items():
-        out[name + "_rss"], out[name + "_u"] = run(make())
+        s = make()
+        out[name + "_rss"], out[name + "_u"] = run(s)
+        if hasattr(s, "close"):
+            s.close()
     return out
 
 
@@ -133,14 +143,17 @@ def single():
     return run_all()
 
 
-@pytest.mark.parametrize("nproc", [2, 4])
-def test_processes_match_one_process(nproc, single, tmp_path):
+@pytest.fixture(scope="module", params=[2, 4])
+def workers(request, tmp_path_factory):
+    """(nproc, each rank's arrays): the workers of one process group."""
+    nproc = request.param
+    out_dir = tmp_path_factory.mktemp(f"p{nproc}")
     port = _free_port()
     # the workers run on the CPU: with the cards hidden the backend is gloo
     env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), str(rank), str(nproc),
-         str(port), str(tmp_path)],
+         str(port), str(out_dir)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=env) for rank in range(nproc)]
     outs = []
@@ -154,13 +167,29 @@ def test_processes_match_one_process(nproc, single, tmp_path):
         pytest.fail(f"workers did not finish in {TIMEOUT} s")
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{out[-3000:]}"
-    for rank in range(nproc):
-        got = np.load(tmp_path / f"rank{rank}.npz")
-        assert sorted(got.files) == sorted(single)
+    return nproc, [dict(np.load(out_dir / f"rank{rank}.npz"))
+                   for rank in range(nproc)]
+
+
+def test_processes_match_one_process(workers, single):
+    nproc, got_ranks = workers
+    for rank, got in enumerate(got_ranks):
+        assert sorted(got) == sorted(single)
         for key, want in single.items():
             rtol = RTOL_PCG if "pcg" in key else RTOL
             np.testing.assert_allclose(got[key], want, rtol=rtol, atol=0,
                                        err_msg=f"rank {rank} {key}")
+
+
+def test_rdma_field_is_sweeps(workers):
+    """halo="rdma" across processes gives halo="sweep"'s field on every
+    rank, bitwise: both exchange the strips by copies."""
+    nproc, got_ranks = workers
+    for rank, got in enumerate(got_ranks):
+        np.testing.assert_array_equal(got["dist_rdma_u"],
+                                      got["dist_sweep_u"],
+                                      err_msg=f"{nproc} processes, rank "
+                                      f"{rank}")
 
 
 def test_one_process_mesh():
