@@ -60,7 +60,10 @@ class StructuredConfig:
 class MeshConfig:
     """Distribution knobs (parallel/structured_dist.py)."""
 
-    n_devices: int | None = None   # None: the visible CUDA devices
+    # slabs; None: one a visible card. With the solvers' device None the
+    # slabs spread over the cards (a card group, parallel/launch.py
+    # slab_devices), as JAX's mesh over all local devices
+    n_devices: int | None = None
     axis_name: str = "x"
     min_rows_per_device: int = 2   # agglomeration threshold
     # None: 'overlap' on the card, 'step' on the CPU | 'overlap' | 'sweep'

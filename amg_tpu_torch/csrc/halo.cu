@@ -31,11 +31,13 @@
 // the width, the pitches, the strides and the bases allow it, else one
 // element; one kernel template covers both.
 //
-// Across processes (amg_halo_exchange_peer, below), each of P processes
-// holds D/P consecutive slabs, and the strips at the ends of a process's
-// block go straight into the receive memory of processes p-1 and p+1: the
-// put of the TPU kernel, on the same card (two processes) or on another
-// one over NVLink, through CUDA IPC mappings of the neighbours' memory.
+// Across blocks (amg_halo_exchange_peer, below), each of P blocks holds
+// D/P consecutive slabs, and the strips at the ends of a block go straight
+// into the receive memory of blocks p-1 and p+1: the put of the TPU
+// kernel, on the same card or on another one over NVLink. A block is a
+// process (the neighbours' memory mapped through CUDA IPC) or a thread of
+// a card group in one process (the neighbours' own pointers, with peer
+// access between their cards): the same kernel.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -145,14 +147,16 @@ extern "C" int amg_halo_exchange(const HaloCall* a) {
 }
 
 // ---------------------------------------------------------------------------
-// K7 across processes: the peer form.
+// K7 across blocks: the peer form.
 //
-// Process p of P holds slabs [p D/P, (p+1) D/P) of the line. Its K7 launch
-// puts the strips between its own slabs as above, and the two at the ends
-// of its block into its neighbours' memory: slab 0's first G rows into
-// process p-1, the last slab's last G rows into process p+1 (none at the
-// line's ends, where the strips stay zero). Each process owns one
-// allocation per exchange shape, which its neighbours map (CUDA IPC):
+// Block p of P (a process, or a thread of a card group) holds slabs
+// [p D/P, (p+1) D/P) of the line. Its K7 launch puts the strips between
+// its own slabs as above, and the two at the ends of its block into its
+// neighbours' memory: slab 0's first G rows into block p-1, the last
+// slab's last G rows into block p+1 (none at the line's ends, where the
+// strips stay zero). Each block owns one allocation per exchange shape,
+// which its neighbours reach (through CUDA IPC across processes, by peer
+// access between the cards of one process):
 //
 //   out    (D/P, 2G, W)  the receive strips the caller reads, as above;
 //   slots  [2][2][G][W]  the neighbours' strips, by epoch parity s, then
@@ -198,7 +202,9 @@ extern "C" int amg_halo_exchange(const HaloCall* a) {
 // until the scheduler switches contexts. The other choice, the waits as
 // stream memory operations between a put kernel and a copy kernel, took
 // as long a call on one card and on four (PERF.md) and could not bound
-// its waits, so the waits stay in the kernel.
+// its waits, so the waits stay in the kernel. Two blocks of one card
+// group on one card share its context: their launches run on two streams
+// (a thread's own), both resident at once, with no time slice.
 //
 // Bound: the out strips written once and the sent rows read once at the
 // device memory's rate, and the two end strips over NVLink (450 GB/s each
@@ -398,26 +404,56 @@ extern "C" int amg_halo_exchange_peer(const HaloPeerCall* a) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Card memory that other processes can map: `bytes` zeroed bytes on card
-// `dev` (a whole cudaMalloc, which an IPC handle names), and its IPC
-// handle (64 bytes) into `handle`.
-extern "C" int amg_ipc_alloc(int dev, long long bytes, void** ptr,
-                             void* handle) {
+// Card memory the neighbour blocks address: `bytes` zeroed bytes on card
+// `dev`, a whole cudaMalloc (an IPC handle names a whole allocation, and
+// PyTorch's caching allocator never reuses it).
+extern "C" int amg_peer_alloc(int dev, long long bytes, void** ptr) {
   *ptr = nullptr;
   cudaError_t err = cudaSetDevice(dev);
   if (err == cudaSuccess) err = cudaMalloc(ptr, (size_t)bytes);
   if (err != cudaSuccess) return (int)err;
-  cudaIpcMemHandle_t h;
   err = cudaMemset(*ptr, 0, (size_t)bytes);
   if (err == cudaSuccess) err = cudaDeviceSynchronize();
-  if (err == cudaSuccess) err = cudaIpcGetMemHandle(&h, *ptr);
   if (err != cudaSuccess) {
     cudaFree(*ptr);
     *ptr = nullptr;
-    return (int)err;
+  }
+  return (int)err;
+}
+
+// Across processes: amg_peer_alloc, and the allocation's IPC handle (64
+// bytes) into `handle`.
+extern "C" int amg_ipc_alloc(int dev, long long bytes, void** ptr,
+                             void* handle) {
+  const int err = amg_peer_alloc(dev, bytes, ptr);
+  if (err != (int)cudaSuccess) return err;
+  cudaIpcMemHandle_t h;
+  const cudaError_t e = cudaIpcGetMemHandle(&h, *ptr);
+  if (e != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+    return (int)e;
   }
   memcpy(handle, &h, sizeof h);
   return (int)cudaSuccess;
+}
+
+// In one process (a card group): let card `dev`'s kernels address card
+// `peer`'s memory. Peer access that is already on (PyTorch's own copies
+// between the cards turn it on) is accepted; a pair of cards without it
+// is an error.
+extern "C" int amg_peer_enable(int dev, int peer) {
+  cudaError_t err = cudaSetDevice(dev);
+  int can = 0;
+  if (err == cudaSuccess) err = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // not sticky: clear it
+    return (int)cudaSuccess;
+  }
+  return (int)err;
 }
 
 // Map another process's memory, named by its 64-byte IPC handle, into card
@@ -436,7 +472,7 @@ extern "C" int amg_ipc_close(int dev, void* ptr) {
   return (int)(err != cudaSuccess ? err : cudaIpcCloseMemHandle(ptr));
 }
 
-extern "C" int amg_ipc_free(int dev, void* ptr) {
+extern "C" int amg_peer_free(int dev, void* ptr) {
   cudaError_t err = cudaSetDevice(dev);
   return (int)(err != cudaSuccess ? err : cudaFree(ptr));
 }

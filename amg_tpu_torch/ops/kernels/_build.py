@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -50,10 +51,12 @@ _SIGNATURES = {
     "amg_rbgs_sweep_var": (_P, _P, _P, _P, _I, _F, _I, _P),
     "amg_halo_exchange": (_P,),      # csrc/halo.cu HaloCall, packed
     "amg_halo_exchange_peer": (_P,),             # HaloPeerCall, packed
+    "amg_peer_alloc": (_I, ctypes.c_longlong, _P),
+    "amg_peer_enable": (_I, _I),
+    "amg_peer_free": (_I, _P),
     "amg_ipc_alloc": (_I, ctypes.c_longlong, _P, _P),
     "amg_ipc_open": (_I, _P, _P),
     "amg_ipc_close": (_I, _P),
-    "amg_ipc_free": (_I, _P),
 }
 
 
@@ -116,19 +119,34 @@ def compile_library(sources, out: Path) -> str:
     return "\n".join(log)
 
 
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    so = BUILD_DIR / f"libamg_kernels_{_digest()}.so"
-    if not so.exists():
-        log = compile_library(_sources(), so)
-        (BUILD_DIR / f"{so.stem}.log").write_text(log)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    """Build (once per source hash) and load the kernel library. Threads
+    of a card group that ask at once wait for one build (the others load
+    what it built)."""
+    with _BUILD_LOCK:
+        so = BUILD_DIR / f"libamg_kernels_{_digest()}.so"
+        if not so.exists():
+            log = compile_library(_sources(), so)
+            (BUILD_DIR / f"{so.stem}.log").write_text(log)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib
+
+
+def count_launch(counter) -> None:
+    """Add one to ``counter.launches`` (a kernel wrapper's count): one
+    launch, counted exactly when the threads of a card group launch at
+    once."""
+    with _COUNT_LOCK:
+        counter.launches += 1
 
 
 def build_log() -> str:

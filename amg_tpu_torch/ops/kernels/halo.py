@@ -22,16 +22,19 @@ The call is lean on the host, since the kernel's bytes take less time than
 its launch: no per-slab loop, and one C call whose one argument is the
 packed scalars.
 
-Across processes (``rdma_halo_exchange_peer``) each process holds D/P
+Across blocks (``rdma_halo_exchange_peer``) each of P blocks holds D/P
 consecutive slabs, and one launch also puts the strips at the ends of its
-block straight into the receive memory of processes p-1 and p+1, mapped
-through CUDA IPC, and waits on flags there for theirs: the TPU kernel's
-remote copies under semaphores. ``PeerStrips`` is that memory for one
-exchange shape, made and released by every process together
-(``parallel/launch.py`` ``open_peer_strips``). The plain version is the
-strip exchange across the processes, ``launch.strips``, one batch of
-send/recv. On the card there is no fallback to it: a failed mapping, a
-launch error or a wait that times out (``PEER_TIMEOUT_S``) raises.
+block straight into the receive memory of blocks p-1 and p+1 and waits on
+flags there for theirs: the TPU kernel's remote copies under semaphores.
+A block is a process (the neighbours' memory mapped through CUDA IPC) or
+a thread of a card group, one process driving several cards (the
+neighbours' memory reached by peer access; two blocks may share a card).
+``PeerStrips`` is that memory for one exchange shape, made and released
+by every block together (``parallel/launch.py`` ``open_peer_strips``).
+The plain version is the strip exchange across the blocks,
+``launch.strips``: one batch of send/recv, or copies between the cards.
+On the card there is no fallback to it: a failed mapping or peer access,
+a launch error or a wait that times out (``PEER_TIMEOUT_S``) raises.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ from array import array
 
 import torch
 
-from amg_tpu_torch.ops.kernels._build import check, library, stream_of
+from amg_tpu_torch.ops.kernels._build import (check, count_launch, library,
+                                              stream_of)
 
 MAX_SLABS = 65535   # csrc/halo.cu: the grid's y extent
 MAX_PARTS = 2
@@ -133,7 +137,7 @@ def rdma_halo_exchange(slabs, G: int, out: torch.Tensor | None = None
                        P, x0.element_size(), stream_of(x0)))
     check(library().amg_halo_exchange(call.buffer_info()[0]),
           "amg_halo_exchange")
-    rdma_halo_exchange.launches += 1
+    count_launch(rdma_halo_exchange)
     return out
 
 
@@ -141,7 +145,7 @@ rdma_halo_exchange.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Across processes.
+# Across blocks: processes, or the threads of a card group.
 
 
 def _align(n: int) -> int:
@@ -149,8 +153,8 @@ def _align(n: int) -> int:
 
 
 def peer_layout(D: int, G: int, W: int, elsize: int) -> dict:
-    """Byte offsets in one process's allocation for an exchange of D slabs
-    (this process's) with strips G x W (csrc/halo.cu, the peer form):
+    """Byte offsets in one block's allocation for an exchange of D slabs
+    (this block's) with strips G x W (csrc/halo.cu, the peer form):
     ``out`` (D, 2G, W) at 0, the receive ``slots`` [2][2][G][W], the
     ``flags`` [2][chunks] and two counter words; ``nbytes`` in all."""
     chunks = -(-W // CHUNK)
@@ -167,11 +171,11 @@ def peer_layout(D: int, G: int, W: int, elsize: int) -> dict:
 
 
 class PeerStrips:
-    """K7's memory across processes for one exchange shape: D slabs of
-    this process, strips of G rows of width W (u and b side by side), in
+    """K7's memory across blocks for one exchange shape: D slabs of
+    this block, strips of G rows of width W (u and b side by side), in
     ``dtype``, laid out by ``peer_layout`` in ``mem`` (``launch.PeerMemory``
     of ``peer_layout(...)["nbytes"]`` bytes, which the neighbours have
-    mapped; ``launch.open_peer_strips`` makes both). ``out`` is the
+    reach; ``launch.open_peer_strips`` makes both). ``out`` is the
     (D, 2G, W) receive strips a call returns; ``status`` the host words a
     timed-out wait writes, shared by the strips opened together."""
 
@@ -199,20 +203,20 @@ class PeerStrips:
         timed out: a neighbour did not put its strips in time."""
         if self._timed_out[0]:
             raise RuntimeError(
-                f"K7 across processes: a wait for a neighbour's strips "
+                f"K7 across blocks: a wait for a neighbour's strips "
                 f"timed out (epoch {self._timed_out[1]}); the neighbour "
-                f"process stopped or fell behind by more than the bound")
+                f"block stopped or fell behind by more than the bound")
 
 
 def rdma_halo_exchange_peer(slabs, G: int, strips: PeerStrips | None = None
                             ) -> torch.Tensor:
-    """``rdma_halo_exchange`` of this process's (D/P, B, w) slabs across
-    the process group: the (D/P, 2G, P*w) receive strips, the ones at the
-    ends of its block from processes p-1 and p+1. CPU tensors take the
-    plain version (``strips`` unused). CUDA tensors launch K7's peer form
-    on the current stream into ``strips.out`` (``strips``: the shape's
-    PeerStrips, which every process of the group calls in the same
-    order)."""
+    """``rdma_halo_exchange`` of this block's (D/P, B, w) slabs across
+    the process group or the card group: the (D/P, 2G, P*w) receive
+    strips, the ones at the ends of its block from blocks p-1 and p+1. CPU
+    tensors take the plain version (``strips`` unused). CUDA tensors
+    launch K7's peer form on the current stream into ``strips.out``
+    (``strips``: the shape's PeerStrips, which every block calls in the
+    same order)."""
     parts, D, B, w, st = _checked(slabs, G)
     x0, P = parts[0], len(parts)
     if x0.is_cpu:
@@ -220,7 +224,7 @@ def rdma_halo_exchange_peer(slabs, G: int, strips: PeerStrips | None = None
         from amg_tpu_torch.parallel.launch import strips as plain
         return plain(torch.cat(parts, dim=2), G)
     if strips is None:
-        raise ValueError("K7 across processes on the card needs the "
+        raise ValueError("K7 across blocks on the card needs the "
                          "exchange's PeerStrips (launch.open_peer_strips)")
     if (strips.shape != (D, 2 * G, P * w) or strips.dtype != x0.dtype
             or strips.out.device != x0.device):
@@ -234,5 +238,5 @@ def rdma_halo_exchange_peer(slabs, G: int, strips: PeerStrips | None = None
     c[_STREAM] = stream_of(x0)
     check(library().amg_halo_exchange_peer(c.buffer_info()[0]),
           "amg_halo_exchange_peer")
-    rdma_halo_exchange.launches += 1
+    count_launch(rdma_halo_exchange)
     return strips.out

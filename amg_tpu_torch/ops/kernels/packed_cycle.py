@@ -16,8 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from amg_tpu_torch.ops.kernels._build import (check, library, require_f32,
-                                              stream_of, weights)
+from amg_tpu_torch.ops.kernels._build import (check, count_launch, library,
+                                              require_f32, stream_of, weights)
 from amg_tpu_torch.sparse.packed import (gs4_sweep_packed,
                                          prolong_add_packed, residual_packed,
                                          restrict_packed)
@@ -57,7 +57,7 @@ def fused_down_leg_packed(u4: torch.Tensor, b4: torch.Tensor, w33, m: int,
         u4.data_ptr(), b4.data_ptr(), u_out.data_ptr(), bc_pad.data_ptr(), M,
         weights(w33), 1.0 / w33[1][1], omega, int(symmetric),
         stream_of(u4)), "amg_down_leg")
-    fused_down_leg_packed.launches += 1
+    count_launch(fused_down_leg_packed)
     return u_out, bc_pad
 
 
@@ -78,7 +78,7 @@ def fused_up_leg_packed(u4: torch.Tensor, b4: torch.Tensor,
         u4.data_ptr(), b4.data_ptr(), uc_pad.data_ptr(), u_out.data_ptr(), M,
         weights(w33), 1.0 / w33[1][1], omega, int(symmetric),
         stream_of(u4)), "amg_up_leg")
-    fused_up_leg_packed.launches += 1
+    count_launch(fused_up_leg_packed)
     return u_out
 
 
@@ -96,7 +96,7 @@ def fused_residual_restrict_packed(u4: torch.Tensor, b4: torch.Tensor, w33,
     check(library().amg_residual_restrict(
         u4.data_ptr(), b4.data_ptr(), bc_pad.data_ptr(), M, weights(w33),
         stream_of(u4)), "amg_residual_restrict")
-    fused_residual_restrict_packed.launches += 1
+    count_launch(fused_residual_restrict_packed)
     return bc_pad
 
 

@@ -15,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from amg_tpu_torch.ops.doublefloat import DF32, df_rss_fast, is_pow2_weights
-from amg_tpu_torch.ops.kernels._build import (check, library, require_f32,
-                                              stream_of, weights)
+from amg_tpu_torch.ops.kernels._build import (check, count_launch, library,
+                                              require_f32, stream_of, weights)
 from amg_tpu_torch.sparse.packed import _df_residual_pow2_packed
 
 
@@ -65,7 +65,7 @@ def fused_df_residual_rss(w33, b4_df: DF32, u4_df: DF32, m: int):
         u4_df.lo.data_ptr(), r_hi.data_ptr(), partials.data_ptr(),
         _counter(dev, stream).data_ptr(), rss.data_ptr(), M, weights(w33),
         stream), "amg_df_residual_rss")
-    fused_df_residual_rss.launches += 1
+    count_launch(fused_df_residual_rss)
     return r_hi, rss
 
 

@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from amg_tpu_torch.ops.kernels._build import (check, library, require_f32,
-                                              stream_of, weights)
+from amg_tpu_torch.ops.kernels._build import (check, count_launch, library,
+                                              require_f32, stream_of, weights)
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed
 
 
@@ -32,7 +32,7 @@ def fused_gs4_sweep_packed(u4: torch.Tensor, b4: torch.Tensor, w33, m: int,
         u4.data_ptr(), b4.data_ptr(), out.data_ptr(), M, weights(w33),
         1.0 / w33[1][1], omega, int(symmetric), stream_of(u4)),
         "amg_packed_sweep")
-    fused_gs4_sweep_packed.launches += 1
+    count_launch(fused_gs4_sweep_packed)
     return out
 
 

@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from amg_tpu_torch.ops.kernels._build import (check, library, require_f32,
-                                              stream_of, weights)
+from amg_tpu_torch.ops.kernels._build import (check, count_launch, library,
+                                              require_f32, stream_of, weights)
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed
 
 
@@ -54,7 +54,7 @@ def fused_gs4_sweep_rm(u_rm: torch.Tensor, b_rm: torch.Tensor, w33, m: int,
         u_rm.data_ptr(), b_rm.data_ptr(), out.data_ptr(), M, weights(w33),
         1.0 / w33[1][1], omega, int(symmetric), stream_of(u_rm)),
         "amg_packed_sweep_rm")
-    fused_gs4_sweep_rm.launches += 1
+    count_launch(fused_gs4_sweep_rm)
     return out
 
 

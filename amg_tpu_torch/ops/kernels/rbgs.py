@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from amg_tpu_torch.ops.kernels._build import (LaunchCounter, check, library,
+from amg_tpu_torch.ops.kernels._build import (LaunchCounter, check,
+                                              count_launch, library,
                                               require_f32, stream_of, weights)
 from amg_tpu_torch.sparse.stencil import FOUR_COLORS, Stencil2D
 
@@ -82,12 +83,12 @@ def fused_gs4_sweep(S: Stencil2D, u2: torch.Tensor, b2: torch.Tensor,
             u2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, weights(S.w33),
             1.0 / S.w33[1][1], omega, int(symmetric), stream_of(u2)),
             "amg_rbgs_sweep_const")
-        fused_gs4_sweep_const.launches += 1
+        count_launch(fused_gs4_sweep_const)
     else:
         check(library().amg_rbgs_sweep_var(
             u2.data_ptr(), b2.data_ptr(), S.c.data_ptr(), out.data_ptr(), n,
             omega, int(symmetric), stream_of(u2)), "amg_rbgs_sweep_var")
-        fused_gs4_sweep_var.launches += 1
+        count_launch(fused_gs4_sweep_var)
     return out
 
 

@@ -13,8 +13,10 @@ slices. Columns are rewritten at setup to window coordinates
 is one ``torch.gather`` over the (D, B_x + 2W) windows.
 
 As in structured_dist.py the mesh is a leading slab axis (a level costs
-the same launches for any D), and across processes each holds D/P slabs
-and the exchanges, sums and gathers go through parallel/launch.py.
+the same launches for any D), and the slabs are cut into blocks of D/P
+consecutive slabs, over the cards of one process (a card group, a thread
+a block) or over the processes of a process group, the exchanges, sums
+and gathers going through parallel/launch.py.
 
 Levels stay sharded while their window fits the block (W <= B and
 B >= min_rows); the deeper ones are agglomerated: the coarse rhs is
@@ -25,6 +27,7 @@ dense-LU coarsest solve (multigrid.hpp:240-243).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -38,7 +41,6 @@ from amg_tpu_torch.ops.doublefloat import (DF32, df_add, df_add_f32, df_mul,
 from amg_tpu_torch.ops.smoothers import MulticolorGaussSeidel
 from amg_tpu_torch.ops.transfer import LinearInterpolator
 from amg_tpu_torch.parallel import launch
-from amg_tpu_torch.parallel.structured_dist import _visible_devices
 from amg_tpu_torch.sparse.ell import ELL
 from amg_tpu_torch.utils.coloring import greedy_coloring
 from amg_tpu_torch.utils.debugging import check_rss
@@ -129,10 +131,11 @@ class ShardedOp:
             cols = torch.tensor(cols, device=device)
         return ShardedOp(data=data, cols=cols, B_row=B_row, B_x=B_x, W=W)
 
-    def local(self, mesh: launch.SlabMesh) -> "ShardedOp":
-        """This process's slabs."""
-        return dataclasses.replace(self, data=mesh.local(self.data),
-                                   cols=mesh.local(self.cols))
+    def local(self, mesh: launch.SlabMesh, device) -> "ShardedOp":
+        """This block's slabs, on ``device``."""
+        return dataclasses.replace(self,
+                                   data=mesh.local(self.data).to(device),
+                                   cols=mesh.local(self.cols).to(device))
 
 
 def build_ext_panels(M, colors_pad, diag_pad, D: int, B: int, H: int):
@@ -210,7 +213,7 @@ def _matvec_local(op: ShardedOp, x):
 
 
 def _dot(x, y) -> torch.Tensor:
-    """sum(x * y) over every slab of every process."""
+    """sum(x * y) over every slab of every block."""
     return launch.psum(torch.sum(x * y))
 
 
@@ -218,7 +221,7 @@ def _dot(x, y) -> torch.Tensor:
 # The solver
 
 
-class EllDistSolver:
+class EllDistSolver(launch.SpreadSolver):
     """Row-partitioned V-cycle solver for a general (banded) hierarchy
     (JAX ``EllDistSolver``).
 
@@ -227,13 +230,20 @@ class EllDistSolver:
     smoothing. ``halo="step"`` exchanges the W-wide window before every
     color step; ``"strips"`` one H = steps * reach ghost strip per sweep,
     recomputing the neighbours' boundary rows on extended panels (the same
-    iterates). ``n_devices`` is the number of slabs (None: the visible
-    CUDA devices), ``device`` None is ``"cuda"``; under a process group
-    each process holds D/P of the slabs. ``config`` (a config.MeshConfig)
-    gives n_devices where the argument is None, ``min_rows``, a halo mode
-    of this path's, and ``cycles_per_refine`` where the argument is None
-    (JAX's rule). ``solve`` and ``solve_pcg`` run in ``dtype``;
-    ``solve_ir`` is the df32 defect correction around f32 V-cycles.
+    iterates). ``n_devices`` is the number of slabs and ``device`` where
+    they go, DistStructuredSolver's rule (``launch.slab_devices``: None
+    spreads them over the visible cards, one device keeps them there, a
+    sequence gives a block to each entry). Over several devices the solver
+    is a card group: the setup is built once, on the host, ``solve``,
+    ``solve_pcg`` and ``solve_ir`` run on every block and return block
+    0's result, and ``pad_vec``, ``unpad_vec``, ``rss`` and
+    ``vcycle_once`` run on a block inside ``run(fn)``; ``close()`` ends
+    its threads. Under a process group each process holds D/P of the
+    slabs. ``config`` (a config.MeshConfig) gives n_devices where the
+    argument is None, ``min_rows``, a halo mode of this path's, and
+    ``cycles_per_refine`` where the argument is None (JAX's rule).
+    ``solve`` and ``solve_pcg`` run in ``dtype``; ``solve_ir`` is the df32
+    defect correction around f32 V-cycles.
     """
 
     def __init__(self, A, b, n_levels: int, n_devices: int | None = None,
@@ -253,20 +263,19 @@ class EllDistSolver:
                                             None)
         self.cycles_per_refine = (2 if cycles_per_refine is None
                                   else cycles_per_refine)
-        self.device = resolve_device(device)
-        if n_devices is None:
-            n_devices = _visible_devices()
+        D, self.devices = launch.slab_devices(n_devices, device)
+        self.device = self.devices[0]
         if halo not in HALO_MODES:
             raise ValueError(f"unknown halo mode {halo!r}; "
                              "expected 'strips' or 'step'")
-        D = n_devices
         self.D = D
-        self.mesh = launch.device_mesh_1d(D)
         self.dtype = dtype
         self.omega = omega
         self.symmetric = symmetric
         self.halo = halo
-        dev = self.device
+        spread = len(self.devices) > 1
+        # over several devices the setup is built once, on the host
+        dev = torch.device("cpu") if spread else self.device
         A_sp = A.to_scipy() if isinstance(A, ELL) else A.tocsr()
         interp = interpolator or LinearInterpolator(n_levels)
 
@@ -303,16 +312,16 @@ class EllDistSolver:
             raise ValueError(f"problem too small to shard over {D} slabs")
         self.Ls, self.sizes, self.Bs = Ls, sizes, Bs
 
-        levels, self._ext_meta, self._ext = [], [], []
+        # every level's (D, ...) tensors, on dev: each block takes its
+        # slabs (_place)
+        def tensor(a, *shape, dtype=dtype):
+            return torch.tensor(a, dtype=dtype, device=dev).reshape(shape)
+
+        levels, self._ext_meta, ext = [], [], []
         for l in range(Ls):
-            A_op, R_op, P_op = ops[l]
             masks, diag, colors_pad = self._level_aux(mats[l], l)
-            levels.append(dict(
-                A=A_op.local(self.mesh), R=R_op.local(self.mesh),
-                P=P_op.local(self.mesh),
-                masks=self.mesh.local(self._tensor(masks).reshape(
-                    len(masks), D, Bs[l]), dim=1),
-                diag=self.mesh.local(self._tensor(diag).reshape(D, Bs[l]))))
+            levels.append((*ops[l], tensor(masks, len(masks), D, Bs[l]),
+                           tensor(diag, D, Bs[l])))
             # ghost strips: one exchange a sweep. The strip depth comes
             # from the true reach beta = max|col - row| of the level, not
             # from W (W is how far columns overflow the owner's block, but
@@ -330,24 +339,19 @@ class EllDistSolver:
                 E = Bs[l] + 2 * H
                 K = dE.shape[1]
                 self._ext_meta.append(H)
-                self._ext.append((
-                    self.mesh.local(self._tensor(dE).reshape(D, E, K)),
-                    self.mesh.local(torch.tensor(cE, device=dev).reshape(
-                        D, E, K)),
-                    self.mesh.local(self._tensor(mE).reshape(len(mE), D, E),
-                                    dim=1),
-                    self.mesh.local(self._tensor(gE).reshape(D, E))))
+                ext.append((tensor(dE, D, E, K),
+                            tensor(cE, D, E, K, dtype=torch.int64),
+                            tensor(mE, len(mE), D, E), tensor(gE, D, E)))
             else:
                 self._ext_meta.append(None)
-                self._ext.append(())
-        self.levels = levels
-        self._setup_boundary(Ps[Ls - 1], D, dtype)
+                ext.append(())
+        Pb = self._boundary(Ps[Ls - 1], D, dtype, dev)
 
         # the replicated sub-hierarchy (levels Ls..), single-device
-        # machinery, on every process
+        # machinery, on every block
         self.sub_smoother = MulticolorGaussSeidel(omega=omega,
                                                   symmetric=symmetric)
-        self.sub_hier = build_hierarchy(
+        sub_hier = build_hierarchy(
             mats[Ls], n_levels - Ls, _FixedChain(Ps[Ls:], Rs[Ls:],
                                                  sizes[Ls:]),
             self.sub_smoother, dtype=dtype, device=dev)
@@ -356,14 +360,52 @@ class EllDistSolver:
         a64 = ShardedOp.build(mats[0], D, Bs[0], Bs[0], as_numpy=True).data
         a_hi = a64.astype(np.float32)
         a_lo = (a64 - a_hi.astype(np.float64)).astype(np.float32)
-        self._A0_df = DF32(hi=self.mesh.local(torch.tensor(a_hi, device=dev)),
-                           lo=self.mesh.local(torch.tensor(a_lo, device=dev)))
+        A0_df = DF32(hi=torch.tensor(a_hi, device=dev),
+                     lo=torch.tensor(a_lo, device=dev))
         b = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else b
         self._b64 = np.asarray(b, dtype=np.float64)
-        self.b = torch.tensor(self._b64, dtype=dtype, device=dev)
+        full = (levels, ext, Pb, A0_df)
+        if not spread:
+            self._place(self.device, full, sub_hier)
+            return
+        self.b = torch.tensor(self._b64, dtype=dtype, device=self.device)
+        self._spread(lambda block, dev: block._place(
+            dev, full, copy.deepcopy(sub_hier).to(dev)))
 
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.tensor(a, dtype=self.dtype, device=self.device)
+    def _place(self, device, full, sub_hier) -> "EllDistSolver":
+        """Put this block's slabs of the setup (``full``: the levels' ops,
+        masks and diagonals, the ghost-strip panels, the boundary
+        prolongation, the fine operator's df32 split, each with all D
+        slabs) and the sub-hierarchy on ``device``."""
+        levels, ext, Pb, A0_df = full
+        self.device = device
+        self.mesh = mesh = launch.device_mesh_1d(self.D)
+
+        def on(t, dim=0):
+            return mesh.local(t, dim).to(device)
+
+        self.levels = [dict(A=A_op.local(mesh, device),
+                            R=R_op.local(mesh, device),
+                            P=P_op.local(mesh, device),
+                            masks=on(masks, dim=1), diag=on(diag))
+                       for A_op, R_op, P_op, masks, diag in levels]
+        self._ext = []
+        for e in ext:
+            if e:
+                dE, cE, mE, gE = e
+                e = (on(dE), on(cE), on(mE, dim=1), on(gE))
+            self._ext.append(e)
+        self._Pb_data, self._Pb_cols = on(Pb[0]), on(Pb[1])
+        self._A0_df = DF32(hi=on(A0_df.hi), lo=on(A0_df.lo))
+        self.sub_hier = sub_hier
+        self.b = torch.tensor(self._b64, dtype=self.dtype, device=device)
+        return self
+
+    def close(self) -> None:
+        """End a card group's threads; nothing to do otherwise. The solver
+        is not used after."""
+        if self._blocks is not None:
+            self._close_group(lambda block: None)
 
     def _level_aux(self, M, l: int):
         """The level's greedy colors as (C, D*B) masks, its diagonal and
@@ -381,9 +423,10 @@ class EllDistSolver:
         diag[:n] = M.diagonal()
         return masks, diag, colors_pad
 
-    def _setup_boundary(self, Pb, D: int, dtype):
+    def _boundary(self, Pb, D: int, dtype, dev):
         """The prolongation from the replicated level Ls onto the sharded
-        level Ls-1: ELL panels with global coarse columns."""
+        level Ls-1: ELL panels with global coarse columns, (D, rows, K)
+        data and columns."""
         n_f = self.sizes[self.Ls - 1]
         rows_pad = D * self.Bs[self.Ls - 1]
         Pp = sp.vstack([Pb, sp.csr_matrix((rows_pad - n_f, Pb.shape[1]))]
@@ -391,9 +434,8 @@ class EllDistSolver:
         Pp.sort_indices()
         data, cols = _ell_arrays(Pp)
         K = data.shape[1]
-        self._Pb_data = self.mesh.local(self._tensor(data).reshape(D, -1, K))
-        self._Pb_cols = self.mesh.local(
-            torch.tensor(cols, device=self.device).reshape(D, -1, K))
+        return (torch.tensor(data, dtype=dtype, device=dev).reshape(D, -1, K),
+                torch.tensor(cols, device=dev).reshape(D, -1, K))
 
     # -- the V-cycle --------------------------------------------------------
 
@@ -418,8 +460,9 @@ class EllDistSolver:
             u = u + (self.omega * lv["masks"][c]) * (r / lv["diag"])
         return u
 
+    @launch.block_local
     def vcycle_once(self, u_pad, b_pad):
-        """One V-cycle on this process's (D/P, B_0) slabs."""
+        """One V-cycle on this block's (D/P, B_0) slabs."""
         Ls = self.Ls
         us, bs = [u_pad] + [None] * (Ls - 1), [b_pad] + [None] * (Ls - 1)
         b_repl = None
@@ -448,22 +491,26 @@ class EllDistSolver:
 
     # -- public API ---------------------------------------------------------
 
+    @launch.block_local
     def pad_vec(self, v) -> torch.Tensor:
-        """The (n,) vector as this process's (D/P, B_0) slabs in
+        """The (n,) vector as this block's (D/P, B_0) slabs in
         ``dtype``, zero padding."""
         out = torch.zeros(self.D * self.Bs[0], dtype=self.dtype,
                           device=self.device)
         out[:self.sizes[0]] = torch.as_tensor(v).to(out)
         return self.mesh.local(out.reshape(self.D, self.Bs[0]))
 
+    @launch.block_local
     def unpad_vec(self, v) -> torch.Tensor:
-        """Slabs -> the (n,) vector, gathered from every process."""
+        """Slabs -> the (n,) vector, gathered from every block."""
         return launch.all_gather_slabs(v).reshape(-1)[:self.sizes[0]]
 
+    @launch.block_local
     def rss(self, u_pad, b_pad) -> float:
         r = b_pad - _matvec_local(self.levels[0]["A"], u_pad)
         return check_rss(float(_dot(r, r)))
 
+    @launch.every_block
     def solve(self, tolerance=1e-9, compute_error_every_n_iters=5,
               n_iters=100) -> SolveResult:
         """The reference's outer loop (multigrid.hpp:311-337)."""
@@ -484,6 +531,7 @@ class EllDistSolver:
         return SolveResult(u=self.unpad_vec(u), iterations=it, error=error,
                            converged=error <= tolerance, history=history)
 
+    @launch.every_block
     def solve_pcg(self, tolerance: float = 1e-9, n_iters: int = 100
                   ) -> SolveResult:
         """AMG-preconditioned CG on the negated (SPD) system in ``dtype``
@@ -525,6 +573,7 @@ class EllDistSolver:
             acc = df_add(acc, DF32(hi=prod.hi[..., k], lo=prod.lo[..., k]))
         return df_add(b, df_neg(acc))
 
+    @launch.every_block
     def solve_ir(self, tolerance=1e-9, n_refine: int = 40) -> SolveResult:
         """The df32 defect correction for an f32 hierarchy: each refine's
         df32 residual and rss (checked before its V-cycles run, the one

@@ -13,17 +13,20 @@ for any D. The collectives become tensor ops on that axis:
 * ``lax.ppermute`` by h is a shift by h along the slab axis, zero-filled;
 * ``all_gather(tiled=True)`` is a reshape, ``psum`` a sum.
 
-In one process all D slabs live on one device (``device``): on the card a
-mesh of slabs, whose ``halo="rdma"`` exchange is the CUDA kernel K7
+In one block all its slabs live on one device: on the card a mesh of
+slabs, whose ``halo="rdma"`` exchange is the CUDA kernel K7
 (ops/kernels/halo.py), a put that addresses every slab from one base
-pointer and the slab stride. Under a process group (parallel/launch.py)
-each process holds D/P consecutive slabs and the exchanges, sums and
-gathers go through launch.py's collectives; ``halo="rdma"`` there is K7's
-peer form, which also puts the strips at the ends of the process's block
-straight into the receive memory of its neighbour processes (on the same
-card or another) and waits on flags there, in one launch. Its memory is
-made when the solver is built, by every process together, and released
-by ``close()``.
+pointer and the slab stride. The D slabs are cut into blocks of D/P
+consecutive slabs (parallel/launch.py) in two ways: one process driving
+several cards, a thread a block (a card group; the default wherever a
+process sees more than one card, JAX's one program over the local
+devices), or a process a block under a process group. The exchanges,
+sums and gathers go through launch.py's collectives; ``halo="rdma"``
+there is K7's peer form, which also puts the strips at the ends of the
+block straight into the receive memory of its neighbour blocks (on the
+same card or another) and waits on flags there, in one launch. Its
+memory is made when the solver is built, by every block together, and
+released by ``close()``.
 
 Layout invariants (``build_dist_hierarchy``), as in the JAX package:
 
@@ -50,6 +53,7 @@ whose strips were exchanged once, when the solver was built.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 
@@ -79,7 +83,7 @@ HALO_MODES = ("overlap", "sweep", "step", "rdma", "packed")
 
 
 # ---------------------------------------------------------------------------
-# Slab-axis helpers: every field is (D, R, n), D the slabs this process
+# Slab-axis helpers: every field is (D, R, n), D the slabs this block
 # holds; slab d's row r is global row (first slab + d) * B + r (+ a window
 # offset).
 
@@ -141,7 +145,7 @@ def _windows(x, G: int):
 
 def _exchange_strips(u, b, G: int):
     """One ghost-strip exchange of u and b (JAX ``_exchange_strips``):
-    single-hop (G <= B) as ``launch.strips``, across the processes when
+    single-hop (G <= B) as ``launch.strips``, across the blocks when
     there are several; multi-hop (G > B, tiny slabs) as windows of the
     padded field, u and b in one exchange."""
     if G > u.shape[1]:
@@ -229,13 +233,13 @@ def _gs4_sweep_rdma_const(w33, u, b, side: int, sweeps: int, omega: float,
     """The ghost sweep with K7 as the exchange: u and b ride one launch,
     into the receive buffer kept in ``recv`` by exchange shape (D, G, n)
     (rdma_buffers; on one stream, ``_extend`` has copied the strips out
-    before the next exchange of the shape writes them). In one process
-    K7 puts between the slabs of the tensor; across processes on the card
-    its peer form also puts into the neighbour processes' memory; across
-    processes on the CPU the strips are its plain version,
-    ``launch.strips``. JAX's rule: with one slab in all, or strips that
-    span more than one neighbour slab (G > B), the level takes the ghost
-    sweep."""
+    before the next exchange of the shape writes them). In one block K7
+    puts between the slabs of the tensor; over several blocks on the card
+    its peer form also puts into the neighbour blocks' memory (processes,
+    or the cards of a card group); over several blocks on the CPU the
+    strips are its plain version, ``launch.strips``. JAX's rule: with one
+    slab in all, or strips that span more than one neighbour slab
+    (G > B), the level takes the ghost sweep."""
     D, B, n = u.shape
     G = ghost_rows(sweeps, symmetric)
     if D * launch.process_count() == 1 or G > B:
@@ -259,10 +263,11 @@ def rdma_buffers(cfg, dtype, device) -> dict:
     """K7's receive buffers of a solver under ``halo="rdma"``, by exchange
     shape (D/P, G, n): one for each constant sharded level whose slabs
     hold the G strip rows of its pre- or post-smoothing, with more than
-    one slab in all. In one process a (D, 2G, 2n) tensor each; across
-    processes on the card K7's peer memory (collective: every process
-    makes it together); across processes on the CPU none (the plain
-    exchange needs none)."""
+    one slab in all. In one block a (D, 2G, 2n) tensor each; over several
+    blocks on the card K7's peer memory (collective: every block makes it
+    together; launch.peer_buffers takes CUDA IPC across processes and
+    peer access between the cards of a card group); over several blocks
+    on the CPU none (the plain exchange needs none)."""
     if cfg.halo != "rdma" or cfg.n_devices == 1:
         return {}
     Dl = cfg.n_devices // launch.process_count()
@@ -497,7 +502,7 @@ def _prolong_local(uc, B: int, n: int):
 
 
 def _prolong_from_replicated(uc_full, B: int, n: int, Bc: int, D: int):
-    """Prolongate the replicated coarse field onto this process's slabs of
+    """Prolongate the replicated coarse field onto this block's slabs of
     D: each slab's coarse rows plus the row above, gathered as windows of
     the padded field (JAX's per-device ``dynamic_slice``)."""
     ucp = F.pad(uc_full, (0, 0, 1, D * Bc - uc_full.shape[0]))
@@ -564,15 +569,6 @@ def plan_distribution(side: int, n_levels: int, n_devices: int,
     return tuple(sides), (), 0
 
 
-def _visible_devices() -> int:
-    """``n_devices=None``: the number of visible CUDA devices."""
-    n = torch.cuda.device_count()
-    if n == 0:
-        raise RuntimeError("n_devices=None counts the visible CUDA devices "
-                           "and there are none; pass n_devices")
-    return n
-
-
 def build_dist_hierarchy(side: int, n_levels: int | None = None,
                          n_devices: int | None = None, dtype=torch.float32,
                          A_fine=None, force_var: bool = False, device=None):
@@ -588,7 +584,7 @@ def build_dist_hierarchy(side: int, n_levels: int | None = None,
     sharded level, None on a constant one (JAX's placeholder)."""
     device = resolve_device(device)
     if n_devices is None:
-        n_devices = _visible_devices()
+        n_devices = launch.visible_cards()
     if n_levels is None:
         n_levels = max_levels_for_side(side)
     sides, blocks, Ls = plan_distribution(side, n_levels, n_devices)
@@ -642,8 +638,8 @@ def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
     slab at once): the sharded down-leg, one V-cycle of the replicated
     sub-hierarchy from zero, the sharded up-leg. ``recv``: the caller's
     dict of ``halo="rdma"`` receive buffers (rdma_buffers), kept across
-    calls (None: rdma_buffers' for this V-cycle, in one process; across
-    processes on the card K7 needs the solver's). ``planes``: each
+    calls (None: rdma_buffers' for this V-cycle, in one block; over
+    several blocks on the card K7 needs the solver's). ``planes``: each
     sharded level's planes (None on a constant level;
     build_dist_hierarchy), for the slabs in ``u``; ``planes_ext``: the
     same with their ghost strips (extend_planes; None: exchanged here, as
@@ -748,19 +744,32 @@ def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
 # The solver.
 
 
-class DistStructuredSolver:
+class DistStructuredSolver(launch.SpreadSolver):
     """Row-partitioned structured Poisson solver over a mesh of D slabs
     (JAX ``DistStructuredSolver``).
 
-    ``n_devices`` is the number of slabs (None: the visible CUDA devices);
-    in one process all D live on ``device``, under a process group
-    (parallel/launch.py) each process holds D/P of them and ``unpad``
-    gathers the field; there, with ``halo="rdma"`` on the card, the
-    solver holds memory its neighbour processes map, built with it and
-    released by ``close()``, which every process calls. ``halo`` None is
-    ``"overlap"`` on the card and ``"step"`` on the CPU, as JAX picks by
-    backend; ``device`` None is
-    ``"cuda"`` (raises without one). ``A_fine`` (a scipy matrix) or
+    ``n_devices`` is the number of slabs and ``device`` where they go
+    (``launch.slab_devices``): ``device`` None in a process outside a
+    process group spreads them over the visible cards as JAX's mesh over
+    ``jax.devices()[:D]`` does, K' cards (the largest divisor of D not
+    above the card count), D/K' consecutive slabs each, one slab a card
+    when ``n_devices`` is None too; with one card every slab is on it. One
+    device (``"cuda"``, ``"cuda:1"``, ``"cpu"``) keeps every slab there; a
+    sequence of K devices (``("cpu",) * K`` too) gives a block of D/K slabs
+    to each. Over several devices the solver is a card group
+    (``launch.CardGroup``): the setup is built once, on the host, each
+    block's thread takes its slabs and a copy of the replicated
+    sub-hierarchy, and ``solve``, ``solve_pcg``, ``solve_ir`` and
+    ``solve_ir_fused`` run on every block and return block 0's result
+    (its u on block 0's device); the slab-level methods (``pad_field``,
+    ``unpad``, ``vcycle``, ``rss``, ``solve_ir_device``) run on a block,
+    inside ``run(fn)``. Under a process group (parallel/launch.py) each
+    process holds D/P slabs on its card and ``unpad`` gathers the field.
+    With ``halo="rdma"`` on the card over several blocks the solver holds
+    memory its neighbour blocks write, built with it and released by
+    ``close()``, which every process calls; a card group's threads end
+    there too. ``halo`` None is ``"overlap"`` on the card and ``"step"``
+    on the CPU, as JAX picks by backend. ``A_fine`` (a scipy matrix) or
     ``force_var`` gives variable-coefficient sharded levels. ``solve`` is
     the reference's V-cycle loop and ``solve_pcg`` the AMG-preconditioned
     CG, a host loop with one host sync per iteration where JAX runs one
@@ -789,7 +798,8 @@ class DistStructuredSolver:
                 halo = getattr(config, "halo", None)
             if cycles_per_refine is None:
                 cycles_per_refine = getattr(config, "cycles_per_refine", None)
-        self.device = resolve_device(device)
+        n_devices, self.devices = launch.slab_devices(n_devices, device)
+        self.device = self.devices[0]
         if halo is None:
             halo = "overlap" if self.device.type == "cuda" else "step"
         if halo not in HALO_MODES:
@@ -798,37 +808,54 @@ class DistStructuredSolver:
             # the sub-hierarchy's transfer matmuls in full f32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        cfg, planes, self.sub_hier = build_dist_hierarchy(
+        spread = len(self.devices) > 1
+        # over several devices the setup is built once, on the host
+        cfg, planes, sub_hier = build_dist_hierarchy(
             side, n_levels, n_devices, dtype, A_fine, force_var=force_var,
-            device=self.device)
+            device="cpu" if spread else self.device)
         self.cfg = dataclasses.replace(
             cfg, pre_sweeps=pre_sweeps, post_sweeps=post_sweeps,
             omega=omega, symmetric=symmetric, halo=halo)
-        self.mesh = launch.device_mesh_1d(cfg.n_devices)
-        # this process's slabs of each variable level's planes, and their
-        # ghost strips, exchanged once here
-        self.planes = tuple(None if c is None
-                            else self.mesh.local(c, dim=2).contiguous()
-                            for c in planes)
-        self.planes_ext = None
-        if halo != "step" and any(c is not None for c in planes):
-            self.planes_ext = extend_planes(self.cfg, self.planes)
         self.dtype = dtype
         self.side = side
         self.cycles_per_refine = (2 if cycles_per_refine is None
                                   else cycles_per_refine)
         self.n_pad = self.cfg.n_devices * self.cfg.blocks[0]
-        # halo="rdma" receive buffers, by exchange shape; across processes
-        # on the card K7's peer memory, which close() releases
-        self._recv = rdma_buffers(self.cfg, dtype, self.device)
+        if not spread:
+            self._place(self.device, planes, sub_hier)
+            return
+        self._spread(lambda block, dev: block._place(
+            dev, planes, copy.deepcopy(sub_hier).to(dev)))
+
+    def _place(self, device, planes, sub_hier) -> "DistStructuredSolver":
+        """Put this block's part of the setup on ``device``: its slabs of
+        each variable level's planes and their ghost strips (exchanged
+        once here), the sub-hierarchy, and the ``halo="rdma"`` receive
+        buffers by exchange shape (over several blocks on the card K7's
+        peer memory, which close() releases)."""
+        self.device = device
+        self.sub_hier = sub_hier
+        self.mesh = launch.device_mesh_1d(self.cfg.n_devices)
+        self.planes = tuple(None if c is None
+                            else self.mesh.local(c, dim=2).to(device)
+                            .contiguous() for c in planes)
+        self.planes_ext = None
+        if self.cfg.halo != "step" and any(c is not None for c in planes):
+            self.planes_ext = extend_planes(self.cfg, self.planes)
+        self._recv = rdma_buffers(self.cfg, self.dtype, device)
         self._peer = launch.process_count() > 1 and bool(self._recv)
+        return self
 
     def close(self) -> None:
         """Collective under a process group with ``halo="rdma"`` on the
         card: release K7's peer memory (every process calls it, before the
-        group is destroyed), then raise if one of its waits timed out.
-        Nothing to do otherwise; the solver is not used after."""
-        if self._peer:
+        group is destroyed), then raise if one of its waits timed out. On
+        a card group the same on every block, then its threads end (after
+        a failure the peer memory is left to the process's end). The
+        solver is not used after."""
+        if self._blocks is not None:
+            self._close_group(DistStructuredSolver.close)
+        elif self._peer:
             recv, self._recv, self._peer = self._recv, {}, False
             launch.close_peer_strips(recv)
 
@@ -845,21 +872,24 @@ class DistStructuredSolver:
         return self.mesh.local(out.reshape(self.cfg.n_devices,
                                            self.cfg.blocks[0], self.side))
 
+    @launch.block_local
     def pad_field(self, f2) -> torch.Tensor:
-        """(side, side) -> this process's (D/P, B_0, side) slabs in
+        """(side, side) -> this block's (D/P, B_0, side) slabs in
         ``dtype``, zero padding rows."""
         return self._pad(f2, self.dtype)
 
+    @launch.block_local
     def unpad(self, f) -> torch.Tensor:
-        """Slabs -> the (side, side) field: a view in one process, gathered
-        from every process under a process group (where K7's peer form
-        ran, after a check that none of its waits timed out)."""
+        """Slabs -> the (side, side) field: a view in one block, gathered
+        from every block over several (where K7's peer form ran, after a
+        check that none of its waits timed out)."""
         f = launch.all_gather_slabs(f)
         if self._peer:
             torch.cuda.current_stream(f.device).synchronize()
             next(iter(self._recv.values())).check()
         return f.reshape(self.n_pad, self.side)[:self.side]
 
+    @launch.block_local
     def vcycle(self, u_pad, b_pad):
         return vcycle_dist(self.cfg, self.sub_hier, u_pad, b_pad, self._recv,
                            self.planes, self.planes_ext)
@@ -873,13 +903,15 @@ class DistStructuredSolver:
     @staticmethod
     def _dot(x, y) -> torch.Tensor:
         """sum(x * y) over every slab: per slab, then over the slabs and
-        the processes (psum)."""
+        the blocks (psum)."""
         return launch.psum((x * y).sum(dim=(1, 2)).sum())
 
+    @launch.block_local
     def rss(self, u_pad, b_pad) -> float:
         r = b_pad - self._matvec(u_pad)
         return check_rss(float(self._dot(r, r)))
 
+    @launch.every_block
     def solve(self, b2, tolerance=1e-7, compute_error_every_n_iters=5,
               n_iters=100) -> SolveResult:
         """The reference's outer loop (multigrid.hpp:311-337): V-cycles in
@@ -901,6 +933,7 @@ class DistStructuredSolver:
         return SolveResult(u=self.unpad(u), iterations=it, error=error,
                            converged=error <= tolerance, history=history)
 
+    @launch.every_block
     def solve_pcg(self, b2, tolerance: float = 1e-5, n_iters: int = 100
                   ) -> SolveResult:
         """AMG-preconditioned CG on the negated (SPD) system, M^-1 minus
@@ -961,6 +994,7 @@ class DistStructuredSolver:
             e = self.vcycle(e, r)
         return e.to(torch.float32)
 
+    @launch.block_local
     def solve_ir_device(self, b2, tolerance=1e-9, n_refine: int = 40):
         """The defect-correction loop of JAX's one-program solve: from
         u = 0, each pass computes the df32 residual and its rss (the one
@@ -987,6 +1021,7 @@ class DistStructuredSolver:
         return (self.unpad(uh).to(torch.float64)
                 + self.unpad(ul).to(torch.float64))
 
+    @launch.every_block
     def solve_ir_fused(self, b2, tolerance=1e-9,
                        n_refine: int = 40) -> SolveResult:
         """solve_ir_device and one read of its stats; ``iterations``
@@ -998,6 +1033,7 @@ class DistStructuredSolver:
                            error=error, converged=error <= tolerance,
                            history=[(iters, error)])
 
+    @launch.every_block
     def solve_ir(self, b2, tolerance=1e-9, n_refine: int = 40
                  ) -> SolveResult:
         """The host-stepped defect correction: each refine's rss is checked

@@ -64,17 +64,28 @@ check and the kernels' launch counts:
   wait, its per-exchange time against the plain exchange, and the
   4095^2 D = 4 halo="rdma" solve across the processes
   against the one-process run (the same V-cycles, u bitwise, K7 14 a
-  V-cycle in each process).
+  V-cycle in each process);
+* one process driving two blocks on the one card (a card group,
+  ``device=("cuda:0", "cuda:0")``, a thread and a stream a block): K7's
+  in-process form bitwise against its plain version in f32 and f64, a
+  lost neighbour, its per-exchange time; the 4095^2 D = 4 solve under
+  "rdma" and "overlap" and EllDistSolver "strips" at 1023^2 against one
+  block (the same V-cycles, u bitwise, the rss within 1e-12), each with
+  its wall and, per card, the idle share and launches a V-cycle.
 
 K9, the sweep on the row-grouped layout, is on no path (no JAX solver
 calls it): its launches are those of its parity phase. Each phase prints
 its seconds. Any failed check raises, so the exit code is non-zero. The
 line before the last of stdout is the card's name and power limit, the
 one before it the kernels' JSON (K1-K9, then K7's peer form as
-rdma_halo_exchange_peer, from process 0); the last line is one JSON
+rdma_halo_exchange_peer, from process 0, and its in-process form as
+rdma_halo_exchange_cards, from block 0); the last line is one JSON
 object with "ok" and the device. ``--mp P [P ...]`` runs the process
-phase alone for each P (with P cards, nccl and a card each). Needs a
-CUDA device and nvcc; imports neither JAX nor the JAX package.
+phase alone for each P (with P cards, nccl and a card each); ``--cards
+N`` one process driving N visible cards (K7 between them, the 4095^2
+solve on N and 2N slabs against one block, 8191^2 on N while its setup
+stays under 60 s). Needs a CUDA device and nvcc; imports neither JAX nor
+the JAX package.
 """
 
 from __future__ import annotations
@@ -217,6 +228,13 @@ DIST_CHECK_SIDE, DIST_CHECK_TOL = 255, 1e-9
 ELL_DIST_SLABS = 4
 ELL_A_CYCLES = 7                  # the single-device Multigrid (a)
 ELL_FLAT_LEVELS, ELL_FLAT_CYCLES = 12, 20
+# one process driving several cards (a card group, parallel/launch.py):
+# two blocks on the one card; with --cards N the 4095^2 solve on D = N and
+# 2N slabs and the 8191^2 one on N, the last only while its setup stays
+# under CARDS_BIG_SETUP_S
+CARD_BLOCKS = 2
+CARDS_BIG_SIDE, CARDS_BIG_SETUP_S = 8191, 60.0
+CARD_RTOL = 1e-12                 # the rss: only the order of the sums
 MP_PROCS, MP_SLABS, MP_CYCLES = 2, 4, 10
 MP_SIDE, MP_ELL_SIDE, MP_ELL_LEVELS = 1023, 255, 7
 MP_RTOL = 1e-12                   # only the order of the sums differs
@@ -304,17 +322,28 @@ def packed_fields(side: int, seed: int, dev):
     return m, f
 
 
+def sync() -> None:
+    """Wait for the card: in a thread of a card group for this thread's
+    stream only (a wait for the whole card could wait for the other
+    block's K7 launch, which waits for this thread's next one), else for
+    the card."""
+    if launch.in_card_group():
+        torch.cuda.current_stream().synchronize()
+    else:
+        torch.cuda.synchronize()
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps launches, CUDA events."""
     fn()
-    torch.cuda.synchronize()
+    sync()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
-    torch.cuda.synchronize()
+    sync()
     return start.elapsed_time(stop) / reps
 
 
@@ -1624,7 +1653,11 @@ def dist_solves(dev, launches: dict):
                 lambda: s.solve_ir_fused(b2, tolerance=TOL), 3)
             print(f"dist solve wall {side}^2 D={D} halo=rdma: median of 3 "
                   f"{med:.6f} s (all {walls})")
+            w_med, per_card = traced_cards(dist_window(s, b2))
+            print(f"dist solve {side}^2 D={D} halo=rdma, one block: "
+                  f"{cards_text(w_med, per_card)}")
             save_rdma_reference(RECORD["mp_dir"], res)
+            RECORD[f"dist rdma {side}"] = (res, med)
         results[halo] = (refines, res.u)
         if halo == "sweep":     # dist_const_solves holds "packed" to it
             RECORD[f"dist sweep {side}"] = res
@@ -1730,15 +1763,15 @@ def timed_build(make):
 
 
 def dist_window(s, b2):
-    """TRACE_CYCLES V-cycles of a distributed solver from zero."""
-    bp = s.pad_field(b2)
-
-    def run():
+    """TRACE_CYCLES V-cycles from zero of a distributed solver, on every
+    block of a card group (s.run), the rhs padded inside."""
+    def body(blk):
+        bp = blk.pad_field(b2)
         u = torch.zeros_like(bp)
         for _ in range(TRACE_CYCLES):
-            u = s.vcycle(u, bp)
+            u = blk.vcycle(u, bp)
         return u
-    return run
+    return lambda: s.run(body)
 
 
 def card_against_cpu(dev, make, runs: dict, planes, side: int):
@@ -1923,6 +1956,8 @@ def ell_dist_solves(dev, launches: dict):
                 f"{label}: the single-device (a) history")
         require((s._ext_meta[0] is not None) == (halo == "strips"),
                 f"{label}: strips on the fine level iff halo='strips'")
+        if halo == "strips":    # card_solves holds its card group to it
+            RECORD["ell dist strips"] = res
         if halo == "step":
             pcg = new_path(f"ell dist pcg {side}^2 D={D} f64", lambda:
                            s.solve_pcg(tolerance=ELL_TOL),
@@ -1968,6 +2003,256 @@ def ell_dist_solves(dev, launches: dict):
     require(res.iterations == n_cyc and ok
             and bool(torch.isfinite(res.u).all()),
             "ell dist flat: the single-device history")
+
+
+# ---------------------------------------------------------------------------
+# One process driving several cards: a card group (parallel/launch.py), a
+# thread a block. Its timing waits for a thread's stream only (sync).
+
+
+def card_busy(prof, cycles: int) -> dict:
+    """{card: (busy s, GPU launches a V-cycle)} of a trace: the union of
+    each card's kernel and copy spans (two blocks on one card overlap),
+    NCCL's kernels counted as launches, not as busy time."""
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end, e.name))
+    out = {}
+    for card_, evs in sorted(spans.items()):
+        busy, end = 0.0, float("-inf")
+        for a, b, name in sorted(evs):
+            if name.startswith("nccl") or b <= end:
+                continue
+            busy += b - max(a, end)
+            end = b
+        out[card_] = (busy * 1e-6, len(evs) / cycles)
+    return out
+
+
+def traced_cards(fn) -> tuple[float, dict]:
+    """(wall of ``fn``, a TRACE_CYCLES window, median of 3; card_busy of
+    one traced run)."""
+    w_med = wall_median(fn, 3)[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return w_med, card_busy(prof, TRACE_CYCLES)
+
+
+def cards_text(w_med: float, per_card: dict) -> str:
+    return (f"traced window of {TRACE_CYCLES} V-cycles: wall {w_med:.6f} s; "
+            + "; ".join(f"card {c} busy {b:.6f} s, idle share "
+                        f"{1 - b / w_med:.4f}, GPU launches {n:.1f} a "
+                        f"V-cycle" for c, (b, n) in per_card.items()))
+
+
+def _card_peer(dev, cross_card: bool):
+    err, lines = peer_parity(dev)
+    lines += peer_timeout_check(dev)
+    rec, more = peer_timing(dev, cross_card, graph=False)
+    rec["max_abs_err"] = err
+    return rec, [f"block {launch.process_index()} on {dev}: {line}"
+                 for line in lines + more]
+
+
+def card_peer_checks(devices) -> dict:
+    """K7's in-process form in a card group of a block on each of
+    ``devices``: every block's parity against the plain version, a lost
+    neighbour and per-exchange timing (peer_parity, peer_timeout_check,
+    peer_timing without its CUDA graph). Prints every block's lines;
+    returns block 0's record."""
+    group = launch.CardGroup(devices)
+    cross = len(set(devices)) > 1
+    try:
+        outs = group.run(lambda k: _card_peer(group.devices[k], cross))
+    finally:
+        group.close()
+    for _, lines in outs:
+        print("\n".join(f"cards {len(devices)} blocks: {line}"
+                        for line in lines))
+    rec = dict(outs[0][0], blocks=len(devices),
+               cards=len(set(devices)))
+    rec["max_abs_err"] = max(r["max_abs_err"] for r, _ in outs)
+    return rec
+
+
+def card_solve(label: str, make, b2, launches: dict, ref=None,
+               timed: bool = True):
+    """A DistStructuredSolver (``make()``) solve_ir_fused to TOL under drive:
+    converged, K7 2 x k7_levels a V-cycle in each block under "rdma" (0
+    otherwise), no other kernel; against ``ref`` (the one-block run) the
+    same V-cycles, u bitwise, the rss within CARD_RTOL. Then, ``timed``,
+    its wall (median of the checked run and two more) and a traced window
+    per card; else the checked run's wall alone. Returns (result, K7
+    launches)."""
+    s, setup = timed_build(make)
+    side = s.side
+    try:
+        t0 = time.perf_counter()
+        res, c = drive(lambda: s.solve_ir_fused(b2, tolerance=TOL), launches)
+        first = time.perf_counter() - t0
+        k7 = (len(s.devices) * 2 * k7_levels(s.cfg) * res.iterations
+              if s.cfg.halo == "rdma" else 0)
+        require(c["rdma_halo_exchange"] == k7
+                and sum(c.values()) == c["rdma_halo_exchange"],
+                f"{label}: K7 = blocks x 2 x levels x V-cycles ({k7}), no "
+                f"other kernel: {c}")
+        require(res.error <= TOL and bool(torch.isfinite(res.u).all())
+                and res.u.shape == (side, side), f"{label}: converged")
+        same = ref is None or torch.equal(res.u, ref.u.to(res.u.device))
+        rel = 0.0 if ref is None else abs(res.error / ref.error - 1)
+        if ref is not None:
+            require(res.iterations == ref.iterations and same
+                    and rel <= CARD_RTOL,
+                    f"{label}: the one-block V-cycles ({ref.iterations}), u "
+                    f"bitwise ({same}), rss within {CARD_RTOL:g} ({rel:.3e})")
+        walls, window = [first], "no traced window"
+        if timed:
+            walls += wall_median(
+                lambda: s.solve_ir_fused(b2, tolerance=TOL), 2)[1]
+            window = cards_text(*traced_cards(dist_window(s, b2)))
+    finally:
+        s.close()
+    per = c["rdma_halo_exchange"] / res.iterations / len(s.devices)
+    vs = ("" if ref is None else
+          f" (one block {ref.iterations}; u bitwise {same}; rss relative "
+          f"difference {rel:.3e})")
+    print(f"{label}: blocks on {[str(d) for d in s.devices]}, setup "
+          f"{setup:.3f} s, V-cycles {res.iterations}{vs}, rss "
+          f"{res.error:.6e}, K7 {c['rdma_halo_exchange']} launches ({per:.0f} "
+          f"a V-cycle a block); wall median of {len(walls)} "
+          f"{statistics.median(walls):.6f} s (all {walls}); {window}")
+    return res, c["rdma_halo_exchange"]
+
+
+def card_solves(dev, launches: dict):
+    """One process, two blocks of a card group on the one card
+    (``device=("cuda:0", "cuda:0")``; each block a thread with a stream of
+    its own): K7's in-process form (card_peer_checks), then the
+    DIST_SIDE^2 D = DIST_SLABS solve under "rdma" and "overlap" against
+    dist_solves' one-block "rdma" run ("overlap" untimed: its checked
+    run's wall), and EllDistSolver at 1023^2 on 4 slabs under "strips"
+    against ell_dist_solves' one-block history (rtol CARD_RTOL, the same
+    V-cycles). K7's launches on the "rdma" solve go to the kernels line
+    (rdma_halo_exchange_cards)."""
+    blocks = (torch.device("cuda", 0),) * CARD_BLOCKS
+    rec = card_peer_checks(blocks)
+    side, D = DIST_SIDE, DIST_SLABS
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    ref, ref_wall = RECORD[f"dist rdma {side}"]
+    print(f"card group 1 card: one block {side}^2 D={D} rdma: V-cycles "
+          f"{ref.iterations}, wall median of 3 {ref_wall:.6f} s "
+          f"(dist_solves)")
+    for halo in ("rdma", "overlap"):
+        _, k7 = card_solve(
+            f"card group {side}^2 D={D} {halo}, {CARD_BLOCKS} blocks on 1 "
+            f"card", lambda: DistStructuredSolver(side, n_devices=D,
+                                                  halo=halo, device=blocks),
+            b2, launches, ref, timed=halo == "rdma")
+        if halo == "rdma":
+            rec["launches"] = k7
+    RECORD["k7_cards"] = rec
+
+    side = ELL_SIDE
+    A, b = poisson.poisson2d(side, device=dev)
+    ref = RECORD["ell dist strips"]
+    s, setup = timed_build(lambda: EllDistSolver(
+        A, b, ELL_BILINEAR_LEVELS, n_devices=ELL_DIST_SLABS,
+        interpolator=BilinearInterpolator2D(side), halo="strips",
+        device=blocks))
+    label = (f"card group ell {side}^2 D={ELL_DIST_SLABS} strips, "
+             f"{CARD_BLOCKS} blocks on 1 card")
+
+    def window(blk):
+        bp = blk.pad_vec(blk.b)
+        u = torch.zeros_like(bp)
+        for _ in range(TRACE_CYCLES):
+            u = blk.vcycle_once(u, bp)
+        return u
+    def run():
+        return s.solve(tolerance=ELL_TOL, compute_error_every_n_iters=1)
+    try:
+        res, c = drive(run, launches)
+        require(sum(c.values()) == 0, f"{label}: no kernel: {c}")
+        med, walls = wall_median(run, 3)
+        w_med, per_card = traced_cards(lambda: s.run(window))
+    finally:
+        s.close()
+    got = np.array([e for _, e in res.history])
+    want = np.array([e for _, e in ref.history])
+    rel = float(np.max(np.abs(got / want - 1)))
+    print(f"{label}: setup {setup:.3f} s, V-cycles {res.iterations} (one "
+          f"block {ref.iterations}), rss history largest relative "
+          f"difference {rel:.3e}; wall median of 3 {med:.6f} s (all "
+          f"{walls}); {cards_text(w_med, per_card)}")
+    require(res.iterations == ref.iterations and rel <= CARD_RTOL,
+            f"{label}: the one-block history within {CARD_RTOL:g}")
+
+
+def cards_entry(rec: dict) -> dict:
+    """The kernels line's entry for K7's in-process form (block 0)."""
+    src, replaces = KERNEL_INFO["rdma_halo_exchange"]
+    return {"name": "rdma_halo_exchange_cards", "route": "cuda",
+            "source": src, "replaces": replaces,
+            "launches": rec["launches"], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "blocks": rec["blocks"],
+            "cards": rec["cards"], "bound_rate": rec["bound_rate"]}
+
+
+def cards_only(n: int) -> int:
+    """``chip_smoke.py --cards N``: one process driving N visible cards
+    (a card group, the solvers' default device): K7's in-process form
+    between the cards (over NVLink), then DIST_SIDE^2 on D = N (one slab a
+    card, JAX's layout) and 2N slabs and CARDS_BIG_SIDE^2 on N, each
+    under "rdma" and "overlap" against the one-block "rdma" run on card 0
+    (the same V-cycles, u bitwise), with setup, wall, and per card the
+    idle share and launches a V-cycle."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU "
+                           "only")
+    require(torch.cuda.device_count() >= n,
+            f"--cards {n} needs {n} visible cards, "
+            f"{torch.cuda.device_count()} seen")
+    print(f"card: {card()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    devs = tuple(torch.device("cuda", i) for i in range(n))
+    rec = card_peer_checks(devs)
+    launches = {k: 0 for k in KERNEL_INFO}
+    one = torch.device("cuda", 0)
+    for side, D in ((DIST_SIDE, n), (DIST_SIDE, 2 * n),
+                    (CARDS_BIG_SIDE, n)):
+        t0 = time.perf_counter()
+        b2 = poisson.rhs(side, device=one).reshape(side, side)
+        if side == CARDS_BIG_SIDE:
+            s, setup = timed_build(lambda: DistStructuredSolver(
+                side, n_devices=D, halo="rdma"))
+            s.close()
+            if setup > CARDS_BIG_SETUP_S:
+                print(f"cards {side}^2 D={D}: setup {setup:.1f} s, over "
+                      f"{CARDS_BIG_SETUP_S:.0f} s: not run")
+                continue
+        ref, _ = card_solve(f"cards one block {side}^2 D={D} rdma on card 0",
+                            lambda: DistStructuredSolver(
+                                side, n_devices=D, halo="rdma", device=one),
+                            b2, launches)
+        for halo in ("rdma", "overlap"):
+            res, k7 = card_solve(
+                f"cards {side}^2 D={D} {halo}, {n} cards",
+                lambda: DistStructuredSolver(side, n_devices=D, halo=halo),
+                b2, launches, ref)
+            if halo == "rdma" and side == DIST_SIDE and D == n:
+                rec["launches"] = k7
+        print(f"cards {side}^2 D={D}: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": [cards_entry(rec)]}))
+    print(card())
+    return 0
 
 
 def mp_runs(dev, report: bool) -> tuple[dict, list]:
@@ -2080,18 +2365,21 @@ def peer_timeout_check(dev) -> list:
             f"and close raised: {msgs[0]!r}"]
 
 
-def peer_timing(dev) -> tuple[dict, list]:
+def peer_timing(dev, cross_card: bool, graph: bool = True
+                ) -> tuple[dict, list]:
     """K7's peer form at the path's shape (PEER_SHAPES[0], f32, u and b
-    apart, this process's slabs), per exchange (CUDA events, 50 launches)
+    apart, this block's slabs), per exchange (CUDA events, 50 launches)
     against its plain version (launch.strips: launch.edges and the local
     shift) and against the library's exchange alone (launch.edges: one
-    batch of torch.distributed send/recv), in turns (plain, kernel,
-    library, library, kernel, plain; the better of each pair); then its
-    device time, one launch in
-    a CUDA graph of K7_GRAPH_LAUNCHES replayed (every process replays
-    alike). The bound: the strips this process reads and writes at the
-    device memory's rate and, with its neighbours on other cards, its end
-    strips over NVLink."""
+    batch of torch.distributed send/recv across processes, copies between
+    the cards in a card group), in turns (plain, kernel, library,
+    library, kernel, plain; the better of each pair); then, with
+    ``graph``, its device time, one launch in a CUDA graph of
+    K7_GRAPH_LAUNCHES replayed (every process replays alike; not in a
+    card group, where a capture would stop the other threads' work). The
+    bound: the strips this block reads and writes at the device memory's
+    rate and, with its neighbours on other cards (``cross_card``), its
+    end strips over NVLink."""
     D, B, n, G = PEER_SHAPES[0]
     Dl = launch.device_mesh_1d(D).slabs_per_process
     W, key = 2 * n, (Dl, G, 2 * n)
@@ -2116,7 +2404,36 @@ def peer_timing(dev) -> tuple[dict, list]:
     first = [time_ms(fn, reps) for fn, reps in order]
     second = [time_ms(fn, reps) for fn, reps in order[::-1]][::-1]
     pms, kms, lms = (min(a, b) for a, b in zip(first, second))
+    device_ms = peer_graph_ms(kern, st, ref) if graph else None
+    launch.close_peer_strips(strips)
 
+    r, P = launch.process_index(), launch.process_count()
+    ends = (r == 0) + (r == P - 1)       # strips zero-filled, not read
+    strip = G * W * u.element_size()
+    moved = (2 * Dl - ends + 2 * Dl) * strip
+    t_mem = moved / HBM_BYTES_PER_S * 1e3
+    t_link = ((2 - ends) * strip / NVLINK_BYTES_PER_S * 1e3 if cross_card
+              else 0.0)
+    bnd = max(t_mem, t_link)
+    rate = ("NVLink 450 GB/s each way" if t_link > t_mem
+            else "HBM 3.35 TB/s")
+    size = f"D={D} ({Dl} here) B={B} n={n} G={G}"
+    rec = dict(ms=kms, plain_ms=pms, library_ms=lms, device_ms=device_ms,
+               bound_ms=bnd, bound_by="bytes", bound_rate=rate, bytes=moved)
+    lib = (torch.distributed.get_backend() if not launch.in_card_group()
+           else "copies between the blocks' cards")
+    graph_txt = (f"; device {device_ms:.5f} ms a launch in a CUDA graph of "
+                 f"{K7_GRAPH_LAUNCHES}" if graph else "")
+    return rec, [
+        f"time K7 peer {size}: per exchange {kms:.4f} ms against the plain "
+        f"version {pms:.4f} ms and the library's exchange alone "
+        f"(launch.edges, {lib}) {lms:.4f} ms, in turns{graph_txt}; bound "
+        f"{bnd:.5f} ms ({moved / 1e6:.2f} MB, {rate})"]
+
+
+def peer_graph_ms(kern, st, ref) -> float:
+    """K7's peer form's device time: one launch in a CUDA graph of
+    K7_GRAPH_LAUNCHES replayed, the better of two runs of 10 replays."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -2131,40 +2448,16 @@ def peer_timing(dev) -> tuple[dict, list]:
     torch.cuda.synchronize()
     require(torch.equal(st.out, ref), "K7 peer's graph replay writes the "
             "strips")
-    device_ms = min(time_ms(graph.replay, 10),
-                    time_ms(graph.replay, 10)) / K7_GRAPH_LAUNCHES
-    launch.close_peer_strips(strips)
-
-    r, P = launch.process_index(), launch.process_count()
-    ends = (r == 0) + (r == P - 1)       # strips zero-filled, not read
-    strip = G * W * u.element_size()
-    moved = (2 * Dl - ends + 2 * Dl) * strip
-    cards = torch.cuda.device_count() >= P
-    t_mem = moved / HBM_BYTES_PER_S * 1e3
-    t_link = (2 - ends) * strip / NVLINK_BYTES_PER_S * 1e3 if cards else 0.0
-    bnd = max(t_mem, t_link)
-    rate = ("NVLink 450 GB/s each way" if t_link > t_mem
-            else "HBM 3.35 TB/s")
-    size = f"D={D} ({Dl} here) B={B} n={n} G={G}"
-    rec = dict(ms=kms, plain_ms=pms, library_ms=lms, device_ms=device_ms,
-               bound_ms=bnd, bound_by="bytes", bound_rate=rate, bytes=moved)
-    return rec, [
-        f"time K7 peer {size}: per exchange {kms:.4f} ms against the plain "
-        f"version {pms:.4f} ms and the "
-        f"library's exchange alone (launch.edges, "
-        f"{torch.distributed.get_backend()}) {lms:.4f} ms, in turns; device "
-        f"{device_ms:.5f} ms a launch in a CUDA graph of "
-        f"{K7_GRAPH_LAUNCHES}; bound {bnd:.5f} ms ({moved / 1e6:.2f} MB, "
-        f"{rate})"]
+    return min(time_ms(graph.replay, 10),
+               time_ms(graph.replay, 10)) / K7_GRAPH_LAUNCHES
 
 
 def peer_rdma_solve(dev, out_dir: str) -> tuple[dict, list]:
     """The DIST_SIDE^2 D = DIST_SLABS halo="rdma" solve_ir_fused to TOL
     across the processes: K7 (its peer form) 2 x 7 levels a V-cycle, no
     other kernel, the one-process run's V-cycles and a bitwise equal u
-    (save_rdma_reference), an independent f64 rss; its wall (the median
-    of the checked run and two more) and a traced window of TRACE_CYCLES
-    V-cycles."""
+    (save_rdma_reference), an independent f64 rss; the checked run's wall
+    and a traced window of TRACE_CYCLES V-cycles."""
     side, D = DIST_SIDE, DIST_SLABS
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
     s, setup = timed_build(lambda: DistStructuredSolver(
@@ -2187,9 +2480,7 @@ def peer_rdma_solve(dev, out_dir: str) -> tuple[dict, list]:
     require(res.error <= TOL and ind <= TOL, f"converged to {TOL}")
     require(res.iterations == ref["iterations"] and same,
             "the one-process V-cycles and a bitwise equal u")
-    walls = [first] + wall_median(
-        lambda: s.solve_ir_fused(b2, tolerance=TOL), 2)[1]
-    med = statistics.median(walls)
+    med = first
     window = dist_window(s, b2)
     w_med = wall_median(window, 3)[0]
     _, busy, n_gpu = traced(window)
@@ -2202,8 +2493,8 @@ def peer_rdma_solve(dev, out_dir: str) -> tuple[dict, list]:
         f"{res.iterations} (one process {ref['iterations']}), rss "
         f"{res.error:.6e}, independent f64 rss {ind:.6e}, u bitwise equal "
         f"to one process's {same}, K7 {c['rdma_halo_exchange']} launches "
-        f"({per:.0f} a V-cycle); wall median of 3 {med:.6f} s (all "
-        f"{walls}); traced window of {TRACE_CYCLES} V-cycles: wall "
+        f"({per:.0f} a V-cycle); wall of the checked run {med:.6f} s; "
+        f"traced window of {TRACE_CYCLES} V-cycles: wall "
         f"{w_med:.6f} s, device busy {busy:.6f} s, idle share "
         f"{1 - busy / w_med:.4f}, GPU launches {n_gpu / TRACE_CYCLES:.1f} "
         f"per V-cycle"]
@@ -2221,7 +2512,7 @@ def mp_worker(rank: int, world: int, port: int, out_dir: str) -> None:
     require(sum(counts.values()) == 0, f"mp rank {rank}: no kernel")
     err, more = peer_parity(dev)
     lines += more + peer_timeout_check(dev)
-    rec, more = peer_timing(dev)
+    rec, more = peer_timing(dev, torch.cuda.device_count() >= world)
     lines += more
     solve, more = peer_rdma_solve(dev, out_dir)
     lines += more
@@ -2362,7 +2653,8 @@ def main() -> int:
         for phase in (const_solves, split_solve, pcg_solves, var_solves,
                       refine_solves, smoother_solves, host_solves,
                       ell_solves, dist_solves, dist_var_solves,
-                      dist_const_solves, ell_dist_solves, mp_solves):
+                      dist_const_solves, ell_dist_solves, card_solves,
+                      mp_solves):
             t0 = time.perf_counter()
             phase(dev, launches)
             torch.cuda.synchronize()
@@ -2405,6 +2697,7 @@ def main() -> int:
             entry.update(path=None, parity_launches=k9_launches)
         kernels.append(entry)
     kernels.append(peer_entry(RECORD["k7_peer"][MP_PROCS], MP_PROCS))
+    kernels.append(cards_entry(RECORD["k7_cards"]))
     print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {
@@ -2435,6 +2728,8 @@ def mp_only(procs: list) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp"]:
         sys.exit(mp_only([int(a) for a in sys.argv[2:]]))
+    if sys.argv[1:2] == ["--cards"]:
+        sys.exit(cards_only(int(sys.argv[2])))
     if sys.argv[1:2] == ["--mp-worker"]:
         mp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
                   sys.argv[5])

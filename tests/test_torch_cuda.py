@@ -384,3 +384,24 @@ def test_dist_rdma_on_the_card(dev):
                                ).solve_ir_fused(b2, tolerance=1e-7)
     assert res.converged and res.u.is_cuda
     assert res.iterations == ref.iterations
+
+
+def test_card_group_rdma_on_one_card(dev):
+    """Two blocks of a card group on the one card, halo="rdma": K7's peer
+    form between the blocks' streams, the one-block V-cycles and a bitwise
+    equal u; K7 14 a V-cycle in each block (2 x levels 0-6 at 4095^2; 3
+    levels here, B = 64, 32, 16 >= G = 10)."""
+    side = 255
+    b2 = poisson.rhs(side, device="cpu").reshape(side, side)
+    one = DistStructuredSolver(side, n_devices=4, halo="rdma", device=dev
+                               ).solve_ir_fused(b2.to(dev), tolerance=1e-7)
+    s = DistStructuredSolver(side, n_devices=4, halo="rdma",
+                             device=("cuda:0", "cuda:0"))
+    try:
+        K.reset_launch_counts()
+        two = s.solve_ir_fused(b2.to(dev), tolerance=1e-7)
+        launches = K.launch_counts()["rdma_halo_exchange"]
+    finally:
+        s.close()
+    assert two.iterations == one.iterations and torch.equal(two.u, one.u)
+    assert launches == 2 * (2 * 3) * two.iterations

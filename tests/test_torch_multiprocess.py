@@ -41,9 +41,11 @@ RTOL_PCG = 1e-10
 TIMEOUT = 240       # seconds, for all the workers of one test
 
 
-def runs():
+def runs(device="cpu"):
     """name -> (build the solver, run it): every case a worker runs, in
-    one process or across the process group, whichever is current."""
+    one process or across the process group, whichever is current, its
+    solvers on ``device`` (a sequence of devices: a card group,
+    tests/test_torch_cards.py)."""
     import torch
 
     from amg_tpu_torch.models import poisson, varcoef
@@ -56,11 +58,11 @@ def runs():
     def dist(side=SIDE, n_devices=D, **kw):
         return lambda: DistStructuredSolver(side, n_devices=n_devices,
                                             dtype=torch.float64,
-                                            device="cpu", **kw)
+                                            device=device, **kw)
 
     def ell(halo):
         return lambda: EllDistSolver(A, b, 6, n_devices=D, halo=halo,
-                                     device="cpu")
+                                     device=device)
 
     def cycles(s):
         bp = s.pad_field(poisson.rhs(s.side, device="cpu").reshape(
