@@ -60,6 +60,7 @@ from amg_tpu_torch.ops.smoothers import (Jacobi, MulticolorGaussSeidel,
                                          SuccessiveOverRelaxation)
 from amg_tpu_torch.ops.transfer import (BilinearInterpolator2D,
                                         InterpolatorBase, LinearInterpolator)
+from amg_tpu_torch.parallel.ell_dist import EllDistSolver
 from amg_tpu_torch.parallel.structured_dist import DistStructuredSolver
 from amg_tpu_torch.sparse.ell import ELL
 from amg_tpu_torch.sparse.stencil import Stencil2D
@@ -74,6 +75,7 @@ from amg_tpu_torch.structured import (StencilHierarchy,
 from amg_tpu_torch.utils.metrics import rss, rss_from_residual
 
 __all__ = ["BilinearInterpolator2D", "DF32", "DistStructuredSolver", "ELL",
+           "EllDistSolver",
            "Hierarchy", "InterpolatorBase", "Jacobi", "Level",
            "LinearInterpolator", "MulticolorGaussSeidel", "Multigrid",
            "SmootherResult", "SolveResult", "SparseGaussSeidel", "Stencil2D",

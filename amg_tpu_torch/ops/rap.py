@@ -1,7 +1,7 @@
 """Closed-form Galerkin coarsening of 9-point stencils, and the dense
 operators the hierarchy build needs.
 
-PyTorch port of ``amg_tpu/ops/rap.py:28-75, 92-172``. ``poisson_const_w33``
+PyTorch port of ``amg_tpu/ops/rap.py``. ``poisson_const_w33``
 is pure Python f64 arithmetic in the same order as the reference module,
 so the weight tuples are identical; ``rap_stencil_planes`` sums its terms
 in the reference's order, so the coarse planes are bitwise equal.
@@ -57,6 +57,22 @@ def rap_stencil_planes(c: torch.Tensor) -> torch.Tensor:
                      & (b_idx + dI >= 0) & (b_idx + dI < nc))
             out[dJ + 1, dI + 1] = torch.where(valid, acc, zero)
     return out
+
+
+def rap_stencil_planes_jit(c: torch.Tensor) -> torch.Tensor:
+    """``rap_stencil_planes`` under JAX's name for its jitted form: the
+    same function (PyTorch runs it op by op)."""
+    return rap_stencil_planes(c)
+
+
+def build_hierarchy_planes(c_fine: torch.Tensor, n_levels: int) -> list:
+    """Every level's planes from the fine (3,3,n,n) planes by repeated
+    closed-form RAP, on the planes' device: ``n_levels`` tensors, the
+    fine one first."""
+    planes = [c_fine]
+    for _ in range(n_levels - 1):
+        planes.append(rap_stencil_planes(planes[-1]))
+    return planes
 
 
 def poisson_planes(side: int, dtype=torch.float32,

@@ -36,10 +36,24 @@ The collectives, in both forms:
   opened, in a card group the pointers are handed across directly and
   the cards of line neighbours get peer access.
 
+The two nest: P processes, each driving a card group of K blocks, are
+one mesh of P·K blocks (JAX's multi-host mesh), block p·K + k the thread
+k of process p. There ``process_count`` and ``process_index`` answer
+P·K and p·K + k, while ``world_size`` and ``world_rank`` keep the
+process group's P and p. One thread of each group, its block 0 (the
+lead), issues every ``torch.distributed`` call of the process, in one
+order on every process; the other blocks hand it their data, and take
+theirs from it, through the group's copies (``_pull``). The strips of
+``edges`` cross the processes as the process's whole line of K blocks
+(``_edges_mesh``), ``psum`` adds the K partials in block order before
+the lead's ``all_reduce``, and K7's peer memory is a pointer between two
+blocks of a process and a CUDA IPC mapping between two processes.
+
 A process that has called ``initialize_distributed`` (or
 ``init_process_group``) with more than one process runs the distributed
-solvers across processes; a card thread runs them in its card group; any
-other code runs them in one block, on the slab axis alone.
+solvers across processes; a card thread runs them in its card group
+(across the processes too, when there are several); any other code runs
+them in one block, on the slab axis alone.
 """
 
 from __future__ import annotations
@@ -71,16 +85,24 @@ BARRIER_TIMEOUT_S = 300.0
 
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
-                           process_id: int | None = None) -> dict:
+                           process_id: int | None = None,
+                           local_devices: int | None = None) -> dict:
     """Join the process group: ``coordinator_address`` ("host:port") with
     ``num_processes`` and ``process_id``, else the ``env://`` variables
-    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK). The backend is "nccl"
-    when each process has a card of its own (it takes card
-    ``process_id % count``) and "gloo" otherwise. nccl carries card
-    tensors only: processes that run the solvers on the CPU hide the cards
-    (``CUDA_VISIBLE_DEVICES=""``). Returns JAX's dict, where a device of
-    the mesh is a slab, one a process as ``device_mesh_1d(None)`` has it
-    (a solver of D slabs holds ``device_mesh_1d(D).slabs_per_process``)."""
+    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK). Each process owns K =
+    ``local_devices`` cards (None: the visible cards over the processes,
+    at least 1): with every card visible process p owns cards p·K …
+    p·K + K - 1, and a process that sees only K cards (its
+    ``CUDA_VISIBLE_DEVICES``) owns them all. The backend is "nccl" when
+    each process owns cards of its own (its current card is its first,
+    ``local_cards()`` are all) and "gloo" otherwise, the processes
+    sharing the cards. nccl carries card tensors only: processes that run
+    the solvers on the CPU hide the cards (``CUDA_VISIBLE_DEVICES=""``).
+    Returns JAX's dict: ``local_devices`` K and ``global_devices`` P·K,
+    where a device of the mesh is a block (a solver of D slabs holds
+    ``device_mesh_1d(D).slabs_per_process`` a block; one block a process
+    unless it is given a sequence of devices, ``slab_devices``)."""
+    global _local_cards
     if coordinator_address is not None:
         init = f"tcp://{coordinator_address}"
         world, rank = num_processes, process_id
@@ -89,14 +111,45 @@ def initialize_distributed(coordinator_address: str | None = None,
         world = int(os.environ["WORLD_SIZE"])
         rank = int(os.environ["RANK"])
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    backend = "nccl" if n_cards >= world else "gloo"
-    if backend == "nccl":
-        torch.cuda.set_device(rank % n_cards)
+    K = local_devices or max(n_cards // world, 1)
+    if n_cards >= world * K:
+        first = rank * K
+    elif local_devices is not None and n_cards == K:
+        first = 0                           # each process sees its own
+    else:
+        first = None                        # the processes share the cards
+    backend = "nccl" if first is not None else "gloo"
+    if first is not None:
+        torch.cuda.set_device(first)
+        _local_cards = tuple(torch.device("cuda", first + k)
+                             for k in range(K))
     dist.init_process_group(backend, init_method=init, world_size=world,
                             rank=rank)
-    return dict(process_index=process_index(),
-                process_count=process_count(),
-                local_devices=1, global_devices=process_count())
+    return dict(process_index=world_rank(), process_count=world_size(),
+                local_devices=K, global_devices=world * K)
+
+
+# the cards this process owns under nccl (initialize_distributed)
+_local_cards = None
+
+
+def local_cards() -> tuple:
+    """The cards this process owns (``initialize_distributed``): its K
+    cards under nccl; else the current card alone (the processes share
+    the cards under gloo, and a process outside a group has the one)."""
+    return _local_cards or (torch.device("cuda",
+                                         torch.cuda.current_device()),)
+
+
+def world_size() -> int:
+    """The processes of the default process group (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def world_rank() -> int:
+    """This process's rank in the default process group (0 without
+    one)."""
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 # the card group of the current thread, and its block (card threads only)
@@ -107,20 +160,27 @@ def _group():
     return getattr(_here, "group", None)
 
 
+def _mesh() -> bool:
+    """True in a card thread of a process group of several processes."""
+    return _group() is not None and world_size() > 1
+
+
 def process_count() -> int:
-    """Blocks of the mesh: the card group's size in a card thread, else
-    the processes in the default group (1 without one)."""
+    """Blocks of the mesh: P·K in a card thread of a card group of K
+    blocks in each of P processes (K alone without a process group),
+    else the processes in the default group (1 without one)."""
     g = _group()
     if g is not None:
-        return g.size
-    return dist.get_world_size() if dist.is_initialized() else 1
+        return g.size * world_size()
+    return world_size()
 
 
 def process_index() -> int:
-    """This block: the card thread's block, else the process's rank."""
+    """This block: p·K + k in card thread k of process p, else the
+    process's rank."""
     if _group() is not None:
-        return _here.block
-    return dist.get_rank() if dist.is_initialized() else 0
+        return world_rank() * _group().size + _here.block
+    return world_rank()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,21 +243,22 @@ def slab_devices(n_slabs: int | None, device=None) -> tuple:
     * one device (``"cuda"``, ``"cuda:1"``, ``"cpu"``), or ``device`` None
       in a process of a process group (its current card): every slab of
       the block there (``n_slabs`` None: the visible cards);
-    * a sequence of devices: one block of D/K slabs on each of its K
-      entries (``n_slabs`` None: one slab an entry). Raises under a
-      process group: P processes of K cards each is not built.
+    * a sequence of K devices: one block of D/K slabs on each entry
+      (``n_slabs`` None: one slab an entry); under a process group of P
+      processes, each giving its own K, the process's K blocks of the
+      mesh of P·K, D/(P·K) slabs each (block p·K + k on entry k of
+      process p).
 
     Raises without a card where one is needed."""
     if isinstance(device, (list, tuple)):
-        if process_count() > 1:
-            raise ValueError("a sequence of devices gives a card group of "
-                             "one process; under a process group each "
-                             "process takes one device")
         devices = tuple(torch.device(d) for d in device)
-        D = len(devices) if n_slabs is None else n_slabs
-        if not devices or D % len(devices):
+        blocks = len(devices) * world_size()
+        D = blocks if n_slabs is None else n_slabs
+        if not devices or D % blocks:
+            where = ("" if world_size() == 1 else
+                     f" of each of {world_size()} processes")
             raise ValueError(f"{D} slabs do not split over the "
-                             f"{len(devices)} devices {device}")
+                             f"{len(devices)} devices {device}{where}")
         return D, devices
     if device is not None or process_count() > 1:
         device = resolve_device(device)
@@ -232,7 +293,10 @@ class CardGroup:
     streams. ``run(fn)`` runs ``fn(k)`` on every thread; inside it this
     module's collectives go between the threads. An exception on a thread
     breaks the others' collectives, ``run`` raises it in the caller, and
-    the group takes no more work. ``close()`` ends the threads."""
+    the group takes no more work. ``close()`` ends the threads. Under a
+    process group every process makes a group of the same size, and
+    together they are the mesh: block 0's thread of each issues the
+    process's ``torch.distributed`` calls."""
 
     def __init__(self, devices):
         self.devices = tuple(torch.device(d) for d in devices)
@@ -416,9 +480,10 @@ def block_local(method):
     return call
 
 
-def _ready(x: torch.Tensor):
-    """An event after the work on the current stream that made ``x``
-    (None on the CPU)."""
+def _ready(x):
+    """An event after the work on the current stream that made ``x`` (a
+    tensor or a tuple of tensors on one device; None on the CPU)."""
+    x = x[0] if isinstance(x, tuple) else x
     if not x.is_cuda:
         return None
     ev = torch.cuda.Event()
@@ -426,32 +491,38 @@ def _ready(x: torch.Tensor):
     return ev
 
 
-def _pull(x: torch.Tensor, views: dict) -> dict:
-    """Collective in a card thread: ``{q: views[q](x_q)}``, copied to this
-    block's device, ``x_q`` the ``x`` of block q. On the card each copy
-    runs on this thread's stream of the source card after an event of the
-    source block's stream, and the source block's stream then waits for
-    the copies of its ``x``: the caching allocator reuses ``x``'s memory
-    only for work that follows them."""
+def _pull(x, wants: list) -> list:
+    """Collective in a card thread: ``[view(x_q) for q, view in wants]``,
+    copied to this block's device, ``x_q`` the ``x`` of block q (a tensor,
+    or a tuple of tensors on one device). On the card each copy runs on
+    this thread's stream of the source card after an event of the source
+    block's stream, and the source block's stream then waits for the
+    copies of its ``x``: the caching allocator reuses ``x``'s memory only
+    for work that follows them."""
     g, k = _group(), _here.block
     posted = g.exchange((x, _ready(x)))
     mine = g.devices[k]
-    got, done = {}, {}
-    for q, view in views.items():
+    got, done = [], {}
+    for q, view in wants:
         src, ready = posted[q]
         v = view(src)
         if v.is_cuda:
             s = torch.cuda.current_stream(v.device)
             s.wait_event(ready)
-            got[q] = v.to(mine, copy=True)
+            got.append(v.to(mine, copy=True))
             done[q] = torch.cuda.Event()
             done[q].record(s)
         else:
-            got[q] = v.to(mine, copy=True)
+            got.append(v.to(mine, copy=True))
+    first = x[0] if isinstance(x, tuple) else x
     for marks in g.exchange(done):
         if k in marks:
-            torch.cuda.current_stream(x.device).wait_event(marks[k])
+            torch.cuda.current_stream(first.device).wait_event(marks[k])
     return got
+
+
+def _identity(t):
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -475,71 +546,140 @@ def edges(x: torch.Tensor, G: int, dim: int):
     shape = list(x.shape)
     shape[dim] = G
     zero = x.new_zeros(shape)
-    P, r = process_count(), process_index()
-    L = x.shape[dim]
-    if P == 1 or G == 0:
+    if process_count() == 1 or G == 0:
         return zero, zero
-    hops = -(-G // L)
-    depth = [min(L, G - (h - 1) * L) for h in range(1, hops + 1)]
     if _group() is not None:
-        above, below = _edges_cards(x, dim, depth)
-    else:
-        above, below = _edges_processes(x, dim, depth)
+        return _edges_group(x, G, dim)
+    L = x.shape[dim]
+    above, below = _edges_processes(
+        lambda k: x.narrow(dim, 0, k), lambda k: x.narrow(dim, L - k, k), x,
+        dim, _depths(L, G), process_count(), process_index())
+    return _by_hop(above, below, zero, dim, _depths(L, G))
 
+
+def _depths(L: int, G: int) -> list:
+    """The rows of each hop of a G-row strip over lines of L rows."""
+    return [min(L, G - (h - 1) * L) for h in range(1, -(-G // L) + 1)]
+
+
+def _by_hop(above: dict, below: dict, zero, dim: int, depth: list):
+    """The strips from their hops (zeros for a hop beyond the line)."""
     def part(got, h, k):
         return got[h] if h in got else zero.narrow(dim, 0, k)
 
+    hops = len(depth)
     return (torch.cat([part(above, h, depth[h - 1])
                        for h in range(hops, 0, -1)], dim=dim),
             torch.cat([part(below, h, depth[h - 1])
                        for h in range(1, hops + 1)], dim=dim))
 
 
-def _edges_processes(x, dim: int, depth: list):
-    """``edges``' strips by hop across processes: one batch of send/recv."""
-    P, r = process_count(), process_index()
-    L = x.shape[dim]
-    wire = torch.device("cpu") if _gloo_staged() else x.device
+def _edges_processes(first, last, like, dim: int, depth: list, P: int,
+                     r: int):
+    """The strips by hop across the P processes, this one rank r: one
+    batch of send/recv of its line's ``first(k)`` and ``last(k)`` rows
+    (``like``: a tensor of the line's dtype, device and shape)."""
+    wire = torch.device("cpu") if _gloo_staged() else like.device
     above, below, ops = {}, {}, []
     for h, k in enumerate(depth, start=1):
+        shape = list(like.shape)
+        shape[dim] = k
         if r + h < P:   # my last k rows are the rows above rank r + h
-            ops.append(dist.P2POp(dist.isend,
-                                  _to_wire(x.narrow(dim, L - k, k)), r + h,
+            ops.append(dist.P2POp(dist.isend, _to_wire(last(k)), r + h,
                                   tag=2 * h))
-            below[h] = torch.empty(x.narrow(dim, 0, k).shape,
-                                   dtype=x.dtype, device=wire)
+            below[h] = torch.empty(shape, dtype=like.dtype, device=wire)
             ops.append(dist.P2POp(dist.irecv, below[h], r + h,
                                   tag=2 * h + 1))
         if r - h >= 0:  # my first k rows are the rows below rank r - h
-            ops.append(dist.P2POp(dist.isend, _to_wire(x.narrow(dim, 0, k)),
-                                  r - h, tag=2 * h + 1))
-            above[h] = torch.empty(x.narrow(dim, 0, k).shape,
-                                   dtype=x.dtype, device=wire)
+            ops.append(dist.P2POp(dist.isend, _to_wire(first(k)), r - h,
+                                  tag=2 * h + 1))
+            above[h] = torch.empty(shape, dtype=like.dtype, device=wire)
             ops.append(dist.P2POp(dist.irecv, above[h], r - h, tag=2 * h))
     # one batch: no order of sends and receives between two ranks can
     # deadlock (nccl matches unbatched point-to-point calls in order)
     for w in dist.batch_isend_irecv(ops):
         w.wait()
-    return ({h: t.to(x.device) for h, t in above.items()},
-            {h: t.to(x.device) for h, t in below.items()})
+    return ({h: t.to(like.device) for h, t in above.items()},
+            {h: t.to(like.device) for h, t in below.items()})
 
 
-def _edges_cards(x, dim: int, depth: list):
-    """``edges``' strips by hop in a card group: copies of the last rows
-    of block r - h and the first rows of block r + h."""
-    P, r = process_count(), process_index()
+def _edges_group(x, G: int, dim: int):
+    """``edges`` in a card group: the process's line is its K blocks of L
+    rows (Lp = K·L), framed by the G rows above and below it, F = [above
+    | block 0 | … | block K-1 | below], and block k takes its strips,
+    F[kL, kL + G) and F[kL + G + L, kL + 2G + L), by copies from the
+    blocks that hold them. Without a process group the frame is zeros;
+    in the mesh the lead gathers the line's first and last min(G, Lp)
+    rows, exchanges them with the other processes (``_edges_processes``)
+    and posts the frame. The bits are the copies' own, those of one
+    block."""
+    K, k = _group().size, _here.block
     L = x.shape[dim]
-    views, hop = {}, {}
-    for h, k in enumerate(depth, start=1):
-        if r - h >= 0:
-            views[r - h] = lambda t, k=k: t.narrow(dim, L - k, k)
-            hop[r - h] = h
-        if r + h < P:
-            views[r + h] = lambda t, k=k: t.narrow(dim, 0, k)
-            hop[r + h] = h
-    got = _pull(x, views)
-    return ({hop[q]: t for q, t in got.items() if q < r},
-            {hop[q]: t for q, t in got.items() if q > r})
+    Lp = K * L
+    post = (x,)
+    if _mesh():
+        T = min(G, Lp)
+        wants = []          # (block, view, first row in the line)
+        if k == 0:
+            for q in range(K):
+                cut = [(max(q * L, a) - q * L, min(q * L + L, b) - q * L)
+                       for a, b in ((0, T), (Lp - T, Lp))
+                       if max(q * L, a) < min(q * L + L, b)]
+                if cut:
+                    lo, hi = min(c[0] for c in cut), max(c[1] for c in cut)
+                    wants.append((q, lambda t, lo=lo, hi=hi:
+                                  t.narrow(dim, lo, hi - lo), q * L + lo))
+        got = _pull(x, [(q, v) for q, v, _ in wants])
+        if k == 0:
+            pieces = [(start, t) for (_, _, start), t in zip(wants, got)]
+
+            def rows(a, n):
+                """Rows [a, a + n) of the line, from the pieces."""
+                out = []
+                for start, t in pieces:
+                    lo, hi = max(a, start), min(a + n, start + t.shape[dim])
+                    if lo < hi:
+                        out.append(t.narrow(dim, lo - start, hi - lo))
+                return torch.cat(out, dim=dim)
+
+            shape = list(x.shape)
+            shape[dim] = G
+            above, below = _edges_processes(
+                lambda n: rows(0, n), lambda n: rows(Lp - n, n), x, dim,
+                _depths(Lp, G), world_size(), world_rank())
+            post = (x, torch.cat(_by_hop(above, below, x.new_zeros(shape),
+                                         dim, _depths(Lp, G)), dim=dim))
+
+    def strip(a: int, e: int) -> list:
+        """F[a, e) as pieces: (block, part, first row, rows); part 1 is
+        the lead's frame (block None: zeros without a process group)."""
+        out = []
+        while a < e:
+            if G <= a < G + Lp:
+                q, o = divmod(a - G, L)
+                out.append((q, 0, o, min(e - a, L - o)))
+            else:
+                o = a if a < G else a - Lp
+                n = min(e, G) - a if a < G else e - a
+                out.append((0 if _mesh() else None, 1, o, n))
+            a += out[-1][3]
+        return out
+
+    up = strip(k * L, k * L + G)
+    down = strip(k * L + G + L, k * L + 2 * G + L)
+    wants = [(q, lambda t, part=part, o=o, n=n: t[part].narrow(dim, o, n))
+             for q, part, o, n in up + down if q is not None]
+    got = iter(_pull(post, wants))
+    parts = []
+    for q, _, _, n in up + down:
+        if q is None:
+            shape = list(x.shape)
+            shape[dim] = n
+            parts.append(x.new_zeros(shape))
+        else:
+            parts.append(next(got))
+    return (torch.cat(parts[:len(up)], dim=dim),
+            torch.cat(parts[len(up):], dim=dim))
 
 
 def frame(x: torch.Tensor, G: int, dim: int = -2) -> torch.Tensor:
@@ -567,16 +707,29 @@ def psum(t: torch.Tensor) -> torch.Tensor:
     """A partial sum (a 0-d tensor) summed over the blocks. In a card
     group every block adds the K partials in block order, the same
     operations on the same values: every block holds the same bits (PCG's
-    step sizes and the stop test read them)."""
-    P = process_count()
-    if P == 1:
+    step sizes and the stop test read them). In the mesh the lead adds
+    them, ``all_reduce`` sums the processes', and every block copies the
+    lead's total."""
+    if process_count() == 1:
         return t
     if _group() is not None:
-        parts = _pull(t, {q: lambda v: v for q in range(P)})
-        total = parts[0]
-        for q in range(1, P):
-            total = total + parts[q]
-        return total
+        K, k = _group().size, _here.block
+        parts = _pull(t, [(q, _identity) for q in range(K)]
+                      if k == 0 or not _mesh() else [])
+        total = t
+        if parts:
+            total = parts[0]
+            for q in range(1, K):
+                total = total + parts[q]
+        if not _mesh():
+            return total
+        if k == 0:
+            total = _all_reduce(total)
+        return _pull(total, [(0, _identity)])[0]
+    return _all_reduce(t)
+
+
+def _all_reduce(t: torch.Tensor) -> torch.Tensor:
     w = _to_wire(t).clone()
     dist.all_reduce(w)
     return w.to(t.device)
@@ -584,15 +737,26 @@ def psum(t: torch.Tensor) -> torch.Tensor:
 
 def all_gather_slabs(x: torch.Tensor) -> torch.Tensor:
     """(D/P, ...) local slabs -> the (D, ...) slabs of every block, in
-    slab order."""
-    P = process_count()
-    if P == 1:
+    slab order. In the mesh the lead gathers its K blocks' slabs, then
+    ``all_gather`` the processes', and every block copies the whole."""
+    if process_count() == 1:
         return x
     if _group() is not None:
-        parts = _pull(x, {q: lambda v: v for q in range(P)})
-        return torch.cat([parts[q] for q in range(P)])
+        K, k = _group().size, _here.block
+        parts = _pull(x, [(q, _identity) for q in range(K)]
+                      if k == 0 or not _mesh() else [])
+        if not _mesh():
+            return torch.cat(parts)
+        whole = x
+        if k == 0:
+            whole = _all_gather(torch.cat(parts))
+        return _pull(whole, [(0, _identity)])[0]
+    return _all_gather(x)
+
+
+def _all_gather(x: torch.Tensor) -> torch.Tensor:
     w = _to_wire(x)
-    parts = [torch.empty_like(w) for _ in range(P)]
+    parts = [torch.empty_like(w) for _ in range(world_size())]
     dist.all_gather(parts, w)
     return torch.cat(parts).to(x.device)
 
@@ -616,83 +780,103 @@ class PeerMemory:
     """One allocation of this block's card that blocks p-1 and p+1
     address: ``local`` its bytes as a tensor, ``above`` and ``below`` the
     neighbours' allocations of the same size as this card reaches them
-    (mapped through CUDA IPC across processes, their own pointers in a
-    card group; 0 beyond the line's ends). ``free_peer_buffers`` releases
-    it."""
+    (mapped through CUDA IPC when the neighbour is another process, its
+    own pointer when it is a block of this process's card group; 0
+    beyond the line's ends), ``mapped`` those of them that are IPC
+    mappings. ``free_peer_buffers`` releases it."""
 
     local: torch.Tensor
     above: int
     below: int
     base: int
     device: int
+    mapped: tuple = ()
 
 
 def peer_buffers(nbytes: int) -> PeerMemory:
     """Collective: every block calls it with the same ``nbytes``. Each
     makes a zeroed ``cudaMalloc`` of its own on its current card (not a
     block of PyTorch's caching allocator: an IPC handle names a whole
-    allocation, and the memory must outlive the streams' reuse). Across
-    processes the 64-byte IPC handles go round once and each process maps
-    its line neighbours' allocations (with peer access when they lie on
-    another card); in a card group the pointers are handed across and
-    each card gets peer access to its line neighbours' cards (none where
-    both blocks are on one card). Raises if a step fails; there is no
-    other path."""
-    if process_count() < 2:
+    allocation, and the memory must outlive the streams' reuse). A line
+    neighbour in this process's card group is reached by its pointer,
+    with peer access when it lies on another card; one in another
+    process by mapping its allocation, whose 64-byte CUDA IPC handle goes
+    round once (``all_gather_object``; in the mesh the lead sends its
+    group's handles, and the blocks at the ends of the process's line
+    map their neighbours'). Raises if a step fails; there is no other
+    path."""
+    P = process_count()
+    if P < 2:
         raise RuntimeError("peer_buffers needs a process group or a card "
                            "group of two or more blocks")
     lib = library()
     dev = torch.cuda.current_device()
     base = ctypes.c_void_p()
     r = process_index()
-    mapped = []
-    if _group() is not None:
+    g = _group()
+    K = g.size if g is not None else 1
+    handle = ctypes.create_string_buffer(64)
+    if world_size() > 1:
+        check(lib.amg_ipc_alloc(dev, nbytes, ctypes.byref(base), handle),
+              "amg_ipc_alloc")
+    else:
         check(lib.amg_peer_alloc(dev, nbytes, ctypes.byref(base)),
               "amg_peer_alloc")
-        posted = _group().exchange((dev, base.value))
-        for q in (r - 1, r + 1):
-            if not 0 <= q < process_count():
-                mapped.append(0)
-                continue
-            q_dev, ptr = posted[q]
+    mine = (dev, base.value, handle.raw)
+    group = g.exchange(mine) if g is not None else [mine]
+    handles = None
+    if world_size() > 1:
+        if g is None or _here.block == 0:
+            handles = [None] * world_size()
+            dist.all_gather_object(handles, [h for _, _, h in group])
+        if g is not None:
+            handles = g.exchange(handles)[0]
+    pointers, mapped = [], []
+    for q in (r - 1, r + 1):
+        if not 0 <= q < P:
+            pointers.append(0)
+        elif q // K == r // K:              # a block of this card group
+            q_dev, ptr, _ = group[q % K]
             if q_dev != dev:
                 check(lib.amg_peer_enable(dev, q_dev),
                       f"amg_peer_enable (card {dev} to card {q_dev})")
-            mapped.append(ptr)
-    else:
-        handle = ctypes.create_string_buffer(64)
-        check(lib.amg_ipc_alloc(dev, nbytes, ctypes.byref(base), handle),
-              "amg_ipc_alloc")
-        handles = [None] * process_count()
-        dist.all_gather_object(handles, handle.raw)
-        for q in (r - 1, r + 1):
+            pointers.append(ptr)
+        else:                               # a block of another process
             ptr = ctypes.c_void_p()
-            if 0 <= q < process_count():
-                check(lib.amg_ipc_open(dev, handles[q], ctypes.byref(ptr)),
-                      f"amg_ipc_open (process {q}'s memory)")
-            mapped.append(ptr.value or 0)
+            check(lib.amg_ipc_open(dev, handles[q // K][q % K],
+                                   ctypes.byref(ptr)),
+                  f"amg_ipc_open (block {q}'s memory, process {q // K})")
+            pointers.append(ptr.value)
+            mapped.append(ptr.value)
     local = torch.as_tensor(_CudaBytes(base.value, nbytes),
                             device=f"cuda:{dev}")
-    return PeerMemory(local, mapped[0], mapped[1], base.value, dev)
+    return PeerMemory(local, pointers[0], pointers[1], base.value, dev,
+                      tuple(mapped))
 
 
 def free_peer_buffers(mems) -> None:
-    """Collective: wait for this block's card; across processes unmap the
-    neighbours' allocations; wait for every block to have done the same
-    (so no launch that writes this block's memory and no mapping of it is
-    left), then free this block's. The ``local`` tensors must not be used
-    after."""
+    """Collective: wait for this block's card; unmap the neighbours'
+    allocations mapped from other processes; wait for every block to
+    have done the same (the card group's barrier, then the process
+    group's, the lead's, then the group's again), so no launch that
+    writes this block's memory and no mapping of it is left; then free
+    this block's. The ``local`` tensors must not be used after."""
     lib = library()
     torch.cuda.synchronize()
-    if _group() is not None:
-        _group().exchange(None)
-    else:
-        for m in mems:
-            for ptr in (m.above, m.below):
-                if ptr:
-                    check(lib.amg_ipc_close(m.device, ptr),
-                          "amg_ipc_close")
-        dist.barrier()
+    for m in mems:
+        for ptr in m.mapped:
+            check(lib.amg_ipc_close(m.device, ptr), "amg_ipc_close")
+        m.mapped = ()
+    g = _group()
+    if g is not None:
+        g.exchange(None)
+    if world_size() > 1 and (g is None or _here.block == 0):
+        # nccl's barrier runs on this process's card, named (not guessed
+        # from the rank)
+        dist.barrier(**({"device_ids": [torch.cuda.current_device()]}
+                        if dist.get_backend() == "nccl" else {}))
+    if g is not None and world_size() > 1:
+        g.exchange(None)
     for m in mems:
         m.above = m.below = 0
         if m.base:

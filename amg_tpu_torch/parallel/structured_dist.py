@@ -593,7 +593,7 @@ def build_dist_hierarchy(side: int, n_levels: int | None = None,
                          f"level to shard over {n_devices} slabs")
     if A_fine is None:
         A_fine = poisson.laplacian_scipy(side)
-    mats = galerkin_chain(A_fine, sides)
+    mats = galerkin_chain(A_fine, sides, native=False)  # as JAX: scipy
     stencils = [Stencil2D.from_scipy(A, s, dtype=dtype)
                 for A, s in zip(mats, sides)]
     w33s, planes = [], []

@@ -58,6 +58,7 @@ from amg_tpu_torch.ops.doublefloat import (DF32, df_add_f32, df_residual,
                                            df_rss_fast, is_pow2_weights)
 from amg_tpu_torch.models import poisson
 from amg_tpu_torch.multigrid import SolveResult
+from amg_tpu_torch.native import bindings
 from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
                                        fused_down_leg_packed, fused_gs4_sweep,
                                        fused_gs4_sweep_packed,
@@ -217,16 +218,24 @@ def _factor_coarse(c: torch.Tensor, device):
     return lu.to(device), piv.to(device)
 
 
-def galerkin_chain(A_fine, sides) -> list:
-    """The scipy Galerkin RAP chain A_{l+1} = P^T A_l P under the
-    tensor-product bilinear transfer P = kron(P1, P1), on the host
-    (multigrid.hpp:211-243): one CSR matrix per level. JAX may take its
-    native C++ RAP here, which sums the same terms in another order."""
+def galerkin_chain(A_fine, sides, *, native: bool) -> list:
+    """The Galerkin RAP chain A_{l+1} = P^T A_l P under the tensor-product
+    bilinear transfer P = kron(P1, P1), on the host (multigrid.hpp:211-243):
+    one CSR matrix per level. ``native``: the native engine's transpose
+    and two SpGEMMs (``native/bindings.py``) where it is available, as
+    JAX's ``build_stencil_hierarchy`` takes them; else, and without it,
+    scipy's products, as JAX's distributed setup takes them. The two sum
+    the same terms in another order."""
+    native = native and bindings.available()
     mats = [A_fine.tocsr()]
     for l in range(len(sides) - 1):
         P1 = linear_interp_1d(sides[l], sides[l + 1])
         P2 = sp.kron(P1, P1).tocsr()
-        mats.append((P2.T @ (mats[-1] @ P2)).tocsr())
+        if native:
+            R = bindings.csr_transpose(P2)
+            mats.append(bindings.galerkin_rap(R, mats[-1], P2))
+        else:
+            mats.append((P2.T @ (mats[-1] @ P2)).tocsr())
     return mats
 
 
@@ -235,7 +244,8 @@ def build_stencil_hierarchy(side: int, n_levels: int | None = None,
                             smoother: str = "masked", device=None
                             ) -> StencilHierarchy:
     """The hierarchy of a 9-point fine matrix (None: the Poisson matrix of
-    ``side``) built on the host: the scipy Galerkin chain, every level's
+    ``side``) built on the host: the Galerkin chain (native where the
+    engine is available, as JAX's; ``galerkin_chain``), every level's
     planes in ``dtype`` with its constant stencil detected
     (``Stencil2D.from_scipy``), the coarsest level's dense LU, the
     transfers and every level's (4,n,n) color masks; with
@@ -246,7 +256,7 @@ def build_stencil_hierarchy(side: int, n_levels: int | None = None,
     sides = _level_sides(side, n_levels)
     if A_fine is None:
         A_fine = poisson.laplacian_scipy(side)
-    mats = galerkin_chain(A_fine, sides)
+    mats = galerkin_chain(A_fine, sides, native=True)
     levels = [Stencil2D.from_scipy(M, s, dtype=dtype, device=device)
               for M, s in zip(mats, sides)]
     lu, piv = torch.linalg.lu_factor(torch.as_tensor(mats[-1].toarray(),

@@ -5,14 +5,17 @@ share no matrix edge, so their Gauss-Seidel updates commute and run as one
 vector step. Coloring runs on the host once per hierarchy setup.
 
 ``greedy_coloring`` is the greedy first-fit loop: rows in natural order,
-each taking the smallest color that no neighbour already holds. It is the
-algorithm of the JAX package's numpy loop and of its native C++ path
-(``amg_tpu/native/amgcore.cpp:134-157``), so its colors are JAX's.
+each taking the smallest color that no neighbour already holds. As in JAX
+it takes the native engine's loop first (``native/amgcore.cpp``
+``amg_greedy_color``) and the Python loop where the engine is not
+available; both give JAX's colors.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from amg_tpu_torch.native.bindings import greedy_coloring_native
 
 
 def greedy_coloring(cols: np.ndarray, data: np.ndarray, n: int) -> np.ndarray:
@@ -25,6 +28,14 @@ def greedy_coloring(cols: np.ndarray, data: np.ndarray, n: int) -> np.ndarray:
 
     Returns an int64 array (n,) of color ids from 0.
     """
+    out = greedy_coloring_native(cols, data, n)
+    return greedy_coloring_loop(cols, data, n) if out is None else out
+
+
+def greedy_coloring_loop(cols: np.ndarray, data: np.ndarray,
+                         n: int) -> np.ndarray:
+    """``greedy_coloring``'s Python loop, the path without the native
+    engine: the same colors."""
     cols = np.asarray(cols)
     rows = np.arange(n)[:, None]
     # each row's neighbours as Python lists, padding and the diagonal

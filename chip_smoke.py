@@ -71,7 +71,20 @@ check and the kernels' launch counts:
   lost neighbour, its per-exchange time; the 4095^2 D = 4 solve under
   "rdma" and "overlap" and EllDistSolver "strips" at 1023^2 against one
   block (the same V-cycles, u bitwise, the rss within 1e-12), each with
-  its wall and, per card, the idle share and launches a V-cycle.
+  its wall and, per card, the idle share and launches a V-cycle;
+* the native setup engine (amg_tpu_torch/native, host C++ as in JAX):
+  built and loaded, its Galerkin chain at 2047^2 against scipy's, its
+  coloring of a 1023^2 level against the Python loop, and the C++
+  single-thread baseline (cpu_vcycle_solve) at 1023^2, best of 3, beside
+  the port's constant 1023^2 wall as vs_baseline;
+* in the 2 worker processes, after their own checks, the mesh of 2
+  processes x 2 blocks, all four on the one card (JAX's multi-host
+  mesh): K7's peer form across both kinds of neighbour (a block of the
+  same process, a block of the other) bitwise against its plain version
+  in f32 and f64, a lost neighbour, its per-exchange time; the 4095^2 D =
+  4 "rdma" solve against the one-block run (the same V-cycles, u
+  bitwise, K7 14 a V-cycle a block); EllDistSolver "strips" at 1023^2
+  against the one-block history.
 
 K9, the sweep on the row-grouped layout, is on no path (no JAX solver
 calls it): its launches are those of its parity phase. Each phase prints
@@ -79,13 +92,16 @@ its seconds. Any failed check raises, so the exit code is non-zero. The
 line before the last of stdout is the card's name and power limit, the
 one before it the kernels' JSON (K1-K9, then K7's peer form as
 rdma_halo_exchange_peer, from process 0, and its in-process form as
-rdma_halo_exchange_cards, from block 0); the last line is one JSON
-object with "ok" and the device. ``--mp P [P ...]`` runs the process
+rdma_halo_exchange_cards, from block 0, and its mesh form as
+rdma_halo_exchange_mesh, from block 0 of process 0); the last line is
+one JSON object with "ok" and the device. ``--mp P [P ...]`` runs the process
 phase alone for each P (with P cards, nccl and a card each); ``--cards
 N`` one process driving N visible cards (K7 between them, the 4095^2
 solve on N and 2N slabs against one block, 8191^2 on N while its setup
-stays under 60 s). Needs a CUDA device and nvcc; imports neither JAX nor
-the JAX package.
+stays under 60 s); ``--mp P --cards K`` the mesh alone, P processes of
+K cards each (nccl; K7 by peer access inside a process, through CUDA IPC
+across). Needs a CUDA device, nvcc and g++; imports neither JAX nor the
+JAX package.
 """
 
 from __future__ import annotations
@@ -101,6 +117,7 @@ import time
 from collections import Counter
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
@@ -116,6 +133,7 @@ from amg_tpu_torch import (ELL, BilinearInterpolator2D, DistStructuredSolver,
                            varcoef, vcycle_packed)
 from amg_tpu_torch.multigrid import (build_hierarchy_device,
                                      rebuild_hierarchy_values)
+from amg_tpu_torch.native import bindings
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32, is_pow2_weights
 from amg_tpu_torch.ops.kernels import _build
@@ -130,13 +148,16 @@ from amg_tpu_torch.ops.kernels.packed_rm import (from_rm,
                                                  to_rm)
 from amg_tpu_torch.ops.kernels.rbgs import fused_gs4_sweep_plain
 from amg_tpu_torch.ops.rap import poisson_const_w33
+from amg_tpu_torch.ops.transfer import linear_interp_1d
 from amg_tpu_torch.parallel import launch
 from amg_tpu_torch.parallel.ell_dist import EllDistSolver
 from amg_tpu_torch.parallel.structured_dist import ghost_rows
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
 from amg_tpu_torch.sparse.stencil import Stencil2D
-from amg_tpu_torch.structured import PACKED_MIN_SIDE, level_plan
-from amg_tpu_torch.utils.coloring import greedy_coloring
+from amg_tpu_torch.structured import (PACKED_MIN_SIDE, galerkin_chain,
+                                      level_plan, max_levels_for_side)
+from amg_tpu_torch.utils.coloring import (greedy_coloring,
+                                          greedy_coloring_loop)
 from amg_tpu_torch.utils.profiling import _device_us
 
 TOL = 1e-7
@@ -238,7 +259,15 @@ CARD_RTOL = 1e-12                 # the rss: only the order of the sums
 MP_PROCS, MP_SLABS, MP_CYCLES = 2, 4, 10
 MP_SIDE, MP_ELL_SIDE, MP_ELL_LEVELS = 1023, 255, 7
 MP_RTOL = 1e-12                   # only the order of the sums differs
-MP_TIMEOUT = 420                  # seconds, for all the workers
+MP_TIMEOUT = 480                  # seconds, for all the workers
+# the native engine: its chain against scipy's (the same terms summed in
+# another order), the coloring of the chain's 1023^2 level, bench.py's
+# C++ baseline at 1023^2, best of 3
+NATIVE_RAP_SIDE, NATIVE_RAP_RTOL = 2047, 1e-13
+BASELINE_SIDE, BASELINE_RUNS = 1023, 3
+# the mesh: 2 processes x 2 blocks (on the one card inside mp_solves'
+# workers; P processes of K cards each with --mp P --cards K)
+MESH_PROCS, MESH_BLOCKS = 2, 2
 TRACE_CYCLES = 2                  # the traced window of a distributed path
 # what later phases print beside their own numbers: the single-device
 # PCG's iterations (pcg_solves), the ELL (a) history (ell_solves)
@@ -820,6 +849,7 @@ def const_solves(dev, launches: dict):
         med, walls = wall_median(
             lambda: solve_once(solvers[(side, 1)], rhs[side]), 5)
         print(f"solve wall {side}^2: median of 5 {med:.6f} s (all {walls})")
+        RECORD[f"const wall {side}"] = med
 
     # the card's solve against the port's own CPU solve, 1023^2
     u_gpu, _, it_gpu = results[(1023, 1)]
@@ -833,6 +863,86 @@ def const_solves(dev, launches: dict):
           f"{du:.3e} (bound {bnd:.3e})")
     require(it_gpu == it_cpu, "same refine count on GPU and CPU")
     require(du <= bnd, "GPU and CPU solutions within the residual bound")
+
+
+def level_sides(side: int) -> list:
+    """The sides of the hierarchy of ``side`` (1023: 9 levels down to 3)."""
+    sides = [side]
+    while len(sides) < max_levels_for_side(side):
+        sides.append((sides[-1] - 1) // 2)
+    return sides
+
+
+def native_checks(dev, launches: dict):
+    """The native setup engine (amg_tpu_torch/native; host C++, no
+    kernel): built and loaded, so no run falls back to scipy unnoticed;
+    the Galerkin chain at NATIVE_RAP_SIDE^2 native against scipy's
+    (galerkin_chain) within NATIVE_RAP_RTOL of each level's largest
+    entry; the native coloring of the chain's 1023^2 level against the
+    Python loop, equal colors; bench.py's C++ baseline (cpu_vcycle_solve
+    on the native chain, best of BASELINE_RUNS) at BASELINE_SIDE^2 to TOL,
+    beside the port's constant solve wall there (const_solves) as
+    vs_baseline = baseline / port. Each step timed."""
+    t0 = time.perf_counter()
+    built = bindings.available()
+    require(built, f"the native engine builds and loads: "
+            f"{bindings.last_error()}")
+    print(f"native engine: g++ build + load {time.perf_counter() - t0:.3f} "
+          f"s ({bindings.CXX_FLAGS})")
+    side = NATIVE_RAP_SIDE
+    sides = level_sides(side)
+    A = poisson.laplacian_scipy(side)
+    chains, secs = {}, {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        chains[native] = galerkin_chain(A, sides, native=native)
+        secs[native] = time.perf_counter() - t0
+    worst = max(abs(n - c).max() / abs(c).max()
+                for n, c in zip(chains[True], chains[False]))
+    print(f"native RAP chain {side}^2 ({len(sides)} levels): native "
+          f"{secs[True]:.3f} s, scipy {secs[False]:.3f} s; largest "
+          f"difference {worst:.3e} of a level's largest entry")
+    require(worst <= NATIVE_RAP_RTOL,
+            f"native chain within {NATIVE_RAP_RTOL:g} of scipy's")
+    lev = ELL.from_scipy(chains[True][1], dtype=torch.float64, device="cpu")
+    cols, data, n = lev.cols.numpy(), lev.data.numpy(), lev.n_rows
+    t0 = time.perf_counter()
+    got = bindings.greedy_coloring_native(cols, data, n)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop = greedy_coloring_loop(cols, data, n)
+    t_loop = time.perf_counter() - t0
+    print(f"native coloring {sides[1]}^2 level ({n} rows, K "
+          f"{lev.row_width}): native {t_native:.4f} s, Python loop "
+          f"{t_loop:.4f} s, {int(got.max()) + 1} colors, equal "
+          f"{np.array_equal(got, loop)}")
+    require(np.array_equal(got, loop), "native colors are the loop's")
+    del chains, lev
+
+    side = BASELINE_SIDE
+    sides = level_sides(side)
+    t0 = time.perf_counter()
+    mats, Ps, Rs = [poisson.laplacian_scipy(side)], [], []
+    for l in range(len(sides) - 1):
+        P2 = sp.kron(*[linear_interp_1d(sides[l], sides[l + 1])] * 2).tocsr()
+        Ps.append(P2)
+        Rs.append(bindings.csr_transpose(P2))
+        mats.append(bindings.galerkin_rap(Rs[-1], mats[-1], P2))
+    setup = time.perf_counter() - t0
+    b = poisson.rhs(side, device="cpu").numpy()
+    runs = [bindings.cpu_vcycle_solve(mats, Ps, Rs, b, tol=TOL,
+                                      check_every=1, max_iters=100)
+            for _ in range(BASELINE_RUNS)]
+    best, iters, rss, _ = min(runs, key=lambda r: r[0])
+    port = RECORD[f"const wall {side}"]
+    print(f"C++ baseline {side}^2 (cpu_vcycle_solve, one thread, {len(mats)} "
+          f"levels, native setup {setup:.3f} s): best of {BASELINE_RUNS} "
+          f"{best:.6f} s (all {[r[0] for r in runs]}), V-cycles {iters}, rss "
+          f"{rss:.6e}; the port's constant {side}^2 solve wall {port:.6f} s:"
+          f" vs_baseline {best / port:.3f}")
+    require(rss <= TOL and all(r[1] == iters for r in runs),
+            f"the C++ baseline converges to {TOL}")
+    RECORD["vs_baseline"] = best / port
 
 
 def vcycle_launches(plan: tuple, start: int) -> Counter:
@@ -1458,11 +1568,14 @@ def ell_bilinear(dev, A, b, side: int, levels: int, time_it: bool):
                         lev.A.n_rows)
         rows += lev.A.n_rows
     t_color = time.perf_counter() - t0
+    RECORD["ell coloring"] = t_color
     print(f"ell (a) bilinear {side}^2 {levels} levels "
           f"{[l.A.n_rows for l in h.levels]}: setup {setup:.3f} s "
           f"(rap {split['rap']}, upload {split['upload']}, smoother "
           f"coloring + panels {split['smoother']}, lu {split['lu']}), "
-          f"greedy_coloring alone {t_color:.3f} s over {rows} rows")
+          f"greedy_coloring alone (native {bindings.available()}) "
+          f"{t_color:.3f} s over {rows} rows, a share "
+          f"{t_color / setup:.4f} of the setup")
     print(f"ell (a) bilinear {side}^2: V-cycles {res.iterations}, rss "
           f"{res.error:.6e}, independent f64 rss {ind:.6e}")
     require(res.converged and ind <= ELL_TOL,
@@ -1945,6 +2058,10 @@ def ell_dist_solves(dev, launches: dict):
         ind = ell_rss(res.u, b, side)
         g = residual_rounding(A, res.u, b)
         ok, rel = history_close(res.history, ref, g)
+        print(f"{label}: setup {setup:.3f} s, of it the greedy coloring of "
+              f"the 9 levels (native {bindings.available()}; timed in ell "
+              f"(a)) {RECORD['ell coloring']:.3f} s, a share "
+              f"{RECORD['ell coloring'] / setup:.4f}")
         print(f"{label}: sharded levels {s.Ls} (blocks {s.Bs[:s.Ls]}), "
               f"strip depths {s._ext_meta}, V-cycles {res.iterations}, rss "
               f"history {res.history} (single-device (a): {ref}; largest "
@@ -2420,8 +2537,13 @@ def peer_timing(dev, cross_card: bool, graph: bool = True
     size = f"D={D} ({Dl} here) B={B} n={n} G={G}"
     rec = dict(ms=kms, plain_ms=pms, library_ms=lms, device_ms=device_ms,
                bound_ms=bnd, bound_by="bytes", bound_rate=rate, bytes=moved)
-    lib = (torch.distributed.get_backend() if not launch.in_card_group()
-           else "copies between the blocks' cards")
+    if not launch.in_card_group():
+        lib = torch.distributed.get_backend()
+    elif launch.world_size() > 1:
+        lib = (f"copies between the blocks' cards and the lead's "
+               f"{torch.distributed.get_backend()} send/recv")
+    else:
+        lib = "copies between the blocks' cards"
     graph_txt = (f"; device {device_ms:.5f} ms a launch in a CUDA graph of "
                  f"{K7_GRAPH_LAUNCHES}" if graph else "")
     return rec, [
@@ -2500,6 +2622,205 @@ def peer_rdma_solve(dev, out_dir: str) -> tuple[dict, list]:
         f"per V-cycle"]
 
 
+def save_ell_reference(out_dir: str, res) -> None:
+    """The one-block EllDistSolver "strips" history, which the mesh holds
+    its own to."""
+    with open(os.path.join(out_dir, "ell_ref.json"), "w") as f:
+        json.dump({"iterations": res.iterations, "history": res.history},
+                  f)
+
+
+def mesh_solves(blocks, out_dir: str) -> tuple[dict, list]:
+    """The mesh of this process group's processes x ``blocks`` (a card
+    group in each process, parallel/launch.py), inside a worker of the
+    process group: K7's peer form on every block (peer_parity, a lost
+    neighbour, per-exchange timing: ``_card_peer``; its neighbours a
+    block of this process and one of the next), the DIST_SIDE^2 D =
+    DIST_SLABS "rdma" solve_ir_fused once against the one-block run
+    (save_rdma_reference: the same V-cycles, u bitwise; K7 2 x k7_levels
+    a V-cycle a block; an independent f64 rss; the checked run's wall and
+    a traced window per card), and EllDistSolver "strips" at ELL_SIDE^2
+    against the one-block history (save_ell_reference) within CARD_RTOL.
+    Returns (block 0's K7 record, the report lines)."""
+    t_phase = time.perf_counter()
+    r, P = launch.world_rank(), launch.world_size()
+    cross = len(set(blocks)) > 1
+    group = launch.CardGroup(blocks)
+    try:
+        outs = group.run(lambda k: _card_peer(group.devices[k], cross))
+    finally:
+        group.close()
+    lines = [line for _, block_lines in outs for line in block_lines]
+    rec = dict(outs[0][0], processes=P, blocks=P * len(blocks),
+               cards=len(set(blocks)))
+    rec["max_abs_err"] = max(o["max_abs_err"] for o, _ in outs)
+
+    side, D = DIST_SIDE, DIST_SLABS
+    b2 = poisson.rhs(side, device=blocks[0]).reshape(side, side)
+    with open(os.path.join(out_dir, "rdma_ref.json")) as f:
+        ref = json.load(f)
+    ref_u = torch.from_numpy(np.load(os.path.join(out_dir, "rdma_u.npy")))
+    s, setup = timed_build(lambda: DistStructuredSolver(
+        side, n_devices=D, halo="rdma", device=blocks))
+    launches = {k: 0 for k in KERNEL_INFO}
+    try:
+        t0 = time.perf_counter()
+        res, c = drive(lambda: s.solve_ir_fused(b2, tolerance=TOL), launches)
+        wall = time.perf_counter() - t0
+        levels = k7_levels(s.cfg)
+        ind = f64_rss(res.u, b2, side)
+        same = torch.equal(res.u.cpu(), ref_u)
+        k7 = c["rdma_halo_exchange"]
+        require(levels == 7 and k7 == len(blocks) * 2 * levels
+                * res.iterations and sum(c.values()) == k7,
+                f"mesh rdma: K7 = blocks x 2 x 7 levels x V-cycles, no other "
+                f"kernel: {c}")
+        require(res.error <= TOL and ind <= TOL
+                and res.u.shape == (side, side), f"mesh rdma converged to "
+                f"{TOL}")
+        require(res.iterations == ref["iterations"] and same,
+                "mesh rdma: the one-block V-cycles and a bitwise equal u")
+        w_med, per_card = traced_cards(dist_window(s, b2))
+    finally:
+        s.close()
+    rec.update(launches=k7, vcycles=res.iterations, wall=wall)
+    lines.append(
+        f"mesh rdma {side}^2 D={D}, {P} processes x {len(blocks)} blocks on "
+        f"{[str(d) for d in blocks]}: setup {setup:.3f} s, V-cycles "
+        f"{res.iterations} (one block {ref['iterations']}), rss "
+        f"{res.error:.6e}, independent f64 rss {ind:.6e}, u bitwise equal to "
+        f"one block's {same}, K7 {k7} launches in this process "
+        f"({k7 / len(blocks) / res.iterations:.0f} a V-cycle a block); wall "
+        f"of the checked run {wall:.6f} s; {cards_text(w_med, per_card)}")
+
+    side = ELL_SIDE
+    A, b = poisson.poisson2d(side, device=blocks[0])
+    with open(os.path.join(out_dir, "ell_ref.json")) as f:
+        ref = json.load(f)
+    s, setup = timed_build(lambda: EllDistSolver(
+        A, b, ELL_BILINEAR_LEVELS, n_devices=ELL_DIST_SLABS,
+        interpolator=BilinearInterpolator2D(side), halo="strips",
+        device=blocks))
+    try:
+        t0 = time.perf_counter()
+        res, c = drive(lambda: s.solve(tolerance=ELL_TOL,
+                                       compute_error_every_n_iters=1),
+                       launches)
+        wall = time.perf_counter() - t0
+    finally:
+        s.close()
+    got = np.array([e for _, e in res.history])
+    want = np.array([e for _, e in ref["history"]])
+    rel = (float(np.max(np.abs(got / want - 1))) if got.shape == want.shape
+           else float("inf"))
+    lines.append(
+        f"mesh ell {side}^2 D={ELL_DIST_SLABS} strips, {P} processes x "
+        f"{len(blocks)} blocks: setup {setup:.3f} s, V-cycles "
+        f"{res.iterations} (one block {ref['iterations']}), rss history "
+        f"largest relative difference {rel:.3e}; wall of the checked run "
+        f"{wall:.6f} s")
+    require(sum(c.values()) == 0, f"mesh ell: no kernel: {c}")
+    require(res.iterations == ref["iterations"] and rel <= CARD_RTOL,
+            f"mesh ell: the one-block history within {CARD_RTOL:g}")
+    lines.append(f"phase mesh_solves (process {r}): "
+                 f"{time.perf_counter() - t_phase:.1f} s")
+    return rec, [f"mesh rank {r}/{P}: {line}" for line in lines]
+
+
+def mesh_entry(rec: dict) -> dict:
+    """The kernels line's entry for K7's mesh form (block 0 of process
+    0: per-exchange ms; launches on the mesh's "rdma" solve, both blocks
+    of process 0)."""
+    src, replaces = KERNEL_INFO["rdma_halo_exchange"]
+    return {"name": "rdma_halo_exchange_mesh", "route": "cuda",
+            "source": src, "replaces": replaces,
+            "launches": rec["launches"], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "processes": rec["processes"],
+            "blocks": rec["blocks"], "cards": rec["cards"],
+            "bound_rate": rec["bound_rate"]}
+
+
+def mesh_worker(rank: int, world: int, port: int, out_dir: str,
+                k: int) -> None:
+    """One process of ``--mp P --cards K`` (``chip_smoke.py
+    --mesh-worker``): its K cards (initialize_distributed, nccl), the
+    mesh phase alone."""
+    launch.initialize_distributed(f"localhost:{port}", world, rank,
+                                  local_devices=k)
+    rec, lines = mesh_solves(launch.local_cards(), out_dir)
+    print("\n".join(lines))
+    with open(os.path.join(out_dir, f"mesh{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_only(n_procs: int, k: int) -> int:
+    """``chip_smoke.py --mp P --cards K``: the mesh phase alone on P·K
+    cards, P processes of K each (nccl; K7 by peer access between the
+    cards of a process, through CUDA IPC across), against the one-block
+    runs on card 0."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU "
+                           "only")
+    require(torch.cuda.device_count() >= n_procs * k,
+            f"--mp {n_procs} --cards {k} needs {n_procs * k} visible cards, "
+            f"{torch.cuda.device_count()} seen")
+    print(f"card: {card()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as out_dir:
+        rdma_reference(dev, out_dir)
+        A, b = poisson.poisson2d(ELL_SIDE, device=dev)
+        save_ell_reference(out_dir, EllDistSolver(
+            A, b, ELL_BILINEAR_LEVELS, n_devices=ELL_DIST_SLABS,
+            interpolator=BilinearInterpolator2D(ELL_SIDE), halo="strips",
+            device=dev).solve(tolerance=ELL_TOL,
+                              compute_error_every_n_iters=1))
+        texts = spawn_workers("--mesh-worker", n_procs, out_dir, str(k))
+        for rank, text in enumerate(texts):
+            print("\n".join(line for line in text.splitlines()
+                            if line.startswith("mesh rank")))
+        with open(os.path.join(out_dir, "mesh0.json")) as f:
+            rec = json.load(f)
+    print(json.dumps({"kernels": [mesh_entry(rec)]}))
+    print(card())
+    return 0
+
+
+def spawn_workers(flag: str, n_procs: int, out_dir: str, *extra) -> list:
+    """``chip_smoke.py FLAG RANK n_procs PORT out_dir [extra]`` for every
+    rank, all at once; their outputs. Raises if one fails or they do not
+    finish in MP_TIMEOUT."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(rank),
+         str(n_procs), str(port), out_dir, *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(n_procs)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise RuntimeError(f"workers did not finish in {MP_TIMEOUT} s")
+    print(f"{flag} workers: {time.perf_counter() - t0:.1f} s from spawn to "
+          f"exit (start, CUDA context, setup, runs)")
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0,
+                f"{flag} worker {rank} failed:\n{text[-3000:]}")
+    return outs
+
+
 def mp_worker(rank: int, world: int, port: int, out_dir: str) -> None:
     """One process of the process phase (``chip_smoke.py --mp-worker``):
     the plain paths (no kernel), then K7's peer form (parity, a lost
@@ -2522,6 +2843,13 @@ def mp_worker(rank: int, world: int, port: int, out_dir: str) -> None:
               f"on card {torch.cuda.current_device()}, "
               f"{launch.device_mesh_1d(MP_SLABS).slabs_per_process} of "
               f"{MP_SLABS} slabs) {line}")
+    if (world == MESH_PROCS and torch.cuda.device_count() == 1
+            and os.path.exists(os.path.join(out_dir, "ell_ref.json"))):
+        # the mesh (the whole script's run): this process's blocks on the
+        # one card
+        rec["mesh"], lines = mesh_solves(
+            (torch.device("cuda", 0),) * MESH_BLOCKS, out_dir)
+        print("\n".join(lines))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -2538,7 +2866,11 @@ def mp_solves(dev, launches: dict, n_procs: int = MP_PROCS):
     workers report the walls; the one process is the reference only. Each
     worker also checks K7's peer form and runs the halo="rdma" solve
     against the one-process run that dist_solves (or rdma_reference) saved
-    in RECORD["mp_dir"]; rank 0's K7 numbers go to RECORD["k7_peer"]."""
+    in RECORD["mp_dir"]; rank 0's K7 numbers go to RECORD["k7_peer"]. In
+    the whole script's run (2 processes, one card, ell_dist_solves'
+    one-block "strips" run saved) each worker then runs the mesh of 2 x
+    MESH_BLOCKS blocks (mesh_solves); process 0's block 0 K7 numbers go
+    to RECORD["k7_mesh"]."""
     cards = torch.cuda.device_count()
     print(f"mp: {n_procs} processes, {cards} card(s): "
           + ("nccl, a card a process" if cards >= n_procs else
@@ -2546,32 +2878,13 @@ def mp_solves(dev, launches: dict, n_procs: int = MP_PROCS):
           + "; K7's peer form through CUDA IPC")
     (single, _), c = drive(lambda: mp_runs(dev, report=False), launches)
     require(sum(c.values()) == 0, f"mp single process: no kernel: {c}")
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     out_dir = RECORD["mp_dir"]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--mp-worker",
-         str(rank), str(n_procs), str(port), out_dir],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for rank in range(n_procs)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.communicate()
-        raise RuntimeError(f"mp workers did not finish in {MP_TIMEOUT} s")
-    print(f"mp workers: {time.perf_counter() - t0:.1f} s from spawn to "
-          f"exit (start, CUDA context, setup, runs)")
-    for rank, (p, text) in enumerate(zip(procs, outs)):
+    if "ell dist strips" in RECORD:
+        save_ell_reference(out_dir, RECORD["ell dist strips"])
+    texts = spawn_workers("--mp-worker", n_procs, out_dir)
+    for text in texts:
         print("\n".join(line for line in text.splitlines()
-                        if line.startswith("mp rank")))
-        require(p.returncode == 0,
-                f"mp worker {rank} failed:\n{text[-3000:]}")
+                        if line.startswith(("mp rank", "mesh rank"))))
     for rank in range(n_procs):
         got = np.load(os.path.join(out_dir, f"rank{rank}.npz"))
         for key, want in single.items():
@@ -2583,8 +2896,13 @@ def mp_solves(dev, launches: dict, n_procs: int = MP_PROCS):
                     f"mp rank {rank} {key} within rtol {MP_RTOL:g}")
     with open(os.path.join(out_dir, "rank0.json")) as f:
         rec = json.load(f)
+    mesh = rec.pop("mesh", None)
     RECORD.setdefault("k7_peer", {})[n_procs] = rec
     print(f"K7 peer, {n_procs} processes, rank 0: {json.dumps(rec)}")
+    if mesh is not None:
+        RECORD["k7_mesh"] = mesh
+        print(f"K7 mesh, {MESH_PROCS} processes x {MESH_BLOCKS} blocks, "
+              f"block 0: {json.dumps(mesh)}")
 
 
 def peer_entry(rec: dict, n_procs: int) -> dict:
@@ -2650,7 +2968,8 @@ def main() -> int:
     launches = {k: 0 for k in KERNEL_INFO}
     with tempfile.TemporaryDirectory() as mp_dir:
         RECORD["mp_dir"] = mp_dir
-        for phase in (const_solves, split_solve, pcg_solves, var_solves,
+        for phase in (const_solves, native_checks, split_solve, pcg_solves,
+                      var_solves,
                       refine_solves, smoother_solves, host_solves,
                       ell_solves, dist_solves, dist_var_solves,
                       dist_const_solves, ell_dist_solves, card_solves,
@@ -2698,6 +3017,7 @@ def main() -> int:
         kernels.append(entry)
     kernels.append(peer_entry(RECORD["k7_peer"][MP_PROCS], MP_PROCS))
     kernels.append(cards_entry(RECORD["k7_cards"]))
+    kernels.append(mesh_entry(RECORD["k7_mesh"]))
     print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {
@@ -2726,8 +3046,14 @@ def mp_only(procs: list) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp"] and "--cards" in sys.argv:
+        sys.exit(mesh_only(int(sys.argv[2]), int(sys.argv[4])))
     if sys.argv[1:2] == ["--mp"]:
         sys.exit(mp_only([int(a) for a in sys.argv[2:]]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                    sys.argv[5], int(sys.argv[6]))
+        sys.exit(0)
     if sys.argv[1:2] == ["--cards"]:
         sys.exit(cards_only(int(sys.argv[2])))
     if sys.argv[1:2] == ["--mp-worker"]:

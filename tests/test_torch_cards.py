@@ -156,10 +156,14 @@ def test_device_rule(cards, monkeypatch):
     cards(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.slab_devices(4, None)
-    # P processes of K cards each is not built
-    monkeypatch.setattr(launch, "process_count", lambda: 2)
-    with pytest.raises(ValueError, match="process group"):
-        launch.slab_devices(4, ("cpu",) * 2)
+    # under a process group of P, a sequence of K is the process's K
+    # blocks of the P·K (tests/test_torch_mesh.py runs it)
+    monkeypatch.setattr(launch, "world_size", lambda: 2)
+    assert launch.slab_devices(None, ("cpu",) * 2) == (
+        4, (torch.device("cpu"),) * 2)
+    assert launch.slab_devices(8, ("cpu",) * 2)[0] == 8
+    with pytest.raises(ValueError, match="each of 2 processes"):
+        launch.slab_devices(6, ("cpu",) * 2)
 
 
 def test_config_and_blocks():

@@ -12,6 +12,12 @@ layout conversions; K4's rss (summed in another order) to the JAX
 package's own bound for that kernel (tests/test_packed_df.py).
 """
 
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -405,3 +411,58 @@ def test_card_group_rdma_on_one_card(dev):
         s.close()
     assert two.iterations == one.iterations and torch.equal(two.u, one.u)
     assert launches == 2 * (2 * 3) * two.iterations
+
+
+# one process of the 2 x 2 mesh on the one card (gloo: the processes
+# share it), its two blocks on two streams
+MESH_WORKER = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    from amg_tpu_torch import DistStructuredSolver, poisson
+    from amg_tpu_torch.ops import kernels as K
+    from amg_tpu_torch.parallel import launch
+    rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    launch.initialize_distributed(f"localhost:{port}", 2, rank,
+                                  local_devices=2)
+    assert torch.distributed.get_backend() == "gloo"
+    side = 255
+    b2 = poisson.rhs(side, device="cpu").reshape(side, side)
+    s = DistStructuredSolver(side, n_devices=4, halo="rdma",
+                             device=("cuda:0", "cuda:0"))
+    try:
+        K.reset_launch_counts()
+        res = s.solve_ir_fused(b2.to("cuda"), tolerance=1e-7)
+        k7 = K.launch_counts()["rdma_halo_exchange"]
+    finally:
+        s.close()
+    np.savez(out, u=res.u.cpu().numpy(), it=res.iterations, k7=k7)
+    torch.distributed.destroy_process_group()
+""")
+
+
+def test_mesh_rdma_on_one_card(dev, tmp_path):
+    """2 processes x 2 blocks on the one card, halo="rdma": K7's peer form
+    between the blocks of a process (pointers) and across the processes
+    (CUDA IPC) in one launch; each process gives the one-block V-cycles
+    and a bitwise equal u, K7 2 x 3 levels a V-cycle in each block."""
+    side = 255
+    b2 = poisson.rhs(side, device="cpu").reshape(side, side)
+    one = DistStructuredSolver(side, n_devices=4, halo="rdma", device=dev
+                               ).solve_ir_fused(b2.to(dev), tolerance=1e-7)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_WORKER, str(rank), str(port),
+         str(tmp_path / f"rank{rank}.npz")],
+        cwd=Path(__file__).resolve().parents[1], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    for rank in range(2):
+        got = np.load(tmp_path / f"rank{rank}.npz")
+        assert int(got["it"]) == one.iterations
+        assert np.array_equal(got["u"], one.u.cpu().numpy())
+        assert int(got["k7"]) == 2 * (2 * 3) * one.iterations

@@ -1,8 +1,10 @@
-"""amg_tpu_torch imports cleanly: no JAX, no amg_tpu, no kernel build.
+"""amg_tpu_torch imports cleanly: no JAX, no amg_tpu, no kernel build and
+no build of the native engine.
 
 Each check runs in a fresh interpreter, so modules imported by other tests
 in this process cannot hide an import. A stand-in ``nvcc`` first on PATH
-(and under CUDA_HOME) records any call.
+(and under CUDA_HOME), and a stand-in ``g++`` beside it, record any
+call.
 """
 
 import os
@@ -21,6 +23,10 @@ def _fake_cuda_home(tmp_path, exit_code):
     nvcc.write_text(f"#!/bin/sh\ntouch '{marker}'\n"
                     f"echo 'stand-in nvcc failure' >&2\nexit {exit_code}\n")
     nvcc.chmod(0o755)
+    # the native engine's compiler: a call leaves the same marker
+    gxx = tmp_path / "bin" / "g++"
+    gxx.write_text(f"#!/bin/sh\ntouch '{marker}'\nexit 1\n")
+    gxx.chmod(0o755)
     env = dict(os.environ, CUDA_HOME=str(tmp_path),
                PATH=f"{nvcc.parent}{os.pathsep}{os.environ.get('PATH', '')}")
     return env, marker
@@ -48,9 +54,10 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
                      "ops.smoothers", "ops.ell_rap", "multigrid", "config",
                      "utils.checkpoint", "utils.profiling",
                      "utils.debugging", "parallel.ell_dist",
-                     "parallel.launch"):
+                     "parallel.launch", "native", "native.bindings"):
             assert "amg_tpu_torch." + name in sys.modules, name
         for name in ("build_stencil_hierarchy", "solve_stencil", "solve_ir",
+                     "EllDistSolver",
                      "build_fine_stencil_f64", "rss", "Stencil2D",
                      "vcycle_stencil", "ELL", "Hierarchy", "Level",
                      "Multigrid", "build_hierarchy", "galerkin_rap",
@@ -91,11 +98,16 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         assert not bad, bad
         from amg_tpu_torch.ops.kernels import _build
         assert _build.library.cache_info().currsize == 0
+        from amg_tpu_torch.native import bindings
+        assert bindings._lib is None and not bindings._tried
+        from amg_tpu_torch.ops import rap
+        for name in ("build_hierarchy_planes", "rap_stencil_planes_jit"):
+            assert callable(getattr(rap, name)), name
         print("clean")
     """, env)
     assert proc.returncode == 0, proc.stderr
     assert "clean" in proc.stdout
-    assert not marker.exists(), "importing the package called nvcc"
+    assert not marker.exists(), "importing the package called a compiler"
 
 
 def test_failed_build_raises_with_nvcc_stderr(tmp_path):
