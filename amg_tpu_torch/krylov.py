@@ -7,16 +7,20 @@ SPD). The stopping rule is the reference's: rss of the recurrence residual
 against an absolute tolerance, checked every iteration.
 
 Two loops, as in the JAX package: ``solve_pcg_stencil``, the host loop
-with a history, and ``solve_pcg_device``, which keeps the state on the
-device and returns device stats. Both read the rss once per iteration (one
-host sync), as the solver's refine loops read it once per refine; a CUDA
-graph of the iteration is later work.
+with a history, which reads the rss once per iteration, and
+``solve_pcg_device``, JAX's one ``lax.while_loop`` program: on the card
+one CUDA graph whose convergence control runs on the device
+(``ops/kernels/graph_loop.py``), with no host read; on the CPU the same
+loop pieces under a host driver.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
+from amg_tpu_torch.ops.kernels import graph_loop
 from amg_tpu_torch.structured import (PACKED_MIN_SIDE, SolveResult,
                                       StencilHierarchy, level_plan,
                                       vcycle_packed, vcycle_stencil)
@@ -96,29 +100,109 @@ def solve_pcg_stencil(hier: StencilHierarchy, b2: torch.Tensor,
                        converged=error <= tol, history=history)
 
 
-def solve_pcg_device(hier: StencilHierarchy, b2: torch.Tensor,
-                     tolerance: float = 1e-7, n_iters: int = 100,
-                     fused: bool = False, min_side: int | None = None):
-    """PCG from u = 0 with the state kept on the device. Returns
-    ``(u, stats)``, ``stats`` the device tensor ``[rss, iterations]`` in
-    b2's dtype. ``fused`` runs the packed levels' fused kernels (legs,
-    split) on a packed hierarchy. f32 reaches about 1e-5 at 2047^2-4095^2;
-    the defect-correction solve (StructuredSolver) is the way below it."""
+def _pcg_loop(hier: StencilHierarchy, shape: tuple, dtype, device,
+              fused: bool, min_side: int | None) -> SimpleNamespace:
+    """JAX's _pcg_device in cond/body form on fixed buffers: the state
+    (u, r, z, p, rz, it, err) from u = 0, the loop while err > tol and it <
+    n, stats [err, it] in the field's dtype. The condition reads err and
+    tol as f64 (exact for an f32 field)."""
     A = hier.levels[0]
 
     def A_neg(x):
         return -A.matvec2(x)
 
     precond = _preconditioner(hier, fused, min_side)
-    tol = _tolerance(tolerance, b2.dtype)
-    r = -b2
-    z = precond(r)
-    u, p, rz = torch.zeros_like(b2), z, _dot(r, z)
-    err = rss_from_residual(r)
-    it = 0
-    while check_rss(float(err)) > tol and it < n_iters:  # one host sync
-        u, r, z, p, rz = _step(A_neg, precond, u, r, z, p, rz)
-        err = rss_from_residual(r)
-        it += 1
-    return u, torch.stack([err, torch.tensor(float(it), dtype=b2.dtype,
-                                             device=b2.device)])
+
+    def zeros(shape_, dtype_=dtype):
+        return torch.zeros(shape_, dtype=dtype_, device=device)
+    L = SimpleNamespace(b=zeros(shape), u=zeros(shape), r=zeros(shape),
+                        z=zeros(shape), p=zeros(shape), rz=zeros(()),
+                        err=zeros(()), tol=zeros(()),
+                        err64=zeros((), torch.float64),
+                        tol64=zeros((), torch.float64),
+                        it=zeros((), torch.int32), n=zeros((), torch.int32),
+                        stats=zeros(2))
+
+    def set_err(r):
+        L.err.copy_(rss_from_residual(r))
+        L.err64.copy_(L.err)
+
+    def start():
+        r = -L.b
+        z = precond(r)
+        L.u.zero_()
+        L.r.copy_(r)
+        L.z.copy_(z)
+        L.p.copy_(z)
+        L.rz.copy_(_dot(r, z))
+        set_err(r)
+        L.tol64.copy_(L.tol)
+        L.it.zero_()
+
+    def body():
+        for buf, x in zip((L.u, L.r, L.z, L.p, L.rz),
+                          _step(A_neg, precond, L.u, L.r, L.z, L.p, L.rz)):
+            buf.copy_(x)
+        set_err(L.r)
+
+    def finish():
+        L.stats.copy_(torch.stack([L.err, L.it.to(dtype)]))
+
+    L.loop = graph_loop.DeviceLoop(body, err=L.err64, tol=L.tol64, it=L.it,
+                                   n=L.n)
+    L.program = (start, finish)
+    L.graph = None
+    return L
+
+
+def _pcg_state(hier: StencilHierarchy, b2: torch.Tensor, fused: bool,
+               min_side: int | None, n_iters: int) -> SimpleNamespace:
+    """solve_pcg_device's loop for b2, cached on the hierarchy under what
+    JAX makes static (shape, dtype, fused, min_side, n_iters; the
+    tolerance is a device scalar written before each run); ``graph`` is
+    its loop graph once captured (``_pcg_graph``)."""
+    loops = hier.__dict__.setdefault("_pcg_loops", {})
+    key = (tuple(b2.shape), b2.dtype, b2.device, fused, min_side, n_iters)
+    L = loops.get(key)
+    if L is None:
+        L = loops[key] = _pcg_loop(hier, tuple(b2.shape), b2.dtype,
+                                   b2.device, fused, min_side)
+    return L
+
+
+def _pcg_graph(L: SimpleNamespace) -> graph_loop.LoopGraph:
+    """The loop's graph on the card, captured at its first use."""
+    if L.graph is None:
+        L.graph = L.loop.graph(*L.program)
+    return L.graph
+
+
+def _solve_pcg_device(hier: StencilHierarchy, b2: torch.Tensor,
+                      tolerance: float, n_iters: int, fused: bool,
+                      min_side: int | None, host: bool = False):
+    """One run of solve_pcg_device's loop: on the card one launch of its
+    graph, on the CPU (or with ``host=True``, the oracle) the host driver
+    of the same pieces. Returns clones of (u, stats)."""
+    L = _pcg_state(hier, b2, fused, min_side, n_iters)
+    L.b.copy_(b2)
+    L.tol.fill_(tolerance)
+    L.n.fill_(n_iters)
+    if host or b2.device.type != "cuda":
+        L.loop.run_host(*L.program)
+    else:
+        _pcg_graph(L).launch()
+    return L.u.clone(), L.stats.clone()
+
+
+def solve_pcg_device(hier: StencilHierarchy, b2: torch.Tensor,
+                     tolerance: float = 1e-7, n_iters: int = 100,
+                     fused: bool = False, min_side: int | None = None):
+    """PCG from u = 0 with the state kept on the device (JAX's one
+    ``lax.while_loop`` program). Returns ``(u, stats)``, ``stats`` the
+    device tensor ``[rss, iterations]`` in b2's dtype; on the card one
+    graph launch and no host synchronization (the graph is captured at
+    the first call of each shape, dtype and options). ``fused`` runs the
+    packed levels' fused kernels (legs, split) on a packed hierarchy. f32
+    reaches about 1e-5 at 2047^2-4095^2; the defect-correction solve
+    (StructuredSolver) is the way below it."""
+    return _solve_pcg_device(hier, b2, tolerance, n_iters, fused, min_side)

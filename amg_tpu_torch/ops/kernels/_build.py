@@ -25,6 +25,8 @@ import subprocess
 import tempfile
 import threading
 import time
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -57,6 +59,14 @@ _SIGNATURES = {
     "amg_ipc_alloc": (_I, ctypes.c_longlong, _P, _P),
     "amg_ipc_open": (_I, _P, _P),
     "amg_ipc_close": (_I, _P),
+    # csrc/graph_loop.cu: the card, the pieces' graphs, the loop state,
+    # the execs counts, the stream, then the outputs (graph, exec, failing
+    # step)
+    "amg_loop_graph": (_I,) + (_P,) * 14,
+    "amg_loop_graph_launch": (_P, _P),
+    "amg_loop_graph_destroy": (_P, _P),
+    "amg_cuda_versions": (_P, _P),
+    "amg_graph_node_types": (_P, _P, _I, _P),
 }
 
 
@@ -141,12 +151,42 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+_TALLY = threading.local()
+
+
+@contextmanager
+def capture_tally():
+    """While a CUDA graph piece is captured on this thread, count_launch
+    adds to the yielded Counter (by counter: a wrapper or a
+    LaunchCounter) instead of the counters: those launches run at each
+    replay of the piece, not now."""
+    tally = Counter()
+    _TALLY.tally = tally
+    try:
+        yield tally
+    finally:
+        _TALLY.tally = None
+
+
 def count_launch(counter) -> None:
     """Add one to ``counter.launches`` (a kernel wrapper's count): one
     launch, counted exactly when the threads of a card group launch at
-    once."""
+    once. Inside :func:`capture_tally` the launch is captured, not run:
+    it goes to the tally."""
+    tally = getattr(_TALLY, "tally", None)
+    if tally is not None:
+        tally[counter] += 1
+        return
     with _COUNT_LOCK:
         counter.launches += 1
+
+
+def credit(tally: Counter, runs: int) -> None:
+    """Add ``runs`` replays of a captured piece's launches (its tally) to
+    the counters."""
+    with _COUNT_LOCK:
+        for counter, n in tally.items():
+            counter.launches += n * runs
 
 
 def build_log() -> str:

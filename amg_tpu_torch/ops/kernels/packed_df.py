@@ -12,6 +12,8 @@ version is ``sparse.packed._df_residual_pow2_packed`` followed by
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 
 from amg_tpu_torch.ops.doublefloat import DF32, df_rss_fast, is_pow2_weights
@@ -31,12 +33,36 @@ def df_residual_rss_plain(w33, b4_df: DF32, u4_df: DF32, m: int):
 _COUNTERS: dict = {}
 
 
+def new_counter(dev: torch.device) -> torch.Tensor:
+    """A zeroed ticket counter for K4 on ``dev``."""
+    return torch.zeros(1, dtype=torch.int32, device=dev)
+
+
 def _counter(dev: torch.device, stream: int) -> torch.Tensor:
     key = (dev.index, stream)
     c = _COUNTERS.get(key)
     if c is None:
-        c = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+        c = _COUNTERS[key] = new_counter(dev)
     return c
+
+
+@contextmanager
+def stream_counter(dev: torch.device, stream: int, counter: torch.Tensor):
+    """K4 launches on ``stream`` use ``counter`` while inside: a CUDA graph
+    captured there keeps its own counter, made before the capture (one
+    made inside would be a capture-pool allocation), which each replay of
+    the graph finds at 0 and leaves at 0. The stream's own counter comes
+    back after."""
+    key = (dev.index, stream)
+    old = _COUNTERS.get(key)
+    _COUNTERS[key] = counter
+    try:
+        yield counter
+    finally:
+        if old is None:
+            del _COUNTERS[key]
+        else:
+            _COUNTERS[key] = old
 
 
 def fused_df_residual_rss(w33, b4_df: DF32, u4_df: DF32, m: int):

@@ -48,6 +48,8 @@ drives the CPU tests.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
@@ -63,7 +65,8 @@ from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
                                        fused_down_leg_packed, fused_gs4_sweep,
                                        fused_gs4_sweep_packed,
                                        fused_residual_restrict_packed,
-                                       fused_up_leg_packed)
+                                       fused_up_leg_packed, graph_loop)
+from amg_tpu_torch.ops.kernels._build import require_f32
 from amg_tpu_torch.ops.rap import (interp1d_dense, planes_to_dense,
                                    poisson_const_w33, rap_stencil_planes)
 from amg_tpu_torch.ops.transfer import linear_interp_1d
@@ -655,6 +658,12 @@ def solve_ir(side: int, b2_f64, hier32: StencilHierarchy | None = None,
 SMOOTHERS = ("auto", "packed", "fused", "masked", "strided", "chebyshev")
 
 
+def _assign(dst: DF32, src: DF32) -> None:
+    """Write a df32 value into the buffers of ``dst`` (a loop's state)."""
+    dst.hi.copy_(src.hi)
+    dst.lo.copy_(src.lo)
+
+
 class StructuredSolver:
     """Single-device structured solver: the hierarchy and the level plan
     are built once, then solves are cheap to repeat.
@@ -671,8 +680,11 @@ class StructuredSolver:
     ``post_sweeps``, ``omega``, ``symmetric``, ``cycles_per_refine`` and
     ``packed_min_side`` where the argument is None: an explicit argument
     first, then the config, then the default (JAX's rule,
-    amg_tpu/structured.py:704-740). The solve loops run on the host with
-    one device-to-host read of the rss per refine. ``device`` None means
+    amg_tpu/structured.py:704-740). On the card each solve loop is one CUDA
+    graph with its convergence control on the device (JAX's one
+    ``lax.while_loop`` program; ``ops/kernels/graph_loop.py``), captured
+    by ``warmup`` or the first solve; on the CPU the same loop pieces run
+    under a host driver. ``device`` None means
     ``"cuda"``; pass ``device="cpu"`` to run on the CPU.
 
     Loops, as in the JAX package: the packed df32 loop for a constant
@@ -781,6 +793,8 @@ class StructuredSolver:
         # the general df32 residual, as the JAX package does
         self.df_kernel = (self.fused_packed and self.w33 is not None
                           and is_pow2_weights(self.w33))
+        self._loop = None         # the solve loop (_loop_state)
+        self._graphs = {}         # its programs' graphs on the card
 
     # -- pieces of the solve loop ------------------------------------------
 
@@ -840,77 +854,218 @@ class StructuredSolver:
         b64 = torch.as_tensor(b2_f64, device=self.device)
         if b64.dtype != torch.float64:
             raise ValueError(f"the rhs must be float64, got {b64.dtype}")
+        if tuple(b64.shape) != (self.side, self.side):
+            raise ValueError(f"the rhs must be ({self.side}, {self.side}), "
+                             f"got {tuple(b64.shape)}")
         return b64
 
-    def _rtol_base(self, b2_f64) -> float:
-        """rss(b) exactly as the active loop computes it for rtol."""
-        if self.precision == "f64":
-            return float(rss_from_residual(self._b64(b2_f64)))
-        b_df = (self.prepare_b(b2_f64) if self.packed_loop
-                else DF32.from_f64(self._b64(b2_f64)))
-        return float(df_rss_fast(b_df))
+    # -- the solve loops, in JAX's cond/body form ----------------------------
 
-    def _stats(self, final: torch.Tensor, it: int) -> torch.Tensor:
-        return torch.stack([final.to(torch.float64),
-                            torch.tensor(float(it), dtype=torch.float64,
-                                         device=final.device)])
+    def _loop_state(self) -> SimpleNamespace:
+        """The solve loop (built once): its buffers, the
+        ``graph_loop.DeviceLoop`` of its pieces and its programs, each a
+        (pre, post) pair: "device" (solve_ir_device: the f64 rhs ``b64``
+        in, the f64 ``u_out`` out) and, for the packed loop, "prepared"
+        (solve_ir_device_prepared: the packed df32 rhs ``b4`` in, the
+        packed iterate ``u4`` out). Every program writes ``stats``
+        ([final rss, refines, the effective tolerance])."""
+        if self._loop is None:
+            dev = self.device
+            L = SimpleNamespace(
+                tol_in=torch.zeros((), dtype=torch.float64, device=dev),
+                rtol=torch.zeros((), dtype=torch.float64, device=dev),
+                tol_eff=torch.zeros((), dtype=torch.float64, device=dev),
+                err=torch.zeros((), dtype=torch.float64, device=dev),
+                it=torch.zeros((), dtype=torch.int32, device=dev),
+                n=torch.zeros((), dtype=torch.int32, device=dev),
+                stats=torch.zeros(3, dtype=torch.float64, device=dev),
+                b64=torch.zeros((self.side, self.side), dtype=torch.float64,
+                                device=dev))
+            if self.precision == "f64":
+                self._f64_loop(L)
+            elif self.packed_loop:
+                self._packed_df32_loop(L)
+            else:
+                self._unpacked_df32_loop(L)
+            self._loop = L
+        return self._loop
 
-    # -- the unpacked loops --------------------------------------------------
+    def _start(self, L, rss_b: torch.Tensor) -> None:
+        """The state at entry: tol_eff = max(tol, rtol * rss(b)) (tol where
+        rtol is 0), err = inf, it = 0."""
+        L.tol_eff.copy_(torch.where(L.rtol > 0.0,
+                                    torch.maximum(L.tol_in, L.rtol * rss_b),
+                                    L.tol_in))
+        L.err.fill_(float("inf"))
+        L.it.zero_()
 
-    def _solve_unpacked(self, b2_f64, tolerance: float, n_refine: int,
-                        rtol: float):
-        """The df32 loop on unpacked fields, with the JAX loop's semantics:
-        the rss lags one correction and every pass refines, so the loop
-        runs one refine past convergence; the final rss is always
-        recomputed (df_rss)."""
-        b_df = DF32.from_f64(self._b64(b2_f64))
-        tol_eff = tolerance
-        if rtol > 0.0:
-            tol_eff = max(tolerance, rtol * float(df_rss_fast(b_df)))
-        u = DF32.from_f32(self._fmg(b_df.hi))
-        err = float("inf")
-        it = 0
-        while err > tol_eff and it < n_refine:
+    def _finish(self, L, final: torch.Tensor) -> None:
+        L.stats.copy_(torch.stack([final, L.it.to(torch.float64),
+                                   L.tol_eff]))
+
+    def _packed_df32_loop(self, L) -> None:
+        """JAX's solve_core_packed: the state (u4 df32, err, it) stays
+        color-packed. The rss is lagged (that of u before the latest
+        correction); a pass refines only while it is above the tolerance
+        and counts only then, so a converged loop exits through a
+        residual-only pass whose rss is the final one; on budget
+        exhaustion the final rss is recomputed."""
+        M = self.m + 1
+
+        def f4():
+            return torch.zeros((4, M, M), dtype=torch.float32,
+                               device=self.device)
+        b4 = L.b4 = DF32(hi=f4(), lo=f4())
+        u4 = L.u4 = DF32(hi=f4(), lo=f4())
+        L.u_out = torch.zeros_like(L.b64)
+
+        def start():
+            self._start(L, df_rss_fast(b4))
+            _assign(u4, self._fmg_start(b4))
+
+        def body():
+            L.r_hi, err = self._residual_hi_rss(b4, u4)
+            L.err.copy_(err)
+
+        def refine():
+            e4 = torch.zeros_like(L.r_hi)
+            for _ in range(self.cycles_per_refine):
+                e4 = self._vcycle(e4, L.r_hi, packed_in=True)
+            _assign(u4, df_add_f32(u4, e4))
+
+        def final():
+            L.err.copy_(self._residual_hi_rss(b4, u4)[1])
+
+        def stats():
+            self._finish(L, L.err)
+
+        def prepare_start():
+            _assign(b4, self._prepare(L.b64))
+            start()
+
+        def stats_finalize():
+            stats()
+            L.u_out.copy_(self.finalize_u(u4))
+
+        L.loop = graph_loop.DeviceLoop(body, refine, final, err=L.err,
+                                       tol=L.tol_eff, it=L.it, n=L.n)
+        L.programs = {"device": (prepare_start, stats_finalize),
+                      "prepared": (start, stats)}
+
+    def _unpacked_df32_loop(self, L) -> None:
+        """JAX's solve_loop_df32 on unpacked fields: the rss lags one
+        correction and every pass refines, so the loop runs one refine
+        past convergence; the final rss is always recomputed (df_rss)."""
+        def f2():
+            return torch.zeros((self.side, self.side), dtype=torch.float32,
+                               device=self.device)
+        b_df, u = DF32(hi=f2(), lo=f2()), DF32(hi=f2(), lo=f2())
+        L.u_out = torch.zeros_like(L.b64)
+
+        def start():
+            _assign(b_df, DF32.from_f64(L.b64))
+            self._start(L, df_rss_fast(b_df))
+            _assign(u, DF32.from_f32(self._fmg(b_df.hi)))
+
+        def body():
             r = self._df_residual(b_df, u)
-            # the one host sync of the refine
-            err = check_rss(float(df_rss_fast(r)))
-            u = df_add_f32(u, self._cycles(r.hi))
-            it += 1
-        final = df_rss(self._df_residual(b_df, u))
-        return u.to_f64(), self._stats(final, it)
+            L.err.copy_(df_rss_fast(r))
+            _assign(u, df_add_f32(u, self._cycles(r.hi)))
 
-    def _solve_f64(self, b2_f64, tolerance: float, n_refine: int,
-                   rtol: float):
-        """The native-f64 loop (JAX's solve_loop_f64): f64 residual and
-        rss, f32 V-cycles on the residual, the FMG start in f32 cast to
-        f64; the rss lags one correction, every pass refines, and the
-        final rss is recomputed."""
+        def finish():
+            self._finish(L, df_rss(self._df_residual(b_df, u)))
+            L.u_out.copy_(u.to_f64())
+
+        L.loop = graph_loop.DeviceLoop(body, err=L.err, tol=L.tol_eff,
+                                       it=L.it, n=L.n)
+        L.programs = {"device": (start, finish)}
+
+    def _f64_loop(self, L) -> None:
+        """JAX's solve_loop_f64: f64 residual and rss, f32 V-cycles on the
+        residual, the FMG start in f32 cast to f64; the rss lags one
+        correction, every pass refines, and the final rss is
+        recomputed."""
+        u = L.u_out = torch.zeros_like(L.b64)
+
+        def start():
+            self._start(L, rss_from_residual(L.b64))
+            u.copy_(self._fmg(L.b64.to(torch.float32)).to(torch.float64))
+
+        def body():
+            r = L.b64 - self.A64.matvec2(u)
+            L.err.copy_(rss_from_residual(r))
+            u.copy_(u + self._cycles(r.to(torch.float32)).to(torch.float64))
+
+        def finish():
+            self._finish(L, rss_from_residual(L.b64 - self.A64.matvec2(u)))
+
+        L.loop = graph_loop.DeviceLoop(body, err=L.err, tol=L.tol_eff,
+                                       it=L.it, n=L.n)
+        L.programs = {"device": (start, finish)}
+
+    def _graph(self, name: str) -> graph_loop.LoopGraph:
+        """The program's loop graph on the card, captured and instantiated
+        at its first use (JAX compiles at the first call)."""
+        g = self._graphs.get(name)
+        if g is None:
+            L = self._loop_state()
+            g = self._graphs[name] = L.loop.graph(*L.programs[name])
+        return g
+
+    def _run(self, name: str, tolerance: float, n_refine: int, rtol: float,
+             host: bool) -> SimpleNamespace:
+        """One solve of program ``name`` on the inputs already in its
+        buffers: on the card one launch of its graph (no host read), on
+        the CPU, or with ``host=True`` anywhere, the plain host driver of
+        the same pieces."""
+        L = self._loop_state()
+        L.tol_in.fill_(tolerance)
+        L.rtol.fill_(rtol)
+        L.n.fill_(n_refine)
+        if host or self.device.type != "cuda":
+            L.loop.run_host(*L.programs[name])
+        else:
+            self._graph(name).launch()
+        return L
+
+    def _solve_device(self, b2_f64, tolerance: float, n_refine: int,
+                      rtol: float, host: bool = False):
+        """solve_ir_device's program: ``(u, stats3)`` (clones), stats3 =
+        [final rss, refines, effective tolerance]. ``host=True`` is the
+        host-driven oracle of the same pieces."""
         b64 = self._b64(b2_f64)
-        tol_eff = tolerance
-        if rtol > 0.0:
-            tol_eff = max(tolerance, rtol * float(rss_from_residual(b64)))
-        u = self._fmg(b64.to(torch.float32)).to(torch.float64)
-        err = float("inf")
-        it = 0
-        while err > tol_eff and it < n_refine:
-            r = b64 - self.A64.matvec2(u)
-            err = check_rss(float(rss_from_residual(r)))
-            u = u + self._cycles(r.to(torch.float32)).to(torch.float64)
-            it += 1
-        final = rss_from_residual(b64 - self.A64.matvec2(u))
-        return u, self._stats(final, it)
+        L = self._loop_state()
+        L.b64.copy_(b64)
+        self._run("device", tolerance, n_refine, rtol, host)
+        return L.u_out.clone(), L.stats.clone()
 
-    # -- public entry points -------------------------------------------------
-
-    def prepare_b(self, b2_f64: torch.Tensor) -> DF32:
-        """f64 (side, side) rhs -> packed df32, once per rhs."""
+    def _require_packed(self) -> None:
         if not self.packed_loop:
             raise ValueError("the prepared-rhs path needs the packed df32 "
                              "loop (constant operator, smoother 'auto' or "
                              "'packed', side >= packed_min_side, >= 2 "
                              "levels)")
-        b_df = DF32.from_f64(self._b64(b2_f64))
+
+    def _solve_prepared(self, b4_df: DF32, tolerance: float, n_refine: int,
+                        rtol: float, host: bool = False):
+        self._require_packed()
+        L = self._loop_state()
+        for name, t in (("b.hi", b4_df.hi), ("b.lo", b4_df.lo)):
+            require_f32(name, t, L.b4.hi.shape, L.b4.hi.device)
+        _assign(L.b4, b4_df)
+        self._run("prepared", tolerance, n_refine, rtol, host)
+        return DF32(hi=L.u4.hi.clone(), lo=L.u4.lo.clone()), L.stats.clone()
+
+    # -- public entry points -------------------------------------------------
+
+    def _prepare(self, b64: torch.Tensor) -> DF32:
+        b_df = DF32.from_f64(b64)
         return DF32(hi=pack(b_df.hi, self.m), lo=pack(b_df.lo, self.m))
+
+    def prepare_b(self, b2_f64: torch.Tensor) -> DF32:
+        """f64 (side, side) rhs -> packed df32, once per rhs."""
+        self._require_packed()
+        return self._prepare(self._b64(b2_f64))
 
     def finalize_u(self, u4_df: DF32) -> torch.Tensor:
         return (unpack(u4_df.hi, self.m).to(torch.float64)
@@ -918,58 +1073,33 @@ class StructuredSolver:
 
     def solve_ir_device_prepared(self, b4_df: DF32, tolerance: float = 1e-7,
                                  n_refine: int = 40, rtol: float = 0.0):
-        """Defect-correction solve on a prepared rhs. Returns
-        ``(u4_df, stats)``: the packed df32 iterate and the f64 tensor
-        ``[final_rss, refines]``.
-
-        Loop semantics of the JAX device loop: the rss is lagged (it is the
-        rss of u before the latest correction), a refine runs only while it
-        is above the tolerance and counts only then, so a converged loop
-        exits through a residual-only pass whose rss is the final one; on
-        budget exhaustion the final rss is recomputed."""
-        tol_eff = tolerance
-        if rtol > 0.0:
-            tol_eff = max(tolerance, rtol * float(df_rss_fast(b4_df)))
-        u4 = self._fmg_start(b4_df)
-        err = float("inf")
-        err_t = None
-        it = 0
-        while err > tol_eff and it < n_refine:
-            r_hi, err_t = self._residual_hi_rss(b4_df, u4)
-            err = check_rss(float(err_t))  # the refine's one host sync
-            if err > tol_eff:
-                e4 = torch.zeros_like(r_hi)
-                for _ in range(self.cycles_per_refine):
-                    e4 = self._vcycle(e4, r_hi, packed_in=True)
-                u4 = df_add_f32(u4, e4)
-                it += 1
-        if err > tol_eff:
-            err_t = self._residual_hi_rss(b4_df, u4)[1]
-        return u4, self._stats(err_t, it)
+        """Defect-correction solve on a prepared rhs (JAX's
+        solve_core_packed; see ``_packed_df32_loop``). Returns ``(u4_df,
+        stats)``: the packed df32 iterate, to give to ``finalize_u`` or to
+        keep packed into a following solve, and the f64 tensor
+        ``[final_rss, refines]``. On the card one graph launch and no host
+        synchronization."""
+        u4, stats = self._solve_prepared(b4_df, tolerance, n_refine, rtol)
+        return u4, stats[:2]
 
     def solve_ir_device(self, b2_f64: torch.Tensor, tolerance: float = 1e-7,
                         n_refine: int = 40, rtol: float = 0.0):
         """Solve A u = b to rss <= tolerance (or rtol * rss(b)): returns
         ``(u, stats)`` with u the f64 (side, side) field and stats the f64
-        tensor ``[final_rss, refines]``."""
-        if self.precision == "f64":
-            return self._solve_f64(b2_f64, tolerance, n_refine, rtol)
-        if not self.packed_loop:
-            return self._solve_unpacked(b2_f64, tolerance, n_refine, rtol)
-        u4, stats = self.solve_ir_device_prepared(self.prepare_b(b2_f64),
-                                                  tolerance, n_refine, rtol)
-        return self.finalize_u(u4), stats
+        tensor ``[final_rss, refines]``. On the card one graph launch
+        (the loop's convergence control runs on the device) and no host
+        synchronization, so solves pipeline."""
+        u, stats = self._solve_device(b2_f64, tolerance, n_refine, rtol)
+        return u, stats[:2]
 
     def solve_ir_fused(self, b2_f64: torch.Tensor, tolerance: float = 1e-7,
                        n_refine: int = 40, rtol: float = 0.0) -> SolveResult:
-        """Solve and report: ``iterations`` counts the refine loop's
-        V-cycles (the FMG start excluded)."""
-        u, stats = self.solve_ir_device(b2_f64, tolerance, n_refine, rtol)
-        err_v, it_v = stats.tolist()
+        """Solve and report with one fetch of the stats: ``iterations``
+        counts the refine loop's V-cycles (the FMG start excluded)."""
+        u, stats = self._solve_device(b2_f64, tolerance, n_refine, rtol)
+        err_v, it_v, tol_eff = stats.tolist()
+        check_rss(err_v)
         iters = int(it_v) * self.cycles_per_refine
-        tol_eff = tolerance
-        if rtol > 0.0:
-            tol_eff = max(tolerance, rtol * self._rtol_base(b2_f64))
         return SolveResult(u=u, iterations=iters, error=err_v,
                            converged=err_v <= tol_eff,
                            history=[(iters, err_v)])
@@ -985,12 +1115,17 @@ class StructuredSolver:
         return rss_from_residual(b64 - self.A64.matvec2(u64))
 
     def warmup(self, refine_step: bool = False) -> None:
-        """One solve on a zero rhs, which builds the CUDA kernels on first
-        use; ``refine_step=True`` runs one host-stepped refine first."""
+        """JAX's compile step: on the card, capture and instantiate the
+        solve loop's graphs (both programs of the packed loop); then one
+        solve on a zero rhs, with one read of its stats.
+        ``refine_step=True`` runs one host-stepped refine first."""
         z = torch.zeros((self.side, self.side), dtype=torch.float64,
                         device=self.device)
         if refine_step:
             float(self._refine_step(z, z)[1])
+        if self.device.type == "cuda":
+            for name in self._loop_state().programs:
+                self._graph(name)
         _, stats = self.solve_ir_device(z, 1e-7, 40)
         stats.tolist()
 

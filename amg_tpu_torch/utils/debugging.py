@@ -4,7 +4,9 @@ across slabs.
 PyTorch port of ``amg_tpu/utils/debugging.py``. JAX's NaN check
 (``jax_debug_nans``) inspects every jitted output; here the flag makes the
 port's solve loops raise ``FloatingPointError`` when the rss they read on
-the host anyway is not finite, so it adds no device sync.
+the host anyway is not finite, so it adds no device sync. The device
+loops (one CUDA graph on the card) read nothing on the host while they
+run: ``solve_ir_fused`` checks the stats it fetches.
 """
 
 from __future__ import annotations

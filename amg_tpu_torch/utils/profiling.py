@@ -26,8 +26,12 @@ from zero (fmg=False); ``--solve-ir`` runs the host-stepped
 StructuredSolver.solve_ir (f64 residual, from zero), whose "refines" are
 its steps, the stopping one included. Device busy time is the sum of the GPU
 kernels' and copies' own times in the trace (one stream, so they do not
-overlap); the idle share is 1 - busy / (untraced wall). Needs a CUDA
-device.
+overlap); the idle share is 1 - busy / (untraced wall). The solve loops
+that run as one CUDA graph (StructuredSolver's and solve_pcg_device's)
+are timed as the graph, and traced as their host-driven oracle, which
+launches the same kernels: CUPTI's records of a graph whose WHILE body
+runs many passes faulted the card (an illegal address at 16 passes on an
+H100 80GB HBM3, driver 13.0, torch 2.11). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -133,8 +137,8 @@ def profile_solve(side: int, device="cuda", top: int = 12,
                   solve_ir: bool = False) -> dict:
     """Trace one warm solve at ``side``; returns the summary it prints."""
     from amg_tpu_torch import (DistStructuredSolver, StructuredSolver,
-                               build_stencil_hierarchy_device, poisson,
-                               solve_pcg_device, varcoef)
+                               build_stencil_hierarchy_device, krylov,
+                               poisson, solve_pcg_device, varcoef)
     from amg_tpu_torch.ops import kernels as K
 
     b2 = poisson.rhs(side, device=device).reshape(side, side)
@@ -143,14 +147,17 @@ def profile_solve(side: int, device="cuda", top: int = 12,
                                               smoother="packed")
         b32 = b2.to(torch.float32)
 
-        def solve():
+        def solve(host=False):
+            if host:
+                return krylov._solve_pcg_device(hier, b32, tol, 50, True,
+                                                None, host=True)[1].tolist()
             return solve_pcg_device(hier, b32, tolerance=tol, n_iters=50,
                                     fused=True)[1].tolist()
     elif dist:
         d = DistStructuredSolver(side, n_devices=dist, halo=halo,
                                  device=device)
 
-        def solve():
+        def solve(host=False):
             r = d.solve_ir_fused(b2, tolerance=tol)
             return r.error, r.iterations // d.cycles_per_refine
     else:
@@ -159,16 +166,17 @@ def profile_solve(side: int, device="cuda", top: int = 12,
                              precision=precision, fmg=fmg, device=device)
         s.warmup(refine_step=solve_ir)
 
-        def solve():
+        def solve(host=False):
             if solve_ir:
                 r = s.solve_ir(b2, tolerance=tol)
                 return r.error, len(r.history)
             if not s.packed_loop:
-                return s.solve_ir_device(b2, tolerance=tol)[1].tolist()
-            u4, stats = s.solve_ir_device_prepared(s.prepare_b(b2),
-                                                   tolerance=tol)
+                return s._solve_device(b2, tol, 40, 0.0,
+                                       host=host)[1][:2].tolist()
+            u4, stats = s._solve_prepared(s.prepare_b(b2), tol, 40, 0.0,
+                                          host=host)
             s.finalize_u(u4)
-            return stats.tolist()
+            return stats[:2].tolist()
 
     solve()
     torch.cuda.synchronize()
@@ -177,10 +185,11 @@ def profile_solve(side: int, device="cuda", top: int = 12,
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
     K.reset_launch_counts()
+    graph = not (dist or solve_ir)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        err, it = solve()
+        err, it = solve(host=graph)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     gpu = [e for e in prof.key_averages()
@@ -194,7 +203,8 @@ def profile_solve(side: int, device="cuda", top: int = 12,
         "side": side, "var": var, "smoother": smoother,
         "precision": precision, "tol": tol, "dist": dist, "halo": halo,
         "pcg": pcg, "fmg": fmg, "solve_ir": solve_ir,
-        "wall_s": wall_plain, "wall_traced_s": wall,
+        "traced_host_oracle": graph, "wall_s": wall_plain,
+        "wall_traced_s": wall,
         "refines": int(it), "rss": err, "device_busy_s": busy_us * 1e-6,
         "idle_share": 1.0 - busy_us * 1e-6 / wall_plain,
         "gpu_launches": sum(e.count for e in gpu),
@@ -208,7 +218,9 @@ def profile_solve(side: int, device="cuda", top: int = 12,
             f"dist D={dist} halo={halo}" if dist else
             f"var={var} smoother={smoother} precision={precision} "
             f"fmg={fmg}{' solve_ir' if solve_ir else ''}")
-    print(f"side {side} {what} tol={tol:g}: wall {wall_plain:.6f} s (traced {wall:.6f} s), "
+    traced = " of the host-driven oracle" if graph else ""
+    print(f"side {side} {what} tol={tol:g}: wall {wall_plain:.6f} s "
+          f"(traced{traced} {wall:.6f} s), "
           f"refines {int(it)}, rss "
           f"{err:.3e}, device busy {summary['device_busy_s']:.6f} s, "
           f"idle share {summary['idle_share']:.4f}, GPU launches "

@@ -9,9 +9,13 @@ K4's r.hi bitwise at M = 101, 129, 512, 2048 and 4096 and timed at the last
 three; K5 and K6 bitwise at n = 1000, 1023 and 4095; K8 bitwise at M = 101
 and 4096; K9 bitwise, and to K1 through the layouts, at M = 101, 512,
 2048 and 4096 and timed in turns with K1 at the last two; K7 per call
-against index_select and on the device, in a CUDA graph), then drives the
-solves through the user entry points with an independent f64 residual
-check and the kernels' launch counts:
+against index_select and on the device, in a CUDA graph; the loop
+graphs' condition kernel in toy loops against the host driver over the
+condition's edge cases, and per pass), then drives the solves through
+the user entry points with an independent f64 residual check and the
+kernels' launch counts. StructuredSolver's solve loops and
+solve_pcg_device run as one CUDA graph a solve (JAX's one-program
+loops):
 
 * the constant-coefficient Poisson df32 solve (StructuredSolver ->
   prepare_b -> solve_ir_device_prepared -> finalize_u) at 1023^2 and
@@ -32,6 +36,13 @@ check and the kernels' launch counts:
 * host-built hierarchies: the jump operator as a scipy matrix (A_fine) at
   2047^2, and the card against the CPU for solve_stencil (f64, 1023^2,
   1e-9) and the free solve_ir (511^2);
+* the loop graphs (phase graph_solves): constant 1023^2, 4095^2, 8191^2,
+  fused 4095^2, the jump problem fused at 1e-5 and f64 at 1e-7 (4095^2),
+  PCG at 2047^2 and 4095^2; each row's capture seconds and memory, one
+  graph launch under set_sync_debug_mode("error") that returns before
+  the solve ends, u and stats bitwise the host-driven oracle's, the
+  refines of the row and the launch counts, and the graph's and the host
+  loop's wall, device busy and idle share;
 * the reference-parity ELL pipeline (plain PyTorch, no kernel): the
   testlib numbers at 35^2 (Multigrid with symmetric GS: 35 V-cycles to
   rss 7.19199e-11; the standalone GS: 900 sweeps) and the other
@@ -93,9 +104,11 @@ line before the last of stdout is the card's name and power limit, the
 one before it the kernels' JSON (K1-K9, then K7's peer form as
 rdma_halo_exchange_peer, from process 0, and its in-process form as
 rdma_halo_exchange_cards, from block 0, and its mesh form as
-rdma_halo_exchange_mesh, from block 0 of process 0); the last line is
-one JSON object with "ok" and the device. ``--mp P [P ...]`` runs the process
-phase alone for each P (with P cards, nccl and a card each); ``--cards
+rdma_halo_exchange_mesh, from block 0 of process 0; loop_condition, the
+loop graphs' condition kernel, which replaces no TPU kernel); the last
+line is one JSON object with "ok" and the device. ``--mp P [P ...]``
+runs the process phase alone for each P (with P cards, nccl and a card
+each); ``--cards
 N`` one process driving N visible cards (K7 between them, the 4095^2
 solve on N and 2N slabs against one block, 8191^2 on N while its setup
 stays under 60 s); ``--mp P --cards K`` the mesh alone, P processes of
@@ -106,6 +119,7 @@ JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import socket
@@ -136,7 +150,8 @@ from amg_tpu_torch.multigrid import (build_hierarchy_device,
 from amg_tpu_torch.native import bindings
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32, is_pow2_weights
-from amg_tpu_torch.ops.kernels import _build
+from amg_tpu_torch import krylov
+from amg_tpu_torch.ops.kernels import _build, graph_loop
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
                                                     residual_restrict_plain,
                                                     up_leg_plain)
@@ -293,7 +308,12 @@ KERNEL_INFO = {
         "amg_tpu/ops/pallas/packed_cycle.py:300"),
     "fused_gs4_sweep_rm": ("amg_tpu_torch/csrc/packed_sweep.cu",
                            "amg_tpu/ops/pallas/packed_rm.py:224"),
+    # not a TPU kernel: the loop graphs' condition, in place of the
+    # while_loop cond of JAX's one-program solve loop
+    "loop_condition": ("amg_tpu_torch/csrc/graph_loop.cu",
+                       "amg_tpu/structured.py:1000"),
 }
+LOOP = "loop_condition"
 # no JAX solver calls the row-grouped sweep, so no path of the port does:
 # its launches are those of its parity phase
 OFF_PATH = {"fused_gs4_sweep_rm": "no JAX solver calls it"}
@@ -832,6 +852,9 @@ def const_solves(dev, launches: dict):
                 f"finite u of shape ({side}, {side})")
         require(err <= TOL and ind <= TOL, f"{side}^2 converged to {TOL}")
         require(c["fused_df_residual_rss"] == it + 1, "K4 = it + 1")
+        require(c[LOOP] == loop_conditions(it, packed=True),
+                "one loop graph: the condition at the start, each pass "
+                "and the final branch")
         if sweeps == 1:
             legs = 1 + 3 * it if side == 1023 else 6 + 9 * it
             require(c["fused_down_leg_packed"] == legs
@@ -956,12 +979,28 @@ def vcycle_launches(plan: tuple, start: int) -> Counter:
     return Counter(k for kind in plan[start:] for k in per_kind.get(kind, ()))
 
 
+def loop_conditions(it: int, packed: bool = False,
+                    converged: bool = True) -> int:
+    """Condition-kernel launches of one loop-graph solve of ``it`` refines
+    (or PCG iterations): the start, one a pass, and on the packed loop the
+    final branch; its passes are ``it``, and one more, residual only, when
+    it converged."""
+    if not packed:
+        return 1 + it
+    return 1 + it + int(converged) + 1
+
+
+def tpu_counts(c: dict) -> dict:
+    """The TPU kernels' counts (K1-K9) of a launch count dict."""
+    return {k: n for k, n in c.items() if k != LOOP}
+
+
 def solve_launches(plan: tuple, sides: tuple, it: int,
                    fmg: bool = True) -> Counter:
     """Launches of one packed df32 solve of ``it`` refines: the FMG start
     (fmg=True) runs one V-cycle from each packed level below the fine one,
     then the fine V-cycle; then 3 per refine; K4 once per refine and once
-    more."""
+    more; the loop graph's condition (loop_conditions, converged)."""
     c = Counter()
     if fmg:
         for l in range(1, len(sides) - 1):
@@ -970,6 +1009,7 @@ def solve_launches(plan: tuple, sides: tuple, it: int,
     for k, n in vcycle_launches(plan, 0).items():
         c[k] += n * (int(fmg) + 3 * it)
     c["fused_df_residual_rss"] = it + 1
+    c[LOOP] = loop_conditions(it, packed=True)
     return c
 
 
@@ -1080,9 +1120,11 @@ def pcg_solves(dev, launches: dict):
         require(c["fused_down_leg_packed"] == c["fused_up_leg_packed"]
                 == legs * (it + 1),
                 f"pcg {side}^2: K2 = K3 = {legs} x (it + 1)")
-        require(sum(n for k, n in c.items() if k not in (
+        require(sum(n for k, n in tpu_counts(c).items() if k not in (
             "fused_down_leg_packed", "fused_up_leg_packed")) == 0,
             f"pcg {side}^2: no other kernel")
+        require(c[LOOP] == loop_conditions(it), f"pcg {side}^2: one loop "
+                "graph, the condition at the start and each iteration")
         med, walls = wall_median(lambda: pcg(hier, b32), 3)
         print(f"pcg wall {side}^2: median of 3 {med:.6f} s (all {walls})")
         del hier, b2, b32, u, u64
@@ -1126,6 +1168,9 @@ def var_solves(dev, launches: dict):
         b2 = poisson.rhs(side, device=dev).reshape(side, side)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s.warmup()                    # the loop graph's capture
+        print(f"warmup {label} {side}^2: {time.perf_counter() - t0:.2f} s")
         (u, err, it), c = drive(lambda: solve_device(s, b2, tol, n_refine),
                                 launches)
         ind = f64_rss_planes(u, b2, planes)
@@ -1149,9 +1194,10 @@ def var_solves(dev, launches: dict):
         require(c["fused_gs4_sweep_var"] == (2 * (1 + 3 * it) if fused
                                              else 0),
                 f"{label}: K6 = 2 (1 + 3 it) on the fused path, else 0")
-        require(sum(n for k, n in c.items()
+        require(sum(n for k, n in tpu_counts(c).items()
                     if k != "fused_gs4_sweep_var") == 0,
                 f"{label}: no other kernel on a variable operator")
+        require(c[LOOP] == loop_conditions(it), f"{label}: one loop graph")
         med, walls = wall_median(lambda: solve_device(s, b2, tol, n_refine),
                                  3)
         print(f"solve wall {label} {side}^2: median of 3 {med:.6f} s "
@@ -1160,6 +1206,7 @@ def var_solves(dev, launches: dict):
 
     side = 4095
     s = StructuredSolver(side, smoother="fused", device=dev)
+    s.warmup()
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
     (u, err, it), c = drive(lambda: solve_device(s, b2, TOL), launches)
     ind = f64_rss(u, b2, side)
@@ -1168,8 +1215,10 @@ def var_solves(dev, launches: dict):
     require(err <= TOL and ind <= TOL, f"const fused {side}^2 converged")
     require(c["fused_gs4_sweep_const"] == 2 * (1 + 3 * it),
             "K5 = 2 (1 + 3 it) on the const fused path")
-    require(sum(n for k, n in c.items() if k != "fused_gs4_sweep_const")
-            == 0, "const fused: no other kernel")
+    require(sum(n for k, n in tpu_counts(c).items()
+                if k != "fused_gs4_sweep_const") == 0,
+            "const fused: no other kernel")
+    require(c[LOOP] == loop_conditions(it), "const fused: one loop graph")
     del s
 
     side = 255
@@ -1258,7 +1307,8 @@ def smoother_solves(dev, launches: dict):
               f"independent f64 rss {ind:.6e}, launches {c}")
         require(bool(torch.isfinite(u).all()), f"{sm}: finite u")
         require(err <= TOL and ind <= TOL, f"{sm} {side}^2 converged")
-        require(sum(c.values()) == 0, f"{sm}: no kernel")
+        require(sum(tpu_counts(c).values()) == 0, f"{sm}: no kernel")
+        require(c[LOOP] == loop_conditions(it), f"{sm}: one loop graph")
         med, walls = wall_median(lambda: solve_device(s, b2, TOL), 3)
         print(f"solve wall smoother={sm} {side}^2: median of 3 {med:.6f} s "
               f"(all {walls})")
@@ -1289,7 +1339,8 @@ def host_solves(dev, launches: dict):
           f"launches {c}")
     require(not s.device_setup and s.w33 is None, "A_fine: host build")
     require(err <= TOL and ind <= TOL, f"jump A_fine {side}^2 converged")
-    require(sum(c.values()) == 0, "jump A_fine: no kernel")
+    require(sum(tpu_counts(c).values()) == 0, "jump A_fine: no kernel")
+    require(c[LOOP] == loop_conditions(it), "jump A_fine: one loop graph")
     med, walls = wall_median(lambda: solve_device(s, b2, TOL), 3)
     print(f"solve wall jump A_fine {side}^2: median of 3 {med:.6f} s "
           f"(all {walls})")
@@ -1331,6 +1382,329 @@ def host_solves(dev, launches: dict):
             and len(rg.history) == len(rc.history),
             "free solve_ir: same counts on GPU and CPU")
 
+
+
+# The loop graphs (JAX's one-program solve loops): (label, side,
+# StructuredSolver options (None: solve_pcg_device, f32, fused, on the
+# packed hierarchy), jump operator, tolerance, refines or iterations)
+GRAPH_ROWS = (
+    ("const", 1023, {}, False, TOL, 2),
+    ("const", 4095, {}, False, TOL, 3),
+    ("const", 8191, {}, False, TOL, 3),
+    ("const fused", 4095, {"smoother": "fused"}, False, TOL, 3),
+    ("var fused df32", 4095, {"smoother": "fused"}, True, 1e-5, 7),
+    ("var f64", 4095, {"precision": "f64"}, True, 1e-7, 16),
+    ("pcg", 2047, None, False, PCG_TOL, 4),
+    ("pcg", 4095, None, False, PCG_TOL, 5),
+)
+PCG_GRAPH_ITERS = 50
+# the condition kernel's bytes per evaluation: err, tol (f64), it, n
+# (int32) read, it written, two u64 counts read and written
+LOOP_COND_BYTES = 8 + 8 + 4 + 4 + 4 + 2 * 2 * 8
+LOOP_TIMED_PASSES = 1000
+# (refine piece, final piece, x0, tol, n): err = x0 / 2^pass, the edge
+# cases of the condition (a NaN err, an empty budget, a converged entry)
+LOOP_CASES = ((False, False, 1.0, 0.1, 40), (True, True, 1.0, 0.1, 40),
+              (True, True, 1.0, 0.1, 2), (True, True, 1.0, 0.1, 0),
+              (False, False, 1.0, 0.1, 2), (False, False, 0.05, 0.1, 40),
+              (True, True, 0.05, 0.1, 40), (True, True, float("nan"), 0.1,
+                                            40),
+              (False, False, float("nan"), 0.1, 40),
+              (True, True, 1.0, float("inf"), 40))
+
+
+def toy_loop(dev, refine: bool, final: bool):
+    """A loop of graph_loop.DeviceLoop with one-kernel pieces: the body
+    writes err = x and halves x; refine and final count their runs.
+    Returns (loop, pre(x0, tol, n), counts)."""
+    t = {"err": torch.zeros((), dtype=torch.float64, device=dev),
+         "tol": torch.zeros((), dtype=torch.float64, device=dev),
+         "it": torch.zeros((), dtype=torch.int32, device=dev),
+         "n": torch.zeros((), dtype=torch.int32, device=dev)}
+    x = torch.zeros((), dtype=torch.float64, device=dev)
+    cnt = torch.zeros(3, dtype=torch.float64, device=dev)
+    inp = torch.zeros(3, dtype=torch.float64, device=dev)
+
+    def body():
+        t["err"].copy_(x)
+        x.mul_(0.5)
+        cnt[0].add_(1.0)
+
+    def ref():
+        cnt[1].add_(1.0)
+
+    def fin():
+        cnt[2].add_(1.0)
+
+    def pre():
+        x.copy_(inp[0])
+        t["tol"].copy_(inp[1])
+        t["n"].copy_(inp[2])
+        t["err"].fill_(float("inf"))
+        t["it"].zero_()
+        cnt.zero_()
+
+    loop = graph_loop.DeviceLoop(body, ref if refine else None,
+                                 fin if final else None, **t)
+    return loop, pre, inp, cnt, t["it"]
+
+
+def loop_condition_parity_and_timing(dev):
+    """The condition kernel (csrc/graph_loop.cu) in a loop graph against
+    the host driver of the same loop (its plain version, graph_loop.
+    loop_condition) over LOOP_CASES: the body, refine and final runs and
+    the final it equal. Its time: a WHILE node of LOOP_TIMED_PASSES passes
+    whose body is one one-thread kernel, per pass (CUDA events), against
+    the host driver's pass (the plain condition and its one read);
+    bound: LOOP_COND_BYTES over the memory rate."""
+    worst = 0.0
+    for refine, final, x0, tol, n in LOOP_CASES:
+        loop, pre, inp, cnt, it = toy_loop(dev, refine, final)
+        inp.copy_(torch.tensor([x0, tol, float(n)], dtype=torch.float64))
+        loop.run_host(pre, lambda: None)
+        want = cnt.tolist() + [int(it)]
+        g = loop.graph(pre, lambda: None)
+        g.launch()
+        torch.cuda.synchronize()
+        got = cnt.tolist() + [int(it)]
+        diff = max(abs(a - b) for a, b in zip(got, want))
+        worst = max(worst, diff)
+        print(f"parity loop_condition refine={refine} final={final} x0 "
+              f"{x0} tol {tol} n {n}: graph (body, refine, final, it) "
+              f"{got}, host driver {want}, equal {diff == 0}")
+        require(diff == 0, "the loop graph runs the host driver's loop")
+    loop, pre, inp, cnt, it = toy_loop(dev, False, False)
+    inp.copy_(torch.tensor([1.0, -1.0, float(LOOP_TIMED_PASSES)],
+                           dtype=torch.float64))
+    g = loop.graph(pre, lambda: None)
+
+    def graph_run():
+        g.launch()
+
+    def host_run():
+        loop.run_host(pre, lambda: None)
+    host_run()
+    graph_ms = time_ms(graph_run, 5) / LOOP_TIMED_PASSES
+    require(int(it) == LOOP_TIMED_PASSES, "the timed loop's passes")
+    host_ms = time_ms(host_run, 1) / LOOP_TIMED_PASSES
+    b_ms, by = bound(LOOP_COND_BYTES, 3)
+    print(f"time loop_condition: {graph_ms:.6f} ms a pass in the graph "
+          f"(body one one-thread kernel), host driver {host_ms:.6f} ms a "
+          f"pass (x{host_ms / graph_ms:.1f}), bound {b_ms:.2e} ms "
+          f"({by}); {card()}")
+    del g, loop
+    return worst, (graph_ms, host_ms), (b_ms, by)
+
+
+def dispatch(run):
+    """``run()`` under torch.cuda.set_sync_debug_mode("error"): returns
+    (its result, the dispatch seconds, the wall to the end of the work,
+    whether the work was still running when the call returned)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out = run()
+        t1 = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pending = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    return out, t1 - t0, time.perf_counter() - t0, pending
+
+
+def graph_row(dev, label, side, kw, jump, tol):
+    """One GRAPH_ROWS row's solver: (the public entry point's run, the
+    host-loop oracle's run, the graphs' capture, the expected launch
+    counts for ``it``, the loop's pieces by name). Each run returns (the
+    outputs to hold bitwise, stats)."""
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    if kw is None:
+        hier = build_stencil_hierarchy_device(side, smoother="packed",
+                                              device=dev)
+        b = b2.to(torch.float32)
+        L = krylov._pcg_state(hier, b, True, None, PCG_GRAPH_ITERS)
+        legs = level_plan(hier.sides, 1, 1, PACKED_MIN_SIDE, True).count(
+            "legs")
+
+        def run():
+            return solve_pcg_device(hier, b, tolerance=tol,
+                                    n_iters=PCG_GRAPH_ITERS, fused=True)
+
+        def oracle():
+            return krylov._solve_pcg_device(hier, b, tol, PCG_GRAPH_ITERS,
+                                            True, None, host=True)
+
+        def capture():
+            krylov._pcg_graph(L)
+            return [L.graph]
+
+        def want(it):
+            return Counter({"fused_down_leg_packed": legs * (it + 1),
+                            "fused_up_leg_packed": legs * (it + 1),
+                            LOOP: loop_conditions(it)})
+        return run, oracle, capture, want, pieces(L.loop, *L.program)
+    opts = dict(kw)
+    if jump:
+        opts["A_planes"] = varcoef.jump_planes(side, a_in=100.0, device=dev)
+    s = StructuredSolver(side, device=dev, **opts)
+    if s.packed_loop:
+        b4 = s.prepare_b(b2)
+
+        def run():
+            u4, stats = s.solve_ir_device_prepared(b4, tolerance=tol)
+            return (u4.hi, u4.lo), stats
+
+        def oracle():
+            u4, stats = s._solve_prepared(b4, tol, 40, 0.0, host=True)
+            return (u4.hi, u4.lo), stats[:2]
+    else:
+        def run():
+            u, stats = s.solve_ir_device(b2, tolerance=tol)
+            return (u,), stats
+
+        def oracle():
+            u, stats = s._solve_device(b2, tol, 40, 0.0, host=True)
+            return (u,), stats[:2]
+
+    def capture():
+        return [s._graph(name) for name in s._loop_state().programs]
+
+    def want(it):
+        if s.packed_loop:
+            return solve_launches(s.plan, s.hier.sides, it)
+        c = Counter({LOOP: loop_conditions(it)})
+        if kw.get("smoother") == "fused":
+            c["fused_gs4_sweep_var" if jump else "fused_gs4_sweep_const"] \
+                = 2 * (1 + 3 * it)
+        return c
+    L = s._loop_state()
+    program = L.programs["prepared" if s.packed_loop else "device"]
+    return run, oracle, capture, want, pieces(L.loop, *program)
+
+
+def pieces(loop, pre, post) -> dict:
+    """A loop's pieces by name (the names of LoopGraph.execs' counts)."""
+    return {"pre": pre, "body": loop.body, "refine": loop.refine,
+            "final": loop.final, "post": post}
+
+
+def pieces_busy(parts: dict, runs: dict) -> float:
+    """Device busy seconds of a solve from its pieces: each piece run
+    eagerly once under torch.profiler (the card's activity only), its
+    kernels' and copies' time, times its runs in the solve."""
+    busy = 0.0
+    for name, fn in parts.items():
+        if fn is None or not runs[name]:
+            continue
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy += runs[name] * 1e-6 * sum(
+            _device_us(e) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy
+
+
+def graph_span(run) -> float:
+    """Seconds on the card from one run's first launch to its last work
+    (CUDA events on the stream)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    run()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) * 1e-3
+
+
+def graph_solves(dev, launches: dict):
+    """JAX's one-dispatch device loops on the card (GRAPH_ROWS): for each
+    row the loop graphs' capture and instantiation (seconds, the memory
+    they take), the host-loop oracle (the same pieces, host-driven; its
+    wall, then a traced run for the device busy time and its launches),
+    then one solve through the public entry point under drive and
+    set_sync_debug_mode("error"): one graph launch that returns before
+    the work ends, u and stats bitwise the oracle's, the refines or
+    iterations of the row, the kernels' launch counts; then the graph's
+    wall (median of 3) and its span on the card (CUDA events). The graph
+    is not traced: CUPTI's records of a WHILE body that runs many passes
+    faulted the card (an illegal address at 16 passes), and a trace of a
+    whole solve takes minutes to process. The device busy time of both
+    loops is their pieces' (pieces_busy: each traced once, times its runs
+    in the solve, read off the graph's device counts); the idle share is
+    1 - busy / wall."""
+    cardline = card()
+    for label, side, kw, jump, tol, want_it in GRAPH_ROWS:
+        t_row = time.perf_counter()
+        run, oracle, capture, want, parts = graph_row(dev, label, side, kw,
+                                                      jump, tol)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t_row
+        gc.collect()
+        graph_loop.settle()             # frees the last row's graphs
+        torch.cuda.empty_cache()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        graphs = capture()
+        torch.cuda.synchronize()
+        cap_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - m0) / 2 ** 30
+        held = (torch.cuda.memory_allocated() - m0) / 2 ** 30
+        t0 = time.perf_counter()
+        ref, ref_stats = oracle()
+        torch.cuda.synchronize()
+        h_wall = time.perf_counter() - t0
+        run()                           # the graph's first launch
+        torch.cuda.synchronize()
+        n0 = sum(g.launches for g in graphs)
+        e0 = sum(g.execs for g in graphs)
+        ((out, stats), disp, wall1, pending), c = drive(
+            lambda: dispatch(run), launches)
+        n_graph = sum(g.launches for g in graphs) - n0
+        execs = (sum(g.execs for g in graphs) - e0).tolist()
+        err, it = stats.tolist()
+        it = int(it)
+        same = (all(torch.equal(a, b) for a, b in zip(out, ref))
+                and torch.equal(stats, ref_stats))
+        w = want(it)
+        counts_ok = all(c[k] == w[k] for k in set(c) | set(w))
+        g_med, g_walls = wall_median(run, 3)
+        span = graph_span(run)
+        h_busy = pieces_busy(parts, {"pre": execs[0], "post": execs[0],
+                                     "body": execs[1], "refine": execs[2],
+                                     "final": execs[3]})
+        RECORD[f"graph {label} {side}"] = {
+            "it": it, "wall": g_med, "span": span, "busy": h_busy,
+            "host_wall": h_wall, "capture_s": cap_s, "peak_gib": peak,
+            "dispatch_s": disp}
+        print(f"graph {label} {side}^2 tol {tol:g}: setup {setup:.2f} s, "
+              f"capture + instantiate {cap_s:.3f} s ({len(graphs)} "
+              f"graph(s)), memory peak +{peak:.3f} GiB, held after "
+              f"+{held:.3f} GiB; refines {it} (row {want_it}), rss "
+              f"{err:.6e}, u and stats bitwise the host loop's {same}, "
+              f"graph launches {n_graph}, dispatch {disp * 1e3:.3f} ms of "
+              f"{wall1:.6f} s, returned before the work ended {pending}, "
+              f"launches {dict(c)} (expected {dict(w)}); {cardline}")
+        print(f"graph wall {label} {side}^2: graph median of 3 {g_med:.6f} "
+              f"s (all {g_walls}), span on the card {span:.6f} s, device "
+              f"busy {h_busy:.6f} s (the pieces' runs {execs}), idle share "
+              f"{1 - h_busy / g_med:.4f}; host loop "
+              f"{h_wall:.6f} s, idle share {1 - h_busy / h_wall:.4f}; row "
+              f"{time.perf_counter() - t_row:.1f} s; {cardline}")
+        require(same, f"graph {label} {side}^2: u and stats bitwise the "
+                "host loop's")
+        require(it == want_it, f"graph {label} {side}^2: {want_it} refines")
+        require(err <= tol or (jump and kw.get("precision") == "f64"
+                               and err <= 1e-5),
+                f"graph {label} {side}^2 converged")
+        require(n_graph == 1, f"graph {label} {side}^2: one graph launch")
+        require(pending, f"graph {label} {side}^2: the call returns before "
+                "the solve ends")
+        require(counts_ok, f"graph {label} {side}^2: launch counts")
+        del run, oracle, capture, graphs, out, ref
 
 def halo_parity_and_timing(dev):
     """K7 against its plain version, bitwise (it is a copy): f32 and f64,
@@ -2961,6 +3335,8 @@ def main() -> int:
     times.update(t9)
     bounds.update(b9)
     by_m.update(by_m9)
+    errs[LOOP], times[LOOP], bounds[LOOP] = \
+        loop_condition_parity_and_timing(dev)
     print(f"phase parity and timing: {time.perf_counter() - t0:.1f} s")
 
     # phases 4-6: every path through the user entry points, each with the
@@ -2971,7 +3347,7 @@ def main() -> int:
         for phase in (const_solves, native_checks, split_solve, pcg_solves,
                       var_solves,
                       refine_solves, smoother_solves, host_solves,
-                      ell_solves, dist_solves, dist_var_solves,
+                      graph_solves, ell_solves, dist_solves, dist_var_solves,
                       dist_const_solves, ell_dist_solves, card_solves,
                       mp_solves):
             t0 = time.perf_counter()

@@ -223,7 +223,12 @@ def test_split_vcycle_on_the_card(dev):
 
 
 def test_solve_goes_through_the_kernels(dev):
+    """After warmup (the loop graphs' capture), one solve is one graph
+    launch whose replays run the kernels: the legs 1 + 3 it times, K4
+    it + 1 times, the condition kernel at the start, each of the it + 1
+    passes and the final branch."""
     s = StructuredSolver(SIDE, device=dev)
+    s.warmup()
     b2 = poisson.rhs(SIDE, device=dev).reshape(SIDE, SIDE)
     K.reset_launch_counts()
     res = s.solve_ir_fused(b2, tolerance=1e-7)
@@ -232,6 +237,54 @@ def test_solve_goes_through_the_kernels(dev):
     counts = K.launch_counts()
     assert counts["fused_down_leg_packed"] == 1 + 3 * it
     assert counts["fused_df_residual_rss"] == it + 1
+    assert counts["loop_condition"] == it + 3
+    assert s._graphs["device"].launches == 2       # warmup's and this one
+
+
+# (case, StructuredSolver options, jump operator): one of each loop
+LOOPS = [("packed", {}, False), ("unpacked", {}, True),
+         ("f64", {"precision": "f64"}, True),
+         ("masked", {"smoother": "masked"}, False)]
+
+
+@pytest.mark.parametrize("case,kw,jump", LOOPS, ids=[c[0] for c in LOOPS])
+def test_loop_graph_is_the_host_loop(dev, case, kw, jump):
+    """The solve loop's graph against the host driver of the same pieces
+    on the card: u and stats bitwise, at 255^2, with rtol and with an
+    exhausted budget; the dispatch reads nothing on the host."""
+    side = 255
+    if jump:
+        kw = dict(kw, A_planes=varcoef.jump_planes(side, device=dev))
+    s = StructuredSolver(side, device=dev, **kw)
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    for tol, n, rtol in ((1e-7, 40, 0.0), (1e-7, 1, 0.0), (0.0, 40, 1e-9)):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            u, stats = s.solve_ir_device(b2, tol, n, rtol)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        hu, hstats = s._solve_device(b2, tol, n, rtol, host=True)
+        assert torch.equal(u, hu) and torch.equal(stats, hstats[:2])
+    if s.packed_loop:
+        b4 = s.prepare_b(b2)
+        u4, stats = s.solve_ir_device_prepared(b4, 1e-7)
+        h4, hstats = s._solve_prepared(b4, 1e-7, 40, 0.0, host=True)
+        assert torch.equal(u4.hi, h4.hi) and torch.equal(u4.lo, h4.lo)
+        assert torch.equal(stats, hstats[:2])
+
+
+def test_pcg_graph_is_the_host_loop(dev):
+    from amg_tpu_torch import build_stencil_hierarchy_device, krylov
+    side = 1023
+    h = build_stencil_hierarchy_device(side, smoother="packed", device=dev)
+    b = poisson.rhs(side, dtype=torch.float32, device=dev).reshape(side,
+                                                                   side)
+    for n in (50, 2):
+        u, stats = krylov.solve_pcg_device(h, b, 1e-5, n, fused=True)
+        hu, hstats = krylov._solve_pcg_device(h, b, 1e-5, n, True, None,
+                                              host=True)
+        assert torch.equal(u, hu) and torch.equal(stats, hstats)
 
 
 # (case, StructuredSolver options, entry point): the options and loops
