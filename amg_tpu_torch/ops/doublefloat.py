@@ -77,6 +77,10 @@ class DF32:
     def to_f64(self) -> torch.Tensor:
         return self.hi.to(torch.float64) + self.lo.to(torch.float64)
 
+    @property
+    def shape(self) -> torch.Size:
+        return self.hi.shape
+
 
 def df_add(a: DF32, b: DF32) -> DF32:
     """a + b with full double-float renormalization."""
@@ -154,6 +158,24 @@ def df_residual_const(w33, b_df: DF32, u_df: DF32) -> DF32:
     return df_add(b_df, df_neg(df_apply_const(w33, uh, ul)))
 
 
+_WEIGHTS: dict = {}
+
+
+def _weight_df32(w: float, dev) -> DF32:
+    """A stencil weight as its exact (hi, lo) f32 pair of 0-d tensors on
+    ``dev``, made once: a later call (a CUDA graph capture among them)
+    copies nothing from the host."""
+    key = (float(w), str(dev))
+    wdf = _WEIGHTS.get(key)
+    if wdf is None:
+        w_hi = float(np.float32(w))
+        w_lo = float(np.float32(w - w_hi))
+        wdf = _WEIGHTS[key] = DF32(
+            hi=torch.tensor(w_hi, dtype=torch.float32, device=dev),
+            lo=torch.tensor(w_lo, dtype=torch.float32, device=dev))
+    return wdf
+
+
 def df_apply_const(w33, uh_pad: torch.Tensor, ul_pad: torch.Tensor) -> DF32:
     """A u in df32 for a constant 3x3 stencil, general weights: ``uh_pad``
     and ``ul_pad`` are the (..., R+2, n+2) fields with their one-cell frame
@@ -168,34 +190,32 @@ def df_apply_const(w33, uh_pad: torch.Tensor, ul_pad: torch.Tensor) -> DF32:
             w = w33[dj + 1][di + 1]
             if w == 0.0:
                 continue
-            w_hi = float(np.float32(w))
-            w_lo = float(np.float32(w - w_hi))
-            wdf = DF32(hi=torch.tensor(w_hi, dtype=torch.float32, device=dev),
-                       lo=torch.tensor(w_lo, dtype=torch.float32, device=dev))
+            wdf = _weight_df32(w, dev)
             win = (..., slice(1 + dj, 1 + dj + R), slice(1 + di, 1 + di + n))
             acc = df_add(acc, df_mul(wdf, DF32(hi=uh_pad[win],
                                                lo=ul_pad[win])))
     return acc
 
 
-def df_rss(r_df: DF32) -> torch.Tensor:
+def df_rss(r_df: DF32, dtype=None) -> torch.Tensor:
     """Residual sum of squares of a df32 residual: squares as df32
-    TwoProds, the two reductions in f64."""
+    TwoProds, the two reductions in ``dtype`` (None: f64, the port's
+    default; JAX takes f32 only where x64 is off)."""
+    dtype = torch.float64 if dtype is None else dtype
     sq = df_mul(r_df, r_df)
-    return (torch.sum(sq.hi.to(torch.float64))
-            + torch.sum(sq.lo.to(torch.float64)))
+    return torch.sum(sq.hi.to(dtype)) + torch.sum(sq.lo.to(dtype))
 
 
-def df_rss_fast(r_df: DF32) -> torch.Tensor:
+def df_rss_fast(r_df: DF32, dtype=None) -> torch.Tensor:
     """rss of a df32 residual for loop control: plain f32 squares
     (hi^2 + 2 hi*lo; lo^2 is below 2^-48 relative), the last axis reduced
-    in f32, the per-row sums in f64.
+    in f32, the per-row sums in ``dtype`` (None: f64).
 
     Magnitude floor: an entry with |hi| below ~1e-19 squares to zero in
     f32; Poisson-class systems with O(1) forcing sit far above it."""
     sq = r_df.hi * r_df.hi + 2.0 * (r_df.hi * r_df.lo)
     rows = torch.sum(sq, dim=-1)
-    return torch.sum(rows.to(torch.float64))
+    return torch.sum(rows.to(torch.float64 if dtype is None else dtype))
 
 
 def is_pow2_weights(w33) -> bool:

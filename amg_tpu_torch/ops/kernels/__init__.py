@@ -7,7 +7,7 @@ launches inside the loop graphs (``graph_loop``) reach the counts when
 they are read or reset.
 """
 
-from amg_tpu_torch.ops.kernels import graph_loop
+from amg_tpu_torch.ops.kernels import graph_loop, peer_collective
 from amg_tpu_torch.ops.kernels.halo import rdma_halo_exchange
 from amg_tpu_torch.ops.kernels.packed_cycle import (
     fused_down_leg_packed, fused_residual_restrict_packed,
@@ -20,12 +20,12 @@ from amg_tpu_torch.ops.kernels.rbgs import (fused_gs4_sweep,
                                             fused_gs4_sweep_var)
 
 # the launch counters, one per kernel (K1..K9, then the loop graphs'
-# condition kernel)
+# condition kernel and a card group's collectives inside them)
 KERNELS = (fused_gs4_sweep_packed, fused_down_leg_packed,
            fused_up_leg_packed, fused_df_residual_rss,
            fused_gs4_sweep_const, fused_gs4_sweep_var, rdma_halo_exchange,
            fused_residual_restrict_packed, fused_gs4_sweep_rm,
-           graph_loop.loop_condition)
+           graph_loop.loop_condition, peer_collective.peer_collective)
 
 
 def reset_launch_counts() -> None:

@@ -59,6 +59,7 @@ _SIGNATURES = {
     "amg_ipc_alloc": (_I, ctypes.c_longlong, _P, _P),
     "amg_ipc_open": (_I, _P, _P),
     "amg_ipc_close": (_I, _P),
+    "amg_peer_collective": (_P,),   # csrc/peer_collective.cu, packed
     # csrc/graph_loop.cu: the card, the pieces' graphs, the loop state,
     # the execs counts, the stream, then the outputs (graph, exec, failing
     # step)

@@ -30,18 +30,38 @@ pieces:
   instantiated; :meth:`LoopGraph.launch` is one graph launch, with no host
   synchronization.
 
+A program with no loop (JAX's jitted V-cycle, rss or one refine) is a
+:class:`StraightGraph`: its one piece captured, ``launch()`` a replay.
+
 Launch counts. The kernel wrappers count at capture into a tally of the
 piece (``_build.capture_tally``), not into their counters; the graph
 counts its replays, passes, refining passes and final recomputations on
 the device, and :func:`settle` (called by ``launch_counts`` and
 ``reset_launch_counts``) adds each piece's tally times its runs to the
 counters, and the condition kernel's own runs to
-``loop_condition.launches``.
+``loop_condition.launches``. A straight graph adds its tally at each
+launch.
+
+Threads. The blocks of a card group (``parallel/launch.py``) capture
+and replay their own graphs, each on its own thread: every thread
+captures on a stream of its own (``capture_stream``), one thread at a
+time (``_CAPTURE_LOCK``); a memory pool is a loop's (so a block's). A
+``barrier`` given to ``graph`` (the card group's) holds every block
+between its warm-up and the captures and again before any replay, so no
+block waits in a capture's device synchronization for another block's
+collective that has not been launched, and no other thread makes a CUDA
+call while one captures: the captures keep CUDA's global capture mode.
+In thread-local mode the coarsest level's ``torch.linalg.lu_solve``
+captured stream-ordered allocation nodes, which a child graph cannot
+hold (H100, driver 13.0, torch 2.11); in global mode, with cuSOLVER
+(``structured.StencilHierarchy.coarse_solve``), it captures none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 import weakref
 from collections import Counter
 
@@ -72,18 +92,30 @@ def loop_condition(err: torch.Tensor, tol: torch.Tensor, it: torch.Tensor,
 
 _LIVE = weakref.WeakSet()
 _CAPTURE_STREAMS: dict = {}
+# one capture at a time in the process: a card group's blocks take turns
+_CAPTURE_LOCK = threading.RLock()
+_SETTLE_LOCK = threading.Lock()
 
 
 def capture_stream(dev: torch.device) -> torch.cuda.Stream:
     """The one stream of ``dev`` that every loop's pieces are warmed and
-    captured on. A fresh stream per loop made cuBLAS capture stream-ordered
-    allocation nodes (cudaMallocAsync) into the products of the second
-    and later loops of a process (H100, driver 13.0, torch 2.11), and a
-    child graph cannot hold those; on the one stream it does not."""
-    s = _CAPTURE_STREAMS.get(dev.index)
+    captured on by this thread. A fresh stream per loop made cuBLAS
+    capture stream-ordered allocation nodes (cudaMallocAsync) into the
+    products of the second and later loops of a process (H100, driver
+    13.0, torch 2.11), and a child graph cannot hold those; on the one
+    stream it does not. Each thread (a card group's block) has its own,
+    so two blocks on one card never capture on one stream."""
+    key = (dev.index, threading.get_ident())
+    s = _CAPTURE_STREAMS.get(key)
     if s is None:
-        s = _CAPTURE_STREAMS[dev.index] = torch.cuda.Stream(dev)
+        s = _CAPTURE_STREAMS[key] = torch.cuda.Stream(dev)
     return s
+
+
+def _drop_capture_stream(stream: torch.cuda.Stream) -> None:
+    for key, s in list(_CAPTURE_STREAMS.items()):
+        if s is stream:
+            del _CAPTURE_STREAMS[key]
 
 
 _RETIRED: list = []
@@ -92,21 +124,34 @@ _RETIRED: list = []
 def settle() -> None:
     """Add the kernel launches of every live loop graph's replays since the
     last settle to the launch counters (reads each graph's device counts:
-    waits for the graphs in flight), and free the retired graphs."""
-    for g in list(_LIVE):
-        g.settle()
-    _free_retired()
+    waits for the streams it was launched on), and free the retired
+    graphs. Call it where no card thread waits for this one."""
+    with _SETTLE_LOCK:
+        for g in list(_LIVE):
+            g.settle()
+        _free_retired()
 
 
 def _free_retired() -> None:
-    """Destroy the graphs that were dropped, after the work in flight
-    (their captures' memory pool is released with them). Never called
-    while a capture is underway: a device-wide wait would end it."""
-    while _RETIRED:
-        lib, graph, exec_, pieces, dev = _RETIRED.pop()
-        torch.cuda.synchronize(dev)
-        lib.amg_loop_graph_destroy(graph, exec_)
-        del pieces
+    """Destroy the graphs that were dropped, after the work in flight on
+    the stream each was last launched on (their captures' memory pool is
+    released with them). Never called while a capture is underway. Left
+    for later in a card group's thread (destroying a graph waits for the
+    whole card, which could wait for another block's collective that
+    waits for this thread) and under ``set_sync_debug_mode`` (the caller
+    asked for no waits)."""
+    from amg_tpu_torch.parallel import launch
+    if launch.in_card_group() or not _RETIRED or \
+            torch.cuda.get_sync_debug_mode():
+        return
+    while True:
+        try:
+            stream, free = _RETIRED.pop()
+        except IndexError:
+            return
+        if stream is not None:
+            stream.synchronize()
+        free()
 
 
 def node_types(graph: int) -> list:
@@ -128,6 +173,98 @@ def versions() -> tuple[int, int]:
     return d.value, r.value
 
 
+class _Capturer:
+    """Warm-up and capture of pieces on this thread's capture stream of
+    ``dev``, into one memory pool, with K4's ticket counter of their own
+    (made before any capture)."""
+
+    def __init__(self, dev: torch.device):
+        self.stream = capture_stream(dev)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.k4 = packed_df.new_counter(dev)
+        self.dev = dev
+
+    def warm(self, fns, ctx=None) -> None:
+        """Run each piece once, eagerly, on the capture stream: builds the
+        kernels, creates the library handles and fills the allocator
+        before anything is captured; inside ``ctx()`` when given (a card
+        group's: the host collectives)."""
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with packed_df.stream_counter(self.dev, self.stream.cuda_stream,
+                                      self.k4), \
+                (ctx() if ctx is not None else contextlib.nullcontext()), \
+                torch.cuda.stream(self.stream):
+            for fn in fns:
+                if fn is not None:
+                    fn()
+        torch.cuda.current_stream().wait_stream(self.stream)
+
+    def capture(self, fn):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with packed_df.stream_counter(self.dev, self.stream.cuda_stream,
+                                          self.k4), \
+                    _build.capture_tally() as tally, \
+                    torch.cuda.graph(g, pool=self.pool, stream=self.stream):
+                fn()
+        except RuntimeError:
+            # a failed capture may leave the stream unusable: the next
+            # loop takes a new one
+            _drop_capture_stream(self.stream)
+            raise
+        return g, tally
+
+
+@contextlib.contextmanager
+def _in_turn(barrier):
+    """The captures of every block of a card group: all warmed first
+    (``barrier``), one thread at a time, then all captured before any
+    replays (``barrier`` again)."""
+    if barrier is not None:
+        torch.cuda.current_stream().synchronize()
+        barrier()
+    with _CAPTURE_LOCK:
+        yield
+    if barrier is not None:
+        barrier()
+
+
+class StraightGraph:
+    """A program with no loop control (a V-cycle, an rss, one refine of
+    JAX's host-stepped loops): ``fn`` captured once after one eager run,
+    ``launch()`` one replay on the current stream, with no host
+    synchronization. ``launches`` counts them."""
+
+    def __init__(self, fn, dev: torch.device, barrier=None, warm=None):
+        if dev.type != "cuda":
+            raise ValueError(f"StraightGraph: a CUDA graph runs on a CUDA "
+                             f"device, not {dev}")
+        _free_retired()
+        cap = _Capturer(dev)
+        cap.warm((fn,), warm)
+        with _in_turn(barrier):
+            self._graph, self._tally = cap.capture(fn)
+            # here, not at the first replay: instantiating can wait for
+            # the card, which another block's collectives may hold
+            self._graph.instantiate()
+        torch.cuda.current_stream().wait_stream(cap.stream)
+        self.launches = 0
+        self._launched_on = None
+
+    def launch(self) -> None:
+        self._launched_on = torch.cuda.current_stream()
+        self._graph.replay()
+        _build.credit(self._tally, 1)
+        self.launches += 1
+
+    def __del__(self):
+        # retired, as LoopGraph's: destroyed by the next capture or count
+        # read, after its last replay
+        g = getattr(self, "_graph", None)
+        if g is not None:
+            _RETIRED.append((self._launched_on, lambda: g.reset()))
+
+
 class DeviceLoop:
     """A loop in cond/body form on device tensors (see the module
     docstring); ``refine`` and ``final`` may be None."""
@@ -143,9 +280,13 @@ class DeviceLoop:
         self.body, self.refine, self.final = body, refine, final
         self.err, self.tol, self.it, self.n = err, tol, it, n
         self._captured = None     # (body, refine, final) graphs and tallies
-        self._stream = None
-        self._pool = None
-        self._k4 = None
+        self._cap = None
+
+    def __del__(self):
+        # retired, as the graphs made of them: destroyed later, where no
+        # capture is underway and no card thread waits
+        if getattr(self, "_captured", None):
+            _RETIRED.append((None, self._captured.clear))
 
     def _cond(self, mode: int) -> tuple[bool, bool]:
         did, keep = loop_condition(self.err, self.tol, self.it, self.n, mode)
@@ -167,64 +308,40 @@ class DeviceLoop:
 
     # -- the card ------------------------------------------------------------
 
-    def _capture(self, fn):
-        g = torch.cuda.CUDAGraph(keep_graph=True)
-        try:
-            with packed_df.stream_counter(self.err.device,
-                                          self._stream.cuda_stream,
-                                          self._k4), \
-                    _build.capture_tally() as tally, \
-                    torch.cuda.graph(g, pool=self._pool,
-                                     stream=self._stream):
-                fn()
-        except RuntimeError:
-            # a failed capture may leave the stream unusable: the next
-            # loop takes a new one
-            _CAPTURE_STREAMS.pop(self._stream.device.index, None)
-            raise
-        return g, tally
-
-    def _warm(self, fns) -> None:
-        """Run each piece once, eagerly, on the capture stream: builds the
-        kernels, creates the library handles and fills the allocator
-        before anything is captured."""
-        self._stream.wait_stream(torch.cuda.current_stream())
-        with packed_df.stream_counter(self.err.device,
-                                      self._stream.cuda_stream, self._k4), \
-                torch.cuda.stream(self._stream):
-            for fn in fns:
-                if fn is not None:
-                    fn()
-        torch.cuda.current_stream().wait_stream(self._stream)
-
-    def graph(self, pre, post) -> "LoopGraph":
+    def graph(self, pre, post, barrier=None, warm=None) -> "LoopGraph":
         """Capture (the loop's pieces once, ``pre`` and ``post`` for this
         program) and instantiate the program's graph. CUDA only; raises
         with the driver's version if the driver refuses a conditional node
-        or the capture fails."""
+        or the capture fails. ``barrier``: a card group's, for the blocks
+        that capture together (see the module docstring); ``warm``: a
+        context the warm-up runs in."""
         dev = self.err.device
         if dev.type != "cuda":
             raise ValueError(f"DeviceLoop.graph: the loop graph runs on a "
                              f"CUDA device, not {dev}")
         lib = _build.library()
         _free_retired()
-        if self._captured is None:
-            self._stream = capture_stream(dev)
-            self._pool = torch.cuda.graph_pool_handle()
-            self._k4 = packed_df.new_counter(dev)
-            self._warm((pre, self.body, self.refine, self.final, post))
-            self._captured = {k: (self._capture(fn) if fn is not None
-                                  else (None, Counter()))
-                              for k, fn in (("body", self.body),
-                                            ("refine", self.refine),
-                                            ("final", self.final))}
+        first = self._captured is None
+        if first:
+            self._cap = _Capturer(dev)
+            self._cap.warm((pre, self.body, self.refine, self.final, post),
+                           warm)
         else:
-            self._warm((pre, post))
-        pieces = dict(self._captured)
-        pieces["pre"] = self._capture(pre)
-        pieces["post"] = self._capture(post)
-        torch.cuda.current_stream().wait_stream(self._stream)
-        return LoopGraph(self, pieces, lib)
+            self._cap.warm((pre, post), warm)
+        cap = self._cap
+        with _in_turn(barrier):
+            if first:
+                self._captured = {k: (cap.capture(fn) if fn is not None
+                                      else (None, Counter()))
+                                  for k, fn in (("body", self.body),
+                                                ("refine", self.refine),
+                                                ("final", self.final))}
+            pieces = dict(self._captured)
+            pieces["pre"] = cap.capture(pre)
+            pieces["post"] = cap.capture(post)
+            graph = LoopGraph(self, pieces, lib, cap.stream)
+        torch.cuda.current_stream().wait_stream(cap.stream)
+        return graph
 
 
 class LoopGraph:
@@ -233,12 +350,13 @@ class LoopGraph:
     ``launches`` counts them on the host, ``execs`` the replays, passes,
     refining passes and final recomputations on the device."""
 
-    def __init__(self, loop: DeviceLoop, pieces: dict, lib):
+    def __init__(self, loop: DeviceLoop, pieces: dict, lib, stream):
         dev = loop.err.device
         self._loop = loop
         self._pieces = pieces                 # keeps the captures alive
         self._lib = lib
         self._dev = dev
+        self._launched_on = None
         self.execs = torch.zeros(4, dtype=torch.int64, device=dev)
         self._settled = [0, 0, 0, 0]
         self.launches = 0
@@ -254,7 +372,7 @@ class LoopGraph:
             dev.index, raw("pre"), raw("body"), raw("refine"), raw("final"),
             raw("post"), loop.err.data_ptr(), loop.tol.data_ptr(),
             loop.it.data_ptr(), loop.n.data_ptr(), self.execs.data_ptr(),
-            _build.stream_of(self.execs), ctypes.byref(self._graph),
+            stream.cuda_stream, ctypes.byref(self._graph),
             ctypes.byref(self._exec), ctypes.byref(stage))
         if err != 0:
             drv, rt = versions()
@@ -269,12 +387,16 @@ class LoopGraph:
     def launch(self) -> None:
         """Replay on the current stream; returns at once."""
         with torch.cuda.device(self._dev):
+            self._launched_on = torch.cuda.current_stream(self._dev)
             _build.check(self._lib.amg_loop_graph_launch(
-                self._exec, _build.stream_of(self.execs)),
+                self._exec, self._launched_on.cuda_stream),
                 "amg_loop_graph_launch")
         self.launches += 1
 
     def settle(self) -> None:
+        stream = getattr(self, "_launched_on", None)
+        if stream is not None:
+            stream.synchronize()
         now = self.execs.tolist()
         d = [a - b for a, b in zip(now, self._settled)]
         self._settled = now
@@ -293,8 +415,13 @@ class LoopGraph:
         # another graph is being captured, where waiting for the replays
         # in flight would end that capture
         if getattr(self, "_exec", None) is not None and self._exec.value:
-            _RETIRED.append((self._lib, self._graph, self._exec,
-                             self._pieces, self._dev))
+            lib, graph, exec_ = self._lib, self._graph, self._exec
+            pieces = [self._pieces]
+
+            def free():
+                lib.amg_loop_graph_destroy(graph, exec_)
+                pieces.clear()
+            _RETIRED.append((getattr(self, "_launched_on", None), free))
 
 
 loop_condition.launches = 0

@@ -58,10 +58,12 @@ them in one block, on the slab axis alone.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
 import functools
+import gc
 import os
 import queue
 import threading
@@ -73,9 +75,13 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from amg_tpu_torch.ops.kernels._build import check, library
+from amg_tpu_torch.ops.kernels import graph_loop
+from amg_tpu_torch.ops.kernels import peer_collective as _pc
 from amg_tpu_torch.ops.kernels.halo import (PEER_TIMEOUT_S, PeerStrips,
                                             peer_layout,
                                             rdma_halo_exchange_plain)
+from amg_tpu_torch.ops.kernels.peer_collective import (GATHER, SUM,
+                                                       peer_collective)
 from amg_tpu_torch.utils.device import resolve_device
 
 # how long a card thread waits at a collective for the others; a thread
@@ -363,6 +369,24 @@ class CardGroup:
                 from self.failed
         for d in self._cards:
             torch.cuda.synchronize(d)
+        if self._cards:
+            # no garbage collection in the threads while they run: freeing
+            # a dropped CUDA graph (its memory pool) waits for the whole
+            # card, which in a card thread can wait for another block's
+            # collective that waits for that thread; dropped graphs are
+            # freed here, where no block runs
+            graph_loop._free_retired()
+            collect = gc.isenabled()
+            gc.disable()
+        else:
+            collect = False
+        try:
+            return self._run(fn)
+        finally:
+            if collect:
+                gc.enable()
+
+    def _run(self, fn) -> list:
         for q in self._tasks:
             q.put(fn)
         out, errors, deadline = [None] * self.size, [], None
@@ -549,6 +573,11 @@ def edges(x: torch.Tensor, G: int, dim: int):
     if process_count() == 1 or G == 0:
         return zero, zero
     if _group() is not None:
+        L = x.shape[dim]
+        mem = _device_form(x, 2 * min(G, L) * (x.numel() // max(L, 1))
+                           * x.element_size())
+        if mem is not None:
+            return _edges_device(x, G, dim, mem)
         return _edges_group(x, G, dim)
     L = x.shape[dim]
     above, below = _edges_processes(
@@ -651,19 +680,7 @@ def _edges_group(x, G: int, dim: int):
                                          dim, _depths(Lp, G)), dim=dim))
 
     def strip(a: int, e: int) -> list:
-        """F[a, e) as pieces: (block, part, first row, rows); part 1 is
-        the lead's frame (block None: zeros without a process group)."""
-        out = []
-        while a < e:
-            if G <= a < G + Lp:
-                q, o = divmod(a - G, L)
-                out.append((q, 0, o, min(e - a, L - o)))
-            else:
-                o = a if a < G else a - Lp
-                n = min(e, G) - a if a < G else e - a
-                out.append((0 if _mesh() else None, 1, o, n))
-            a += out[-1][3]
-        return out
+        return _frame_pieces(a, e, G, L, K)
 
     up = strip(k * L, k * L + G)
     down = strip(k * L + G + L, k * L + 2 * G + L)
@@ -680,6 +697,57 @@ def _edges_group(x, G: int, dim: int):
             parts.append(next(got))
     return (torch.cat(parts[:len(up)], dim=dim),
             torch.cat(parts[len(up):], dim=dim))
+
+
+def _frame_pieces(a: int, e: int, G: int, L: int, K: int) -> list:
+    """Rows [a, e) of a card group's frame F = [above | block 0 | … |
+    block K-1 | below] (G rows above and below, blocks of L rows) as
+    pieces (block, part, first row, rows): part 0 a block's own rows,
+    part 1 the lead's frame of the process's neighbour rows (block None:
+    zeros, without a process group)."""
+    Lp = K * L
+    out = []
+    while a < e:
+        if G <= a < G + Lp:
+            q, o = divmod(a - G, L)
+            out.append((q, 0, o, min(e - a, L - o)))
+        else:
+            o = a if a < G else a - Lp
+            n = min(e, G) - a if a < G else e - a
+            out.append((0 if _mesh() else None, 1, o, n))
+        a += out[-1][3]
+    return out
+
+
+def _edges_device(x, G: int, dim: int, mem):
+    """``edges`` in a card group under ``device_collectives``: one gather
+    (the peer collective kernel) of every block's first and last T =
+    min(G, L) rows, from which each block takes the pieces of its strips
+    (every row a strip takes from a block is among them); copies, so the
+    bits are ``_edges_group``'s."""
+    K, k = _group().size, _here.block
+    L = x.shape[dim]
+    T = min(G, L)
+    got = peer_collective(torch.cat([x.narrow(dim, 0, T),
+                                     x.narrow(dim, L - T, T)], dim=dim),
+                          mem, GATHER)
+    d = dim % x.dim()
+
+    def piece(q, o, n):
+        if q is None:
+            shape = list(x.shape)
+            shape[d] = n
+            return x.new_zeros(shape)
+        first = o if o + n <= T else T + o - (L - T)
+        return got[q].narrow(d, first, n)
+
+    def strip(a, e):
+        return torch.cat([piece(q, o, n)
+                          for q, _, o, n in _frame_pieces(a, e, G, L, K)],
+                         dim=d)
+
+    return (strip(k * L, k * L + G),
+            strip(k * L + G + L, k * L + 2 * G + L))
 
 
 def frame(x: torch.Tensor, G: int, dim: int = -2) -> torch.Tensor:
@@ -707,26 +775,44 @@ def psum(t: torch.Tensor) -> torch.Tensor:
     """A partial sum (a 0-d tensor) summed over the blocks. In a card
     group every block adds the K partials in block order, the same
     operations on the same values: every block holds the same bits (PCG's
-    step sizes and the stop test read them). In the mesh the lead adds
-    them, ``all_reduce`` sums the processes', and every block copies the
-    lead's total."""
+    step sizes and the stop test read them); under ``device_collectives``
+    one launch of the peer collective kernel does it on the card. In the
+    mesh the lead adds them, ``all_reduce`` sums the processes', and every
+    block copies the lead's total."""
     if process_count() == 1:
         return t
     if _group() is not None:
-        K, k = _group().size, _here.block
-        parts = _pull(t, [(q, _identity) for q in range(K)]
-                      if k == 0 or not _mesh() else [])
-        total = t
-        if parts:
-            total = parts[0]
-            for q in range(1, K):
-                total = total + parts[q]
-        if not _mesh():
-            return total
-        if k == 0:
-            total = _all_reduce(total)
-        return _pull(total, [(0, _identity)])[0]
+        mem = _device_form(t, t.numel() * t.element_size())
+        if mem is not None:
+            return peer_collective(t, mem, SUM)
+        return _psum_host(t)
     return _all_reduce(t)
+
+
+def _psum_host(t: torch.Tensor) -> torch.Tensor:
+    """``psum`` in a card group through the host collectives (``_pull``):
+    the peer collective kernel's plain version."""
+    K, k = _group().size, _here.block
+    parts = _pull(t, [(q, _identity) for q in range(K)]
+                  if k == 0 or not _mesh() else [])
+    total = t
+    if parts:
+        total = parts[0]
+        for q in range(1, K):
+            total = total + parts[q]
+    if not _mesh():
+        return total
+    if k == 0:
+        total = _all_reduce(total)
+    return _pull(total, [(0, _identity)])[0]
+
+
+def _gather_host(x: torch.Tensor) -> torch.Tensor:
+    """Every block's ``x`` in block order, (K, *x.shape), in a card group
+    without a process group, by copies (``_pull``): the plain version of
+    the peer collective kernel's gather."""
+    K = _group().size
+    return torch.stack(_pull(x, [(q, _identity) for q in range(K)]))
 
 
 def _all_reduce(t: torch.Tensor) -> torch.Tensor:
@@ -742,6 +828,10 @@ def all_gather_slabs(x: torch.Tensor) -> torch.Tensor:
     if process_count() == 1:
         return x
     if _group() is not None:
+        mem = _device_form(x, x.numel() * x.element_size())
+        if mem is not None:
+            return peer_collective(x, mem, GATHER).reshape(
+                mem.K * x.shape[0], *x.shape[1:])
         K, k = _group().size, _here.block
         parts = _pull(x, [(q, _identity) for q in range(K)]
                       if k == 0 or not _mesh() else [])
@@ -902,3 +992,150 @@ def close_peer_strips(strips: dict) -> None:
     free_peer_buffers([s.mem for s in strips.values()])
     for s in strips.values():
         s.check()
+
+
+# ---------------------------------------------------------------------------
+# The collectives of a card group on the card, inside its loop graphs: the
+# peer collective kernel (ops/kernels/peer_collective.py).
+
+
+def barrier() -> None:
+    """Collective in a card thread: wait until every block of the group
+    has come here (nothing in one block)."""
+    if _group() is not None:
+        _group().exchange(None)
+
+
+class GroupCollectives:
+    """One block's memory for the peer collective kernel, made by every
+    block of a card group together (in each card thread, no process
+    group): a ``cudaMalloc`` of this block's card that every block of its
+    card group addresses, slots of ``cap`` bytes for each block by epoch
+    parity, a flag a block and chunk, the epoch counter; ``status`` the
+    host words a timed-out wait writes. A payload larger than ``cap``
+    makes every block open a larger allocation together, outside a
+    capture (the earlier ones stay, for the graphs that hold them, until
+    ``close``)."""
+
+    def __init__(self, cap: int = 1 << 20,
+                 timeout_s: float = _pc.TIMEOUT_S):
+        g = _group()
+        if g is None or world_size() > 1:
+            raise RuntimeError("the peer collectives run in a card group "
+                               "of one process")
+        if g.size > _pc.MAX_BLOCKS:
+            raise ValueError(f"at most {_pc.MAX_BLOCKS} blocks")
+        self.K, self.k = g.size, _here.block
+        self.device = torch.cuda.current_device()
+        self.status = torch.zeros(2, dtype=torch.int32, pin_memory=True)
+        self._timed_out = (ctypes.c_int * 2).from_address(
+            self.status.data_ptr())
+        self.timeout_s = timeout_s
+        self.cap, self.call, self._bases = 0, None, []
+        self._open(cap)
+
+    @staticmethod
+    def nbytes(K: int, cap: int) -> int:
+        """One block's allocation: the slots, the flags, the counter
+        (csrc/peer_collective.cu)."""
+        return 2 * K * cap + 4 * (K * (cap // _pc.CHUNK) + 2)
+
+    def _open(self, cap: int) -> None:
+        """Collective: every block allocates, the blocks hand each other
+        their pointers, and the cards of different blocks get peer
+        access."""
+        cap = -(-cap // _pc.CHUNK) * _pc.CHUNK
+        lib = library()
+        base = ctypes.c_void_p()
+        check(lib.amg_peer_alloc(self.device, self.nbytes(self.K, cap),
+                                 ctypes.byref(base)), "amg_peer_alloc")
+        self._bases.append(base.value)
+        every = _group().exchange((self.device, base.value))
+        for q_dev, _ in every:
+            if q_dev != self.device:
+                check(lib.amg_peer_enable(self.device, q_dev),
+                      f"amg_peer_enable (card {self.device} to card "
+                      f"{q_dev})")
+        self.cap = cap
+        self.call = _pc.call_template(self.K, self.k, cap,
+                                      [b for _, b in every], self.status,
+                                      self.timeout_s)
+
+    def ensure(self, nbytes: int) -> None:
+        """Room for a payload of ``nbytes`` (every block asks the same at
+        the same call)."""
+        if nbytes <= self.cap:
+            return
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"a collective of {nbytes} bytes while capturing, over the "
+                f"{self.cap} bytes opened: run the piece once before its "
+                f"capture")
+        self._open(max(nbytes, 2 * self.cap))
+
+    def check(self) -> None:
+        """Raise if a wait of this block timed out: another block did not
+        put its payload in time."""
+        if self._timed_out[0]:
+            raise RuntimeError(
+                f"peer collective: a wait for another block's payload "
+                f"timed out (epoch {self._timed_out[1]}); that block "
+                f"stopped or fell behind by more than the bound")
+
+    def close(self) -> None:
+        """Collective: after every block's card work, free the
+        allocations."""
+        torch.cuda.current_stream().synchronize()
+        barrier()
+        lib = library()
+        for b in self._bases:
+            check(lib.amg_peer_free(self.device, b), "amg_peer_free")
+        self._bases, self.cap = [], 0
+
+
+@contextlib.contextmanager
+def device_collectives(mem: "GroupCollectives | None"):
+    """Within the block, on this thread, ``psum``, ``all_gather_slabs`` and
+    ``edges`` of card tensors are the peer collective kernel on ``mem``
+    (the loop graphs' pieces; ``mem`` None: no change)."""
+    before = getattr(_here, "collectives", None)
+    _here.collectives = mem if mem is not None else before
+    try:
+        yield
+    finally:
+        _here.collectives = before
+
+
+@contextlib.contextmanager
+def sizing_collectives(mem: "GroupCollectives | None"):
+    """Within the block, on this thread, the collectives take the host
+    form and K7 its plain version, and ``mem`` grows to hold each
+    payload: the loop graphs' warm-ups, which run every piece once, so
+    that no kernel of one block waits for another block's while a thread
+    makes the allocations a first run makes (an allocation, or a library
+    handle, can wait for the whole card)."""
+    before = getattr(_here, "sizing", None)
+    _here.sizing = mem
+    try:
+        yield
+    finally:
+        _here.sizing = before
+
+
+def warming() -> bool:
+    """True inside ``sizing_collectives``."""
+    return getattr(_here, "sizing", None) is not None
+
+
+def _device_form(t: torch.Tensor, nbytes: int):
+    """The block's GroupCollectives when ``t``'s collective (a payload of
+    ``nbytes``) runs on the card (``device_collectives``, a card tensor,
+    no process group); under ``sizing_collectives`` None, after the
+    memory has grown to hold it."""
+    if not t.is_cuda or _mesh():
+        return None
+    sizing = getattr(_here, "sizing", None)
+    if sizing is not None:
+        sizing.ensure(nbytes)
+        return None
+    return getattr(_here, "collectives", None)

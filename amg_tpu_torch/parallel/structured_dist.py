@@ -56,15 +56,17 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from amg_tpu_torch.krylov import _step, _tolerance
+from amg_tpu_torch.krylov import _step
 from amg_tpu_torch.models import poisson
 from amg_tpu_torch.ops.doublefloat import (DF32, df_add, df_add_f32,
                                            df_apply_const, df_neg, df_rss)
+from amg_tpu_torch.ops.kernels import graph_loop
 from amg_tpu_torch.ops.kernels.halo import (rdma_halo_exchange,
                                             rdma_halo_exchange_peer)
 from amg_tpu_torch.ops.transfer import linear_interp_1d
@@ -236,8 +238,9 @@ def _gs4_sweep_rdma_const(w33, u, b, side: int, sweeps: int, omega: float,
     before the next exchange of the shape writes them). In one block K7
     puts between the slabs of the tensor; over several blocks on the card
     its peer form also puts into the neighbour blocks' memory (processes,
-    or the cards of a card group); over several blocks on the CPU the
-    strips are its plain version, ``launch.strips``. JAX's rule: with one
+    or the cards of a card group); over several blocks on the CPU, and in
+    a card group's graph warm-ups (``launch.warming``), the strips are its
+    plain version, ``launch.strips``. JAX's rule: with one
     slab in all, or strips that span more than one neighbour slab
     (G > B), the level takes the ghost sweep."""
     D, B, n = u.shape
@@ -248,7 +251,7 @@ def _gs4_sweep_rdma_const(w33, u, b, side: int, sweeps: int, omega: float,
     u, b = u.contiguous(), b.contiguous()
     if launch.process_count() == 1:
         strips = rdma_halo_exchange((u, b), G, out=recv[(D, G, n)])
-    elif u.is_cuda:
+    elif u.is_cuda and not launch.warming():
         strips = rdma_halo_exchange_peer((u, b), G, recv.get((D, G, n)))
     else:
         strips = launch.strips(torch.cat([u, b], dim=2), G)
@@ -772,13 +775,33 @@ class DistStructuredSolver(launch.SpreadSolver):
     on the CPU, as JAX picks by backend. ``A_fine`` (a scipy matrix) or
     ``force_var`` gives variable-coefficient sharded levels. ``solve`` is
     the reference's V-cycle loop and ``solve_pcg`` the AMG-preconditioned
-    CG, a host loop with one host sync per iteration where JAX runs one
-    device program; on a constant fine level ``solve_ir``,
-    ``solve_ir_device`` and ``solve_ir_fused`` are the df32 defect
-    correction (``cycles_per_refine`` V-cycles in ``dtype`` per refine),
-    with one host sync per refine. ``config`` (a config.MeshConfig) gives
+    CG; on a constant fine level ``solve_ir``, ``solve_ir_device`` and
+    ``solve_ir_fused`` are the df32 defect correction
+    (``cycles_per_refine`` V-cycles in ``dtype`` per refine), ``solve_ir``
+    with one host read per refine. ``config`` (a config.MeshConfig) gives
     ``n_devices``, ``halo`` and ``cycles_per_refine`` where the argument
     is None.
+
+    JAX compiles five programs (``_vcycle``, ``_rss``, ``_pcg_device``,
+    ``_refine``, ``_solve_device``); the port restates each in cond/body
+    form on fixed buffers a block (``_state``) and runs it under one of
+    two drivers, named by ``driver``:
+
+    * ``"graph"`` (the default on the card in one process: one block, or
+      a card group): each program one CUDA graph a block
+      (``ops/kernels/graph_loop.py``), captured at its first use by the
+      block's thread, one graph launch a call with no host read inside;
+      ``solve_pcg`` and ``solve_ir_device`` / ``solve_ir_fused`` a WHILE
+      node, ``vcycle``, ``rss`` and ``solve_ir``'s refine straight
+      graphs (``solve`` and ``solve_ir`` read the rss between them, as
+      JAX's host loops do). In a card group the collectives inside are
+      the peer collective kernel (``launch.device_collectives``);
+    * ``"host"``: the same pieces, stepped from the host (the CPU's, the
+      oracle on the card, and under a process group, where the
+      collectives between the replays are the next step), the card
+      group's collectives the host ones.
+
+    ``driver`` chooses it (None: the default); ``set_driver`` changes it.
     """
 
     def __init__(self, side: int, n_levels: int | None = None,
@@ -787,7 +810,7 @@ class DistStructuredSolver(launch.SpreadSolver):
                  omega: float = 1.0, symmetric: bool = True, A_fine=None,
                  halo: str | None = None, force_var: bool = False,
                  cycles_per_refine: int | None = None, config=None,
-                 device=None):
+                 device=None, driver: str | None = None):
         # a config.MeshConfig gives n_devices, halo and cycles_per_refine
         # where the argument is None (JAX's rule,
         # amg_tpu/parallel/structured_dist.py:849-866)
@@ -800,6 +823,7 @@ class DistStructuredSolver(launch.SpreadSolver):
                 cycles_per_refine = getattr(config, "cycles_per_refine", None)
         n_devices, self.devices = launch.slab_devices(n_devices, device)
         self.device = self.devices[0]
+        self.driver = self._driver_for(driver)
         if halo is None:
             halo = "overlap" if self.device.type == "cuda" else "step"
         if halo not in HALO_MODES:
@@ -844,20 +868,238 @@ class DistStructuredSolver(launch.SpreadSolver):
             self.planes_ext = extend_planes(self.cfg, self.planes)
         self._recv = rdma_buffers(self.cfg, self.dtype, device)
         self._peer = launch.process_count() > 1 and bool(self._recv)
+        if device.type == "cuda" and launch.in_card_group():
+            self._make_handles()
+        self._loop = None               # the programs' buffers and pieces
+        self._graphs = {}               # their graphs, by program
+        self._coll = None               # the peer collectives' memory
         return self
+
+    def _make_handles(self) -> None:
+        """Create this card thread's library handles (cuSOLVER for the
+        coarsest solve, cuBLAS for the transfers) now, while no block
+        waits: creating one synchronizes the whole card, which mid-solve
+        could wait for another block's collective that waits for this
+        thread."""
+        nc = self.sub_hier.sides[-1]
+        self.sub_hier.coarse_solve(torch.zeros((nc, nc), dtype=self.dtype,
+                                               device=self.device))
+        x = torch.zeros((2, 2), dtype=self.dtype, device=self.device)
+        (x @ x).sum()
+        torch.cuda.current_stream().synchronize()
 
     def close(self) -> None:
         """Collective under a process group with ``halo="rdma"`` on the
         card: release K7's peer memory (every process calls it, before the
         group is destroyed), then raise if one of its waits timed out. On
-        a card group the same on every block, then its threads end (after
-        a failure the peer memory is left to the process's end). The
-        solver is not used after."""
+        a card group the same on every block, and the peer collectives'
+        memory, then its threads end (after a failure the peer memory is
+        left to the process's end). The solver is not used after."""
         if self._blocks is not None:
             self._close_group(DistStructuredSolver.close)
-        elif self._peer:
+            return
+        self._graphs = {}
+        if self._coll is not None:
+            coll, self._coll = self._coll, None
+            coll.close()
+        if self._peer:
             recv, self._recv, self._peer = self._recv, {}, False
             launch.close_peer_strips(recv)
+
+    # -- the drivers ---------------------------------------------------------
+
+    def _driver_for(self, driver: str | None) -> str:
+        on_card = (all(d.type == "cuda" for d in self.devices)
+                   and launch.world_size() == 1)
+        if driver is None:
+            return "graph" if on_card else "host"
+        if driver not in ("graph", "host"):
+            raise ValueError(f"unknown driver {driver!r}: 'graph' or 'host'")
+        if driver == "graph" and not on_card:
+            raise ValueError(
+                "the graph driver runs on the card in one process (one "
+                "block or a card group); on the CPU and across processes "
+                "the solver takes the host driver")
+        return driver
+
+    def set_driver(self, driver: str | None) -> None:
+        """Run the programs under ``driver`` from now on (None: the
+        default), on every block."""
+        self.driver = self._driver_for(driver)
+        for blk in self._blocks or ():
+            blk.driver = self.driver
+
+    def _state(self) -> SimpleNamespace:
+        """This block's programs in JAX's cond/body form on fixed buffers
+        (built once): ``straight`` the pieces with no loop (``vcycle``:
+        ``u`` <- V-cycle(``u``, ``b``); ``rss``; ``refine``: one df32
+        refine from (``uh``, ``ul``) on (``bh``, ``bl``) into (``uh2``,
+        ``ul2``) and ``r_err``), ``loops`` the ``graph_loop.DeviceLoop``
+        and (pre, post) of ``pcg`` (JAX's pcg_fn: err = dot(r0, r0) at
+        the start, every pass refines, the tolerance in ``dtype``) and
+        ``ir`` (JAX's solve_fn: err starts at inf, the rss lags one
+        refine, every pass refines, the final rss recomputed)."""
+        if self._loop is not None:
+            return self._loop
+        dev, dt = self.device, self.dtype
+        f32, f64, i32 = torch.float32, torch.float64, torch.int32
+        shape = (self.cfg.n_devices // launch.process_count(),
+                 self.cfg.blocks[0], self.side)
+
+        def z(shape_=shape, dtype=dt):
+            return torch.zeros(shape_, dtype=dtype, device=dev)
+        L = SimpleNamespace(
+            u=z(), b=z(), rss=z(()), r=z(), z=z(), p=z(), rz=z(()),
+            p_err=z(()), p_tol=z(()), p_err64=z((), f64),
+            p_tol64=z((), f64), p_it=z((), i32), p_n=z((), i32),
+            p_stats=z((2,)))
+
+        def vcycle():
+            L.u.copy_(self._vcycle_raw(L.u, L.b))
+
+        def rss():
+            r = L.b - self._matvec(L.u)
+            L.rss.copy_(self._dot(r, r))
+
+        def precond(r):
+            return -self._vcycle_raw(torch.zeros_like(r), r)
+
+        def A_neg(x):
+            return -self._matvec(x)
+
+        def set_err(r):
+            L.p_err.copy_(self._dot(r, r))
+            L.p_err64.copy_(L.p_err)
+
+        def pcg_pre():
+            r = -L.b
+            z_ = precond(r)
+            L.u.zero_()
+            L.r.copy_(r)
+            L.z.copy_(z_)
+            L.p.copy_(z_)
+            L.rz.copy_(self._dot(r, z_))
+            set_err(r)
+            L.p_tol64.copy_(L.p_tol)
+            L.p_it.zero_()
+
+        def pcg_body():
+            for buf, x in zip((L.u, L.r, L.z, L.p, L.rz),
+                              _step(A_neg, precond, L.u, L.r, L.z, L.p,
+                                    L.rz, dot=self._dot)):
+                buf.copy_(x)
+            set_err(L.r)
+
+        def pcg_post():
+            L.p_stats.copy_(torch.stack([L.p_err, L.p_it.to(dt)]))
+
+        L.straight = {"vcycle": vcycle, "rss": rss}
+        L.loops = {"pcg": (graph_loop.DeviceLoop(
+            pcg_body, err=L.p_err64, tol=L.p_tol64, it=L.p_it, n=L.p_n),
+            pcg_pre, pcg_post)}
+        if self.cfg.w33s[0] is not None:
+            self._df32_programs(L, shape, z)
+        self._loop = L
+        return L
+
+    def _df32_programs(self, L, shape, z) -> None:
+        """The df32 defect correction's programs (a constant fine level):
+        JAX's ``_refine`` and ``_solve_device``."""
+        f32, f64 = torch.float32, torch.float64
+        for name in ("bh", "bl", "uh", "ul", "uh2", "ul2"):
+            setattr(L, name, z(shape, f32))
+        L.r_err, L.err, L.tol = (z((), f64) for _ in range(3))
+        L.it, L.n = z((), torch.int32), z((), torch.int32)
+        L.ir_stats = z((2,), f64)
+        b_df, u = DF32(hi=L.bh, lo=L.bl), DF32(hi=L.uh, lo=L.ul)
+
+        def refine_into(err, uh, ul):
+            r = self._residual(b_df, u)
+            err.copy_(self._rss_df(r))
+            un = df_add_f32(u, self._cycles(r.hi))
+            uh.copy_(un.hi)
+            ul.copy_(un.lo)
+
+        def ir_pre():
+            L.uh.zero_()
+            L.ul.zero_()
+            L.err.fill_(float("inf"))
+            L.it.zero_()
+
+        def ir_post():
+            final = self._rss_df(self._residual(b_df, u))
+            L.ir_stats.copy_(torch.stack([final, L.it.to(f64)]))
+
+        L.straight["refine"] = lambda: refine_into(L.r_err, L.uh2, L.ul2)
+        L.loops["ir"] = (graph_loop.DeviceLoop(
+            lambda: refine_into(L.err, L.uh, L.ul), err=L.err, tol=L.tol,
+            it=L.it, n=L.n), ir_pre, ir_post)
+
+    def _build(self, name: str) -> None:
+        """Under the graph driver, the program's graph on this block,
+        captured at its first use (JAX compiles at the first call); in a
+        card group every block captures together, the collectives inside
+        the peer collective kernel on memory the blocks open at the
+        first capture."""
+        if self.driver != "graph" or name in self._graphs:
+            return
+        L = self._state()
+        grouped = launch.in_card_group()
+        if grouped and self._coll is None:
+            self._coll = launch.GroupCollectives()
+        barrier = launch.barrier if grouped else None
+        warm = ((lambda: launch.sizing_collectives(self._coll)) if grouped
+                else None)
+        with launch.device_collectives(self._coll):
+            if name in L.loops:
+                loop, pre, post = L.loops[name]
+                g = loop.graph(pre, post, barrier=barrier, warm=warm)
+            else:
+                g = graph_loop.StraightGraph(L.straight[name], self.device,
+                                             barrier=barrier, warm=warm)
+        self._graphs[name] = g
+
+    def _go(self, name: str) -> None:
+        """One run of the program on its buffers: one graph launch, or
+        the host driver of the same pieces."""
+        L = self._state()
+        if self.driver == "graph":
+            # in a card group every block's graph is launched before any
+            # block goes on (an allocation after it could hold the card
+            # before another block's launch)
+            launch.barrier()
+            self._graphs[name].launch()
+            launch.barrier()
+        elif name in L.loops:
+            loop, pre, post = L.loops[name]
+            loop.run_host(pre, post)
+        else:
+            L.straight[name]()
+
+    def _run(self, name: str, inputs) -> SimpleNamespace:
+        """The program's graph built (its warm-up runs the pieces once
+        on the buffers), ``inputs()`` written into its buffers, one
+        run."""
+        self._build(name)
+        inputs()
+        self._go(name)
+        return self._state()
+
+    def _check(self) -> None:
+        """After a read of a program's results: raise if a wait of the
+        peer collectives timed out."""
+        if self._coll is not None:
+            self._coll.check()
+
+    @launch.every_block
+    def warmup(self) -> None:
+        """JAX's compile step: under the graph driver capture and
+        instantiate every program's graph on every block (the first call
+        of each does it otherwise)."""
+        L = self._state()
+        for name in (*L.straight, *L.loops):
+            self._build(name)
+
 
     def _tensor(self, f) -> torch.Tensor:
         """A tensor on the solver's device; numpy input is copied."""
@@ -879,20 +1121,31 @@ class DistStructuredSolver(launch.SpreadSolver):
         return self._pad(f2, self.dtype)
 
     @launch.block_local
-    def unpad(self, f) -> torch.Tensor:
+    def unpad(self, f2) -> torch.Tensor:
         """Slabs -> the (side, side) field: a view in one block, gathered
         from every block over several (where K7's peer form ran, after a
         check that none of its waits timed out)."""
-        f = launch.all_gather_slabs(f)
+        f = launch.all_gather_slabs(f2)
         if self._peer:
             torch.cuda.current_stream(f.device).synchronize()
             next(iter(self._recv.values())).check()
         return f.reshape(self.n_pad, self.side)[:self.side]
 
-    @launch.block_local
-    def vcycle(self, u_pad, b_pad):
+    def _vcycle_raw(self, u_pad, b_pad):
         return vcycle_dist(self.cfg, self.sub_hier, u_pad, b_pad, self._recv,
                            self.planes, self.planes_ext)
+
+    @launch.block_local
+    def vcycle(self, u_pad, b_pad):
+        """One V-cycle (JAX's ``_vcycle``): one graph launch under the
+        graph driver."""
+        L = self._state()
+
+        def inputs():
+            L.u.copy_(u_pad)
+            L.b.copy_(b_pad)
+        self._run("vcycle", inputs)
+        return L.u.clone()
 
     def _matvec(self, u_pad):
         """A u on the fine slabs (padding rows identity)."""
@@ -902,22 +1155,51 @@ class DistStructuredSolver(launch.SpreadSolver):
 
     @staticmethod
     def _dot(x, y) -> torch.Tensor:
-        """sum(x * y) over every slab: per slab, then over the slabs and
-        the blocks (psum)."""
-        return launch.psum((x * y).sum(dim=(1, 2)).sum())
+        """sum(x * y) over every slab: each slab's sum (one reduction of
+        its own: a batched one rounds by the number of slabs in the
+        batch), then the D slab sums as one vector, summed. Over several
+        blocks each block puts its slab sums at its slabs' places of a
+        zero (D,) vector and ``psum`` adds the vectors (every entry one
+        block's value plus zeros, so exact), so every block, and one block
+        alone, sums the same vector: a card group's or the processes' PCG
+        iterates are one block's bitwise for any number of blocks."""
+        part = torch.stack([(x[d] * y[d]).sum() for d in range(len(x))])
+        P = launch.process_count()
+        if P == 1:
+            return part.sum()
+        Dl, k = part.shape[0], launch.process_index()
+        return launch.psum(F.pad(part, (k * Dl, (P - 1 - k) * Dl))).sum()
+
+    def _read_rss(self) -> float:
+        error = check_rss(float(self._state().rss))
+        self._check()
+        return error
 
     @launch.block_local
     def rss(self, u_pad, b_pad) -> float:
-        r = b_pad - self._matvec(u_pad)
-        return check_rss(float(self._dot(r, r)))
+        """The rss of the slabs summed over every block (JAX's ``_rss``):
+        one graph launch under the graph driver, then its read."""
+        L = self._state()
+
+        def inputs():
+            L.u.copy_(u_pad)
+            L.b.copy_(b_pad)
+        self._run("rss", inputs)
+        return self._read_rss()
 
     @launch.every_block
     def solve(self, b2, tolerance=1e-7, compute_error_every_n_iters=5,
               n_iters=100) -> SolveResult:
         """The reference's outer loop (multigrid.hpp:311-337): V-cycles in
-        ``dtype``, the rss every ``compute_error_every_n_iters``."""
+        ``dtype`` (one ``vcycle`` program each), the rss every
+        ``compute_error_every_n_iters`` (the ``rss`` program and its
+        read), as JAX's host loop."""
         b_pad = self.pad_field(b2)
-        u = torch.zeros_like(b_pad)
+        L = self._state()
+        self._build("vcycle")
+        self._build("rss")
+        L.b.copy_(b_pad)
+        L.u.zero_()
         every = compute_error_every_n_iters
         it, error = 0, 100.0
         history = []
@@ -925,13 +1207,32 @@ class DistStructuredSolver(launch.SpreadSolver):
             k = (min(every - (it % every), n_iters - it) if every
                  else n_iters - it)
             for _ in range(k):
-                u = self.vcycle(u, b_pad)
+                self._go("vcycle")
             it += k
             if every and it % every == 0:
-                error = self.rss(u, b_pad)
+                self._go("rss")
+                error = self._read_rss()
                 history.append((it, error))
-        return SolveResult(u=self.unpad(u), iterations=it, error=error,
-                           converged=error <= tolerance, history=history)
+        return SolveResult(u=self.unpad(L.u.clone()), iterations=it,
+                           error=error, converged=error <= tolerance,
+                           history=history)
+
+    @launch.block_local
+    def solve_pcg_device(self, b2, tolerance: float = 1e-5,
+                         n_iters: int = 100):
+        """JAX's ``_pcg_device`` program: AMG-preconditioned CG from
+        u = 0, with no host read (one graph launch under the graph
+        driver). Returns ``(u_pad, stats)``: this block's slabs and the
+        tensor ``[rss, iterations]`` in ``dtype``."""
+        L = self._state()
+        b = self.pad_field(b2)
+
+        def inputs():
+            L.b.copy_(b)
+            L.p_tol.fill_(tolerance)
+            L.p_n.fill_(n_iters)
+        self._run("pcg", inputs)
+        return L.u.clone(), L.p_stats.clone()
 
     @launch.every_block
     def solve_pcg(self, b2, tolerance: float = 1e-5, n_iters: int = 100
@@ -940,24 +1241,14 @@ class DistStructuredSolver(launch.SpreadSolver):
         one V-cycle from zero, in ``dtype`` (JAX ``pcg_fn``): the inner
         products and the rss summed over the slabs, the rss of the
         recurrence residual checked against ``tolerance`` (in ``dtype``)
-        once per iteration, the one host sync. Constant and variable fine
+        once per iteration, on the device under the graph driver (once a
+        pass on the host under the host one). Constant and variable fine
         levels; one history entry, as JAX."""
-        b = self.pad_field(b2)
-        tol = _tolerance(tolerance, b.dtype)
-
-        def precond(r):
-            return -self.vcycle(torch.zeros_like(r), r)
-
-        r = -b
-        z = precond(r)
-        u, p, rz = torch.zeros_like(b), z, self._dot(r, z)
-        err, it = self._dot(r, r), 0
-        while check_rss(float(err)) > tol and it < n_iters:
-            u, r, z, p, rz = _step(lambda x: -self._matvec(x), precond, u,
-                                   r, z, p, rz, dot=self._dot)
-            err = self._dot(r, r)
-            it += 1
-        error = float(err)
+        u, stats = self.solve_pcg_device(b2, tolerance, n_iters)
+        error, it = stats.tolist()
+        self._check()
+        check_rss(error)
+        it = int(it)
         return SolveResult(u=self.unpad(u), iterations=it, error=error,
                            converged=error <= tolerance,
                            history=[(it, error)])
@@ -991,31 +1282,39 @@ class DistStructuredSolver(launch.SpreadSolver):
         r = r_hi.to(self.dtype)
         e = torch.zeros_like(r)
         for _ in range(self.cycles_per_refine):
-            e = self.vcycle(e, r)
+            e = self._vcycle_raw(e, r)
         return e.to(torch.float32)
+
+    def _df32_inputs(self, b2):
+        """The rhs split into the df32 programs' buffers, u = 0."""
+        L = self._state()
+        b_df = self._split_b(b2)
+
+        def inputs():
+            L.bh.copy_(b_df.hi)
+            L.bl.copy_(b_df.lo)
+            L.uh.zero_()
+            L.ul.zero_()
+        return L, inputs
 
     @launch.block_local
     def solve_ir_device(self, b2, tolerance=1e-9, n_refine: int = 40):
         """The defect-correction loop of JAX's one-program solve: from
-        u = 0, each pass computes the df32 residual and its rss (the one
-        host sync) and refines while the rss is above the tolerance, so
-        the carried rss lags one correction; the final rss is recomputed.
-        Returns ``(u_hi, u_lo, stats)``: padded f32 slabs and the f64
-        tensor ``[final_rss, refines]``."""
+        u = 0, each pass computes the df32 residual and its rss and
+        refines while the rss is above the tolerance, so the carried rss
+        lags one correction; the final rss is recomputed. Under the graph
+        driver one graph launch and no host read; under the host driver
+        one read of the rss a pass. Returns ``(u_hi, u_lo, stats)``:
+        padded f32 slabs and the f64 tensor ``[final_rss, refines]``."""
         self._need_const("solve_ir_device")
-        b_df = self._split_b(b2)
-        u = DF32.from_f32(torch.zeros_like(b_df.hi))
-        err, it = float("inf"), 0
-        while err > tolerance and it < n_refine:
-            r = self._residual(b_df, u)
-            err = check_rss(float(self._rss_df(r)))
-            u = df_add_f32(u, self._cycles(r.hi))
-            it += 1
-        final = self._rss_df(self._residual(b_df, u))
-        stats = torch.stack([final, torch.tensor(float(it),
-                                                 dtype=torch.float64,
-                                                 device=final.device)])
-        return u.hi, u.lo, stats
+        L, write = self._df32_inputs(b2)
+
+        def inputs():
+            write()
+            L.tol.fill_(tolerance)
+            L.n.fill_(n_refine)
+        self._run("ir", inputs)
+        return L.uh.clone(), L.ul.clone(), L.ir_stats.clone()
 
     def _result_u(self, uh, ul) -> torch.Tensor:
         return (self.unpad(uh).to(torch.float64)
@@ -1028,6 +1327,8 @@ class DistStructuredSolver(launch.SpreadSolver):
         counts V-cycles, u is the f64 (side, side) field."""
         uh, ul, stats = self.solve_ir_device(b2, tolerance, n_refine)
         error, it = stats.tolist()
+        self._check()
+        check_rss(error)
         iters = int(it) * self.cycles_per_refine
         return SolveResult(u=self._result_u(uh, ul), iterations=iters,
                            error=error, converged=error <= tolerance,
@@ -1036,22 +1337,27 @@ class DistStructuredSolver(launch.SpreadSolver):
     @launch.every_block
     def solve_ir(self, b2, tolerance=1e-9, n_refine: int = 40
                  ) -> SolveResult:
-        """The host-stepped defect correction: each refine's rss is checked
-        before its V-cycles run, so it stops as soon as the rss is at the
-        tolerance."""
+        """The host-stepped defect correction (JAX's ``_refine`` program a
+        step, one graph launch under the graph driver): each step returns
+        the corrected iterate and the rss of the one it started from, and
+        the correction is kept only while that rss is above the
+        tolerance, so it stops as soon as the rss is at the tolerance."""
         self._need_const("solve_ir", "; use solve() or the ELL distributed "
                          "path for variable coefficients")
-        b_df = self._split_b(b2)
-        u = DF32.from_f32(torch.zeros_like(b_df.hi))
+        L, inputs = self._df32_inputs(b2)
+        self._build("refine")
+        inputs()
         history, it, error = [], 0, float("inf")
         for _ in range(n_refine):
-            r = self._residual(b_df, u)
-            error = check_rss(float(self._rss_df(r)))
+            self._go("refine")
+            error = check_rss(float(L.r_err))
+            self._check()
             history.append((it, error))
             if error <= tolerance:
                 break
-            u = df_add_f32(u, self._cycles(r.hi))
+            L.uh.copy_(L.uh2)
+            L.ul.copy_(L.ul2)
             it += self.cycles_per_refine
-        return SolveResult(u=self._result_u(u.hi, u.lo), iterations=it,
-                           error=error, converged=error <= tolerance,
-                           history=history)
+        return SolveResult(u=self._result_u(L.uh.clone(), L.ul.clone()),
+                           iterations=it, error=error,
+                           converged=error <= tolerance, history=history)

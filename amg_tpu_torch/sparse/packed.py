@@ -148,13 +148,13 @@ def unpack_rect(u4: torch.Tensor, m: int) -> torch.Tensor:
     return v.reshape(*lead, 2 * R2, 2 * M)[..., :2 * m + 1]
 
 
-def packed_steps_window(w33, u4, b4, row0, side: int, sweeps: int,
+def packed_steps_window(w33, u4, b4, row0_g, side: int, sweeps: int,
                         omega: float, symmetric: bool) -> torch.Tensor:
     """Color-packed GS steps on row windows (the packed form of
     structured_dist._masked_steps_const): quarter cell (a = 2pj+pi, J, I)
-    of a window is global point (row0 + 2J + pj, 2I + pi); points outside
+    of a window is global point (row0_g + 2J + pj, 2I + pi); points outside
     [0, side)^2 never update, and the rows near the window edges go
-    invalid, for the caller's ghost margin to discard. ``row0`` is an int
+    invalid, for the caller's ghost margin to discard. ``row0_g`` is an int
     or a tensor that broadcasts against the (..., R/2, M) quarters (one
     offset a slab), and even, so that local parity is global parity."""
     R2, M = u4.shape[-2:]
@@ -168,7 +168,7 @@ def packed_steps_window(w33, u4, b4, row0, side: int, sweeps: int,
     for _ in range(sweeps):
         for pj, pi in order:
             a = 2 * pj + pi
-            row_g = row0 + 2 * iJ + pj
+            row_g = row0_g + 2 * iJ + pj
             valid = (row_g >= 0) & (row_g < side) & (2 * iI + pi < side)
             acc = _acc(u4, w33, pj, pi)
             delta = (b4[a] - acc) * inv_diag - u4[a]

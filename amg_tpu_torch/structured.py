@@ -186,11 +186,28 @@ class StencilHierarchy(nn.Module):
         return cp
 
     def coarse_solve(self, b2: torch.Tensor) -> torch.Tensor:
-        """Direct solve on the coarsest level (nc x nc field)."""
+        """Direct solve on the coarsest level (nc x nc field). On the card
+        torch.linalg takes cuSOLVER from the first solve on
+        (``cusolver_linalg``)."""
+        if b2.is_cuda:
+            cusolver_linalg()
         nc = self.sides[-1]
         sol = torch.linalg.lu_solve(self.coarse_lu, self.coarse_piv,
                                     b2.reshape(-1, 1))
         return sol.reshape(nc, nc)
+
+
+def cusolver_linalg() -> None:
+    """Make torch.linalg take cuSOLVER for the process (where it takes its
+    default): the coarsest solve's ``lu_solve`` then runs cuSOLVER's
+    ``getrs`` in every thread and process. The default heuristic took
+    cuBLAS's batched ``getrs`` in some threads (after an eager solve on
+    another stream), whose bits can differ from cuSOLVER's and whose CUDA
+    graph capture holds stream-ordered allocation nodes, which the loop
+    graphs' child graphs cannot hold (H100, driver 13.0, torch 2.11)."""
+    cuda = torch.backends.cuda
+    if cuda.preferred_linalg_library() == torch._C._LinalgBackend.Default:
+        cuda.preferred_linalg_library("cusolver")
 
 
 def max_levels_for_side(side: int) -> int:
@@ -278,8 +295,8 @@ def build_stencil_hierarchy(side: int, n_levels: int | None = None,
 
 
 def build_stencil_hierarchy_device(side: int, n_levels: int | None = None,
-                                   dtype=torch.float32, device=None,
-                                   smoother: str = "masked"
+                                   dtype=torch.float32,
+                                   smoother: str = "masked", device=None
                                    ) -> StencilHierarchy:
     """The Poisson hierarchy with closed-form constant stencils
     (ops/rap.poisson_const_w33) on every level: no coefficient planes or
@@ -299,8 +316,8 @@ def build_stencil_hierarchy_device(side: int, n_levels: int | None = None,
 
 def build_stencil_hierarchy_planes(c_fine: torch.Tensor,
                                    n_levels: int | None = None,
-                                   dtype=torch.float32, device=None,
-                                   smoother: str = "masked",
+                                   dtype=torch.float32,
+                                   smoother: str = "masked", device=None,
                                    packed_min_side: int = PACKED_MIN_SIDE
                                    ) -> StencilHierarchy:
     """A variable-coefficient hierarchy from fine (3,3,n,n) planes: the

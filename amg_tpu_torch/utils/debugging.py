@@ -52,10 +52,20 @@ def assert_reproducible(fn, *args, runs: int = 2):
     return outs[0]
 
 
-def assert_shards_consistent(arr):
+def assert_shards_consistent(arr, mesh=None, expected_spec=None):
     """Assert that a value replicated across the slabs of a distributed
-    solver (``DistStructuredSolver``: the slabs are axis 0 of its tensors)
-    holds the same bits on every slab."""
+    solver holds the same bits on every slab of this block: ``arr``'s axis
+    0 is the slabs (``DistStructuredSolver``'s layout), ``mesh`` the
+    solver's ``launch.SlabMesh`` (``device_mesh_1d``; when given, axis 0
+    must hold its ``slabs_per_process``), ``expected_spec`` the layout
+    the value should have, replicated (None or ``()``; JAX's ``P()``), as
+    JAX's form takes them."""
+    if expected_spec is not None and len(tuple(expected_spec)):
+        raise ValueError(f"a replicated value is checked, not one laid out "
+                         f"as {expected_spec!r}")
+    if mesh is not None and len(arr) != mesh.slabs_per_process:
+        raise ValueError(f"axis 0 holds {len(arr)} slabs, the mesh gives "
+                         f"this block {mesh.slabs_per_process}")
     vals = _host(arr)
     for v in vals[1:]:
         np.testing.assert_array_equal(vals[0], v)

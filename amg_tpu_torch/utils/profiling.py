@@ -9,7 +9,7 @@ by kernel, launch count and idle share, from ``torch.profiler``:
     python -m amg_tpu_torch.utils.profiling --sides 4095 --var --tol 1e-5 \
         [--smoother fused] [--precision f64]
     python -m amg_tpu_torch.utils.profiling --sides 4095 --dist 4 \
-        [--halo rdma|sweep|overlap|step]
+        [--halo rdma|sweep|overlap|step] [--graph]
     python -m amg_tpu_torch.utils.profiling --sides 2047 4095 --pcg \
         --tol 1e-5
     python -m amg_tpu_torch.utils.profiling --sides 4095 \
@@ -19,7 +19,11 @@ For each side: one warm solve is timed, then a second one is traced. The
 constant problem's packed loop runs prepare_b -> solve_ir_device_prepared
 -> finalize_u; ``--var`` (the jump-coefficient problem, a = 100) and the
 other loops run solve_ir_device; ``--dist D`` the distributed solve on D
-row slabs of the card (DistStructuredSolver.solve_ir_fused); ``--pcg``
+row slabs of the card (DistStructuredSolver.solve_ir_fused, under its
+host driver; with ``--graph`` under its graph driver, one CUDA graph a
+solve: the capture seconds, the graph's span on the card and the
+dispatch of one solve_ir_device are reported too, and the trace is the
+host driver's); ``--pcg``
 the f32 PCG (solve_pcg_device, fused=True, on the packed hierarchy),
 whose "refines" are its iterations; ``--no-fmg`` starts the refine loop
 from zero (fmg=False); ``--solve-ir`` runs the host-stepped
@@ -39,6 +43,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import os
 import time
 
 import torch
@@ -108,17 +113,20 @@ def time_fn(fn, *args, iters: int = 10, warmup: int = 2) -> float:
 
 
 @contextlib.contextmanager
-def trace(path: str | None = None):
+def trace(log_dir: str | None = None):
     """A ``torch.profiler`` trace of the block (CPU, and the card when
-    there is one); yields the profiler, and writes a Chrome trace to
-    ``path`` if given."""
+    there is one); yields the profiler (JAX's yields ``log_dir``: the port
+    has no XProf, and its callers read ``key_averages()``), and writes a
+    Chrome trace, ``trace.json``, into the directory ``log_dir`` if
+    given."""
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         yield prof
-    if path is not None:
-        prof.export_chrome_trace(path)
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def _device_us(evt) -> float:
@@ -134,7 +142,7 @@ def profile_solve(side: int, device="cuda", top: int = 12,
                   precision: str = "df32", tol: float = 1e-7,
                   dist: int = 0, halo: str = "rdma",
                   pcg: bool = False, fmg: bool = True,
-                  solve_ir: bool = False) -> dict:
+                  solve_ir: bool = False, graph: bool = False) -> dict:
     """Trace one warm solve at ``side``; returns the summary it prints."""
     from amg_tpu_torch import (DistStructuredSolver, StructuredSolver,
                                build_stencil_hierarchy_device, krylov,
@@ -155,10 +163,23 @@ def profile_solve(side: int, device="cuda", top: int = 12,
                                     fused=True)[1].tolist()
     elif dist:
         d = DistStructuredSolver(side, n_devices=dist, halo=halo,
-                                 device=device)
+                                 device=device,
+                                 driver="graph" if graph else "host")
+        extra = {}
+        if graph:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d.warmup()
+            torch.cuda.synchronize()
+            extra["capture_s"] = time.perf_counter() - t0
 
         def solve(host=False):
-            r = d.solve_ir_fused(b2, tolerance=tol)
+            if host:
+                d.set_driver("host")
+            try:
+                r = d.solve_ir_fused(b2, tolerance=tol)
+            finally:
+                d.set_driver("graph" if graph else "host")
             return r.error, r.iterations // d.cycles_per_refine
     else:
         planes = varcoef.jump_planes(side, device=device) if var else None
@@ -184,8 +205,23 @@ def profile_solve(side: int, device="cuda", top: int = 12,
     solve()
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
+    if dist and graph:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            t0 = time.perf_counter()
+            d.solve_ir_device(b2, tol)
+            extra["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
+            stop.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        extra["span_s"] = start.elapsed_time(stop) * 1e-3
     K.reset_launch_counts()
-    graph = not (dist or solve_ir)
+    graph = not solve_ir and (graph or not dist)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -214,6 +250,8 @@ def profile_solve(side: int, device="cuda", top: int = 12,
         "top_host_ops": [(e.key, e.count, e.self_cpu_time_total * 1e-3)
                          for e in host[:top]],
     }
+    if dist:
+        summary.update(extra)
     what = ("pcg f32 fused" if pcg else
             f"dist D={dist} halo={halo}" if dist else
             f"var={var} smoother={smoother} precision={precision} "
@@ -226,6 +264,10 @@ def profile_solve(side: int, device="cuda", top: int = 12,
           f"idle share {summary['idle_share']:.4f}, GPU launches "
           f"{summary['gpu_launches']}, kernel wrappers "
           f"{summary['our_kernel_launches']}")
+    if dist and "capture_s" in summary:
+        print(f"  graph: capture + instantiate {summary['capture_s']:.3f} "
+              f"s, span on the card {summary['span_s']:.6f} s, dispatch "
+              f"{summary['dispatch_ms']:.3f} ms")
     for name, count, ms in summary["top_kernels"]:
         print(f"  device {ms:10.4f} ms  {count:6d}x  {name}")
     for name, count, ms in summary["top_host_ops"]:
@@ -253,6 +295,8 @@ def main() -> None:
                     help="start the refine loop from zero (fmg=False)")
     ap.add_argument("--solve-ir", action="store_true",
                     help="the host-stepped StructuredSolver.solve_ir")
+    ap.add_argument("--graph", action="store_true",
+                    help="with --dist: the solver's graph driver")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -260,7 +304,8 @@ def main() -> None:
         profile_solve(side, var=args.var, smoother=args.smoother,
                       precision=args.precision, tol=args.tol,
                       dist=args.dist, halo=args.halo, pcg=args.pcg,
-                      fmg=not args.no_fmg, solve_ir=args.solve_ir)
+                      fmg=not args.no_fmg, solve_ir=args.solve_ir,
+                      graph=args.graph)
 
 
 if __name__ == "__main__":

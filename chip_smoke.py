@@ -43,6 +43,17 @@ loops):
   the solve ends, u and stats bitwise the host-driven oracle's, the
   refines of the row and the launch counts, and the graph's and the host
   loop's wall, device busy and idle share;
+* DistStructuredSolver's five JAX programs as CUDA graphs (phase
+  dist_graph_solves, the solvers of the distributed phases taken on): one
+  block of 4 slabs at 4095^2 ("rdma": solve_ir_fused to 1e-7, the f32
+  PCG to 1e-5), the jump f64 solve (20 V-cycles, a vcycle graph each),
+  and a card group of two blocks on the one card ("rdma", "sweep"), each
+  against the host driver of the same pieces (bitwise, one graph launch
+  a block under set_sync_debug_mode("error"), the launch counts) and one
+  block (u bitwise, the counts), with capture, dispatch, walls and the
+  one-block rows' idle share; then the peer collective kernel (the card
+  group's collectives inside the graphs) against its plain version at
+  the path's payloads, bitwise and timed;
 * the reference-parity ELL pipeline (plain PyTorch, no kernel): the
   testlib numbers at 35^2 (Multigrid with symmetric GS: 35 V-cycles to
   rss 7.19199e-11; the standalone GS: 900 sweeps) and the other
@@ -314,6 +325,17 @@ KERNEL_INFO = {
                        "amg_tpu/structured.py:1000"),
 }
 LOOP = "loop_condition"
+# not a TPU kernel: a card group's collectives inside its loop graphs, in
+# place of the psum / all_gather / ppermute of JAX's shard_map programs
+# (the loop's psum'd rss, amg_tpu/parallel/structured_dist.py:1038)
+PEER = "peer_collective"
+KERNEL_INFO[PEER] = ("amg_tpu_torch/csrc/peer_collective.cu",
+                     "amg_tpu/parallel/structured_dist.py:1038")
+# the distributed programs as CUDA graphs (phase dist_graph_solves): the
+# jump solve's V-cycles (DIST_VAR_SIDE^2, every 5th checked: 20), and the
+# peer collective's calls a timing (two blocks on the one card)
+DIST_GRAPH_PCG_TOL = 1e-5
+PEER_REPS = 50
 # no JAX solver calls the row-grouped sweep, so no path of the port does:
 # its launches are those of its parity phase
 OFF_PATH = {"fused_gs4_sweep_rm": "no JAX solver calls it"}
@@ -2114,8 +2136,11 @@ def dist_solves(dev, launches: dict):
     results = {}
     for halo in ("rdma", "sweep"):
         t0 = time.perf_counter()
-        s = DistStructuredSolver(side, n_devices=D, halo=halo, device=dev)
+        s = DistStructuredSolver(side, n_devices=D, halo=halo, device=dev,
+                                 driver="host")
         setup = time.perf_counter() - t0
+        if halo == "rdma":              # dist_graph_solves takes it on
+            RECORD["dist rdma solver"] = s
         res, c = drive(lambda: s.solve_ir_fused(b2, tolerance=TOL), launches)
         refines = res.iterations // s.cycles_per_refine
         ind = f64_rss(res.u, b2, side)
@@ -2161,7 +2186,7 @@ def dist_solves(dev, launches: dict):
     us = {}
     for halo in ("sweep", "rdma", "overlap", "step"):
         s = DistStructuredSolver(side, n_devices=D, dtype=torch.float64,
-                                 halo=halo, device=dev)
+                                 halo=halo, device=dev, driver="host")
         bp = s.pad_field(b2)
         u, c = drive(lambda: s.unpad(s.vcycle(torch.zeros_like(bp), bp)),
                      launches)
@@ -2180,10 +2205,12 @@ def dist_solves(dev, launches: dict):
 
     side, D = 255, 4
     b_cpu = poisson.rhs(side, device="cpu").reshape(side, side)
-    r_gpu = DistStructuredSolver(side, n_devices=D, halo="rdma", device=dev
+    r_gpu = DistStructuredSolver(side, n_devices=D, halo="rdma", device=dev,
+                                 driver="host"
                                  ).solve_ir_fused(b_cpu.to(dev), TOL)
     r_cpu = DistStructuredSolver(side, n_devices=D, halo="rdma",
-                                 device="cpu").solve_ir_fused(b_cpu, TOL)
+                                 device="cpu", driver="host"
+                                 ).solve_ir_fused(b_cpu, TOL)
     du = float((r_gpu.u.cpu() - r_cpu.u).abs().max())
     bnd = solution_bound(f64_rss(r_gpu.u.cpu(), b_cpu, side),
                          f64_rss(r_cpu.u, b_cpu, side), side)
@@ -2207,7 +2234,7 @@ def rdma_reference(dev, out_dir: str) -> None:
     side = DIST_SIDE
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
     s = DistStructuredSolver(side, n_devices=DIST_SLABS, halo="rdma",
-                             device=dev)
+                             device=dev, driver="host")
     save_rdma_reference(out_dir, s.solve_ir_fused(b2, tolerance=TOL))
     del s
     torch.cuda.empty_cache()
@@ -2293,7 +2320,7 @@ def dist_var_solves(dev, launches: dict):
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
     s, setup = timed_build(lambda: DistStructuredSolver(
         side, n_devices=D, dtype=torch.float64, halo="sweep",
-        A_fine=varcoef.jump_scipy(side), device=dev))
+        A_fine=varcoef.jump_scipy(side), device=dev, driver="host"))
     require(all(w is None for w in s.cfg.w33s),
             "jump: every sharded level variable")
     res = new_path(f"dist var {side}^2 D={D} f64 sweep solve", lambda:
@@ -2312,6 +2339,7 @@ def dist_var_solves(dev, launches: dict):
     require(res.converged and abs(ind / res.error - 1) <= 1e-6,
             f"dist var {side}^2 converged to {DIST_VAR_TOL:g}, rss checked "
             "independently")
+    RECORD["dist var solver"] = (s, res)   # dist_graph_solves takes it on
     del s, res
 
     side, D = DIST_VCYCLE_SIDE, DIST_VCYCLE_SLABS
@@ -2320,7 +2348,7 @@ def dist_var_solves(dev, launches: dict):
     for halo in ("sweep", "step"):
         s = DistStructuredSolver(side, n_devices=D, dtype=torch.float64,
                                  halo=halo, A_fine=varcoef.jump_scipy(side),
-                                 device=dev)
+                                 device=dev, driver="host")
         bp = s.pad_field(b2)
         us[halo], c = drive(lambda: s.unpad(s.vcycle(torch.zeros_like(bp),
                                                      bp)), launches)
@@ -2337,7 +2365,7 @@ def dist_var_solves(dev, launches: dict):
     card_against_cpu(
         dev, lambda d: DistStructuredSolver(
             side, n_devices=DIST_SLABS, dtype=torch.float64, halo="sweep",
-            A_fine=varcoef.jump_scipy(side), device=d),
+            A_fine=varcoef.jump_scipy(side), device=d, driver="host"),
         {"dist var solve": lambda s, b: s.solve(b, tolerance=DIST_CHECK_TOL),
          "dist var pcg f64": lambda s, b: s.solve_pcg(
              b, tolerance=DIST_CHECK_TOL)},
@@ -2356,7 +2384,7 @@ def dist_const_solves(dev, launches: dict):
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
     sweep = RECORD.pop(f"dist sweep {side}")
     s, setup = timed_build(lambda: DistStructuredSolver(
-        side, n_devices=D, halo="packed", device=dev))
+        side, n_devices=D, halo="packed", device=dev, driver="host"))
     res = new_path(f"dist packed {side}^2 D={D} solve_ir_fused",
                    lambda: s.solve_ir_fused(b2, tolerance=TOL),
                    lambda r: r.iterations, setup, launches,
@@ -2571,7 +2599,7 @@ def card_peer_checks(devices) -> dict:
 
 
 def card_solve(label: str, make, b2, launches: dict, ref=None,
-               timed: bool = True):
+               timed: bool = True, keep: str | None = None):
     """A DistStructuredSolver (``make()``) solve_ir_fused to TOL under drive:
     converged, K7 2 x k7_levels a V-cycle in each block under "rdma" (0
     otherwise), no other kernel; against ``ref`` (the one-block run) the
@@ -2606,7 +2634,10 @@ def card_solve(label: str, make, b2, launches: dict, ref=None,
                 lambda: s.solve_ir_fused(b2, tolerance=TOL), 2)[1]
             window = cards_text(*traced_cards(dist_window(s, b2)))
     finally:
-        s.close()
+        if keep is None:
+            s.close()
+        else:                           # a later phase takes it on
+            RECORD[keep] = s
     per = c["rdma_halo_exchange"] / res.iterations / len(s.devices)
     vs = ("" if ref is None else
           f" (one block {ref.iterations}; u bitwise {same}; rss relative "
@@ -2641,8 +2672,10 @@ def card_solves(dev, launches: dict):
         _, k7 = card_solve(
             f"card group {side}^2 D={D} {halo}, {CARD_BLOCKS} blocks on 1 "
             f"card", lambda: DistStructuredSolver(side, n_devices=D,
-                                                  halo=halo, device=blocks),
-            b2, launches, ref, timed=halo == "rdma")
+                                                  halo=halo, device=blocks,
+                                                  driver="host"),
+            b2, launches, ref, timed=halo == "rdma",
+            keep="card rdma solver" if halo == "rdma" else None)
         if halo == "rdma":
             rec["launches"] = k7
     RECORD["k7_cards"] = rec
@@ -2681,6 +2714,308 @@ def card_solves(dev, launches: dict):
           f"{walls}); {cards_text(w_med, per_card)}")
     require(res.iterations == ref.iterations and rel <= CARD_RTOL,
             f"{label}: the one-block history within {CARD_RTOL:g}")
+
+
+def per_block(s, fn) -> list:
+    """``fn(block)`` on every block of a distributed solver (the solver
+    itself in one block), the results in block order."""
+    if s._blocks is None:
+        return [fn(s)]
+    return s._group.run(lambda k: fn(s._blocks[k]))
+
+
+def group_dispatch(s, fn) -> list:
+    """``fn(block)`` on every block under set_sync_debug_mode("error"),
+    set once every block's stream is idle and reset once every block has
+    dispatched: per block (its result, dispatch seconds, whether its work
+    was still running when the call returned)."""
+    def body(blk):
+        torch.cuda.current_stream().synchronize()
+        launch.barrier()
+        if launch.process_index() == 0:
+            torch.cuda.set_sync_debug_mode("error")
+        launch.barrier()
+        try:
+            t0 = time.perf_counter()
+            out = fn(blk)
+            disp = time.perf_counter() - t0
+        finally:
+            launch.barrier()
+            if launch.process_index() == 0:
+                torch.cuda.set_sync_debug_mode("default")
+            launch.barrier()
+        pending = not torch.cuda.current_stream().query()
+        torch.cuda.current_stream().synchronize()
+        return out, disp, pending
+    return per_block(s, body)
+
+
+def graph_launches(s, name: str) -> list:
+    return per_block(s, lambda blk: blk._graphs[name].launches)
+
+
+def _clone(x):
+    return tuple(t.clone() for t in x)
+
+
+def dist_graph_program(label: str, s, prog: str, run, launches: dict,
+                       solve, one=None, busy_parts=None):
+    """One of DistStructuredSolver's loop programs (``prog``, "ir" or
+    "pcg"; ``run(block)`` its device entry point, returning (outputs...,
+    stats)) under the graph driver against the host driver of the same
+    pieces: every block's outputs and stats bitwise, one graph launch a
+    block under set_sync_debug_mode("error"), the launch counts (the
+    host's kernels, the condition kernel 1 + passes a block, the peer
+    collective in a card group); then ``solve()`` (the public entry
+    point, a SolveResult) against ``one`` (one block's result: u bitwise,
+    the same count), its wall (median of 3), and, in one block, the
+    device busy time of the loop's pieces (``busy_parts``). Returns the
+    public result."""
+    cardline = card()
+    blocks = len(s.devices)
+    s.set_driver("host")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, hc = drive(lambda: per_block(s, lambda blk: _clone(run(blk))),
+                     launches)
+    h_wall = time.perf_counter() - t0
+    s.set_driver("graph")
+    per_block(s, lambda blk: run(blk))            # the graph's first launch
+    n0 = graph_launches(s, prog)
+    e0 = per_block(s, lambda blk: blk._graphs[prog].execs.clone())
+    outs, c = drive(lambda: group_dispatch(
+        s, lambda blk: _clone(run(blk))), launches)
+    n_graph = [a - b for a, b in zip(graph_launches(s, prog), n0)]
+    execs = (per_block(s, lambda blk: blk._graphs[prog].execs.clone())[0]
+             - e0[0]).tolist()
+    same = all(all(torch.equal(a, b) for a, b in zip(o[0], h))
+               for o, h in zip(outs, host))
+    disp = max(o[1] for o in outs)
+    pending = all(o[2] for o in outs)
+    err, it = outs[0][0][-1].tolist()
+    it = int(it)
+    hc_k = {k: n for k, n in hc.items() if k not in (LOOP, PEER) and n}
+    c_k = {k: n for k, n in c.items() if k not in (LOOP, PEER) and n}
+    counts_ok = (c_k == hc_k and c[LOOP] == blocks * (1 + it)
+                 and (c[PEER] > 0) == (blocks > 1) and hc[PEER] == 0)
+    res = solve()
+    g_med, g_walls = wall_median(solve, 3)
+    vs = ""
+    if one is not None:
+        vs_ok = (torch.equal(res.u, one.u.to(res.u.device))
+                 and res.iterations == one.iterations)
+        vs = (f"; one block's u bitwise and {one.iterations} iterations "
+              f"{vs_ok}")
+        require(vs_ok, f"{label} {prog}: one block's u and count")
+    busy_txt = "device busy not measured (a card group)"
+    busy = None
+    if busy_parts is not None:
+        busy = pieces_busy(busy_parts, {"pre": execs[0], "post": execs[0],
+                                        "body": execs[1], "refine": 0,
+                                        "final": 0})
+        busy_txt = (f"device busy {busy:.6f} s (the pieces' runs {execs}), "
+                    f"idle share {1 - busy / g_med:.4f}; host driver idle "
+                    f"share {1 - busy / h_wall:.4f}")
+    RECORD[f"dist graph {label} {prog}"] = {
+        "it": it, "wall": g_med, "host_wall": h_wall, "busy": busy,
+        "dispatch_s": disp, "blocks": blocks}
+    print(f"dist graph {label} {prog}: {blocks} block(s) on "
+          f"{[str(d) for d in s.devices]}; passes {it}, rss {err:.6e}, "
+          f"outputs and stats bitwise the host driver's {same}, graph "
+          f"launches a block {n_graph}, dispatch {disp * 1e3:.3f} ms, "
+          f"returned before the work ended {pending}, launches "
+          f"{dict(c)} (host driver {hc_k}){vs}; graph wall median of 3 "
+          f"{g_med:.6f} s (all {g_walls}), host driver {h_wall:.6f} s "
+          f"(x{h_wall / g_med:.2f}); {busy_txt}; {cardline}")
+    require(same, f"{label} {prog}: bitwise the host driver's")
+    require(n_graph == [1] * blocks, f"{label} {prog}: one graph launch a "
+            "block")
+    require(pending, f"{label} {prog}: the call returns before the work "
+            "ends")
+    require(counts_ok, f"{label} {prog}: launch counts {dict(c)} against "
+            f"the host driver's {dict(hc)}")
+    return res
+
+
+def dist_graph_rows(label: str, s, b2, launches: dict, one=None,
+                    timed: bool = True) -> dict:
+    """A constant DistStructuredSolver's rows: capture (``warmup``), then
+    solve_ir_device / solve_ir_fused to TOL and the f32 PCG to
+    DIST_GRAPH_PCG_TOL (dist_graph_program), against ``one`` (one
+    block's {"ir": result, "pcg": result}) when given. Returns the
+    public results."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.set_driver("graph")
+    s.warmup()
+    torch.cuda.synchronize()
+    cap = time.perf_counter() - t0
+    print(f"dist graph {label}: capture + instantiate of the five "
+          f"programs {cap:.3f} s ({len(s.devices)} block(s))")
+    RECORD[f"dist graph {label} capture_s"] = cap
+    b32 = b2.to(torch.float32)
+    parts = {}
+    if s._blocks is None and timed:
+        L = s._state()
+        for prog in ("ir", "pcg"):
+            loop, pre, post = L.loops[prog]
+            parts[prog] = pieces(loop, pre, post)
+    out = {"ir": dist_graph_program(
+        label, s, "ir", lambda blk: blk.solve_ir_device(b2, TOL), launches,
+        lambda: s.solve_ir_fused(b2, tolerance=TOL),
+        None if one is None else one["ir"], parts.get("ir"))}
+    require(out["ir"].converged, f"{label}: converged to {TOL:g}")
+    out["pcg"] = dist_graph_program(
+        label, s, "pcg", lambda blk: blk.solve_pcg_device(
+            b32, DIST_GRAPH_PCG_TOL), launches,
+        lambda: s.solve_pcg(b32, tolerance=DIST_GRAPH_PCG_TOL),
+        None if one is None else one["pcg"], parts.get("pcg"))
+    require(out["pcg"].converged, f"{label}: PCG converged")
+    return out
+
+
+def dist_graph_solve_row(label: str, s, b2, ref, launches: dict):
+    """The V-cycle loop (``solve``, JAX's host loop over its ``_vcycle``
+    and ``_rss`` programs): one vcycle graph launch a V-cycle under the
+    graph driver; u, the count and the rss history bitwise ``ref`` (the
+    host driver's run); the dispatch of one V-cycle's launch under
+    set_sync_debug_mode("error"); the wall (median of 3)."""
+    cardline = card()
+    t0 = time.perf_counter()
+    s.set_driver("graph")
+    s.warmup()
+    torch.cuda.synchronize()
+    cap = time.perf_counter() - t0
+    n0 = graph_launches(s, "vcycle")[0]
+    r0 = graph_launches(s, "rss")[0]
+
+    def run():
+        return s.solve(b2, tolerance=DIST_VAR_TOL)
+    res, c = drive(run, launches)
+    n_v = graph_launches(s, "vcycle")[0] - n0
+    n_r = graph_launches(s, "rss")[0] - r0
+    same = (torch.equal(res.u, ref.u) and res.iterations == ref.iterations
+            and res.history == ref.history)
+    (_, disp, pending), = group_dispatch(s, lambda blk: blk._go("vcycle"))
+    g_med, g_walls = wall_median(run, 3)
+    RECORD[f"dist graph {label} solve"] = {
+        "it": res.iterations, "wall": g_med, "dispatch_s": disp,
+        "capture_s": cap}
+    print(f"dist graph {label} solve: capture {cap:.3f} s, V-cycles "
+          f"{res.iterations} (host driver {ref.iterations}), vcycle graph "
+          f"launches {n_v}, rss launches {n_r}, u, count and rss history "
+          f"bitwise the host driver's {same}, one V-cycle's dispatch "
+          f"{disp * 1e3:.3f} ms (returned before its work ended "
+          f"{pending}), launches {dict(c)}; graph wall median of 3 "
+          f"{g_med:.6f} s (all {g_walls}); {cardline}")
+    require(same, f"{label} solve: bitwise the host driver's")
+    require(n_v == res.iterations and n_r == len(res.history),
+            f"{label} solve: one vcycle graph launch a V-cycle")
+    require(sum(c.values()) == 0, f"{label} solve: no kernel: {c}")
+
+
+def peer_collective_checks(s) -> tuple:
+    """The peer collective kernel against its plain version (the card
+    group's host collectives) on every block of ``s`` (its memory from
+    the solver's captures), bitwise, at the main path's payloads: the
+    psum of the rss (f64) and of an inner product (f32), the gather of
+    the coarse slabs, the one-row halo of the fine level (u) and the G =
+    10 strips of the ghost sweep (u and b), then each timed against its
+    plain version in turns (plain, kernel, kernel, plain), PEER_REPS
+    calls. Returns (max_abs_err, (kernel ms, plain ms), (bound ms, by),
+    the per-case record) of block 0, the one-row halo the entry."""
+    from amg_tpu_torch.ops.kernels import peer_collective as pc
+    cfg, K = s.cfg, len(s.devices)
+    Dl, n = cfg.n_devices // K, cfg.sides[0]
+    Ls = cfg.n_sharded
+    cases = (("psum f64", (), torch.float64, pc.SUM),
+             ("psum f32", (), torch.float32, pc.SUM),
+             ("gather coarse", (Dl, max(cfg.blocks[Ls - 1] // 2, 1),
+                                cfg.sides[Ls]), torch.float32, pc.GATHER),
+             ("halo 1 row", (2, n), torch.float32, pc.GATHER),
+             ("strips G=10", (2 * 10, 2 * n), torch.float32, pc.GATHER))
+
+    def body(k):
+        blk = s._blocks[k]
+        mem, dev = blk._coll, blk.device
+        gen = torch.Generator().manual_seed(k)
+        rec = {}
+        for name, shape, dtype, mode in cases:
+            x = torch.randn(shape, generator=gen, dtype=torch.float64
+                            ).to(dtype).to(dev)
+            plain = ((lambda x=x: launch._gather_host(x)) if mode == pc.GATHER
+                     else (lambda x=x: launch._psum_host(x)))
+
+            def kern(x=x, mode=mode):
+                return pc.peer_collective(x, mem, mode)
+            got, want = kern(), plain()
+            sync()
+            err = float((got.double() - want.double()).abs().max())
+            eq = torch.equal(got, want)
+            pms, kms = alternating(plain, kern, PEER_REPS)
+            nbytes = x.numel() * x.element_size()
+            moved = K * nbytes + (K * nbytes if mode == pc.GATHER
+                                  else nbytes)
+            rec[name] = dict(equal=eq, err=err, ms=kms, plain_ms=pms,
+                             bound=bound(moved, 0 if mode == pc.GATHER
+                                         else (K - 1) * x.numel()),
+                             nbytes=nbytes)
+        sync()
+        mem.check()
+        return rec
+    recs = s._group.run(body)
+    cardline = card()
+    for k, rec in enumerate(recs):
+        for name, r in rec.items():
+            print(f"peer collective block {k} {name} ({r['nbytes']} B a "
+                  f"block): bitwise its plain version {r['equal']}, kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); {cardline}")
+            require(r["equal"], f"peer collective {name} block {k}: "
+                    "bitwise its plain version")
+    main = recs[0]["halo 1 row"]
+    err = max(r["err"] for rec in recs for r in rec.values())
+    return err, (main["ms"], main["plain_ms"]), main["bound"], recs[0]
+
+
+def dist_graph_solves(dev, launches: dict):
+    """DistStructuredSolver's five JAX programs as CUDA graphs (the graph
+    driver) against the host driver of the same pieces: one block of
+    DIST_SLABS slabs at DIST_SIDE^2 ("rdma": solve_ir_fused to TOL, the
+    f32 PCG; dist_solves' solver), the jump f64 solve of DIST_VAR_SIDE^2
+    (20 V-cycles; dist_var_solves' solver and run), and a card group of
+    CARD_BLOCKS blocks on the one card ("rdma": card_solves' solver, and
+    "sweep"), each bitwise one block's; then the peer collective kernel
+    against its plain version."""
+    side, D = DIST_SIDE, DIST_SLABS
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    s = RECORD.pop("dist rdma solver")
+    one = dist_graph_rows(f"{side}^2 D={D} rdma one block", s, b2, launches)
+    s.close()
+    del s
+    sv, ref = RECORD.pop("dist var solver")
+    dist_graph_solve_row(f"var {DIST_VAR_SIDE}^2 D={D} f64 sweep", sv,
+                         poisson.rhs(DIST_VAR_SIDE, device=dev).reshape(
+                             DIST_VAR_SIDE, DIST_VAR_SIDE), ref, launches)
+    sv.close()
+    del sv, ref
+    blocks = (torch.device("cuda", 0),) * CARD_BLOCKS
+    s = RECORD.pop("card rdma solver")
+    try:
+        dist_graph_rows(f"{side}^2 D={D} rdma, {CARD_BLOCKS} blocks on 1 "
+                        "card", s, b2, launches, one)
+        RECORD["peer_collective"] = peer_collective_checks(s)
+    finally:
+        s.close()
+    s, setup = timed_build(lambda: DistStructuredSolver(
+        side, n_devices=D, halo="sweep", device=blocks))
+    try:
+        print(f"dist graph {side}^2 D={D} sweep, {CARD_BLOCKS} blocks: "
+              f"setup {setup:.3f} s")
+        dist_graph_rows(f"{side}^2 D={D} sweep, {CARD_BLOCKS} blocks on 1 "
+                        "card", s, b2, launches, one, timed=False)
+    finally:
+        s.close()
 
 
 def cards_entry(rec: dict) -> dict:
@@ -2723,7 +3058,7 @@ def cards_only(n: int) -> int:
         b2 = poisson.rhs(side, device=one).reshape(side, side)
         if side == CARDS_BIG_SIDE:
             s, setup = timed_build(lambda: DistStructuredSolver(
-                side, n_devices=D, halo="rdma"))
+                side, n_devices=D, halo="rdma", driver="host"))
             s.close()
             if setup > CARDS_BIG_SETUP_S:
                 print(f"cards {side}^2 D={D}: setup {setup:.1f} s, over "
@@ -2731,17 +3066,42 @@ def cards_only(n: int) -> int:
                 continue
         ref, _ = card_solve(f"cards one block {side}^2 D={D} rdma on card 0",
                             lambda: DistStructuredSolver(
-                                side, n_devices=D, halo="rdma", device=one),
+                                side, n_devices=D, halo="rdma", device=one,
+                                driver="host"),
                             b2, launches)
         for halo in ("rdma", "overlap"):
             res, k7 = card_solve(
                 f"cards {side}^2 D={D} {halo}, {n} cards",
-                lambda: DistStructuredSolver(side, n_devices=D, halo=halo),
+                lambda: DistStructuredSolver(side, n_devices=D, halo=halo,
+                                             driver="host"),
                 b2, launches, ref)
             if halo == "rdma" and side == DIST_SIDE and D == n:
                 rec["launches"] = k7
         print(f"cards {side}^2 D={D}: {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [cards_entry(rec)]}))
+    # the programs as CUDA graphs: one block on card 0, then a block a
+    # card (dist_graph_rows), and the peer collective between the cards
+    t0 = time.perf_counter()
+    side, D = DIST_SIDE, n
+    b2 = poisson.rhs(side, device=one).reshape(side, side)
+    s = DistStructuredSolver(side, n_devices=D, halo="rdma", device=one)
+    ref = dist_graph_rows(f"cards {side}^2 D={D} rdma one block on card 0",
+                          s, b2, launches)
+    del s
+    s = DistStructuredSolver(side, n_devices=D, halo="rdma")
+    try:
+        dist_graph_rows(f"cards {side}^2 D={D} rdma, {n} cards", s, b2,
+                        launches, ref)
+        err, (kms, pms), (bms, by), _ = peer_collective_checks(s)
+    finally:
+        s.close()
+    print(f"cards graph rows {side}^2 D={D}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    src, replaces = KERNEL_INFO[PEER]
+    peer = {"name": PEER, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[PEER],
+            "max_abs_err": err, "ms": kms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "cards": n}
+    print(json.dumps({"kernels": [cards_entry(rec), peer]}))
     print(card())
     return 0
 
@@ -2758,8 +3118,8 @@ def mp_runs(dev, report: bool) -> tuple[dict, list]:
     A, b = poisson.poisson2d(MP_ELL_SIDE, device=dev)
     cases = (("dist", lambda: DistStructuredSolver(
         MP_SIDE, n_devices=MP_SLABS, dtype=torch.float64, halo="sweep",
-        device=dev), lambda s: (s.pad_field(b2), s.vcycle, s.rss,
-                                s.unpad)),
+        device=dev, driver="host"), lambda s: (s.pad_field(b2), s.vcycle,
+                                               s.rss, s.unpad)),
              ("ell", lambda: EllDistSolver(A, b, MP_ELL_LEVELS,
                                            n_devices=MP_SLABS, device=dev),
               lambda s: (s.pad_vec(s.b), s.vcycle_once, s.rss,
@@ -2957,7 +3317,7 @@ def peer_rdma_solve(dev, out_dir: str) -> tuple[dict, list]:
     side, D = DIST_SIDE, DIST_SLABS
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
     s, setup = timed_build(lambda: DistStructuredSolver(
-        side, n_devices=D, halo="rdma", device=dev))
+        side, n_devices=D, halo="rdma", device=dev, driver="host"))
     launches = {k: 0 for k in KERNEL_INFO}
     t0 = time.perf_counter()
     res, c = drive(lambda: s.solve_ir_fused(b2, tolerance=TOL), launches)
@@ -3035,7 +3395,7 @@ def mesh_solves(blocks, out_dir: str) -> tuple[dict, list]:
         ref = json.load(f)
     ref_u = torch.from_numpy(np.load(os.path.join(out_dir, "rdma_u.npy")))
     s, setup = timed_build(lambda: DistStructuredSolver(
-        side, n_devices=D, halo="rdma", device=blocks))
+        side, n_devices=D, halo="rdma", device=blocks, driver="host"))
     launches = {k: 0 for k in KERNEL_INFO}
     try:
         t0 = time.perf_counter()
@@ -3349,7 +3709,7 @@ def main() -> int:
                       refine_solves, smoother_solves, host_solves,
                       graph_solves, ell_solves, dist_solves, dist_var_solves,
                       dist_const_solves, ell_dist_solves, card_solves,
-                      mp_solves):
+                      dist_graph_solves, mp_solves):
             t0 = time.perf_counter()
             phase(dev, launches)
             torch.cuda.synchronize()
@@ -3362,6 +3722,8 @@ def main() -> int:
     print(f"fused_gs4_sweep_rm launches: {k9_launches} in its parity phase, "
           f"none on a path ({OFF_PATH['fused_gs4_sweep_rm']})")
 
+    errs[PEER], times[PEER], bounds[PEER], peer_cases = \
+        RECORD["peer_collective"]
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kms, pms = times[name]
@@ -3390,6 +3752,12 @@ def main() -> int:
             # launches stays the path count (0); the parity phase's own
             # launches are reported apart
             entry.update(path=None, parity_launches=k9_launches)
+        if name == PEER:
+            # ms: the one-row halo gather of the fine level (block 0 of
+            # two on the one card); the other payloads by case
+            entry["by_case"] = {c: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                                    "bound_ms": r["bound"][0]}
+                                for c, r in peer_cases.items()}
         kernels.append(entry)
     kernels.append(peer_entry(RECORD["k7_peer"][MP_PROCS], MP_PROCS))
     kernels.append(cards_entry(RECORD["k7_cards"]))

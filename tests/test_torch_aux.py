@@ -214,11 +214,11 @@ def test_time_fn_and_trace_on_the_cpu(tmp_path):
 
     t = profiling.time_fn(f, x, iters=3, warmup=1)
     assert t > 0 and len(calls) == 4
-    path = tmp_path / "trace.json"
-    with profiling.trace(str(path)) as prof:
+    log_dir = tmp_path / "trace"
+    with profiling.trace(log_dir=str(log_dir)) as prof:
         torch.mm(torch.ones(8, 8), torch.ones(8, 8))
     assert any(e.key == "aten::mm" for e in prof.key_averages())
-    assert path.exists()
+    assert (log_dir / "trace.json").exists()
 
 
 def test_assert_reproducible():

@@ -431,6 +431,7 @@ def test_dist_rdma_on_the_card(dev):
     for halo in ("rdma", "sweep"):
         s = DistStructuredSolver(side, n_devices=4, halo=halo, device=dev)
         bp = s.pad_field(b2)
+        s.warmup()        # the graphs' captures launch each piece once
         K.reset_launch_counts()
         us[halo] = s.vcycle(torch.zeros_like(bp), bp)
         torch.cuda.synchronize()
@@ -457,6 +458,7 @@ def test_card_group_rdma_on_one_card(dev):
     s = DistStructuredSolver(side, n_devices=4, halo="rdma",
                              device=("cuda:0", "cuda:0"))
     try:
+        s.warmup()        # the graphs' captures launch each piece once
         K.reset_launch_counts()
         two = s.solve_ir_fused(b2.to(dev), tolerance=1e-7)
         launches = K.launch_counts()["rdma_halo_exchange"]
@@ -519,3 +521,178 @@ def test_mesh_rdma_on_one_card(dev, tmp_path):
         assert int(got["it"]) == one.iterations
         assert np.array_equal(got["u"], one.u.cpu().numpy())
         assert int(got["k7"]) == 2 * (2 * 3) * one.iterations
+
+
+# DistStructuredSolver's programs as CUDA graphs (one block, and a card
+# group of two blocks on the one card) against the host driver of the
+# same pieces: (halo, dtype, force_var)
+DIST_GRAPH = [("rdma", torch.float32, False), ("sweep", torch.float32, False),
+              ("overlap", torch.float64, False), ("step", torch.float64, True),
+              ("packed", torch.float32, False)]
+
+
+def _dist_programs(s, b2):
+    """Every program's outputs, in one order: vcycle, rss, the PCG loop
+    (converged and out of budget), the df32 loop and refine (a constant
+    fine level), and the V-cycle loop."""
+    out = []
+    bp = s.pad_field(b2)
+    u = s.vcycle(torch.zeros_like(bp), bp)
+    out += [u, torch.tensor(s.rss(u, bp))]
+    bt = b2.to(s.dtype)
+    for n in (100, 2):
+        out += list(s.solve_pcg_device(bt, 1e-12 if s.dtype ==
+                                       torch.float64 else 1e-5, n))
+    if s.cfg.w33s[0] is not None:
+        for n in (40, 1):
+            out += list(s.solve_ir_device(b2, 1e-9, n))
+        r = s.solve_ir(b2, 1e-9)
+        out += [r.u, torch.tensor(r.history)]
+    r = s.solve(b2, 1e-9, compute_error_every_n_iters=2, n_iters=12)
+    out += [r.u, torch.tensor(r.history)]
+    return out
+
+
+@pytest.mark.parametrize("halo,dtype,var", DIST_GRAPH,
+                         ids=[f"{h}-{str(d)[6:]}{'-var' if v else ''}"
+                              for h, d, v in DIST_GRAPH])
+def test_dist_graph_is_the_host_driver(dev, halo, dtype, var):
+    """One block of 4 slabs at 255^2: every program's graph gives the host
+    driver's outputs bitwise."""
+    side = 255
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    s = DistStructuredSolver(side, n_devices=4, dtype=dtype, halo=halo,
+                             force_var=var, device=dev)
+    assert s.driver == "graph"
+    got = _dist_programs(s, b2)
+    s.set_driver("host")
+    want = _dist_programs(s, b2)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), k
+    assert set(s._graphs) >= {"vcycle", "rss", "pcg"}
+
+
+def test_dist_graph_one_launch_no_host_read(dev):
+    """solve_ir_device and solve_pcg_device dispatch one graph launch and
+    read nothing on the host (set_sync_debug_mode("error")); a piece that
+    reads the host fails to capture under that mode."""
+    side = 255
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    s = DistStructuredSolver(side, n_devices=4, halo="rdma", device=dev)
+    s.warmup()
+    g = s._graphs
+    n0 = {k: g[k].launches for k in ("ir", "pcg")}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s.solve_ir_device(b2, 1e-7)
+        s.solve_pcg_device(b2.float(), 1e-5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert {k: g[k].launches - n0[k] for k in n0} == {"ir": 1, "pcg": 1}
+    from amg_tpu_torch.ops.kernels import graph_loop
+    bad = torch.zeros((), device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            graph_loop.StraightGraph(lambda: bad.add_(float(bad)), dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("halo", ["rdma", "sweep"])
+def test_dist_graph_card_group_on_one_card(dev, halo):
+    """Two blocks of a card group on the one card: each block's graphs
+    (captured and replayed by its thread, the collectives the peer
+    collective kernel) give the host driver's outputs and one block's,
+    bitwise; one graph launch a solve a block."""
+    side = 255
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+
+    def runs(s):
+        r = [s.solve_ir_fused(b2, 1e-7), s.solve_pcg(b2.float(), 1e-5),
+             s.solve(b2, 1e-7, compute_error_every_n_iters=2, n_iters=12)]
+        return [(x.u, x.iterations, x.error, x.history) for x in r]
+    one = runs(DistStructuredSolver(side, n_devices=4, halo=halo,
+                                    device=dev))
+    s = DistStructuredSolver(side, n_devices=4, halo=halo,
+                             device=("cuda:0", "cuda:0"))
+    try:
+        assert s.driver == "graph"
+        got = runs(s)
+        n0 = s.run(lambda blk: blk._graphs["ir"].launches)
+        s.solve_ir_fused(b2, 1e-9)
+        n1 = s._group.run(lambda k: s._blocks[k]._graphs["ir"].launches)
+        s.set_driver("host")
+        host = runs(s)
+    finally:
+        s.close()
+    assert n1 == [n0 + 1] * 2
+    for a, b, c in zip(got, host, one):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[0], c[0])
+        assert a[1:] == b[1:]
+        # one block's counts; its rss within 1e-12 (a block's df32 rss is
+        # summed over its slabs, then over the blocks: the card group's
+        # rule, chip_smoke.py CARD_RTOL)
+        assert a[1] == c[1]
+        for (i, e), (ci, ce) in zip(a[3], c[3]):
+            assert i == ci and abs(e / ce - 1) <= 1e-12
+
+
+def _collective_case(k, lost=False):
+    """One block's calls: the peer collective against its plain version,
+    bitwise: sums in block order (f32, f64; one element, and more than a
+    CTA's chunks) and gathers (a few words, and several chunks a CTA),
+    three times each (both slot parities)."""
+    from amg_tpu_torch.ops.kernels import peer_collective as pc
+    from amg_tpu_torch.parallel import launch
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mem = launch.GroupCollectives(1 << 20, timeout_s=0.5)
+    try:
+        if lost:
+            if k == 0:
+                pc.peer_collective(torch.ones(4, device=dev), mem, pc.SUM)
+                torch.cuda.current_stream().synchronize()
+                with pytest.raises(RuntimeError, match="timed out"):
+                    mem.check()
+            return True
+        g = torch.Generator(device="cpu").manual_seed(k)
+        ok = True
+        for _ in range(3):
+            for shape, dtype, mode in (
+                    ((), torch.float64, pc.SUM), ((), torch.float32, pc.SUM),
+                    ((70000,), torch.float64, pc.SUM),
+                    ((3,), torch.float32, pc.GATHER),
+                    ((4, 257, 511), torch.float32, pc.GATHER)):
+                x = (torch.randn(shape, generator=g, dtype=torch.float64)
+                     * 10.0 ** (4 * k)).to(dtype).to(dev)
+                got = pc.peer_collective(x, mem, mode)
+                want = (launch._gather_host(x) if mode == pc.GATHER
+                        else launch._psum_host(x))
+                ok = ok and torch.equal(got, want)
+        torch.cuda.current_stream().synchronize()
+        mem.check()
+        return ok
+    finally:
+        mem.close()
+
+
+@pytest.mark.parametrize("blocks", [2, 3])
+def test_peer_collective_against_its_plain_version(dev, blocks):
+    from amg_tpu_torch.parallel import launch
+    g = launch.CardGroup(("cuda:0",) * blocks)
+    try:
+        assert g.run(_collective_case) == [True] * blocks
+    finally:
+        g.close()
+
+
+def test_peer_collective_lost_block_times_out(dev):
+    """Block 1 never calls: block 0's wait ends at its bound and its
+    status raises."""
+    from amg_tpu_torch.parallel import launch
+    g = launch.CardGroup(("cuda:0",) * 2)
+    try:
+        assert g.run(lambda k: _collective_case(k, lost=True)) == [True] * 2
+    finally:
+        g.close()

@@ -14,11 +14,14 @@ The tests skip only where there is no g++; a build that fails with g++
 present fails them, with the compiler's message.
 """
 
+import importlib.util
 import os
 import shutil
 import subprocess
 import sys
 import textwrap
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -50,11 +53,55 @@ SIDE = 63
 torch.set_num_threads(1)
 
 
+# JAX's loader builds with a 120 s g++ timeout; wait a little longer
+JAX_BUILD_WAIT_S = 150.0
+
+
+def wait_for_engine(mod, wait_s: float = JAX_BUILD_WAIT_S,
+                    poll_s: float = 0.5) -> None:
+    """Load amg_tpu's engine through ``mod`` (its ``bindings`` module, or
+    a copy of its loader state), waiting out a concurrent build.
+
+    JAX's loader runs g++ straight into its library file in place
+    (``amg_tpu/native/bindings.py`` ``_build``), and a process that loads
+    while another test worker's g++ is still writing that file finds a
+    file that exists but is only partly written: ``ctypes.CDLL`` fails and
+    the loader remembers the failure (``_tried``) for the rest of the
+    process. So: poll, and once the file's size and time have held for
+    one poll (a file still being written can crash the loader, not only
+    fail it), clear ``_tried`` and load again, until the library loads or
+    ``wait_s`` has passed; then fail with a clear message."""
+    deadline = time.monotonic() + wait_s
+
+    def stamp():
+        try:
+            st = os.stat(mod._SO)
+        except OSError:
+            return None
+        return st.st_size, st.st_mtime_ns
+
+    seen = stamp()
+    while not mod.available():
+        while True:
+            if time.monotonic() > deadline:
+                pytest.fail(f"amg_tpu's native engine did not load within "
+                            f"{wait_s:.0f} s ({mod._SO}): not built, or "
+                            f"its file is still partly written")
+            time.sleep(poll_s)
+            now, seen = seen, stamp()
+            if now is not None and now == seen:
+                break
+        with mod._lock:
+            mod._tried = False
+
+
 @pytest.fixture(scope="module", autouse=True)
 def built():
-    """Both engines loaded; a failed build fails here with its message."""
+    """Both engines loaded; a failed build of the port's fails here with
+    its message, and JAX's is waited for while another worker builds
+    it."""
     assert tb.available(), f"the port's native engine: {tb.last_error()}"
-    assert jb.available(), "amg_tpu's native engine did not build"
+    wait_for_engine(jb)
     assert tb.last_error() is None
 
 
@@ -264,3 +311,56 @@ def test_failed_build_keeps_the_message(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "kept" in proc.stdout
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def _loader_copy(tmp_path, so_name="libamgcore.so"):
+    """A fresh copy of JAX's loader state (amg_tpu/native/bindings.py
+    loaded as a module of its own) pointed at a library file in
+    ``tmp_path``, behind a source older than it, so it loads and never
+    builds."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_native_loader_copy", REPO / "amg_tpu" / "native" / "bindings.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    src = tmp_path / "amgcore.cpp"
+    src.write_text("// never built\n")
+    os.utime(src, (1.0, 1.0))
+    mod._SRC, mod._SO = str(src), str(tmp_path / so_name)
+    return mod
+
+
+def test_wait_loads_a_library_completed_later(tmp_path):
+    """A library file that another process is still writing: the first
+    load fails and the loader remembers it; the fixture's wait loads the
+    file once a thread has completed it, about 1 s later."""
+    whole = Path(jb._SO).read_bytes()
+    mod = _loader_copy(tmp_path)
+    Path(mod._SO).write_bytes(whole[:48])    # not yet a whole ELF header
+    assert not mod.available() and mod._tried
+
+    def complete():
+        time.sleep(1.0)
+        Path(mod._SO).write_bytes(whole)
+    t = threading.Thread(target=complete)
+    t.start()
+    t0 = time.monotonic()
+    try:
+        wait_for_engine(mod, wait_s=30.0, poll_s=0.1)
+    finally:
+        t.join()
+    assert mod.available() and mod._lib is not None
+    assert 0.5 < time.monotonic() - t0 < 30.0
+
+
+def test_wait_fails_on_a_library_that_never_completes(tmp_path):
+    """A file that stays partly written: the wait fails with the message
+    at its bound and does not hang."""
+    whole = Path(jb._SO).read_bytes()
+    mod = _loader_copy(tmp_path)
+    Path(mod._SO).write_bytes(whole[:48])
+    t0 = time.monotonic()
+    with pytest.raises(pytest.fail.Exception,
+                       match="did not load within 2 s"):
+        wait_for_engine(mod, wait_s=2.0, poll_s=0.1)
+    assert time.monotonic() - t0 < 10.0
+    assert not mod.available()
