@@ -12,9 +12,11 @@ include/amg/multigrid.hpp):
   (multigrid.hpp:263-305), a function of (u, b);
 * ``solve``: the host loop with the reference's stopping rule
   (multigrid.hpp:311-337), ``while iter < n_iters && error > tol``, the
-  rss checked every ``compute_error_every_n_iters`` V-cycles; the
-  V-cycles between two checks are queued with no host sync, and each
-  check reads one value;
+  rss checked every ``compute_error_every_n_iters`` V-cycles; as JAX runs
+  one jitted chunk of V-cycles between two checks, on the card each chunk
+  is one CUDA graph launch and each check one rss graph and one read
+  (``graph_loop.ChunkLoop``, kept with the hierarchy), and on the CPU the
+  same pieces run eagerly;
 * ``Multigrid``: the reference's object (class AMG::Multigrid), with its
   validations, the stateful ``vcycle()`` and the getters.
 
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Any
 
 import scipy.sparse as sp
@@ -36,12 +39,12 @@ from torch import nn
 
 from amg_tpu_torch.ops.coarse import CoarseSolver, setup_coarse_solver
 from amg_tpu_torch.ops.ell_rap import apply_rap_chain, build_rap_plans
+from amg_tpu_torch.ops.kernels.graph_loop import ChunkLoop
 from amg_tpu_torch.ops.smoothers import (MulticolorGaussSeidel,
                                          MulticolorGSState, SmootherBase,
                                          SparseGaussSeidel)
 from amg_tpu_torch.ops.transfer import InterpolatorBase, LinearInterpolator
 from amg_tpu_torch.sparse.ell import ELL
-from amg_tpu_torch.utils.debugging import check_rss
 from amg_tpu_torch.utils.device import resolve_device
 from amg_tpu_torch.utils.metrics import rss
 
@@ -81,7 +84,8 @@ class Hierarchy(nn.Module):
     """The levels and the coarsest LU. ``.to(device)`` moves every tensor
     of the levels. ``setup_seconds`` splits the build's host time
     (``rap``, ``upload``, ``smoother`` — coloring and panels —, ``lu``)
-    where a build recorded it."""
+    where a build recorded it. ``solve``'s chunk loops (and their graphs)
+    live here too, dropped with the hierarchy or when it moves."""
 
     def __init__(self, levels, coarse: CoarseSolver,
                  setup_seconds: dict | None = None):
@@ -89,10 +93,12 @@ class Hierarchy(nn.Module):
         self.levels = tuple(levels)
         self.coarse = coarse
         self.setup_seconds = setup_seconds or {}
+        self.chunk_loops = {}
 
     def _apply(self, fn, recurse=True):
         self.levels = _map_tensors(self.levels, fn)
         self.coarse = _map_tensors(self.coarse, fn)
+        self.chunk_loops = {}
         return self
 
     @property
@@ -287,31 +293,53 @@ def vcycle(hier: Hierarchy, smoother: SmootherBase, u: torch.Tensor,
     return us[0]
 
 
+def _chunk_loop(hier: Hierarchy, smoother: SmootherBase, u: torch.Tensor,
+                b: torch.Tensor) -> ChunkLoop:
+    """The hierarchy's chunk loop for the smoother's options and the
+    buffers' kind (built at the first solve, kept with the hierarchy)."""
+    key = (type(smoother), repr(sorted(vars(smoother).items())),
+           *((t.dtype, tuple(t.shape), t.device) for t in (u, b)))
+    loop = hier.chunk_loops.get(key)
+    if loop is None:
+        ref = weakref.ref(hier)     # the hierarchy holds the loop
+        loop = hier.chunk_loops[key] = ChunkLoop(
+            lambda uu, bb: vcycle(ref(), smoother, uu, bb),
+            lambda uu, bb: rss(ref().levels[0].A, uu, bb), u, b)
+    return loop
+
+
 def solve(hier: Hierarchy, smoother: SmootherBase, b: torch.Tensor,
           u0: torch.Tensor | None = None, tolerance: float = 1e-9,
           compute_error_every_n_iters: int = 10, n_iters: int = 100,
           display_error: bool = False) -> SolveResult:
     """The outer V-cycle loop (multigrid.hpp:311-337): error sentinel 100,
     the finest rss checked every ``compute_error_every_n_iters`` cycles
-    (0 = never), loop while ``iter < n_iters && error > tolerance``."""
+    (0 = never), loop while ``iter < n_iters && error > tolerance``. The
+    V-cycles between two checks are one chunk (JAX's jitted
+    ``cycle_chunk``): on the card one CUDA graph launch, and each check
+    one rss graph launch and one read; ``u0`` and ``b`` are copied into
+    the loop's buffers."""
+    return _solve(hier, smoother, b, u0, tolerance,
+                  compute_error_every_n_iters, n_iters, display_error)
+
+
+def _solve(hier: Hierarchy, smoother: SmootherBase, b: torch.Tensor,
+           u0: torch.Tensor | None, tolerance: float, every: int,
+           n_iters: int, display_error: bool = False,
+           host: bool = False) -> SolveResult:
+    """``solve`` under the graph driver on the card, or under the host
+    driver of the same pieces (the CPU's; ``host=True``: the card's
+    oracle)."""
     A0 = hier.levels[0].A
     u = torch.zeros(A0.n_rows, dtype=A0.dtype, device=A0.device) \
         if u0 is None else u0
-    every = compute_error_every_n_iters
-    it = 0
-    error = 100.0  # the reference's sentinel (multigrid.hpp:313)
-    history = []
-    while it < n_iters and error > tolerance:
-        k = (min(every - (it % every), n_iters - it) if every and every > 0
-             else n_iters - it)
-        for _ in range(k):
-            u = vcycle(hier, smoother, u, b)
-        it += k
-        if every and it % every == 0:
-            error = check_rss(float(rss(A0, u, b)))
-            history.append((it, error))
-            if display_error:
-                print(f"Iter: {it} | Error: {error}")
+    loop = _chunk_loop(hier, smoother, u, b)
+
+    def report(it, error):
+        print(f"Iter: {it} | Error: {error}")
+    u, it, error, history = loop.solve(
+        u, b, tolerance, every, n_iters, host or A0.device.type != "cuda",
+        report if display_error else None)
     return SolveResult(u=u, iterations=it, error=error,
                        converged=error <= tolerance, history=history)
 

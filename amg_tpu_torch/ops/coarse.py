@@ -31,12 +31,29 @@ def pivots_to_jax(piv: torch.Tensor) -> np.ndarray:
     return (piv.cpu().numpy() - 1).astype(np.int32)
 
 
+def cusolver_linalg() -> None:
+    """Make torch.linalg take cuSOLVER for the process (where it takes its
+    default): the coarsest solve's ``lu_solve`` then runs cuSOLVER's
+    ``getrs`` in every thread and process. The default heuristic took
+    cuBLAS's batched ``getrs`` in some threads (after an eager solve on
+    another stream), whose bits can differ from cuSOLVER's and whose CUDA
+    graph capture holds stream-ordered allocation nodes, which the loop
+    graphs' child graphs cannot hold (H100, driver 13.0, torch 2.11)."""
+    cuda = torch.backends.cuda
+    if cuda.preferred_linalg_library() == torch._C._LinalgBackend.Default:
+        cuda.preferred_linalg_library("cusolver")
+
+
 @dataclasses.dataclass(frozen=True)
 class CoarseSolver:
     lu: torch.Tensor
     piv: torch.Tensor  # 1-based (LAPACK)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """On the card torch.linalg takes cuSOLVER from the first solve on
+        (``cusolver_linalg``)."""
+        if b.is_cuda:
+            cusolver_linalg()
         return torch.linalg.lu_solve(self.lu, self.piv, b[:, None])[:, 0]
 
     def to(self, device) -> "CoarseSolver":

@@ -32,6 +32,9 @@ pieces:
 
 A program with no loop (JAX's jitted V-cycle, rss or one refine) is a
 :class:`StraightGraph`: its one piece captured, ``launch()`` a replay.
+JAX's host loop over a jitted chunk of cycles and a jitted rss is a
+:class:`ChunkLoop`: a straight graph a chunk length and one for the rss,
+the rss read between them.
 
 Launch counts. The kernel wrappers count at capture into a tally of the
 piece (``_build.capture_tally``), not into their counters; the graph
@@ -68,6 +71,7 @@ from collections import Counter
 import torch
 
 from amg_tpu_torch.ops.kernels import _build, packed_df
+from amg_tpu_torch.utils.debugging import check_rss
 
 START, STEP, STEP_IF, FINAL = 0, 1, 2, 3
 
@@ -263,6 +267,77 @@ class StraightGraph:
         g = getattr(self, "_graph", None)
         if g is not None:
             _RETIRED.append((self._launched_on, lambda: g.reset()))
+
+
+class ChunkLoop:
+    """JAX's host loop over a jitted chunk of ``k`` cycles between two
+    reads of the rss (``multigrid.solve``, ``structured.solve_stencil``):
+    ``cycle(u, b)`` and ``rss(u, b)`` on the fixed buffers ``u`` and
+    ``b`` (made like ``u_like`` and ``b_like``; a caller's tensor is
+    copied in, never aliased), the rss into the 0-dim f64 ``err``. Two
+    drivers run the same pieces: the host's (each piece run eagerly) and,
+    on the card, one :class:`StraightGraph` a distinct ``k`` (a solve
+    takes at most two: the check interval and the remainder) and one for
+    the rss, each captured at its first use and kept for the next
+    solves. Whoever holds the loop holds its graphs; dropping it retires
+    them."""
+
+    def __init__(self, cycle, rss, u_like: torch.Tensor,
+                 b_like: torch.Tensor):
+        self.cycle, self._rss_of = cycle, rss
+        self.u = torch.zeros_like(u_like)
+        self.b = torch.zeros_like(b_like)
+        self.err = torch.zeros((), dtype=torch.float64, device=u_like.device)
+        self.graphs = {}            # "rss" and each k: StraightGraph
+
+    def _chunk(self, k: int):
+        def run():
+            u = self.u
+            for _ in range(k):
+                u = self.cycle(u, self.b)
+            self.u.copy_(u)
+        return run
+
+    def _rss(self) -> None:
+        self.err.copy_(self._rss_of(self.u, self.b))
+
+    def _go(self, key, fn, host: bool) -> None:
+        """One run of the piece: eagerly under the host driver, else one
+        launch of its graph, captured first if it is new (the capture's
+        warm-up runs the piece once, so the buffers are kept across it)."""
+        if host:
+            fn()
+            return
+        g = self.graphs.get(key)
+        if g is None:
+            keep = self.u.clone()
+            g = self.graphs[key] = StraightGraph(fn, self.u.device)
+            self.u.copy_(keep)
+        g.launch()
+
+    def solve(self, u0: torch.Tensor, b: torch.Tensor, tolerance: float,
+              every: int, n_iters: int, host: bool, report=None):
+        """The reference's stopping rule (multigrid.hpp:311-337) from
+        ``u0``: chunks of cycles while ``it < n_iters and error >
+        tolerance``, the rss read every ``every`` cycles (0: never; one
+        read a check, ``report(it, error)`` after it). Returns (u, a new
+        tensor; cycles; the last rss read, else the sentinel 100;
+        history)."""
+        self.u.copy_(u0)
+        self.b.copy_(b)
+        it, error, history = 0, 100.0, []
+        while it < n_iters and error > tolerance:
+            k = (min(every - (it % every), n_iters - it) if every
+                 and every > 0 else n_iters - it)
+            self._go(k, self._chunk(k), host)
+            it += k
+            if every and it % every == 0:
+                self._go("rss", self._rss, host)
+                error = check_rss(float(self.err))
+                history.append((it, error))
+                if report is not None:
+                    report(it, error)
+        return self.u.clone(), it, error, history
 
 
 class DeviceLoop:

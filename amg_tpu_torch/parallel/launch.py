@@ -504,6 +504,119 @@ def block_local(method):
     return call
 
 
+class ProgramSolver(SpreadSolver):
+    """A distributed solver whose JAX programs are restated in cond/body
+    form on fixed buffers a block (``_state()``: ``straight``, the pieces
+    with no loop, and ``loops``, each a ``graph_loop.DeviceLoop`` with
+    its (pre, post)) and run under one of two drivers, ``driver``:
+
+    * ``"graph"`` (the default on the card in one process: one block or a
+      card group): a CUDA graph a program a block, captured at its first
+      use (``_build``) or by ``warmup``, one graph launch a call; in a
+      card group the collectives inside are the peer collective kernel
+      on ``GroupCollectives`` the blocks open at the first capture;
+    * ``"host"`` (the CPU's, under a process group, and the oracle on the
+      card): the same pieces stepped from the host, the card group's
+      collectives the host ones.
+
+    A block sets ``_loop`` (its ``_state``), ``_graphs`` and ``_coll`` to
+    None, {} and None when it is placed."""
+
+    def _driver_for(self, driver: str | None) -> str:
+        on_card = (all(d.type == "cuda" for d in self.devices)
+                   and world_size() == 1)
+        if driver is None:
+            return "graph" if on_card else "host"
+        if driver not in ("graph", "host"):
+            raise ValueError(f"unknown driver {driver!r}: 'graph' or 'host'")
+        if driver == "graph" and not on_card:
+            raise ValueError(
+                "the graph driver runs on the card in one process (one "
+                "block or a card group); on the CPU and across processes "
+                "the solver takes the host driver")
+        return driver
+
+    def set_driver(self, driver: str | None) -> None:
+        """Run the programs under ``driver`` from now on (None: the
+        default), on every block."""
+        self.driver = self._driver_for(driver)
+        for blk in self._blocks or ():
+            blk.driver = self.driver
+
+    def _build(self, name: str) -> None:
+        """Under the graph driver, the program's graph on this block,
+        captured at its first use (JAX compiles at the first call); in a
+        card group every block captures together, the collectives inside
+        the peer collective kernel on memory the blocks open at the
+        first capture."""
+        if self.driver != "graph" or name in self._graphs:
+            return
+        L = self._state()
+        grouped = in_card_group()
+        if grouped and self._coll is None:
+            self._coll = GroupCollectives()
+        wait = barrier if grouped else None
+        warm = ((lambda: sizing_collectives(self._coll)) if grouped
+                else None)
+        with device_collectives(self._coll):
+            if name in L.loops:
+                loop, pre, post = L.loops[name]
+                g = loop.graph(pre, post, barrier=wait, warm=warm)
+            else:
+                g = graph_loop.StraightGraph(L.straight[name], self.device,
+                                             barrier=wait, warm=warm)
+        self._graphs[name] = g
+
+    def _go(self, name: str) -> None:
+        """One run of the program on its buffers: one graph launch, or
+        the host driver of the same pieces."""
+        L = self._state()
+        if self.driver == "graph":
+            # in a card group every block's graph is launched before any
+            # block goes on (an allocation after it could hold the card
+            # before another block's launch)
+            barrier()
+            self._graphs[name].launch()
+            barrier()
+        elif name in L.loops:
+            loop, pre, post = L.loops[name]
+            loop.run_host(pre, post)
+        else:
+            L.straight[name]()
+
+    def _run(self, name: str, inputs):
+        """The program's graph built (its warm-up runs the pieces once
+        on the buffers), ``inputs()`` written into its buffers, one
+        run. Returns the block's ``_state``."""
+        self._build(name)
+        inputs()
+        self._go(name)
+        return self._state()
+
+    def _check(self) -> None:
+        """After a read of a program's results: raise if a wait of the
+        peer collectives timed out."""
+        if self._coll is not None:
+            self._coll.check()
+
+    @every_block
+    def warmup(self) -> None:
+        """JAX's compile step: under the graph driver capture and
+        instantiate every program's graph on every block (the first call
+        of each does it otherwise)."""
+        L = self._state()
+        for name in (*L.straight, *L.loops):
+            self._build(name)
+
+    def _close_programs(self) -> None:
+        """Drop the block's graphs and release the peer collectives'
+        memory (collective in a card group)."""
+        self._graphs = {}
+        if self._coll is not None:
+            coll, self._coll = self._coll, None
+            coll.close()
+
+
 def _ready(x):
     """An event after the work on the current stream that made ``x`` (a
     tensor or a tuple of tensors on one device; None on the CPU)."""
@@ -787,6 +900,20 @@ def psum(t: torch.Tensor) -> torch.Tensor:
             return peer_collective(t, mem, SUM)
         return _psum_host(t)
     return _all_reduce(t)
+
+
+def slab_total(part: torch.Tensor) -> torch.Tensor:
+    """The sum over every slab of every block of ``part``, this block's
+    (D/P,) per-slab partial sums: each block puts its partials at its
+    slabs' places of a zero (D,) vector and ``psum`` adds the vectors
+    (every entry one block's value plus zeros, so exact), so every block,
+    and one block alone, sums the same vector: the same bits for any
+    number of blocks."""
+    P = process_count()
+    if P == 1:
+        return part.sum()
+    Dl, k = part.shape[0], process_index()
+    return psum(F.pad(part, (k * Dl, (P - 1 - k) * Dl))).sum()
 
 
 def _psum_host(t: torch.Tensor) -> torch.Tensor:

@@ -747,7 +747,7 @@ def vcycle_dist(cfg: DistConfig, sub_hier: StencilHierarchy, u, b,
 # The solver.
 
 
-class DistStructuredSolver(launch.SpreadSolver):
+class DistStructuredSolver(launch.ProgramSolver):
     """Row-partitioned structured Poisson solver over a mesh of D slabs
     (JAX ``DistStructuredSolver``).
 
@@ -898,36 +898,12 @@ class DistStructuredSolver(launch.SpreadSolver):
         if self._blocks is not None:
             self._close_group(DistStructuredSolver.close)
             return
-        self._graphs = {}
-        if self._coll is not None:
-            coll, self._coll = self._coll, None
-            coll.close()
+        self._close_programs()
         if self._peer:
             recv, self._recv, self._peer = self._recv, {}, False
             launch.close_peer_strips(recv)
 
-    # -- the drivers ---------------------------------------------------------
-
-    def _driver_for(self, driver: str | None) -> str:
-        on_card = (all(d.type == "cuda" for d in self.devices)
-                   and launch.world_size() == 1)
-        if driver is None:
-            return "graph" if on_card else "host"
-        if driver not in ("graph", "host"):
-            raise ValueError(f"unknown driver {driver!r}: 'graph' or 'host'")
-        if driver == "graph" and not on_card:
-            raise ValueError(
-                "the graph driver runs on the card in one process (one "
-                "block or a card group); on the CPU and across processes "
-                "the solver takes the host driver")
-        return driver
-
-    def set_driver(self, driver: str | None) -> None:
-        """Run the programs under ``driver`` from now on (None: the
-        default), on every block."""
-        self.driver = self._driver_for(driver)
-        for blk in self._blocks or ():
-            blk.driver = self.driver
+    # -- the programs (launch.ProgramSolver runs them) ------------------------
 
     def _state(self) -> SimpleNamespace:
         """This block's programs in JAX's cond/body form on fixed buffers
@@ -1035,72 +1011,6 @@ class DistStructuredSolver(launch.SpreadSolver):
             lambda: refine_into(L.err, L.uh, L.ul), err=L.err, tol=L.tol,
             it=L.it, n=L.n), ir_pre, ir_post)
 
-    def _build(self, name: str) -> None:
-        """Under the graph driver, the program's graph on this block,
-        captured at its first use (JAX compiles at the first call); in a
-        card group every block captures together, the collectives inside
-        the peer collective kernel on memory the blocks open at the
-        first capture."""
-        if self.driver != "graph" or name in self._graphs:
-            return
-        L = self._state()
-        grouped = launch.in_card_group()
-        if grouped and self._coll is None:
-            self._coll = launch.GroupCollectives()
-        barrier = launch.barrier if grouped else None
-        warm = ((lambda: launch.sizing_collectives(self._coll)) if grouped
-                else None)
-        with launch.device_collectives(self._coll):
-            if name in L.loops:
-                loop, pre, post = L.loops[name]
-                g = loop.graph(pre, post, barrier=barrier, warm=warm)
-            else:
-                g = graph_loop.StraightGraph(L.straight[name], self.device,
-                                             barrier=barrier, warm=warm)
-        self._graphs[name] = g
-
-    def _go(self, name: str) -> None:
-        """One run of the program on its buffers: one graph launch, or
-        the host driver of the same pieces."""
-        L = self._state()
-        if self.driver == "graph":
-            # in a card group every block's graph is launched before any
-            # block goes on (an allocation after it could hold the card
-            # before another block's launch)
-            launch.barrier()
-            self._graphs[name].launch()
-            launch.barrier()
-        elif name in L.loops:
-            loop, pre, post = L.loops[name]
-            loop.run_host(pre, post)
-        else:
-            L.straight[name]()
-
-    def _run(self, name: str, inputs) -> SimpleNamespace:
-        """The program's graph built (its warm-up runs the pieces once
-        on the buffers), ``inputs()`` written into its buffers, one
-        run."""
-        self._build(name)
-        inputs()
-        self._go(name)
-        return self._state()
-
-    def _check(self) -> None:
-        """After a read of a program's results: raise if a wait of the
-        peer collectives timed out."""
-        if self._coll is not None:
-            self._coll.check()
-
-    @launch.every_block
-    def warmup(self) -> None:
-        """JAX's compile step: under the graph driver capture and
-        instantiate every program's graph on every block (the first call
-        of each does it otherwise)."""
-        L = self._state()
-        for name in (*L.straight, *L.loops):
-            self._build(name)
-
-
     def _tensor(self, f) -> torch.Tensor:
         """A tensor on the solver's device; numpy input is copied."""
         if not isinstance(f, torch.Tensor):
@@ -1163,12 +1073,8 @@ class DistStructuredSolver(launch.SpreadSolver):
         block's value plus zeros, so exact), so every block, and one block
         alone, sums the same vector: a card group's or the processes' PCG
         iterates are one block's bitwise for any number of blocks."""
-        part = torch.stack([(x[d] * y[d]).sum() for d in range(len(x))])
-        P = launch.process_count()
-        if P == 1:
-            return part.sum()
-        Dl, k = part.shape[0], launch.process_index()
-        return launch.psum(F.pad(part, (k * Dl, (P - 1 - k) * Dl))).sum()
+        return launch.slab_total(torch.stack([(x[d] * y[d]).sum()
+                                              for d in range(len(x))]))
 
     def _read_rss(self) -> float:
         error = check_rss(float(self._state().rss))

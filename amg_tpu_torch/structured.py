@@ -48,6 +48,7 @@ drives the CPU tests.
 
 from __future__ import annotations
 
+import weakref
 from types import SimpleNamespace
 
 import scipy.sparse as sp
@@ -61,6 +62,7 @@ from amg_tpu_torch.ops.doublefloat import (DF32, df_add_f32, df_residual,
 from amg_tpu_torch.models import poisson
 from amg_tpu_torch.multigrid import SolveResult
 from amg_tpu_torch.native import bindings
+from amg_tpu_torch.ops.coarse import cusolver_linalg
 from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
                                        fused_down_leg_packed, fused_gs4_sweep,
                                        fused_gs4_sweep_packed,
@@ -117,6 +119,8 @@ class StencilHierarchy(nn.Module):
     weights of side >= ``packed_min_side`` except the coarsest, packed
     once here rather than in every V-cycle. ``lam_maxes``: per-level
     lambda_max(D^-1 A) bounds for the Chebyshev smoother, or None.
+    ``chunk_loops``: ``solve_stencil``'s chunk loops (and their graphs),
+    dropped with the hierarchy or when it moves.
     """
 
     def __init__(self, sides, w33s, coarse_lu, coarse_piv, P1s, planes=None,
@@ -150,6 +154,11 @@ class StencilHierarchy(nn.Module):
                     and self.sides[l] >= packed_min_side):
                 self.register_buffer(f"cp_{l}",
                                      pack_planes(c, (self.sides[l] - 1) // 2))
+        self.chunk_loops = {}
+
+    def _apply(self, fn, recurse=True):
+        self.chunk_loops = {}
+        return super()._apply(fn, recurse)
 
     @property
     def n_levels(self) -> int:
@@ -195,19 +204,6 @@ class StencilHierarchy(nn.Module):
         sol = torch.linalg.lu_solve(self.coarse_lu, self.coarse_piv,
                                     b2.reshape(-1, 1))
         return sol.reshape(nc, nc)
-
-
-def cusolver_linalg() -> None:
-    """Make torch.linalg take cuSOLVER for the process (where it takes its
-    default): the coarsest solve's ``lu_solve`` then runs cuSOLVER's
-    ``getrs`` in every thread and process. The default heuristic took
-    cuBLAS's batched ``getrs`` in some threads (after an eager solve on
-    another stream), whose bits can differ from cuSOLVER's and whose CUDA
-    graph capture holds stream-ordered allocation nodes, which the loop
-    graphs' child graphs cannot hold (H100, driver 13.0, torch 2.11)."""
-    cuda = torch.backends.cuda
-    if cuda.preferred_linalg_library() == torch._C._LinalgBackend.Default:
-        cuda.preferred_linalg_library("cusolver")
 
 
 def max_levels_for_side(side: int) -> int:
@@ -601,29 +597,43 @@ def solve_stencil(hier: StencilHierarchy, b2, u0=None,
     """V-cycles on the hierarchy's own precision with the reference's
     stopping rule (multigrid.hpp:311-337): the rss of the fine level is
     read every ``compute_error_every_n_iters`` V-cycles (0: only after
-    ``n_iters``) and each reading goes into ``history``. ``b2`` goes to
-    ``device`` (None: ``"cuda"``), where the hierarchy must be."""
+    ``n_iters``) and each reading goes into ``history``. The V-cycles
+    between two readings are one chunk (JAX's jitted ``chunk``): on the
+    card one CUDA graph launch, and each reading one rss graph launch and
+    one read (``graph_loop.ChunkLoop``, kept with the hierarchy). ``b2``
+    goes to ``device`` (None: ``"cuda"``), where the hierarchy must be;
+    ``u0`` and ``b2`` are copied into the loop's buffers."""
+    return _solve_stencil(hier, b2, u0, tolerance,
+                          compute_error_every_n_iters, n_iters, pre_sweeps,
+                          post_sweeps, omega, symmetric, device)
+
+
+def _solve_stencil(hier: StencilHierarchy, b2, u0, tolerance: float,
+                   every: int, n_iters: int, pre_sweeps: int,
+                   post_sweeps: int, omega: float, symmetric: bool, device,
+                   host: bool = False) -> SolveResult:
+    """``solve_stencil`` under the graph driver on the card, or under the
+    host driver of the same pieces (the CPU's; ``host=True``: the card's
+    oracle)."""
     device = resolve_device(device)
     if hier.coarse_lu.device.type != device.type:
         raise ValueError(f"the hierarchy is on {hier.coarse_lu.device}, "
                          f"the solve on {device}")
     b2 = torch.as_tensor(b2, device=device)
-    S0 = hier.levels[0]
     u = torch.zeros_like(b2) if u0 is None else torch.as_tensor(
         u0, device=device)
-    every = compute_error_every_n_iters
-    it, error = 0, 100.0
-    history = []
-    while it < n_iters and error > tolerance:
-        k = (min(every - (it % every), n_iters - it) if every
-             else n_iters - it)
-        for _ in range(k):
-            u = vcycle_stencil(hier, u, b2, pre_sweeps, post_sweeps, omega,
-                               symmetric)
-        it += k
-        if every and it % every == 0:
-            error = check_rss(float(rss_from_residual(b2 - S0.matvec2(u))))
-            history.append((it, error))
+    key = (pre_sweeps, post_sweeps, omega, symmetric,
+           *((t.dtype, tuple(t.shape), t.device) for t in (u, b2)))
+    loop = hier.chunk_loops.get(key)
+    if loop is None:
+        ref = weakref.ref(hier)     # the hierarchy holds the loop
+        loop = hier.chunk_loops[key] = graph_loop.ChunkLoop(
+            lambda uu, bb: vcycle_stencil(ref(), uu, bb, pre_sweeps,
+                                          post_sweeps, omega, symmetric),
+            lambda uu, bb: rss_from_residual(
+                bb - ref().levels[0].matvec2(uu)), u, b2)
+    u, it, error, history = loop.solve(u, b2, tolerance, every, n_iters,
+                                       host or device.type != "cuda")
     return SolveResult(u=u, iterations=it, error=error,
                        converged=error <= tolerance, history=history)
 
@@ -811,7 +821,8 @@ class StructuredSolver:
         self.df_kernel = (self.fused_packed and self.w33 is not None
                           and is_pow2_weights(self.w33))
         self._loop = None         # the solve loop (_loop_state)
-        self._graphs = {}         # its programs' graphs on the card
+        self._refine = None       # solve_ir's step (_refine_state)
+        self._graphs = {}         # their programs' graphs on the card
 
     # -- pieces of the solve loop ------------------------------------------
 
@@ -1131,15 +1142,46 @@ class StructuredSolver:
     def _residual_rss(self, u64: torch.Tensor, b64: torch.Tensor):
         return rss_from_residual(b64 - self.A64.matvec2(u64))
 
+    def _refine_state(self) -> SimpleNamespace:
+        """``solve_ir``'s program (JAX's jitted ``refine_step``) on fixed
+        f64 buffers (built once): ``step`` writes ``_refine_step(u, b)``
+        into ``u_next`` and ``err``."""
+        if self._refine is None:
+            def f64(shape=(self.side, self.side)):
+                return torch.zeros(shape, dtype=torch.float64,
+                                   device=self.device)
+            R = SimpleNamespace(u=f64(), b=f64(), u_next=f64(), err=f64(()))
+
+            def step():
+                u_next, err = self._refine_step(R.u, R.b)
+                R.u_next.copy_(u_next)
+                R.err.copy_(err)
+            R.step = step
+            self._refine = R
+        return self._refine
+
+    def _refine_graph(self) -> graph_loop.StraightGraph:
+        """The refine program's graph on the card, captured at its first
+        use (its warm-up runs the step once on the buffers)."""
+        g = self._graphs.get("refine")
+        if g is None:
+            g = self._graphs["refine"] = graph_loop.StraightGraph(
+                self._refine_state().step, self.device)
+        return g
+
     def warmup(self, refine_step: bool = False) -> None:
         """JAX's compile step: on the card, capture and instantiate the
         solve loop's graphs (both programs of the packed loop); then one
         solve on a zero rhs, with one read of its stats.
-        ``refine_step=True`` runs one host-stepped refine first."""
+        ``refine_step=True`` also readies ``solve_ir``: on the card its
+        refine graph, on the CPU one refine."""
         z = torch.zeros((self.side, self.side), dtype=torch.float64,
                         device=self.device)
         if refine_step:
-            float(self._refine_step(z, z)[1])
+            if self.device.type == "cuda":
+                self._refine_graph()
+            else:
+                float(self._refine_step(z, z)[1])
         if self.device.type == "cuda":
             for name in self._loop_state().programs:
                 self._graph(name)
@@ -1152,21 +1194,37 @@ class StructuredSolver:
         the JAX loop's lagged semantics: each step returns the corrected
         iterate and the rss of the one it started from, and the
         correction is kept only while that rss is above ``tolerance``, so
-        the stopping step's cycles run and are discarded. ``history``
-        holds (V-cycles so far, rss) of every step; ``iterations`` the
-        V-cycles of the kept corrections."""
+        the stopping step's cycles run and are discarded. On the card each
+        step is one launch of the refine graph and one read of its rss.
+        ``history`` holds (V-cycles so far, rss) of every step;
+        ``iterations`` the V-cycles of the kept corrections."""
+        return self._solve_ir(b2_f64, tolerance, n_refine)
+
+    def _solve_ir(self, b2_f64, tolerance: float, n_refine: int,
+                  host: bool = False) -> SolveResult:
+        """``solve_ir`` under the graph driver on the card, or under the
+        host driver of the same step (the CPU's; ``host=True``: the
+        card's oracle)."""
         b64 = self._b64(b2_f64)
-        u = torch.zeros_like(b64)
+        R = self._refine_state()
+        graph = None
+        if not host and self.device.type == "cuda":
+            graph = self._refine_graph()    # before the inputs go in
+        R.b.copy_(b64)
+        R.u.zero_()
         history = []
         it = 0
         error = float("inf")
         for _ in range(n_refine):
-            u_next, err = self._refine_step(u, b64)
-            error = check_rss(float(err))  # the step's one host sync
+            if graph is None:
+                R.step()
+            else:
+                graph.launch()
+            error = check_rss(float(R.err))  # the step's one host sync
             history.append((it, error))
             if error <= tolerance:
                 break
-            u = u_next
+            R.u.copy_(R.u_next)
             it += self.cycles_per_refine
-        return SolveResult(u=u, iterations=it, error=error,
+        return SolveResult(u=R.u.clone(), iterations=it, error=error,
                            converged=error <= tolerance, history=history)

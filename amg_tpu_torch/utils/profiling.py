@@ -26,12 +26,12 @@ dispatch of one solve_ir_device are reported too, and the trace is the
 host driver's); ``--pcg``
 the f32 PCG (solve_pcg_device, fused=True, on the packed hierarchy),
 whose "refines" are its iterations; ``--no-fmg`` starts the refine loop
-from zero (fmg=False); ``--solve-ir`` runs the host-stepped
-StructuredSolver.solve_ir (f64 residual, from zero), whose "refines" are
+from zero (fmg=False); ``--solve-ir`` runs StructuredSolver.solve_ir
+(f64 residual, from zero, one refine graph a step), whose "refines" are
 its steps, the stopping one included. Device busy time is the sum of the GPU
 kernels' and copies' own times in the trace (one stream, so they do not
 overlap); the idle share is 1 - busy / (untraced wall). The solve loops
-that run as one CUDA graph (StructuredSolver's and solve_pcg_device's)
+that run as CUDA graphs (StructuredSolver's and solve_pcg_device's)
 are timed as the graph, and traced as their host-driven oracle, which
 launches the same kernels: CUPTI's records of a graph whose WHILE body
 runs many passes faulted the card (an illegal address at 16 passes on an
@@ -189,7 +189,7 @@ def profile_solve(side: int, device="cuda", top: int = 12,
 
         def solve(host=False):
             if solve_ir:
-                r = s.solve_ir(b2, tolerance=tol)
+                r = s._solve_ir(b2, tol, 40, host=host)
                 return r.error, len(r.history)
             if not s.packed_loop:
                 return s._solve_device(b2, tol, 40, 0.0,
@@ -221,7 +221,7 @@ def profile_solve(side: int, device="cuda", top: int = 12,
         torch.cuda.synchronize()
         extra["span_s"] = start.elapsed_time(stop) * 1e-3
     K.reset_launch_counts()
-    graph = not solve_ir and (graph or not dist)
+    graph = graph or not dist
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

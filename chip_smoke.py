@@ -15,7 +15,9 @@ condition's edge cases, and per pass), then drives the solves through
 the user entry points with an independent f64 residual check and the
 kernels' launch counts. StructuredSolver's solve loops and
 solve_pcg_device run as one CUDA graph a solve (JAX's one-program
-loops):
+loops), and JAX's host loops over a jitted program (solve_ir's refine,
+solve_stencil's and multigrid.solve's chunks of V-cycles, the
+distributed solvers' programs) as a graph a program run:
 
 * the constant-coefficient Poisson df32 solve (StructuredSolver ->
   prepare_b -> solve_ir_device_prepared -> finalize_u) at 1023^2 and
@@ -42,7 +44,11 @@ loops):
   graph launch under set_sync_debug_mode("error") that returns before
   the solve ends, u and stats bitwise the host-driven oracle's, the
   refines of the row and the launch counts, and the graph's and the host
-  loop's wall, device busy and idle share;
+  loop's wall, device busy and idle share; then the host-stepped rows:
+  StructuredSolver.solve_ir at 4095^2 (a refine graph a step, K2/K3
+  inside) and solve_stencil for 4 V-cycles on the constant fused 4095^2
+  hierarchy (K5 inside its chunk graphs), each bitwise its host driver,
+  with graph launches, dispatch, capture, walls and idle share;
 * DistStructuredSolver's five JAX programs as CUDA graphs (phase
   dist_graph_solves, the solvers of the distributed phases taken on): one
   block of 4 slabs at 4095^2 ("rdma": solve_ir_fused to 1e-7, the f32
@@ -54,6 +60,15 @@ loops):
   one-block rows' idle share; then the peer collective kernel (the card
   group's collectives inside the graphs) against its plain version at
   the path's payloads, bitwise and timed;
+* the ELL path's programs as CUDA graphs (phase ell_graph_solves, the
+  solvers of ell_solves, ell_dist_solves and card_solves taken on): the
+  1023^2 Multigrid (a) solve (a chunk graph a V-cycle and an rss graph a
+  check), EllDistSolver at 1023^2 on 4 slabs ("step" and "strips" solve,
+  the f64 PCG in one WHILE launch, the f32 solve_ir with a refine graph
+  a step, the flat 12-level solve) and its card group of two blocks on
+  the one card ("strips", bitwise one block's graph solve), each bitwise
+  the host driver of the same pieces, with graph launches, dispatch,
+  capture, walls and idle share;
 * the reference-parity ELL pipeline (plain PyTorch, no kernel): the
   testlib numbers at 35^2 (Multigrid with symmetric GS: 35 V-cycles to
   rss 7.19199e-11; the standalone GS: 900 sweeps) and the other
@@ -161,7 +176,7 @@ from amg_tpu_torch.multigrid import (build_hierarchy_device,
 from amg_tpu_torch.native import bindings
 from amg_tpu_torch.ops import kernels as K
 from amg_tpu_torch.ops.doublefloat import DF32, is_pow2_weights
-from amg_tpu_torch import krylov
+from amg_tpu_torch import krylov, multigrid, structured
 from amg_tpu_torch.ops.kernels import _build, graph_loop
 from amg_tpu_torch.ops.kernels.packed_cycle import (down_leg_plain,
                                                     residual_restrict_plain,
@@ -224,6 +239,10 @@ K9_SIDES = (201, 1023, 4095, 8191)
 K9_TIMED = (4095, 8191)
 PCG_SIDES = (2047, 4095)               # bench.py pcg_stats
 REFINE_SIDE = 4095       # solve_ir, fmg=False and the unpacked smoothers
+REFINE_STEPS = 5         # solve_ir's steps there to TOL, the stopping one
+# solve_stencil on the constant fused REFINE_SIDE^2 hierarchy (K5): a fixed
+# count of V-cycles, the rss read every STENCIL_GRAPH_EVERY
+STENCIL_GRAPH_EVERY, STENCIL_GRAPH_CYCLES = 2, 4
 HOST_JUMP_SIDE = 2047    # the jump operator given as a scipy matrix
 STENCIL_SIDE = 1023      # solve_stencil, f64, card against CPU
 FREE_IR_SIDE = 511       # the free solve_ir, card against CPU
@@ -1241,6 +1260,7 @@ def var_solves(dev, launches: dict):
                 if k != "fused_gs4_sweep_const") == 0,
             "const fused: no other kernel")
     require(c[LOOP] == loop_conditions(it), "const fused: one loop graph")
+    RECORD["fused solver"] = s          # graph_solves' solve_stencil row
     del s
 
     side = 255
@@ -1288,8 +1308,9 @@ def refine_solves(dev, launches: dict):
     require(sum(n for k, n in c.items() if k not in want) == 0,
             "solve_ir: no other kernel (its residual is plain f64)")
     med, walls = wall_median(lambda: s.solve_ir(b2, TOL), 3)
-    print(f"solve wall solve_ir {side}^2: median of 3 {med:.6f} s "
-          f"(all {walls})")
+    print(f"solve wall solve_ir {side}^2 (a refine graph a step): median "
+          f"of 3 {med:.6f} s (all {walls})")
+    RECORD["refine solver"] = s         # graph_solves' solve_ir row
     del s
 
     s = StructuredSolver(side, fmg=False, device=dev)
@@ -1617,7 +1638,7 @@ def pieces_busy(parts: dict, runs: dict) -> float:
     kernels' and copies' time, times its runs in the solve."""
     busy = 0.0
     for name, fn in parts.items():
-        if fn is None or not runs[name]:
+        if fn is None or not runs.get(name):
             continue
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -1727,6 +1748,295 @@ def graph_solves(dev, launches: dict):
                 "the solve ends")
         require(counts_ok, f"graph {label} {side}^2: launch counts")
         del run, oracle, capture, graphs, out, ref
+    stepped_rows(dev, launches)
+
+
+def stepped_graph_row(label: str, graph_run, host_run, n_graph, want,
+                      one_launch, launches: dict, parts=None,
+                      blocks: int = 1):
+    """One host-stepped solve whose programs are straight CUDA graphs (a
+    chunk loop's, StructuredSolver.solve_ir's refine, EllDistSolver's
+    vcycle / rss / refine), the host reading the rss between them as
+    JAX's host loops do. ``graph_run()`` and ``host_run()``: the same
+    solve under the graph and the host driver (SolveResults);
+    ``n_graph()`` the graph launches so far; ``want(result)`` a call's;
+    ``one_launch()`` one launch's (dispatch seconds, returned before its
+    work ended). The first graph run (its graphs captured and
+    instantiated at first use inside), the host driver's run and the
+    graph's under drive: u, the count, the rss and the history bitwise,
+    the kernels' launch counts equal (the peer collective in the graphs
+    of a card group of ``blocks`` only), the graph launches; then both walls
+    (median of 3) and, with ``parts`` (``parts(result)``: the solve's
+    pieces by name and each one's runs), the device busy time
+    (pieces_busy: each piece traced once, eagerly, times its runs; a graph
+    is not traced) and each driver's idle share. Returns (graph result,
+    RECORD entry, its launch counts)."""
+    cardline = card()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph_run()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    ref, hc = drive(host_run, launches)
+    n0 = n_graph()
+    res, c = drive(graph_run, launches)
+    n_g = n_graph() - n0
+    same = (torch.equal(res.u, ref.u)
+            and (res.iterations, res.error, res.history)
+            == (ref.iterations, ref.error, ref.history))
+    counts_ok = (all(c[k] == hc[k] for k in set(c) | set(hc) if k != PEER)
+                 and (c[PEER] > 0) == (blocks > 1) and hc[PEER] == 0)
+    g_med, g_walls = wall_median(graph_run, 3)
+    h_med, h_walls = wall_median(host_run, 3)
+    disp, pending = one_launch()
+    rec = {"it": res.iterations, "wall": g_med, "host_wall": h_med,
+           "first_s": first, "capture_s": max(first - g_med, 0.0),
+           "dispatch_s": disp, "graph_launches": n_g, "busy": None}
+    busy_txt = "device busy not measured (a card group)"
+    if parts is not None:
+        pieces, runs = parts(res)
+        busy = rec["busy"] = pieces_busy(pieces, runs)
+        busy_txt = (f"device busy {busy:.6f} s (the pieces' runs {runs}), "
+                    f"idle share graph {1 - busy / g_med:.4f}, host driver "
+                    f"{1 - busy / h_med:.4f}")
+    print(f"stepped graph {label}: V-cycles {res.iterations} (host driver "
+          f"{ref.iterations}), rss {res.error:.6e}, checks "
+          f"{len(res.history)}; u, count, rss and history bitwise the host "
+          f"driver's {same}; graph launches {n_g} (expected "
+          f"{want(res)}), one launch's dispatch {disp * 1e3:.3f} ms "
+          f"(returned before its work ended {pending}); first call "
+          f"{first:.3f} s (capture + instantiate {rec['capture_s']:.3f} s "
+          f"by the median), launches {dict(c)} (host driver {dict(hc)}); "
+          f"graph wall median of 3 {g_med:.6f} s (all {g_walls}), host "
+          f"driver {h_med:.6f} s (all {h_walls}; x{h_med / g_med:.2f}); "
+          f"{busy_txt}; {cardline}")
+    require(same, f"{label}: bitwise the host driver's")
+    require(n_g == want(res), f"{label}: one graph launch a program run")
+    require(counts_ok, f"{label}: launch counts {dict(c)} against the host "
+            f"driver's {dict(hc)}")
+    require(pending, f"{label}: a launch returns before its work ends")
+    RECORD[f"stepped graph {label}"] = rec
+    return res, rec, c
+
+
+def chunk_launches(loops) -> int:
+    """The graph launches of a hierarchy's chunk loops so far."""
+    return sum(g.launches for loop in list(loops.values())
+               for g in loop.graphs.values())
+
+
+def chunk_parts(loops, every: int):
+    """stepped_graph_row's ``parts`` of a chunk loop solve: the chunk of
+    ``every`` V-cycles, the remainder's, the rss."""
+    def parts(res):
+        loop = next(lp for lp in loops.values() if every in lp.graphs)
+        full, rest = divmod(res.iterations, every)
+        return ({"chunk": loop._chunk(every),
+                 "rest": loop._chunk(rest) if rest else None,
+                 "rss": loop._rss},
+                {"chunk": full, "rest": int(rest > 0),
+                 "rss": len(res.history)})
+    return parts
+
+
+def chunk_want(every: int):
+    """A chunk loop's graph launches a solve: one a chunk (the checks
+    every ``every`` V-cycles, the last chunk the remainder) and one a
+    check."""
+    def want(res):
+        chunks = -(-res.iterations // every) if every else 1
+        return chunks + len(res.history)
+    return want
+
+
+def one_chunk_launch(loops, key):
+    """One launch of a chunk loop's graph ``key`` under dispatch."""
+    def run():
+        g = next(loop.graphs[key] for loop in loops.values()
+                 if key in loop.graphs)
+        _, disp, _, pending = dispatch(g.launch)
+        return disp, pending
+    return run
+
+
+def stepped_rows(dev, launches: dict):
+    """graph_solves' host-stepped rows: StructuredSolver.solve_ir at
+    REFINE_SIDE^2 (refine_solves' solver: K2/K3 in each refine graph,
+    one launch a step) and solve_stencil for STENCIL_GRAPH_CYCLES
+    V-cycles on the constant smoother="fused" REFINE_SIDE^2 hierarchy
+    (var_solves' solver: K5 in each chunk graph)."""
+    side = REFINE_SIDE
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    s = RECORD.pop("refine solver")
+    s._graphs.pop("refine")             # captured again, inside the row
+
+    def one_refine():
+        _, disp, _, pending = dispatch(s._graphs["refine"].launch)
+        return disp, pending
+    res, _, _ = stepped_graph_row(
+        f"solve_ir {side}^2", lambda: s.solve_ir(b2, TOL),
+        lambda: s._solve_ir(b2, TOL, 40, host=True),
+        lambda: s._graphs["refine"].launches, lambda r: len(r.history),
+        one_refine, launches, lambda r: ({"refine": s._refine_state().step},
+                                         {"refine": len(r.history)}))
+    require(res.converged and len(res.history) == REFINE_STEPS,
+            f"solve_ir {side}^2: {REFINE_STEPS} steps")
+    del s
+
+    s = RECORD.pop("fused solver")
+    h = s.hier
+    b32 = b2.to(torch.float32)
+    every, n = STENCIL_GRAPH_EVERY, STENCIL_GRAPH_CYCLES
+    kw = dict(tolerance=0.0, compute_error_every_n_iters=every, n_iters=n)
+    res, _, c = stepped_graph_row(
+        f"solve_stencil fused {side}^2", lambda: solve_stencil(
+            h, b32, device=dev, **kw),
+        lambda: structured._solve_stencil(h, b32, None, 0.0, every, n, 1,
+                                          1, 1.0, True, dev, host=True),
+        lambda: chunk_launches(h.chunk_loops), chunk_want(every),
+        one_chunk_launch(h.chunk_loops, every), launches,
+        chunk_parts(h.chunk_loops, every))
+    k5 = c["fused_gs4_sweep_const"]
+    print(f"solve_stencil fused {side}^2: {n} V-cycles, K5 launches {k5} "
+          f"(2 a V-cycle on the fine level), rss history {res.history}")
+    require(res.iterations == n and k5 == 2 * n
+            and sum(tpu_counts(c).values()) == k5,
+            "solve_stencil fused: K5 = 2 a V-cycle, no other kernel")
+    del s, h
+
+
+def ell_pcg_device(blk, tol: float, n_iters: int):
+    """EllDistSolver's PCG program on a block: (u slabs, [rss, passes])
+    of one run, with no read."""
+    L = blk._state()
+    bp = blk.pad_vec(blk.b)
+
+    def inputs():
+        L.b.copy_(bp)
+        L.p_tol.fill_(tol)
+        L.p_n.fill_(n_iters)
+    blk._run("pcg", inputs)
+    return L.u.clone(), L.p_stats.clone()
+
+
+def ell_graph_launches(s, names) -> int:
+    """The graph launches of ``names`` on every block so far."""
+    return sum(per_block(s, lambda blk: sum(
+        blk._graphs[n].launches for n in names if n in blk._graphs)))
+
+
+def ell_solve_counts(res) -> dict:
+    """The program runs of an EllDistSolver ``solve``."""
+    return {"vcycle": res.iterations, "rss": len(res.history)}
+
+
+def ell_graph_row(label: str, s, run, counts, launches,
+                  timed: bool = True):
+    """An EllDistSolver solve (``run(s)``) under the graph driver against
+    the host driver (stepped_graph_row), the programs captured first
+    (``warmup``, timed), one vcycle launch's dispatch on every block;
+    ``counts(result)``: its program runs a block, which are its graph
+    launches and, ``timed``, the pieces' runs of its busy time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.set_driver("graph")
+    s.warmup()
+    torch.cuda.synchronize()
+    cap = time.perf_counter() - t0
+
+    def host():
+        s.set_driver("host")
+        try:
+            return run(s)
+        finally:
+            s.set_driver("graph")
+
+    def one_launch():
+        outs = group_dispatch(s, lambda blk: blk._go("vcycle"))
+        return max(o[1] for o in outs), all(o[2] for o in outs)
+    print(f"stepped graph {label}: capture + instantiate of the programs "
+          f"{cap:.3f} s ({len(s.devices)} block(s))")
+    blocks = len(s.devices)
+    res, rec, _ = stepped_graph_row(
+        label, lambda: run(s), host,
+        lambda: ell_graph_launches(s, ("vcycle", "rss", "refine")),
+        lambda r: blocks * sum(counts(r).values()), one_launch, launches,
+        (lambda r: (s._state().straight, counts(r))) if timed else None,
+        blocks)
+    rec["capture_s"] = cap
+    return res
+
+
+def ell_graph_solves(dev, launches: dict):
+    """The last single-process host-stepped loops of the ELL path as CUDA
+    graphs, each against the host driver of the same pieces (bitwise, a
+    graph launch a program run, dispatch, walls, idle): the single-device
+    Multigrid (a) at ELL_SIDE^2 (ell_solves' hierarchy: a chunk graph a
+    V-cycle and an rss graph a check), then EllDistSolver's four programs
+    on ell_dist_solves' solvers (ELL_SIDE^2 on ELL_DIST_SLABS slabs: the
+    bilinear solve under "step" and "strips", the f64 PCG, one WHILE
+    launch, the f32 solve_ir, a refine graph a step, and the flat
+    12-level solve) and on card_solves' card group of CARD_BLOCKS blocks
+    on the one card ("strips": each block's graphs, the peer collective
+    kernel inside, bitwise one block's)."""
+    h, sm, b = RECORD.pop("ell (a) solver")
+    h.chunk_loops.clear()               # captured again, inside the row
+    res, _, _ = stepped_graph_row(
+        f"ell (a) multigrid.solve {ELL_SIDE}^2", lambda: solve(
+            h, sm, b, tolerance=ELL_TOL, compute_error_every_n_iters=1),
+        lambda: multigrid._solve(h, sm, b, None, ELL_TOL, 1, 100,
+                                 host=True),
+        lambda: chunk_launches(h.chunk_loops), chunk_want(1),
+        one_chunk_launch(h.chunk_loops, 1), launches,
+        chunk_parts(h.chunk_loops, 1))
+    require(res.iterations == ELL_A_CYCLES, f"ell (a): {ELL_A_CYCLES} "
+            "V-cycles")
+    del h, sm, b
+    side, D = ELL_SIDE, ELL_DIST_SLABS
+    solvers = RECORD.pop("ell dist solvers")
+    one = {}
+    for halo in ("step", "strips"):
+        s = solvers[halo]
+        one[halo] = ell_graph_row(
+            f"ell dist {side}^2 D={D} {halo} solve", s,
+            lambda s: s.solve(tolerance=ELL_TOL,
+                              compute_error_every_n_iters=1),
+            ell_solve_counts, launches)
+    s = solvers["step"]
+    L = s._state()
+    dist_graph_program(
+        f"ell dist {side}^2 D={D} f64", s, "pcg",
+        lambda blk: ell_pcg_device(blk, ELL_TOL, 100), launches,
+        lambda: s.solve_pcg(tolerance=ELL_TOL),
+        busy_parts=pieces(*L.loops["pcg"]))
+    s = solvers["f32"]
+    ell_graph_row(f"ell dist {side}^2 D={D} f32 solve_ir", s,
+                  lambda s: s.solve_ir(tolerance=ELL_TOL),
+                  lambda r: {"refine": len(r.history)}, launches)
+    s = solvers["flat"]
+    ell_graph_row(f"ell dist flat {side}^2 D={D} {ELL_FLAT_LEVELS} levels",
+                  s, lambda s: s.solve(
+                      tolerance=0.0, compute_error_every_n_iters=5,
+                      n_iters=ELL_FLAT_CYCLES),
+                  ell_solve_counts, launches)
+    del s, L, solvers
+    s = RECORD.pop("card ell solver")
+    try:
+        res = ell_graph_row(
+            f"card group ell {side}^2 D={D} strips, {CARD_BLOCKS} blocks "
+            f"on 1 card", s, lambda s: s.solve(
+                tolerance=ELL_TOL, compute_error_every_n_iters=1),
+            ell_solve_counts, launches, timed=False)
+    finally:
+        s.close()
+    ref = one["strips"]
+    same = (torch.equal(res.u, ref.u.to(res.u.device))
+            and (res.iterations, res.history)
+            == (ref.iterations, ref.history))
+    print(f"card group ell {side}^2 D={D} strips graph: one block's u, "
+          f"count and rss history bitwise {same}")
+    require(same, "card group ell: one block's graph solve, bitwise")
+
 
 def halo_parity_and_timing(dev):
     """K7 against its plain version, bitwise (it is a copy): f32 and f64,
@@ -1977,13 +2287,15 @@ def ell_bilinear(dev, A, b, side: int, levels: int, time_it: bool):
     require(res.converged and ind <= ELL_TOL,
             f"(a) bilinear {side}^2 converged to {ELL_TOL}")
 
-    def again():
-        return solve(h, amg.smoother, amg.b, tolerance=ELL_TOL,
-                     compute_error_every_n_iters=1, n_iters=100)
+    def again():   # the host driver (ell_graph_solves: the graph's)
+        return multigrid._solve(h, amg.smoother, amg.b, None, ELL_TOL, 1,
+                                100, host=True)
 
     med, walls = wall_median(again, 3)
     r, busy, n_gpu = traced(again)
-    print(f"ell (a) bilinear {side}^2 solve wall: median of 3 {med:.6f} s "
+    RECORD["ell (a) solver"] = (h, amg.smoother, amg.b)
+    print(f"ell (a) bilinear {side}^2 solve wall (host driver): median of "
+          f"3 {med:.6f} s "
           f"(all {walls}), {med / r.iterations * 1e3:.3f} ms per V-cycle, "
           f"device busy {busy:.6f} s, idle share {1 - busy / med:.4f}, GPU "
           f"launches {n_gpu} ({n_gpu / r.iterations:.1f} per V-cycle)")
@@ -2002,10 +2314,9 @@ def ell_device(dev, A, b, levels: int, time_it: bool):
     setup = time.perf_counter() - t0
     sm = MulticolorGaussSeidel()
 
-    def run():   # tolerance 0: a fixed count of V-cycles
-        return solve(hier, sm, b, tolerance=0.0,
-                     compute_error_every_n_iters=ELL_DEVICE_EVERY,
-                     n_iters=ELL_DEVICE_CYCLES)
+    def run(host=False):   # tolerance 0: a fixed count of V-cycles
+        return multigrid._solve(hier, sm, b, None, 0.0, ELL_DEVICE_EVERY,
+                                ELL_DEVICE_CYCLES, host=host)
 
     res = run()
     if not time_it:
@@ -2029,9 +2340,13 @@ def ell_device(dev, A, b, levels: int, time_it: bool):
             and bool(torch.isfinite(res.u).all())
             and abs(ind - res.error) <= 1e-6 * res.error + 1e-12,
             "(b) fixed V-cycles, finite u, rss checked independently")
-    med, walls = wall_median(run, 3)
-    _, busy, n_gpu = traced(run)
-    print(f"ell (b) device RAP {side}^2 solve wall: median of 3 {med:.6f} s "
+    med, walls = wall_median(lambda: run(True), 3)
+    _, busy, n_gpu = traced(lambda: run(True))
+    g_med, g_walls = wall_median(run, 3)
+    print(f"ell (b) device RAP {side}^2 solve wall, a chunk graph a check: "
+          f"median of 3 {g_med:.6f} s (all {g_walls}); {card()}")
+    print(f"ell (b) device RAP {side}^2 solve wall (host driver): median "
+          f"of 3 {med:.6f} s "
           f"(all {walls}), {med / ELL_DEVICE_CYCLES * 1e3:.3f} ms per "
           f"V-cycle, device busy {busy:.6f} s, idle share "
           f"{1 - busy / med:.4f}, GPU launches {n_gpu}")
@@ -2440,7 +2755,9 @@ def ell_dist_solves(dev, launches: dict):
         return timed_build(lambda: EllDistSolver(
             A, b, ELL_BILINEAR_LEVELS, n_devices=D, dtype=dtype,
             interpolator=BilinearInterpolator2D(side), halo=halo,
-            device=dev))
+            device=dev, driver="host"))
+
+    solvers = {}            # ell_graph_solves takes them on
 
     def window(s):
         def run():
@@ -2488,7 +2805,7 @@ def ell_dist_solves(dev, launches: dict):
                   f"independent f64 rss {ind:.6e}")
             require(pcg.converged and ind <= 10 * ELL_TOL,
                     "ell dist pcg converged")
-        del s
+        solvers[halo] = s
 
     s, setup = bilinear("step", torch.float32)
     res = new_path(f"ell dist solve_ir {side}^2 D={D} f32", lambda:
@@ -2502,11 +2819,11 @@ def ell_dist_solves(dev, launches: dict):
     # the df32 rss: hold the check to the tolerance
     require(res.converged and ind <= ELL_TOL,
             "ell dist solve_ir converged to 1e-9, rss checked")
-    del s
+    solvers["f32"] = s
 
     L, n_cyc = ELL_FLAT_LEVELS, ELL_FLAT_CYCLES
     s, setup = timed_build(lambda: EllDistSolver(A, b, L, n_devices=D,
-                                                 device=dev))
+                                                 device=dev, driver="host"))
     res = new_path(f"ell dist flat {side}^2 D={D} {L} levels", lambda:
                    s.solve(tolerance=0.0, compute_error_every_n_iters=5,
                            n_iters=n_cyc),
@@ -2522,6 +2839,8 @@ def ell_dist_solves(dev, launches: dict):
     require(res.iterations == n_cyc and ok
             and bool(torch.isfinite(res.u).all()),
             "ell dist flat: the single-device history")
+    solvers["flat"] = s
+    RECORD["ell dist solvers"] = solvers
 
 
 # ---------------------------------------------------------------------------
@@ -2686,7 +3005,7 @@ def card_solves(dev, launches: dict):
     s, setup = timed_build(lambda: EllDistSolver(
         A, b, ELL_BILINEAR_LEVELS, n_devices=ELL_DIST_SLABS,
         interpolator=BilinearInterpolator2D(side), halo="strips",
-        device=blocks))
+        device=blocks, driver="host"))
     label = (f"card group ell {side}^2 D={ELL_DIST_SLABS} strips, "
              f"{CARD_BLOCKS} blocks on 1 card")
 
@@ -2703,8 +3022,10 @@ def card_solves(dev, launches: dict):
         require(sum(c.values()) == 0, f"{label}: no kernel: {c}")
         med, walls = wall_median(run, 3)
         w_med, per_card = traced_cards(lambda: s.run(window))
-    finally:
+    except BaseException:
         s.close()
+        raise
+    RECORD["card ell solver"] = s       # ell_graph_solves takes it on
     got = np.array([e for _, e in res.history])
     want = np.array([e for _, e in ref.history])
     rel = float(np.max(np.abs(got / want - 1)))
@@ -3121,7 +3442,8 @@ def mp_runs(dev, report: bool) -> tuple[dict, list]:
         device=dev, driver="host"), lambda s: (s.pad_field(b2), s.vcycle,
                                                s.rss, s.unpad)),
              ("ell", lambda: EllDistSolver(A, b, MP_ELL_LEVELS,
-                                           n_devices=MP_SLABS, device=dev),
+                                           n_devices=MP_SLABS, device=dev,
+                                           driver="host"),
               lambda s: (s.pad_vec(s.b), s.vcycle_once, s.rss,
                          s.unpad_vec)))
     for name, make, parts in cases:
@@ -3709,7 +4031,7 @@ def main() -> int:
                       refine_solves, smoother_solves, host_solves,
                       graph_solves, ell_solves, dist_solves, dist_var_solves,
                       dist_const_solves, ell_dist_solves, card_solves,
-                      dist_graph_solves, mp_solves):
+                      dist_graph_solves, ell_graph_solves, mp_solves):
             t0 = time.perf_counter()
             phase(dev, launches)
             torch.cuda.synchronize()

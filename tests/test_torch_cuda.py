@@ -696,3 +696,159 @@ def test_peer_collective_lost_block_times_out(dev):
         assert g.run(lambda k: _collective_case(k, lost=True)) == [True] * 2
     finally:
         g.close()
+
+
+# EllDistSolver's four programs as CUDA graphs (one block, and a card
+# group of two blocks on the one card) against the host driver of the
+# same pieces: (halo, dtype)
+ELL_GRAPH = [("step", torch.float64), ("strips", torch.float64),
+             ("strips", torch.float32)]
+
+
+def _ell_programs(s):
+    """Every program's outputs, in one order: vcycle_once, rss, solve
+    (the rss every 2 cycles, and a budget), the PCG loop (converged and
+    out of budget) and, in f32, solve_ir."""
+    out = []
+    bp = s.pad_vec(s.b)
+    u = s.vcycle_once(torch.zeros_like(bp), bp)
+    out += [u, torch.tensor(s.rss(u, bp))]
+    for kw in (dict(tolerance=1e-9, compute_error_every_n_iters=2),
+               dict(tolerance=0.0, compute_error_every_n_iters=3,
+                    n_iters=7)):
+        r = s.solve(**kw)
+        out += [r.u, torch.tensor(r.history + [(r.iterations, r.error)])]
+    tol = 1e-9 if s.dtype == torch.float64 else 1e-5
+    for n in (100, 2):
+        r = s.solve_pcg(tol, n)
+        out += [r.u, torch.tensor(r.history)]
+    if s.dtype == torch.float32:
+        for n in (40, 2):
+            r = s.solve_ir(1e-9, n)
+            out += [r.u, torch.tensor(r.history)]
+    return out
+
+
+def _ell_solver(dev, halo, dtype, device=None):
+    from amg_tpu_torch.ops.transfer import BilinearInterpolator2D
+    from amg_tpu_torch.parallel.ell_dist import EllDistSolver
+    side = 255
+    A, b = poisson.poisson2d(side, device=dev)
+    return EllDistSolver(A, b, 7, n_devices=4, dtype=dtype, halo=halo,
+                         interpolator=BilinearInterpolator2D(side),
+                         device=device or dev)
+
+
+@pytest.mark.parametrize("halo,dtype", ELL_GRAPH,
+                         ids=[f"{h}-{str(d)[6:]}" for h, d in ELL_GRAPH])
+def test_ell_graph_is_the_host_driver(dev, halo, dtype):
+    """One block of 4 slabs at 255^2 (the bilinear pipeline): every
+    program's graph gives the host driver's outputs bitwise; the PCG is
+    one graph launch a call with no host read inside."""
+    s = _ell_solver(dev, halo, dtype)
+    assert s.driver == "graph"
+    got = _ell_programs(s)
+    assert set(s._graphs) >= {"vcycle", "rss", "pcg"}
+    n0 = s._graphs["pcg"].launches
+    bp = s.pad_vec(s.b)
+    L = s._state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s._run("pcg", lambda: (L.b.copy_(bp), L.p_tol.fill_(1e-9),
+                               L.p_n.fill_(100)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert s._graphs["pcg"].launches == n0 + 1
+    s.set_driver("host")
+    want = _ell_programs(s)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), k
+    s.close()
+
+
+def test_ell_graph_card_group_on_one_card(dev):
+    """Two blocks of a card group on the one card ("strips", f32): each
+    block's graphs (the collectives the peer collective kernel) give the
+    host driver's results and one block's, bitwise; one graph launch a
+    refine a block."""
+    def runs(s):
+        r = [s.solve(1e-9, 2), s.solve_pcg(1e-5), s.solve_ir(1e-9)]
+        return [(x.u, x.iterations, x.error, x.history) for x in r]
+    one = runs(_ell_solver(dev, "strips", torch.float32))
+    s = _ell_solver(dev, "strips", torch.float32, ("cuda:0", "cuda:0"))
+    try:
+        assert s.driver == "graph"
+        got = runs(s)
+        n0 = s.run(lambda blk: blk._graphs["refine"].launches)
+        r = s.solve_ir(1e-9)
+        n1 = s._group.run(lambda k: s._blocks[k]._graphs["refine"].launches)
+        s.set_driver("host")
+        host = runs(s)
+    finally:
+        s.close()
+    assert n1 == [n0 + len(r.history)] * 2
+    for a, b, c in zip(got, host, one):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[0], c[0])
+        assert a[1:] == b[1:] == c[1:]
+
+
+def _chunk_graphs(loops) -> int:
+    return sum(g.launches for loop in loops for g in loop.graphs.values())
+
+
+def test_chunk_graphs_are_the_host_driver(dev):
+    """multigrid.solve (the bilinear pipeline at 255^2), Multigrid.solve
+    (testlib 35^2, symmetric GS) and solve_stencil (255^2, masked): the
+    chunk graphs give the host driver's u, counts and histories bitwise,
+    one graph launch a chunk and one a check."""
+    from amg_tpu_torch import (BilinearInterpolator2D,
+                               MulticolorGaussSeidel, Multigrid,
+                               SparseGaussSeidel, build_stencil_hierarchy)
+    from amg_tpu_torch import multigrid as mg
+    from amg_tpu_torch import structured as st
+    A, b = poisson.poisson2d(255, device=dev)
+    amg = Multigrid(BilinearInterpolator2D(255), MulticolorGaussSeidel(), A,
+                    b, 7, 1e-9, 1, 100, device=dev)
+    h, sm = amg.hierarchy, amg.smoother
+    for tol, every, n in ((1e-9, 1, 100), (0.0, 3, 7), (1e-9, 0, 4)):
+        n0 = _chunk_graphs(h.chunk_loops.values())
+        r = mg.solve(h, sm, b, None, tol, every, n)
+        launches = _chunk_graphs(h.chunk_loops.values()) - n0
+        hr = mg._solve(h, sm, b, None, tol, every, n, host=True)
+        assert torch.equal(r.u, hr.u) and r.history == hr.history
+        chunks = -(-r.iterations // every) if every else 1
+        assert launches == chunks + len(r.history)
+    A, b = poisson.poisson2d(35, device=dev)
+    t = Multigrid(None, SparseGaussSeidel(), A, b, 8, 1e-9, 5, 100,
+                  device=dev)
+    r = t.solve(verbose=False)
+    hr = mg._solve(t.hierarchy, t.smoother, t.b, None, 1e-9, 5, 100,
+                   host=True)
+    assert r.iterations == 35 and torch.equal(r.u, hr.u)
+    assert r.history == hr.history
+    hs = build_stencil_hierarchy(255, dtype=torch.float64, device=dev)
+    b2 = poisson.rhs(255, device=dev).reshape(255, 255)
+    for tol, every, n in ((1e-9, 2, 100), (0.0, 4, 10)):
+        r = st.solve_stencil(hs, b2, None, tol, every, n, device=dev)
+        hr = st._solve_stencil(hs, b2, None, tol, every, n, 1, 1, 1.0, True,
+                               dev, host=True)
+        assert torch.equal(r.u, hr.u) and r.history == hr.history
+
+
+def test_refine_graph_is_the_host_driver(dev):
+    """StructuredSolver.solve_ir at 1023^2 (K2/K3 in its cycles): one
+    refine graph launch a step, u and history bitwise the host
+    driver's."""
+    s = StructuredSolver(SIDE, device=dev)
+    s.warmup(refine_step=True)
+    b2 = poisson.rhs(SIDE, device=dev).reshape(SIDE, SIDE)
+    n0 = s._graphs["refine"].launches
+    K.reset_launch_counts()
+    r = s.solve_ir(b2, 1e-7)
+    counts = K.launch_counts()
+    assert s._graphs["refine"].launches - n0 == len(r.history)
+    assert counts["fused_down_leg_packed"] > 0
+    hr = s._solve_ir(b2, 1e-7, 40, host=True)
+    assert r.converged and torch.equal(r.u, hr.u)
+    assert r.history == hr.history
