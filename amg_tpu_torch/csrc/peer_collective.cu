@@ -1,13 +1,14 @@
-// The collectives of a card group inside a CUDA graph: the port's own
-// kernel, in K7's peer style (halo.cu). It replaces no TPU kernel: on the
-// TPU, JAX's shard_map program runs psum, all_gather and the ppermute of
-// the one-row halos as XLA collectives inside its while loop
-// (amg_tpu/parallel/structured_dist.py _vcycle_local, pcg_fn, solve_fn).
-// Here one process drives K blocks (a thread each, on one card or several;
-// parallel/launch.py CardGroup), and the host collectives between them
-// (events, copies, a host barrier) cannot live in a graph: a conditional
-// node's body holds kernels of one device and no event nodes. So one
-// kernel moves the bytes:
+// The collectives of the distributed solvers' blocks inside a CUDA graph:
+// the port's own kernel, in K7's peer style (halo.cu). It replaces no TPU
+// kernel: on the TPU, JAX's shard_map program runs psum, all_gather and
+// the ppermute of the one-row halos as XLA collectives inside its while
+// loop (amg_tpu/parallel/structured_dist.py _vcycle_local, pcg_fn,
+// solve_fn). Here the K blocks are the threads of one process (a card
+// group, on one card or several; parallel/launch.py CardGroup), the
+// processes of a process group, or both, and the host collectives between
+// them (events, copies, a host barrier, torch.distributed) cannot live in
+// a graph: a conditional node's body holds kernels of one device and no
+// event nodes. So one kernel moves the bytes:
 //
 //   gather: every block's payload (nbytes, the same on every block) to
 //           every block, out (K, nbytes) in block order -- all_gather_slabs,
@@ -19,7 +20,9 @@
 //           condition kernel reads the same bits and takes the same passes.
 //
 // Each block owns one allocation (launch.GroupCollectives), which the other
-// blocks address (the same card, or another with peer access):
+// blocks address (the same card, another with peer access, or another
+// process's allocation mapped through CUDA IPC; the flags' system scope
+// holds across all three):
 //
 //   slots   [2][K][cap]  by epoch parity s, then the block that put there;
 //   flags   [K][cap / kChunk]  by source block and chunk: the epoch of the

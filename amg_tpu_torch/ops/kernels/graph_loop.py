@@ -49,11 +49,13 @@ Threads. The blocks of a card group (``parallel/launch.py``) capture
 and replay their own graphs, each on its own thread: every thread
 captures on a stream of its own (``capture_stream``), one thread at a
 time (``_CAPTURE_LOCK``); a memory pool is a loop's (so a block's). A
-``barrier`` given to ``graph`` (the card group's) holds every block
-between its warm-up and the captures and again before any replay, so no
-block waits in a capture's device synchronization for another block's
-collective that has not been launched, and no other thread makes a CUDA
-call while one captures: the captures keep CUDA's global capture mode.
+``barrier`` given to ``graph`` (every block of the mesh's: the card
+group's, then the process group's) holds every block between its warm-up
+and the captures and again before any replay, so no block waits in a
+capture's device synchronization for another block's collective that
+has not been launched, no block's first replay waits out another's
+capture, and no other thread makes a CUDA call while one captures: the
+captures keep CUDA's global capture mode.
 In thread-local mode the coarsest level's ``torch.linalg.lu_solve``
 captured stream-ordered allocation nodes, which a child graph cannot
 hold (H100, driver 13.0, torch 2.11); in global mode, with cuSOLVER

@@ -1,17 +1,20 @@
-"""The collectives of a card group as one kernel (``csrc/peer_collective.cu``),
-so that they can live inside the loop graphs of the distributed solvers.
+"""The collectives of the distributed solvers' blocks as one kernel
+(``csrc/peer_collective.cu``), so that they can live inside their loop
+graphs.
 
 The port's own kernel: it replaces no TPU kernel. JAX's ``shard_map``
 programs run ``psum``, ``all_gather`` and the one-row ``ppermute`` halos
 as XLA collectives inside their ``while_loop``s
-(``amg_tpu/parallel/structured_dist.py``). In a card group (one process
-driving K blocks, a thread each; ``parallel/launch.py``) the host
-collectives between the blocks (events, copies between the cards, a host
-barrier) cannot be captured into a conditional node's body, which holds
-kernels of one device only. One launch of this kernel puts a block's
-payload into every other block's memory, raises an epoch flag there, waits
-for theirs, and then either gathers the K payloads in block order or adds
-them in block order:
+(``amg_tpu/parallel/structured_dist.py``), across the hosts too. The
+port's blocks are the threads of a card group (one process driving K
+blocks), the processes of a process group, or both (``parallel/launch.py``),
+and the host collectives between them (events, copies between the cards,
+a host barrier, torch.distributed) cannot be captured into a conditional
+node's body, which holds kernels of one device only. One launch of this
+kernel puts a block's payload into every other block's memory (the same
+card, another by peer access, another process's through CUDA IPC), raises
+an epoch flag there, waits for theirs, and then either gathers the K
+payloads in block order or adds them in block order:
 
 * ``GATHER``: ``(K, *x.shape)``, block q's ``x`` at q (``all_gather_slabs``,
   and the edge rows of ``launch.edges``);
@@ -20,8 +23,9 @@ them in block order:
 
 The memory is ``launch.GroupCollectives``: one allocation a block that the
 other blocks address, made by every block together. The plain version is
-the card group's host collectives (``launch._gather_host`` and
-``launch._psum_host``), which a CPU tensor takes; on the card there is no
+the host collectives (``launch._gather_host`` and ``launch._psum_host``:
+copies in a card group, ``all_gather`` across processes, the partials
+added in block order), which a CPU tensor takes; on the card there is no
 fallback to them: a launch error raises here, and a wait that timed out
 (``TIMEOUT_S``) sets the status that ``GroupCollectives.check`` raises on
 after the solve.
@@ -63,11 +67,11 @@ def call_template(K: int, k: int, cap: int, bases, status: torch.Tensor,
 
 def peer_collective(x: torch.Tensor, mem, mode: int) -> torch.Tensor:
     """One collective of this block's ``x`` (the same shape and dtype on
-    every block) over its card group: ``GATHER`` gives the (K, *x.shape)
-    payloads in block order, ``SUM`` their sum in block order. CPU tensors
-    take the plain version, the group's host collectives; CUDA tensors
-    launch the kernel on the current stream with ``mem``, the block's
-    ``launch.GroupCollectives``."""
+    every block) over the K blocks of the mesh: ``GATHER`` gives the
+    (K, *x.shape) payloads in block order, ``SUM`` their sum in block
+    order. CPU tensors take the plain version, the host collectives;
+    CUDA tensors launch the kernel on the current stream with ``mem``,
+    the block's ``launch.GroupCollectives``."""
     if mode not in (GATHER, SUM):
         raise ValueError(f"unknown collective mode {mode}")
     if x.is_cpu:

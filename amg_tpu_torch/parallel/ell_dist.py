@@ -260,16 +260,17 @@ class EllDistSolver(launch.ProgramSolver):
     JAX compiles four programs (``_vcycle``, ``_rss``, ``_refine``,
     ``_pcg``); the port restates each in cond/body form on fixed buffers
     a block (``_state``) and runs it under one of two drivers, ``driver``
-    (``launch.ProgramSolver``): ``"graph"`` (the default on the card in
-    one process, one block or a card group: a CUDA graph a program a
-    block, captured at its first use or by ``warmup``; ``solve_pcg`` one
-    WHILE graph launch, ``vcycle_once``, ``rss`` and each refine of
-    ``solve_ir`` one straight graph launch, ``solve`` and ``solve_ir``
-    reading the rss between them as JAX's host loops do; in a card group
-    the collectives inside are the peer collective kernel) or ``"host"``
-    (the CPU's, under a process group, and the oracle on the card: the
+    (``launch.ProgramSolver``): ``"graph"`` (the default on the card:
+    one block, a card group, a process group or the mesh of both; a CUDA
+    graph a program a block, captured at its first use or by ``warmup``;
+    ``solve_pcg`` one WHILE graph launch, ``vcycle_once``, ``rss`` and
+    each refine of ``solve_ir`` one straight graph launch, ``solve`` and
+    ``solve_ir`` reading the rss between them as JAX's host loops do;
+    over several blocks the collectives inside are the peer collective
+    kernel) or ``"host"`` (the CPU's, and the oracle on the card: the
     same pieces stepped from the host). ``driver`` chooses it (None: the
-    default); ``set_driver`` changes it.
+    default); ``set_driver`` changes it. Under a process group a program
+    call is collective, as in ``DistStructuredSolver``.
     """
 
     def __init__(self, A, b, n_levels: int, n_devices: int | None = None,
@@ -427,7 +428,7 @@ class EllDistSolver(launch.ProgramSolver):
         self._A0_df = DF32(hi=on(A0_df.hi), lo=on(A0_df.lo))
         self.sub_hier = sub_hier
         self.b = torch.tensor(self._b64, dtype=self.dtype, device=device)
-        if device.type == "cuda" and launch.in_card_group():
+        if device.type == "cuda" and launch.process_count() > 1:
             self._make_handles()
         self._loop = None               # the programs' buffers and pieces
         self._graphs = {}               # their graphs, by program
@@ -435,20 +436,22 @@ class EllDistSolver(launch.ProgramSolver):
         return self
 
     def _make_handles(self) -> None:
-        """Create this card thread's cuSOLVER handle (the sub-hierarchy's
+        """Create this block's cuSOLVER handle (the sub-hierarchy's
         coarsest solve) now, while no block waits: creating one
-        synchronizes the whole card, which mid-solve could wait for
-        another block's collective that waits for this thread."""
+        synchronizes the whole card (in a card thread) or this process's
+        work on it, which mid-solve could wait for another block's
+        collective that waits for this block."""
         n = self.sub_hier.levels[-1].A.n_rows
         self.sub_hier.coarse.solve(torch.zeros(n, dtype=self.dtype,
                                                device=self.device))
         torch.cuda.current_stream().synchronize()
 
     def close(self) -> None:
-        """On a card group on every block: drop the graphs and release the
-        peer collectives' memory, then end the threads (after a failure
-        the memory is left to the process's end); in one block drop the
-        graphs. The solver is not used after."""
+        """Drop the graphs and release the peer collectives' memory:
+        collective under a process group (every process calls it, before
+        the group is destroyed); on a card group on every block, then the
+        threads end (after a failure the memory is left to the process's
+        end). The solver is not used after."""
         if self._blocks is not None:
             self._close_group(EllDistSolver.close)
             return

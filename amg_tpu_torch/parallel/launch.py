@@ -21,20 +21,27 @@ The collectives, in both forms:
   as the strip is deep; by send/recv in one batch across processes
   (through host memory under gloo), by copies from the neighbour's card
   in a card group;
-* the rss and the inner products (``psum``): ``all_reduce`` across
-  processes; in a card group every block adds the K partials in block
-  order;
+* the rss and the inner products (``psum``): every block's partial
+  gathered (``all_gather`` across processes, copies in a card group) and
+  added in block order on every block, so every block holds the same
+  bits for any form of the mesh;
 * the agglomeration gather and the gathered field
   (``all_gather_slabs``): ``all_gather``, or copies in block order;
 * the ghost strips of the slabs (``strips``): ``edges`` and a shift by
   one slab, the plain version of K7's peer form;
-* card memory that the neighbour blocks address directly
-  (``peer_buffers``, ``free_peer_buffers``; ``open_peer_strips``,
-  ``close_peer_strips`` lay K7's peer form out in it, ``halo="rdma"``):
-  one ``cudaMalloc`` a block; across processes its CUDA IPC handle goes
-  round once through ``all_gather_object`` and the neighbours' are
-  opened, in a card group the pointers are handed across directly and
-  the cards of line neighbours get peer access.
+* card memory that other blocks address directly (``peer_buffers``,
+  ``free_peer_buffers``; ``open_peer_strips``, ``close_peer_strips`` lay
+  K7's peer form out in it, ``halo="rdma"``; ``GroupCollectives`` the
+  peer collective kernel's): one ``cudaMalloc`` a block; across
+  processes its CUDA IPC handle goes round once through
+  ``all_gather_object`` and the other processes' are opened, in a card
+  group the pointers are handed across directly and the cards get peer
+  access.
+
+Inside the distributed solvers' CUDA graphs (``ProgramSolver``'s graph
+driver) the same collectives are the peer collective kernel
+(``device_collectives``): one launch a collective, over the blocks of a
+card group, of the processes, or of both.
 
 The two nest: P processes, each driving a card group of K blocks, are
 one mesh of P·K blocks (JAX's multi-host mesh), block p·K + k the thread
@@ -45,9 +52,9 @@ lead), issues every ``torch.distributed`` call of the process, in one
 order on every process; the other blocks hand it their data, and take
 theirs from it, through the group's copies (``_pull``). The strips of
 ``edges`` cross the processes as the process's whole line of K blocks
-(``_edges_mesh``), ``psum`` adds the K partials in block order before
-the lead's ``all_reduce``, and K7's peer memory is a pointer between two
-blocks of a process and a CUDA IPC mapping between two processes.
+(``_edges_group``), ``psum`` gathers the K partials before the lead's
+``all_gather``, and peer memory is a pointer between two blocks of a
+process and a CUDA IPC mapping between two processes.
 
 A process that has called ``initialize_distributed`` (or
 ``init_process_group``) with more than one process runs the distributed
@@ -510,30 +517,34 @@ class ProgramSolver(SpreadSolver):
     with no loop, and ``loops``, each a ``graph_loop.DeviceLoop`` with
     its (pre, post)) and run under one of two drivers, ``driver``:
 
-    * ``"graph"`` (the default on the card in one process: one block or a
-      card group): a CUDA graph a program a block, captured at its first
-      use (``_build``) or by ``warmup``, one graph launch a call; in a
-      card group the collectives inside are the peer collective kernel
-      on ``GroupCollectives`` the blocks open at the first capture;
-    * ``"host"`` (the CPU's, under a process group, and the oracle on the
-      card): the same pieces stepped from the host, the card group's
-      collectives the host ones.
+    * ``"graph"`` (the default whenever every block is on a card: one
+      block, a card group, a process group or the mesh of both): a CUDA
+      graph a program a block, captured at its first use (``_build``) or
+      by ``warmup``, one graph launch a call; over several blocks the
+      collectives inside are the peer collective kernel on
+      ``GroupCollectives`` the blocks open at the first capture, so no
+      host collective and no host read happens inside a call;
+    * ``"host"`` (the CPU's, and the oracle on the card): the same pieces
+      stepped from the host, the collectives the host ones.
 
-    A block sets ``_loop`` (its ``_state``), ``_graphs`` and ``_coll`` to
-    None, {} and None when it is placed."""
+    Under a process group every program call is collective, as in JAX's
+    multi-host ``shard_map``: every process calls the same programs in
+    the same order (``warmup`` captures them in one order on every
+    process), and a capture ends with every block of the mesh at a
+    barrier before any launches, so no block's first launch waits on
+    another's capture. A block sets ``_loop`` (its ``_state``),
+    ``_graphs`` and ``_coll`` to None, {} and None when it is placed."""
 
     def _driver_for(self, driver: str | None) -> str:
-        on_card = (all(d.type == "cuda" for d in self.devices)
-                   and world_size() == 1)
+        on_card = all(d.type == "cuda" for d in self.devices)
         if driver is None:
             return "graph" if on_card else "host"
         if driver not in ("graph", "host"):
             raise ValueError(f"unknown driver {driver!r}: 'graph' or 'host'")
         if driver == "graph" and not on_card:
             raise ValueError(
-                "the graph driver runs on the card in one process (one "
-                "block or a card group); on the CPU and across processes "
-                "the solver takes the host driver")
+                "the graph driver runs on the card; on the CPU the solver "
+                "takes the host driver")
         return driver
 
     def set_driver(self, driver: str | None) -> None:
@@ -545,18 +556,20 @@ class ProgramSolver(SpreadSolver):
 
     def _build(self, name: str) -> None:
         """Under the graph driver, the program's graph on this block,
-        captured at its first use (JAX compiles at the first call); in a
-        card group every block captures together, the collectives inside
-        the peer collective kernel on memory the blocks open at the
-        first capture."""
+        captured at its first use (JAX compiles at the first call); over
+        several blocks (collective) every block captures together, the
+        collectives inside the peer collective kernel on memory the blocks
+        open at the first capture and size in the warm-up, and every
+        block of the mesh meets at a barrier before the capture and after
+        it."""
         if self.driver != "graph" or name in self._graphs:
             return
         L = self._state()
-        grouped = in_card_group()
-        if grouped and self._coll is None:
+        spread = process_count() > 1
+        if spread and self._coll is None:
             self._coll = GroupCollectives()
-        wait = barrier if grouped else None
-        warm = ((lambda: sizing_collectives(self._coll)) if grouped
+        wait = functools.partial(barrier, processes=True) if spread else None
+        warm = ((lambda: sizing_collectives(self._coll)) if spread
                 else None)
         with device_collectives(self._coll):
             if name in L.loops:
@@ -574,7 +587,8 @@ class ProgramSolver(SpreadSolver):
         if self.driver == "graph":
             # in a card group every block's graph is launched before any
             # block goes on (an allocation after it could hold the card
-            # before another block's launch)
+            # before another block's launch); across processes nothing:
+            # each context waits for its own work only
             barrier()
             self._graphs[name].launch()
             barrier()
@@ -603,14 +617,16 @@ class ProgramSolver(SpreadSolver):
     def warmup(self) -> None:
         """JAX's compile step: under the graph driver capture and
         instantiate every program's graph on every block (the first call
-        of each does it otherwise)."""
+        of each does it otherwise). Collective under a process group:
+        every process calls it, and the programs are captured in one
+        order."""
         L = self._state()
         for name in (*L.straight, *L.loops):
             self._build(name)
 
     def _close_programs(self) -> None:
         """Drop the block's graphs and release the peer collectives'
-        memory (collective in a card group)."""
+        memory (collective over several blocks)."""
         self._graphs = {}
         if self._coll is not None:
             coll, self._coll = self._coll, None
@@ -685,14 +701,13 @@ def edges(x: torch.Tensor, G: int, dim: int):
     zero = x.new_zeros(shape)
     if process_count() == 1 or G == 0:
         return zero, zero
-    if _group() is not None:
-        L = x.shape[dim]
-        mem = _device_form(x, 2 * min(G, L) * (x.numel() // max(L, 1))
-                           * x.element_size())
-        if mem is not None:
-            return _edges_device(x, G, dim, mem)
-        return _edges_group(x, G, dim)
     L = x.shape[dim]
+    mem = _device_form(x, 2 * min(G, L) * (x.numel() // max(L, 1))
+                       * x.element_size())
+    if mem is not None:
+        return _edges_device(x, G, dim, mem)
+    if _group() is not None:
+        return _edges_group(x, G, dim)
     above, below = _edges_processes(
         lambda k: x.narrow(dim, 0, k), lambda k: x.narrow(dim, L - k, k), x,
         dim, _depths(L, G), process_count(), process_index())
@@ -793,7 +808,7 @@ def _edges_group(x, G: int, dim: int):
                                          dim, _depths(Lp, G)), dim=dim))
 
     def strip(a: int, e: int) -> list:
-        return _frame_pieces(a, e, G, L, K)
+        return _frame_pieces(a, e, G, L, K, 0 if _mesh() else None)
 
     up = strip(k * L, k * L + G)
     down = strip(k * L + G + L, k * L + 2 * G + L)
@@ -812,12 +827,13 @@ def _edges_group(x, G: int, dim: int):
             torch.cat(parts[len(up):], dim=dim))
 
 
-def _frame_pieces(a: int, e: int, G: int, L: int, K: int) -> list:
-    """Rows [a, e) of a card group's frame F = [above | block 0 | … |
-    block K-1 | below] (G rows above and below, blocks of L rows) as
-    pieces (block, part, first row, rows): part 0 a block's own rows,
-    part 1 the lead's frame of the process's neighbour rows (block None:
-    zeros, without a process group)."""
+def _frame_pieces(a: int, e: int, G: int, L: int, K: int, outside) -> list:
+    """Rows [a, e) of a line's frame F = [above | block 0 | … | block K-1
+    | below] (G rows above and below, K blocks of L rows) as pieces
+    (block, part, first row, rows): part 0 a block's own rows, part 1
+    the rows beyond the K blocks, block ``outside``'s frame of them (the
+    lead's, in the mesh), or zeros (``outside`` None: the K blocks are
+    the whole line)."""
     Lp = K * L
     out = []
     while a < e:
@@ -827,18 +843,20 @@ def _frame_pieces(a: int, e: int, G: int, L: int, K: int) -> list:
         else:
             o = a if a < G else a - Lp
             n = min(e, G) - a if a < G else e - a
-            out.append((0 if _mesh() else None, 1, o, n))
+            out.append((outside, 1, o, n))
         a += out[-1][3]
     return out
 
 
 def _edges_device(x, G: int, dim: int, mem):
-    """``edges`` in a card group under ``device_collectives``: one gather
-    (the peer collective kernel) of every block's first and last T =
-    min(G, L) rows, from which each block takes the pieces of its strips
-    (every row a strip takes from a block is among them); copies, so the
-    bits are ``_edges_group``'s."""
-    K, k = _group().size, _here.block
+    """``edges`` under ``device_collectives``: one gather (the peer
+    collective kernel) of the first and last T = min(G, L) rows of every
+    block of the mesh (the N = ``process_count()`` blocks of a card
+    group, of the processes, or of both), from which each block takes the
+    pieces of its strips in the frame of the whole line (every row a
+    strip takes from a block is among them, zeros beyond the line's
+    ends); copies, so the bits are the host forms'."""
+    K, k = process_count(), process_index()
     L = x.shape[dim]
     T = min(G, L)
     got = peer_collective(torch.cat([x.narrow(dim, 0, T),
@@ -856,7 +874,8 @@ def _edges_device(x, G: int, dim: int, mem):
 
     def strip(a, e):
         return torch.cat([piece(q, o, n)
-                          for q, _, o, n in _frame_pieces(a, e, G, L, K)],
+                          for q, _, o, n in _frame_pieces(a, e, G, L, K,
+                                                          None)],
                          dim=d)
 
     return (strip(k * L, k * L + G),
@@ -885,21 +904,19 @@ def strips(x: torch.Tensor, G: int) -> torch.Tensor:
 
 
 def psum(t: torch.Tensor) -> torch.Tensor:
-    """A partial sum (a 0-d tensor) summed over the blocks. In a card
-    group every block adds the K partials in block order, the same
-    operations on the same values: every block holds the same bits (PCG's
-    step sizes and the stop test read them); under ``device_collectives``
-    one launch of the peer collective kernel does it on the card. In the
-    mesh the lead adds them, ``all_reduce`` sums the processes', and every
-    block copies the lead's total."""
+    """A partial sum (a 0-d tensor, or a tensor summed elementwise) summed
+    over the blocks in block order, ``((t_0 + t_1) + t_2) + …``: the same
+    operations on the same values on every block, so every block holds
+    the same bits (PCG's step sizes and the stop tests read them), in a
+    card group, across processes and in the mesh alike. Under
+    ``device_collectives`` one launch of the peer collective kernel on
+    the card; else the host collectives (``_psum_host``)."""
     if process_count() == 1:
         return t
-    if _group() is not None:
-        mem = _device_form(t, t.numel() * t.element_size())
-        if mem is not None:
-            return peer_collective(t, mem, SUM)
-        return _psum_host(t)
-    return _all_reduce(t)
+    mem = _device_form(t, t.numel() * t.element_size())
+    if mem is not None:
+        return peer_collective(t, mem, SUM)
+    return _psum_host(t)
 
 
 def slab_total(part: torch.Tensor) -> torch.Tensor:
@@ -917,58 +934,48 @@ def slab_total(part: torch.Tensor) -> torch.Tensor:
 
 
 def _psum_host(t: torch.Tensor) -> torch.Tensor:
-    """``psum`` in a card group through the host collectives (``_pull``):
-    the peer collective kernel's plain version."""
-    K, k = _group().size, _here.block
-    parts = _pull(t, [(q, _identity) for q in range(K)]
-                  if k == 0 or not _mesh() else [])
-    total = t
-    if parts:
-        total = parts[0]
-        for q in range(1, K):
-            total = total + parts[q]
-    if not _mesh():
-        return total
-    if k == 0:
-        total = _all_reduce(total)
-    return _pull(total, [(0, _identity)])[0]
+    """``psum`` through the host collectives: every block's partial
+    (``_gather_host``) added in block order. The plain version of the
+    peer collective kernel's sum."""
+    parts = _gather_host(t)
+    total = parts[0]
+    for q in range(1, parts.shape[0]):
+        total = total + parts[q]
+    return total
 
 
 def _gather_host(x: torch.Tensor) -> torch.Tensor:
-    """Every block's ``x`` in block order, (K, *x.shape), in a card group
-    without a process group, by copies (``_pull``): the plain version of
-    the peer collective kernel's gather."""
-    K = _group().size
-    return torch.stack(_pull(x, [(q, _identity) for q in range(K)]))
-
-
-def _all_reduce(t: torch.Tensor) -> torch.Tensor:
-    w = _to_wire(t).clone()
-    dist.all_reduce(w)
-    return w.to(t.device)
+    """Every block's ``x`` in block order, (N, *x.shape) for the N =
+    ``process_count()`` blocks, through the host collectives: copies in a
+    card group (``_pull``), ``all_gather`` across processes; in the mesh
+    the lead gathers its K blocks', ``all_gather`` exchanges them, and
+    every block copies the whole. The plain version of the peer
+    collective kernel's gather."""
+    g = _group()
+    if g is None:
+        return _all_gather(x[None])
+    K, k = g.size, _here.block
+    parts = _pull(x, [(q, _identity) for q in range(K)]
+                  if k == 0 or not _mesh() else [])
+    if not _mesh():
+        return torch.stack(parts)
+    whole = x[None]
+    if k == 0:
+        whole = _all_gather(torch.stack(parts))
+    return _pull(whole, [(0, _identity)])[0]
 
 
 def all_gather_slabs(x: torch.Tensor) -> torch.Tensor:
     """(D/P, ...) local slabs -> the (D, ...) slabs of every block, in
-    slab order. In the mesh the lead gathers its K blocks' slabs, then
-    ``all_gather`` the processes', and every block copies the whole."""
+    slab order: the peer collective kernel's gather under
+    ``device_collectives``, else the host collectives (``_gather_host``).
+    """
     if process_count() == 1:
         return x
-    if _group() is not None:
-        mem = _device_form(x, x.numel() * x.element_size())
-        if mem is not None:
-            return peer_collective(x, mem, GATHER).reshape(
-                mem.K * x.shape[0], *x.shape[1:])
-        K, k = _group().size, _here.block
-        parts = _pull(x, [(q, _identity) for q in range(K)]
-                      if k == 0 or not _mesh() else [])
-        if not _mesh():
-            return torch.cat(parts)
-        whole = x
-        if k == 0:
-            whole = _all_gather(torch.cat(parts))
-        return _pull(whole, [(0, _identity)])[0]
-    return _all_gather(x)
+    mem = _device_form(x, x.numel() * x.element_size())
+    whole = (peer_collective(x, mem, GATHER) if mem is not None
+             else _gather_host(x))
+    return whole.reshape(-1, *x.shape[1:])
 
 
 def _all_gather(x: torch.Tensor) -> torch.Tensor:
@@ -979,7 +986,7 @@ def _all_gather(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Card memory the line neighbours address: the peer form of K7.
+# Card memory other blocks address: K7's peer form, the peer collectives'.
 
 
 class _CudaBytes:
@@ -994,34 +1001,46 @@ class _CudaBytes:
 
 @dataclasses.dataclass
 class PeerMemory:
-    """One allocation of this block's card that blocks p-1 and p+1
-    address: ``local`` its bytes as a tensor, ``above`` and ``below`` the
-    neighbours' allocations of the same size as this card reaches them
-    (mapped through CUDA IPC when the neighbour is another process, its
-    own pointer when it is a block of this process's card group; 0
-    beyond the line's ends), ``mapped`` those of them that are IPC
-    mappings. ``free_peer_buffers`` releases it."""
+    """One allocation of this block's card (block ``block`` of the mesh)
+    that other blocks address: ``local`` its bytes as a tensor, ``peers``
+    the allocations of the same size of the blocks it reaches, by block,
+    as this card reaches them (mapped through CUDA IPC when the block is
+    another process's, its own pointer when it is a block of this
+    process's card group), ``mapped`` those of them that are IPC
+    mappings; ``above`` and ``below`` the line neighbours' (0 beyond the
+    line's ends). ``free_peer_buffers`` releases it."""
 
     local: torch.Tensor
-    above: int
-    below: int
+    peers: dict
     base: int
     device: int
+    block: int
     mapped: tuple = ()
 
+    @property
+    def above(self) -> int:
+        return self.peers.get(self.block - 1, 0)
 
-def peer_buffers(nbytes: int) -> PeerMemory:
-    """Collective: every block calls it with the same ``nbytes``. Each
-    makes a zeroed ``cudaMalloc`` of its own on its current card (not a
-    block of PyTorch's caching allocator: an IPC handle names a whole
-    allocation, and the memory must outlive the streams' reuse). A line
-    neighbour in this process's card group is reached by its pointer,
-    with peer access when it lies on another card; one in another
-    process by mapping its allocation, whose 64-byte CUDA IPC handle goes
-    round once (``all_gather_object``; in the mesh the lead sends its
-    group's handles, and the blocks at the ends of the process's line
-    map their neighbours'). Raises if a step fails; there is no other
-    path."""
+    @property
+    def below(self) -> int:
+        return self.peers.get(self.block + 1, 0)
+
+
+def peer_buffers(nbytes: int, reach=None) -> PeerMemory:
+    """Collective: every block calls it with the same ``nbytes`` and
+    ``reach``. Each makes a zeroed ``cudaMalloc`` of its own on its
+    current card (not a block of PyTorch's caching allocator: an IPC
+    handle names a whole allocation, and the memory must outlive the
+    streams' reuse) and reaches the allocations of the blocks in
+    ``reach`` (None: its line neighbours p-1 and p+1, K7's peer form;
+    every block: the peer collectives'). A block of this process's card
+    group is reached by its pointer, with peer access when it lies on
+    another card; one in another process by mapping its allocation, whose
+    64-byte CUDA IPC handle goes round once (``all_gather_object``; in
+    the mesh the lead sends its group's handles). A handle that two
+    blocks of one card open maps once, counted (CUDA's rule for a handle
+    opened twice in one context). Raises if a step fails; there is no
+    other path."""
     P = process_count()
     if P < 2:
         raise RuntimeError("peer_buffers needs a process group or a card "
@@ -1048,54 +1067,43 @@ def peer_buffers(nbytes: int) -> PeerMemory:
             dist.all_gather_object(handles, [h for _, _, h in group])
         if g is not None:
             handles = g.exchange(handles)[0]
-    pointers, mapped = [], []
-    for q in (r - 1, r + 1):
-        if not 0 <= q < P:
-            pointers.append(0)
-        elif q // K == r // K:              # a block of this card group
+    peers, mapped = {}, []
+    for q in (r - 1, r + 1) if reach is None else reach:
+        if q == r or not 0 <= q < P:
+            continue
+        if q // K == r // K:                # a block of this card group
             q_dev, ptr, _ = group[q % K]
             if q_dev != dev:
                 check(lib.amg_peer_enable(dev, q_dev),
                       f"amg_peer_enable (card {dev} to card {q_dev})")
-            pointers.append(ptr)
+            peers[q] = ptr
         else:                               # a block of another process
             ptr = ctypes.c_void_p()
             check(lib.amg_ipc_open(dev, handles[q // K][q % K],
                                    ctypes.byref(ptr)),
                   f"amg_ipc_open (block {q}'s memory, process {q // K})")
-            pointers.append(ptr.value)
+            peers[q] = ptr.value
             mapped.append(ptr.value)
     local = torch.as_tensor(_CudaBytes(base.value, nbytes),
                             device=f"cuda:{dev}")
-    return PeerMemory(local, pointers[0], pointers[1], base.value, dev,
-                      tuple(mapped))
+    return PeerMemory(local, peers, base.value, dev, r, tuple(mapped))
 
 
 def free_peer_buffers(mems) -> None:
-    """Collective: wait for this block's card; unmap the neighbours'
-    allocations mapped from other processes; wait for every block to
-    have done the same (the card group's barrier, then the process
-    group's, the lead's, then the group's again), so no launch that
-    writes this block's memory and no mapping of it is left; then free
-    this block's. The ``local`` tensors must not be used after."""
+    """Collective: wait for this block's card; unmap the other processes'
+    allocations mapped here; wait for every block of the mesh to have
+    done the same (``barrier(processes=True)``), so no launch that writes
+    this block's memory and no mapping of it is left; then free this
+    block's. The ``local`` tensors must not be used after."""
     lib = library()
     torch.cuda.synchronize()
     for m in mems:
         for ptr in m.mapped:
             check(lib.amg_ipc_close(m.device, ptr), "amg_ipc_close")
         m.mapped = ()
-    g = _group()
-    if g is not None:
-        g.exchange(None)
-    if world_size() > 1 and (g is None or _here.block == 0):
-        # nccl's barrier runs on this process's card, named (not guessed
-        # from the rank)
-        dist.barrier(**({"device_ids": [torch.cuda.current_device()]}
-                        if dist.get_backend() == "nccl" else {}))
-    if g is not None and world_size() > 1:
-        g.exchange(None)
+    barrier(processes=True)
     for m in mems:
-        m.above = m.below = 0
+        m.peers = {}
         if m.base:
             check(lib.amg_peer_free(m.device, m.base), "amg_peer_free")
         m.base = 0
@@ -1122,43 +1130,56 @@ def close_peer_strips(strips: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# The collectives of a card group on the card, inside its loop graphs: the
-# peer collective kernel (ops/kernels/peer_collective.py).
+# The collectives on the card, inside the loop graphs: the peer collective
+# kernel (ops/kernels/peer_collective.py).
 
 
-def barrier() -> None:
+def barrier(processes: bool = False) -> None:
     """Collective in a card thread: wait until every block of the group
-    has come here (nothing in one block)."""
-    if _group() is not None:
-        _group().exchange(None)
+    has come here (nothing in one block). With ``processes``, every
+    block of the mesh: then, under a process group, the process group's
+    barrier (the lead's, in the mesh; nccl's on this process's card,
+    named) and the group's again."""
+    g = _group()
+    if g is not None:
+        g.exchange(None)
+    if processes and world_size() > 1:
+        if g is None or _here.block == 0:
+            dist.barrier(**({"device_ids": [torch.cuda.current_device()]}
+                            if dist.get_backend() == "nccl" else {}))
+        if g is not None:
+            g.exchange(None)
 
 
 class GroupCollectives:
     """One block's memory for the peer collective kernel, made by every
-    block of a card group together (in each card thread, no process
-    group): a ``cudaMalloc`` of this block's card that every block of its
-    card group addresses, slots of ``cap`` bytes for each block by epoch
-    parity, a flag a block and chunk, the epoch counter; ``status`` the
-    host words a timed-out wait writes. A payload larger than ``cap``
-    makes every block open a larger allocation together, outside a
-    capture (the earlier ones stay, for the graphs that hold them, until
-    ``close``)."""
+    block of the mesh together (its N = ``process_count()`` blocks: the
+    threads of a card group, the processes of a process group, or both;
+    N <= ``MAX_BLOCKS``): an allocation of this block's card that every
+    other block addresses (by pointer in its card group, through a CUDA
+    IPC mapping from another process; ``peer_buffers``), slots of ``cap``
+    bytes for each block by epoch parity, a flag a block and chunk, the
+    epoch counter; ``status`` the host words a timed-out wait writes
+    (after ``timeout_s``; None: ``peer_collective.TIMEOUT_S``). A payload
+    larger than ``cap`` makes every block open a larger allocation
+    together, outside a capture (the earlier ones stay, for the graphs
+    that hold them, until ``close``)."""
 
-    def __init__(self, cap: int = 1 << 20,
-                 timeout_s: float = _pc.TIMEOUT_S):
-        g = _group()
-        if g is None or world_size() > 1:
-            raise RuntimeError("the peer collectives run in a card group "
-                               "of one process")
-        if g.size > _pc.MAX_BLOCKS:
-            raise ValueError(f"at most {_pc.MAX_BLOCKS} blocks")
-        self.K, self.k = g.size, _here.block
-        self.device = torch.cuda.current_device()
+    def __init__(self, cap: int = 1 << 20, timeout_s: float | None = None):
+        N = process_count()
+        if N > _pc.MAX_BLOCKS:
+            raise ValueError(f"the peer collectives run over at most "
+                             f"{_pc.MAX_BLOCKS} blocks, not {N}")
+        if N < 2:
+            raise RuntimeError("the peer collectives run over two or more "
+                               "blocks: a card group, a process group, or "
+                               "both")
+        self.K, self.k = N, process_index()
         self.status = torch.zeros(2, dtype=torch.int32, pin_memory=True)
         self._timed_out = (ctypes.c_int * 2).from_address(
             self.status.data_ptr())
-        self.timeout_s = timeout_s
-        self.cap, self.call, self._bases = 0, None, []
+        self.timeout_s = _pc.TIMEOUT_S if timeout_s is None else timeout_s
+        self.cap, self.call, self._mems = 0, None, []
         self._open(cap)
 
     @staticmethod
@@ -1168,29 +1189,20 @@ class GroupCollectives:
         return 2 * K * cap + 4 * (K * (cap // _pc.CHUNK) + 2)
 
     def _open(self, cap: int) -> None:
-        """Collective: every block allocates, the blocks hand each other
-        their pointers, and the cards of different blocks get peer
-        access."""
+        """Collective: every block allocates and reaches every other
+        block's allocation (``peer_buffers``)."""
         cap = -(-cap // _pc.CHUNK) * _pc.CHUNK
-        lib = library()
-        base = ctypes.c_void_p()
-        check(lib.amg_peer_alloc(self.device, self.nbytes(self.K, cap),
-                                 ctypes.byref(base)), "amg_peer_alloc")
-        self._bases.append(base.value)
-        every = _group().exchange((self.device, base.value))
-        for q_dev, _ in every:
-            if q_dev != self.device:
-                check(lib.amg_peer_enable(self.device, q_dev),
-                      f"amg_peer_enable (card {self.device} to card "
-                      f"{q_dev})")
+        mem = peer_buffers(self.nbytes(self.K, cap), reach=range(self.K))
+        self._mems.append(mem)
         self.cap = cap
-        self.call = _pc.call_template(self.K, self.k, cap,
-                                      [b for _, b in every], self.status,
-                                      self.timeout_s)
+        bases = [mem.base if q == self.k else mem.peers[q]
+                 for q in range(self.K)]
+        self.call = _pc.call_template(self.K, self.k, cap, bases,
+                                      self.status, self.timeout_s)
 
     def ensure(self, nbytes: int) -> None:
         """Room for a payload of ``nbytes`` (every block asks the same at
-        the same call)."""
+        the same call; collective when it grows)."""
         if nbytes <= self.cap:
             return
         if torch.cuda.is_current_stream_capturing():
@@ -1210,14 +1222,11 @@ class GroupCollectives:
                 f"stopped or fell behind by more than the bound")
 
     def close(self) -> None:
-        """Collective: after every block's card work, free the
-        allocations."""
-        torch.cuda.current_stream().synchronize()
-        barrier()
-        lib = library()
-        for b in self._bases:
-            check(lib.amg_peer_free(self.device, b), "amg_peer_free")
-        self._bases, self.cap = [], 0
+        """Collective: after this block's card work, unmap the other
+        processes' allocations, wait for every block of the mesh, and
+        free the allocations (``free_peer_buffers``)."""
+        mems, self._mems, self.cap = self._mems, [], 0
+        free_peer_buffers(mems)
 
 
 @contextlib.contextmanager
@@ -1256,10 +1265,10 @@ def warming() -> bool:
 
 def _device_form(t: torch.Tensor, nbytes: int):
     """The block's GroupCollectives when ``t``'s collective (a payload of
-    ``nbytes``) runs on the card (``device_collectives``, a card tensor,
-    no process group); under ``sizing_collectives`` None, after the
-    memory has grown to hold it."""
-    if not t.is_cuda or _mesh():
+    ``nbytes``) runs on the card (``device_collectives``, a card tensor);
+    under ``sizing_collectives`` None, after the memory has grown to hold
+    it."""
+    if not t.is_cuda:
         return None
     sizing = getattr(_here, "sizing", None)
     if sizing is not None:

@@ -787,21 +787,22 @@ class DistStructuredSolver(launch.ProgramSolver):
     form on fixed buffers a block (``_state``) and runs it under one of
     two drivers, named by ``driver``:
 
-    * ``"graph"`` (the default on the card in one process: one block, or
-      a card group): each program one CUDA graph a block
-      (``ops/kernels/graph_loop.py``), captured at its first use by the
-      block's thread, one graph launch a call with no host read inside;
-      ``solve_pcg`` and ``solve_ir_device`` / ``solve_ir_fused`` a WHILE
-      node, ``vcycle``, ``rss`` and ``solve_ir``'s refine straight
-      graphs (``solve`` and ``solve_ir`` read the rss between them, as
-      JAX's host loops do). In a card group the collectives inside are
-      the peer collective kernel (``launch.device_collectives``);
-    * ``"host"``: the same pieces, stepped from the host (the CPU's, the
-      oracle on the card, and under a process group, where the
-      collectives between the replays are the next step), the card
-      group's collectives the host ones.
+    * ``"graph"`` (the default on the card: one block, a card group, a
+      process group, or the mesh of both): each program one CUDA graph a
+      block (``ops/kernels/graph_loop.py``), captured at its first use by
+      the block's thread, one graph launch a call with no host read and
+      no host collective inside; ``solve_pcg`` and ``solve_ir_device`` /
+      ``solve_ir_fused`` a WHILE node, ``vcycle``, ``rss`` and
+      ``solve_ir``'s refine straight graphs (``solve`` and ``solve_ir``
+      read the rss between them, as JAX's host loops do). Over several
+      blocks the collectives inside are the peer collective kernel
+      (``launch.device_collectives``), K7's peer form the halo;
+    * ``"host"``: the same pieces, stepped from the host (the CPU's, and
+      the oracle on the card), the collectives the host ones.
 
     ``driver`` chooses it (None: the default); ``set_driver`` changes it.
+    Under a process group a program call is collective: every process
+    makes the same calls in the same order (``launch.ProgramSolver``).
     """
 
     def __init__(self, side: int, n_levels: int | None = None,
@@ -868,7 +869,7 @@ class DistStructuredSolver(launch.ProgramSolver):
             self.planes_ext = extend_planes(self.cfg, self.planes)
         self._recv = rdma_buffers(self.cfg, self.dtype, device)
         self._peer = launch.process_count() > 1 and bool(self._recv)
-        if device.type == "cuda" and launch.in_card_group():
+        if device.type == "cuda" and launch.process_count() > 1:
             self._make_handles()
         self._loop = None               # the programs' buffers and pieces
         self._graphs = {}               # their graphs, by program
@@ -876,11 +877,11 @@ class DistStructuredSolver(launch.ProgramSolver):
         return self
 
     def _make_handles(self) -> None:
-        """Create this card thread's library handles (cuSOLVER for the
-        coarsest solve, cuBLAS for the transfers) now, while no block
-        waits: creating one synchronizes the whole card, which mid-solve
-        could wait for another block's collective that waits for this
-        thread."""
+        """Create this block's library handles (cuSOLVER for the coarsest
+        solve, cuBLAS for the transfers) now, while no block waits:
+        creating one synchronizes the whole card (in a card thread) or
+        this process's work on it, which mid-solve could wait for another
+        block's collective that waits for this block."""
         nc = self.sub_hier.sides[-1]
         self.sub_hier.coarse_solve(torch.zeros((nc, nc), dtype=self.dtype,
                                                device=self.device))
@@ -889,12 +890,12 @@ class DistStructuredSolver(launch.ProgramSolver):
         torch.cuda.current_stream().synchronize()
 
     def close(self) -> None:
-        """Collective under a process group with ``halo="rdma"`` on the
-        card: release K7's peer memory (every process calls it, before the
-        group is destroyed), then raise if one of its waits timed out. On
-        a card group the same on every block, and the peer collectives'
-        memory, then its threads end (after a failure the peer memory is
-        left to the process's end). The solver is not used after."""
+        """Collective under a process group on the card: release the peer
+        collectives' memory and K7's peer memory (every process calls it,
+        before the group is destroyed), then raise if one of K7's waits
+        timed out. On a card group the same on every block, then its
+        threads end (after a failure the peer memory is left to the
+        process's end). The solver is not used after."""
         if self._blocks is not None:
             self._close_group(DistStructuredSolver.close)
             return

@@ -121,7 +121,20 @@ distributed solvers' programs) as a graph a program run:
   in f32 and f64, a lost neighbour, its per-exchange time; the 4095^2 D =
   4 "rdma" solve against the one-block run (the same V-cycles, u
   bitwise, K7 14 a V-cycle a block); EllDistSolver "strips" at 1023^2
-  against the one-block history.
+  against the one-block history;
+* the distributed programs as CUDA graphs across processes (ROADMAP 6c
+  step 3), in those workers after their host rows, for the 2 processes
+  and then for the 2 x 2 mesh: DistStructuredSolver 4095^2 D = 4
+  "rdma" solve_ir_fused to 1e-7 and the f32 solve_pcg to 1e-5, and
+  EllDistSolver 1023^2 "strips" solve and solve_pcg, each against the
+  host driver of the same processes (u, counts, stats and histories
+  bitwise; one graph launch a program a block under
+  set_sync_debug_mode("error"); the launch counts, K7 14 a V-cycle a
+  block and the peer collective) and the one-process runs (u bitwise,
+  the counts; an independent f64 rss), with capture, dispatch and walls
+  beside the host driver's; then the peer collective kernel across the
+  processes against its plain version (torch.distributed), bitwise and
+  timed.
 
 K9, the sweep on the row-grouped layout, is on no path (no JAX solver
 calls it): its launches are those of its parity phase. Each phase prints
@@ -131,13 +144,17 @@ one before it the kernels' JSON (K1-K9, then K7's peer form as
 rdma_halo_exchange_peer, from process 0, and its in-process form as
 rdma_halo_exchange_cards, from block 0, and its mesh form as
 rdma_halo_exchange_mesh, from block 0 of process 0; loop_condition, the
-loop graphs' condition kernel, which replaces no TPU kernel); the last
+loop graphs' condition kernel, and peer_collective, the collectives
+inside the distributed graphs, which replace no TPU kernel, the latter
+also across processes as peer_collective_processes and
+peer_collective_mesh, from process 0); the last
 line is one JSON object with "ok" and the device. ``--mp P [P ...]``
 runs the process phase alone for each P (with P cards, nccl and a card
 each); ``--cards
 N`` one process driving N visible cards (K7 between them, the 4095^2
 solve on N and 2N slabs against one block, 8191^2 on N while its setup
-stays under 60 s); ``--mp P --cards K`` the mesh alone, P processes of
+stays under 60 s; ``--cards N --graph-rows`` its graph rows alone);
+``--mp P --cards K`` the mesh alone, P processes of
 K cards each (nccl; K7 by peer access inside a process, through CUDA IPC
 across). Needs a CUDA device, nvcc and g++; imports neither JAX nor the
 JAX package.
@@ -155,6 +172,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from types import SimpleNamespace
 
 import numpy as np
 import scipy.sparse as sp
@@ -355,6 +373,9 @@ KERNEL_INFO[PEER] = ("amg_tpu_torch/csrc/peer_collective.cu",
 # peer collective's calls a timing (two blocks on the one card)
 DIST_GRAPH_PCG_TOL = 1e-5
 PEER_REPS = 50
+# processes that share one card time-slice it: every call of the peer
+# collective there is a context switch (~2.2 ms), whatever its payload
+PEER_REPS_SHARED = 10
 # no JAX solver calls the row-grouped sweep, so no path of the port does:
 # its launches are those of its parity phase
 OFF_PATH = {"fused_gs4_sweep_rm": "no JAX solver calls it"}
@@ -1635,7 +1656,10 @@ def pieces(loop, pre, post) -> dict:
 def pieces_busy(parts: dict, runs: dict) -> float:
     """Device busy seconds of a solve from its pieces: each piece run
     eagerly once under torch.profiler (the card's activity only), its
-    kernels' and copies' time, times its runs in the solve."""
+    kernels' and copies' time, times its runs in the solve. Under a
+    process group the pieces' collectives are the host ones: NCCL's
+    kernels wait for their peers and are not busy time (``traced``'s
+    rule). Collective there: every process calls it alike."""
     busy = 0.0
     for name, fn in parts.items():
         if fn is None or not runs.get(name):
@@ -1645,7 +1669,8 @@ def pieces_busy(parts: dict, runs: dict) -> float:
             torch.cuda.synchronize()
         busy += runs[name] * 1e-6 * sum(
             _device_us(e) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("nccl"))
     return busy
 
 
@@ -1753,7 +1778,7 @@ def graph_solves(dev, launches: dict):
 
 def stepped_graph_row(label: str, graph_run, host_run, n_graph, want,
                       one_launch, launches: dict, parts=None,
-                      blocks: int = 1):
+                      blocks: int = 1, reps: int = 3):
     """One host-stepped solve whose programs are straight CUDA graphs (a
     chunk loop's, StructuredSolver.solve_ir's refine, EllDistSolver's
     vcycle / rss / refine), the host reading the rss between them as
@@ -1765,8 +1790,9 @@ def stepped_graph_row(label: str, graph_run, host_run, n_graph, want,
     instantiated at first use inside), the host driver's run and the
     graph's under drive: u, the count, the rss and the history bitwise,
     the kernels' launch counts equal (the peer collective in the graphs
-    of a card group of ``blocks`` only), the graph launches; then both walls
-    (median of 3) and, with ``parts`` (``parts(result)``: the solve's
+    over several blocks in all: ``blocks`` a process, or processes), the
+    graph launches; then both walls (median of ``reps``) and, with
+    ``parts`` (``parts(result)``: the solve's
     pieces by name and each one's runs), the device busy time
     (pieces_busy: each piece traced once, eagerly, times its runs; a graph
     is not traced) and each driver's idle share. Returns (graph result,
@@ -1784,15 +1810,17 @@ def stepped_graph_row(label: str, graph_run, host_run, n_graph, want,
     same = (torch.equal(res.u, ref.u)
             and (res.iterations, res.error, res.history)
             == (ref.iterations, ref.error, ref.history))
+    spread = blocks * launch.world_size() > 1
     counts_ok = (all(c[k] == hc[k] for k in set(c) | set(hc) if k != PEER)
-                 and (c[PEER] > 0) == (blocks > 1) and hc[PEER] == 0)
-    g_med, g_walls = wall_median(graph_run, 3)
-    h_med, h_walls = wall_median(host_run, 3)
+                 and (c[PEER] > 0) == spread and hc[PEER] == 0)
+    g_med, g_walls = wall_median(graph_run, reps)
+    h_med, h_walls = wall_median(host_run, reps)
     disp, pending = one_launch()
     rec = {"it": res.iterations, "wall": g_med, "host_wall": h_med,
            "first_s": first, "capture_s": max(first - g_med, 0.0),
            "dispatch_s": disp, "graph_launches": n_g, "busy": None}
-    busy_txt = "device busy not measured (a card group)"
+    busy_txt = ("device busy not measured (a card group, or processes "
+                "sharing a card)")
     if parts is not None:
         pieces, runs = parts(res)
         busy = rec["busy"] = pieces_busy(pieces, runs)
@@ -1807,7 +1835,7 @@ def stepped_graph_row(label: str, graph_run, host_run, n_graph, want,
           f"(returned before its work ended {pending}); first call "
           f"{first:.3f} s (capture + instantiate {rec['capture_s']:.3f} s "
           f"by the median), launches {dict(c)} (host driver {dict(hc)}); "
-          f"graph wall median of 3 {g_med:.6f} s (all {g_walls}), host "
+          f"graph wall median of {reps} {g_med:.6f} s (all {g_walls}), host "
           f"driver {h_med:.6f} s (all {h_walls}; x{h_med / g_med:.2f}); "
           f"{busy_txt}; {cardline}")
     require(same, f"{label}: bitwise the host driver's")
@@ -1931,7 +1959,7 @@ def ell_solve_counts(res) -> dict:
 
 
 def ell_graph_row(label: str, s, run, counts, launches,
-                  timed: bool = True):
+                  timed: bool = True, reps: int = 3):
     """An EllDistSolver solve (``run(s)``) under the graph driver against
     the host driver (stepped_graph_row), the programs captured first
     (``warmup``, timed), one vcycle launch's dispatch on every block;
@@ -1962,7 +1990,7 @@ def ell_graph_row(label: str, s, run, counts, launches,
         lambda: ell_graph_launches(s, ("vcycle", "rss", "refine")),
         lambda r: blocks * sum(counts(r).values()), one_launch, launches,
         (lambda r: (s._state().straight, counts(r))) if timed else None,
-        blocks)
+        blocks, reps)
     rec["capture_s"] = cap
     return res
 
@@ -2002,6 +2030,10 @@ def ell_graph_solves(dev, launches: dict):
             lambda s: s.solve(tolerance=ELL_TOL,
                               compute_error_every_n_iters=1),
             ell_solve_counts, launches)
+    # the one-block PCG the process workers hold theirs to (mp_solves)
+    save_reference(RECORD["mp_dir"], "ell_pcg",
+                   drive(lambda: solvers["strips"].solve_pcg(
+                       tolerance=ELL_TOL), launches)[0])
     s = solvers["step"]
     L = s._state()
     dist_graph_program(
@@ -2483,7 +2515,7 @@ def dist_solves(dev, launches: dict):
             w_med, per_card = traced_cards(dist_window(s, b2))
             print(f"dist solve {side}^2 D={D} halo=rdma, one block: "
                   f"{cards_text(w_med, per_card)}")
-            save_rdma_reference(RECORD["mp_dir"], res)
+            save_reference(RECORD["mp_dir"], "rdma", res)
             RECORD[f"dist rdma {side}"] = (res, med)
         results[halo] = (refines, res.u)
         if halo == "sweep":     # dist_const_solves holds "packed" to it
@@ -2536,22 +2568,47 @@ def dist_solves(dev, launches: dict):
     require(du <= bnd, "dist GPU and CPU solutions within the bound")
 
 
-def save_rdma_reference(out_dir: str, res) -> None:
-    """The one-process DIST_SIDE^2 halo="rdma" solve's u and V-cycles, which
-    the process workers hold theirs to (no worker builds it again)."""
-    np.save(os.path.join(out_dir, "rdma_u.npy"), res.u.cpu().numpy())
-    with open(os.path.join(out_dir, "rdma_ref.json"), "w") as f:
-        json.dump({"iterations": res.iterations, "error": res.error}, f)
+def save_reference(out_dir: str, name: str, res) -> None:
+    """A one-process run's u, count, rss and history, which the process
+    workers hold theirs to (no worker builds the one-block solver again):
+    "rdma" (the DIST_SIDE^2 halo="rdma" solve_ir_fused), "rdma_pcg" (its
+    f32 PCG), "ell" and "ell_pcg" (EllDistSolver "strips" at ELL_SIDE^2,
+    solve and solve_pcg)."""
+    np.save(os.path.join(out_dir, f"{name}_u.npy"), res.u.cpu().numpy())
+    with open(os.path.join(out_dir, f"{name}_ref.json"), "w") as f:
+        json.dump({"iterations": res.iterations, "error": res.error,
+                   "history": res.history}, f)
 
 
-def rdma_reference(dev, out_dir: str) -> None:
-    """save_rdma_reference for ``--mp``, where dist_solves does not run."""
+def load_reference(out_dir: str, name: str) -> SimpleNamespace:
+    """What save_reference saved: u (a CPU tensor), iterations, error,
+    history (a list of tuples)."""
+    with open(os.path.join(out_dir, f"{name}_ref.json")) as f:
+        ref = json.load(f)
+    return SimpleNamespace(
+        u=torch.from_numpy(np.load(os.path.join(out_dir, f"{name}_u.npy"))),
+        iterations=ref["iterations"], error=ref["error"],
+        history=[tuple(h) for h in ref["history"]])
+
+
+def references(dev, out_dir: str) -> None:
+    """save_reference's four runs, one block on ``dev``, for ``--mp`` and
+    ``--mp P --cards K``, where the phases that save them do not run."""
     side = DIST_SIDE
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
     s = DistStructuredSolver(side, n_devices=DIST_SLABS, halo="rdma",
-                             device=dev, driver="host")
-    save_rdma_reference(out_dir, s.solve_ir_fused(b2, tolerance=TOL))
-    del s
+                             device=dev)
+    save_reference(out_dir, "rdma", s.solve_ir_fused(b2, tolerance=TOL))
+    save_reference(out_dir, "rdma_pcg", s.solve_pcg(
+        b2.to(torch.float32), tolerance=DIST_GRAPH_PCG_TOL))
+    A, b = poisson.poisson2d(ELL_SIDE, device=dev)
+    e = EllDistSolver(A, b, ELL_BILINEAR_LEVELS, n_devices=ELL_DIST_SLABS,
+                      interpolator=BilinearInterpolator2D(ELL_SIDE),
+                      halo="strips", device=dev)
+    save_reference(out_dir, "ell", e.solve(tolerance=ELL_TOL,
+                                           compute_error_every_n_iters=1))
+    save_reference(out_dir, "ell_pcg", e.solve_pcg(tolerance=ELL_TOL))
+    del s, e
     torch.cuda.empty_cache()
 
 
@@ -2869,10 +2926,10 @@ def card_busy(prof, cycles: int) -> dict:
     return out
 
 
-def traced_cards(fn) -> tuple[float, dict]:
-    """(wall of ``fn``, a TRACE_CYCLES window, median of 3; card_busy of
-    one traced run)."""
-    w_med = wall_median(fn, 3)[0]
+def traced_cards(fn, reps: int = 3) -> tuple[float, dict]:
+    """(wall of ``fn``, a TRACE_CYCLES window, median of ``reps``;
+    card_busy of one traced run)."""
+    w_med = wall_median(fn, reps)[0]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -3046,14 +3103,16 @@ def per_block(s, fn) -> list:
 
 
 def group_dispatch(s, fn) -> list:
-    """``fn(block)`` on every block under set_sync_debug_mode("error"),
-    set once every block's stream is idle and reset once every block has
-    dispatched: per block (its result, dispatch seconds, whether its work
-    was still running when the call returned)."""
+    """``fn(block)`` on every block of this process under
+    set_sync_debug_mode("error") (a setting of the process: its block 0
+    sets it), set once every block's stream is idle and reset once every
+    block has dispatched: per block (its result, dispatch seconds,
+    whether its work was still running when the call returned)."""
     def body(blk):
+        lead = launch.process_index() % len(s.devices) == 0
         torch.cuda.current_stream().synchronize()
         launch.barrier()
-        if launch.process_index() == 0:
+        if lead:
             torch.cuda.set_sync_debug_mode("error")
         launch.barrier()
         try:
@@ -3062,7 +3121,7 @@ def group_dispatch(s, fn) -> list:
             disp = time.perf_counter() - t0
         finally:
             launch.barrier()
-            if launch.process_index() == 0:
+            if lead:
                 torch.cuda.set_sync_debug_mode("default")
             launch.barrier()
         pending = not torch.cuda.current_stream().query()
@@ -3080,20 +3139,22 @@ def _clone(x):
 
 
 def dist_graph_program(label: str, s, prog: str, run, launches: dict,
-                       solve, one=None, busy_parts=None):
+                       solve, one=None, busy_parts=None, reps: int = 3):
     """One of DistStructuredSolver's loop programs (``prog``, "ir" or
     "pcg"; ``run(block)`` its device entry point, returning (outputs...,
     stats)) under the graph driver against the host driver of the same
     pieces: every block's outputs and stats bitwise, one graph launch a
     block under set_sync_debug_mode("error"), the launch counts (the
     host's kernels, the condition kernel 1 + passes a block, the peer
-    collective in a card group); then ``solve()`` (the public entry
+    collective over several blocks: a card group, processes, or both);
+    then ``solve()`` (the public entry
     point, a SolveResult) against ``one`` (one block's result: u bitwise,
-    the same count), its wall (median of 3), and, in one block, the
+    the same count), its wall (median of ``reps``), and, in one block, the
     device busy time of the loop's pieces (``busy_parts``). Returns the
     public result."""
     cardline = card()
     blocks = len(s.devices)
+    spread = blocks * launch.world_size() > 1
     s.set_driver("host")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3118,9 +3179,9 @@ def dist_graph_program(label: str, s, prog: str, run, launches: dict,
     hc_k = {k: n for k, n in hc.items() if k not in (LOOP, PEER) and n}
     c_k = {k: n for k, n in c.items() if k not in (LOOP, PEER) and n}
     counts_ok = (c_k == hc_k and c[LOOP] == blocks * (1 + it)
-                 and (c[PEER] > 0) == (blocks > 1) and hc[PEER] == 0)
+                 and (c[PEER] > 0) == spread and hc[PEER] == 0)
     res = solve()
-    g_med, g_walls = wall_median(solve, 3)
+    g_med, g_walls = wall_median(solve, reps)
     vs = ""
     if one is not None:
         vs_ok = (torch.equal(res.u, one.u.to(res.u.device))
@@ -3128,7 +3189,8 @@ def dist_graph_program(label: str, s, prog: str, run, launches: dict,
         vs = (f"; one block's u bitwise and {one.iterations} iterations "
               f"{vs_ok}")
         require(vs_ok, f"{label} {prog}: one block's u and count")
-    busy_txt = "device busy not measured (a card group)"
+    busy_txt = "device busy not measured (a card group, or processes "\
+        "sharing a card)"
     busy = None
     if busy_parts is not None:
         busy = pieces_busy(busy_parts, {"pre": execs[0], "post": execs[0],
@@ -3139,14 +3201,14 @@ def dist_graph_program(label: str, s, prog: str, run, launches: dict,
                     f"share {1 - busy / h_wall:.4f}")
     RECORD[f"dist graph {label} {prog}"] = {
         "it": it, "wall": g_med, "host_wall": h_wall, "busy": busy,
-        "dispatch_s": disp, "blocks": blocks}
+        "dispatch_s": disp, "blocks": blocks, "launches": dict(c)}
     print(f"dist graph {label} {prog}: {blocks} block(s) on "
           f"{[str(d) for d in s.devices]}; passes {it}, rss {err:.6e}, "
           f"outputs and stats bitwise the host driver's {same}, graph "
           f"launches a block {n_graph}, dispatch {disp * 1e3:.3f} ms, "
           f"returned before the work ended {pending}, launches "
-          f"{dict(c)} (host driver {hc_k}){vs}; graph wall median of 3 "
-          f"{g_med:.6f} s (all {g_walls}), host driver {h_wall:.6f} s "
+          f"{dict(c)} (host driver {hc_k}){vs}; graph wall median of "
+          f"{reps} {g_med:.6f} s (all {g_walls}), host driver {h_wall:.6f} s "
           f"(x{h_wall / g_med:.2f}); {busy_txt}; {cardline}")
     require(same, f"{label} {prog}: bitwise the host driver's")
     require(n_graph == [1] * blocks, f"{label} {prog}: one graph launch a "
@@ -3159,12 +3221,12 @@ def dist_graph_program(label: str, s, prog: str, run, launches: dict,
 
 
 def dist_graph_rows(label: str, s, b2, launches: dict, one=None,
-                    timed: bool = True) -> dict:
+                    timed: bool = True, reps: int = 3) -> dict:
     """A constant DistStructuredSolver's rows: capture (``warmup``), then
     solve_ir_device / solve_ir_fused to TOL and the f32 PCG to
-    DIST_GRAPH_PCG_TOL (dist_graph_program), against ``one`` (one
-    block's {"ir": result, "pcg": result}) when given. Returns the
-    public results."""
+    DIST_GRAPH_PCG_TOL (dist_graph_program, walls median of ``reps``),
+    against ``one`` (one block's {"ir": result, "pcg": result}) when
+    given. Returns the public results."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s.set_driver("graph")
@@ -3184,13 +3246,13 @@ def dist_graph_rows(label: str, s, b2, launches: dict, one=None,
     out = {"ir": dist_graph_program(
         label, s, "ir", lambda blk: blk.solve_ir_device(b2, TOL), launches,
         lambda: s.solve_ir_fused(b2, tolerance=TOL),
-        None if one is None else one["ir"], parts.get("ir"))}
+        None if one is None else one["ir"], parts.get("ir"), reps)}
     require(out["ir"].converged, f"{label}: converged to {TOL:g}")
     out["pcg"] = dist_graph_program(
         label, s, "pcg", lambda blk: blk.solve_pcg_device(
             b32, DIST_GRAPH_PCG_TOL), launches,
         lambda: s.solve_pcg(b32, tolerance=DIST_GRAPH_PCG_TOL),
-        None if one is None else one["pcg"], parts.get("pcg"))
+        None if one is None else one["pcg"], parts.get("pcg"), reps)
     require(out["pcg"].converged, f"{label}: PCG converged")
     return out
 
@@ -3235,29 +3297,40 @@ def dist_graph_solve_row(label: str, s, b2, ref, launches: dict):
     require(sum(c.values()) == 0, f"{label} solve: no kernel: {c}")
 
 
-def peer_collective_checks(s) -> tuple:
-    """The peer collective kernel against its plain version (the card
-    group's host collectives) on every block of ``s`` (its memory from
-    the solver's captures), bitwise, at the main path's payloads: the
-    psum of the rss (f64) and of an inner product (f32), the gather of
+def peer_collective_checks(s, where: str = "") -> tuple:
+    """The peer collective kernel against its plain version (the host
+    collectives: copies between a card group's blocks, torch.distributed
+    across processes) on every block of ``s`` in this process (its memory
+    from the solver's captures), bitwise, at the main path's payloads:
+    the psum of the rss (f64) and of an inner product (f32), the gather of
     the coarse slabs, the one-row halo of the fine level (u) and the G =
     10 strips of the ghost sweep (u and b), then each timed against its
     plain version in turns (plain, kernel, kernel, plain), PEER_REPS
-    calls. Returns (max_abs_err, (kernel ms, plain ms), (bound ms, by),
-    the per-case record) of block 0, the one-row halo the entry."""
+    calls (PEER_REPS_SHARED across processes on one card). The bound: the
+    bytes each block reads and writes at the device
+    memory's rate, and with the blocks on cards of their own (a machine
+    of several cards, where every layout of this script puts them so)
+    the bytes it puts to the others over NVLink. Collective: every block
+    of the mesh calls it alike. Returns (max_abs_err, (kernel ms, plain
+    ms), (bound ms, by), the per-case record) of this process's first
+    block, the one-row halo the entry."""
     from amg_tpu_torch.ops.kernels import peer_collective as pc
-    cfg, K = s.cfg, len(s.devices)
-    Dl, n = cfg.n_devices // K, cfg.sides[0]
-    Ls = cfg.n_sharded
-    cases = (("psum f64", (), torch.float64, pc.SUM),
-             ("psum f32", (), torch.float32, pc.SUM),
-             ("gather coarse", (Dl, max(cfg.blocks[Ls - 1] // 2, 1),
-                                cfg.sides[Ls]), torch.float32, pc.GATHER),
-             ("halo 1 row", (2, n), torch.float32, pc.GATHER),
-             ("strips G=10", (2 * 10, 2 * n), torch.float32, pc.GATHER))
+    cfg = s.cfg
+    n, Ls = cfg.sides[0], cfg.n_sharded
+    cross = torch.cuda.device_count() > 1
+    reps = (PEER_REPS_SHARED if launch.world_size() > 1 and not cross
+            else PEER_REPS)
 
-    def body(k):
-        blk = s._blocks[k]
+    def body(blk):
+        N, k = launch.process_count(), launch.process_index()
+        Dl = cfg.n_devices // N
+        cases = (("psum f64", (), torch.float64, pc.SUM),
+                 ("psum f32", (), torch.float32, pc.SUM),
+                 ("gather coarse", (Dl, max(cfg.blocks[Ls - 1] // 2, 1),
+                                    cfg.sides[Ls]), torch.float32,
+                  pc.GATHER),
+                 ("halo 1 row", (2, n), torch.float32, pc.GATHER),
+                 ("strips G=10", (2 * 10, 2 * n), torch.float32, pc.GATHER))
         mem, dev = blk._coll, blk.device
         gen = torch.Generator().manual_seed(k)
         rec = {}
@@ -3273,27 +3346,31 @@ def peer_collective_checks(s) -> tuple:
             sync()
             err = float((got.double() - want.double()).abs().max())
             eq = torch.equal(got, want)
-            pms, kms = alternating(plain, kern, PEER_REPS)
+            pms, kms = alternating(plain, kern, reps)
             nbytes = x.numel() * x.element_size()
-            moved = K * nbytes + (K * nbytes if mode == pc.GATHER
+            moved = N * nbytes + (N * nbytes if mode == pc.GATHER
                                   else nbytes)
+            bnd = bound(moved, 0 if mode == pc.GATHER
+                        else (N - 1) * x.numel())
+            link = (N - 1) * nbytes / NVLINK_BYTES_PER_S * 1e3
+            if cross and link > bnd[0]:
+                bnd = (link, "bytes")
             rec[name] = dict(equal=eq, err=err, ms=kms, plain_ms=pms,
-                             bound=bound(moved, 0 if mode == pc.GATHER
-                                         else (K - 1) * x.numel()),
-                             nbytes=nbytes)
+                             bound=bnd, nbytes=nbytes, block=k)
         sync()
         mem.check()
         return rec
-    recs = s._group.run(body)
+    recs = per_block(s, body)
     cardline = card()
-    for k, rec in enumerate(recs):
+    for rec in recs:
         for name, r in rec.items():
-            print(f"peer collective block {k} {name} ({r['nbytes']} B a "
-                  f"block): bitwise its plain version {r['equal']}, kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                  f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); {cardline}")
-            require(r["equal"], f"peer collective {name} block {k}: "
-                    "bitwise its plain version")
+            print(f"peer collective {where}block {r['block']} {name} "
+                  f"({r['nbytes']} B a block): bitwise its plain version "
+                  f"{r['equal']}, kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+                  f"({r['bound'][1]}); {cardline}")
+            require(r["equal"], f"peer collective {name} {where}block "
+                    f"{r['block']}: bitwise its plain version")
     main = recs[0]["halo 1 row"]
     err = max(r["err"] for rec in recs for r in rec.values())
     return err, (main["ms"], main["plain_ms"]), main["bound"], recs[0]
@@ -3312,6 +3389,7 @@ def dist_graph_solves(dev, launches: dict):
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
     s = RECORD.pop("dist rdma solver")
     one = dist_graph_rows(f"{side}^2 D={D} rdma one block", s, b2, launches)
+    save_reference(RECORD["mp_dir"], "rdma_pcg", one["pcg"])
     s.close()
     del s
     sv, ref = RECORD.pop("dist var solver")
@@ -3351,14 +3429,16 @@ def cards_entry(rec: dict) -> dict:
             "cards": rec["cards"], "bound_rate": rec["bound_rate"]}
 
 
-def cards_only(n: int) -> int:
+def cards_only(n: int, graph_rows: bool = False) -> int:
     """``chip_smoke.py --cards N``: one process driving N visible cards
     (a card group, the solvers' default device): K7's in-process form
     between the cards (over NVLink), then DIST_SIDE^2 on D = N (one slab a
     card, JAX's layout) and 2N slabs and CARDS_BIG_SIDE^2 on N, each
     under "rdma" and "overlap" against the one-block "rdma" run on card 0
     (the same V-cycles, u bitwise), with setup, wall, and per card the
-    idle share and launches a V-cycle."""
+    idle share and launches a V-cycle; then the graph driver's rows on
+    one block and on the N cards. ``--cards N --graph-rows``: the graph
+    rows alone (and the kernels line of the peer collective)."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU "
                            "only")
@@ -3370,11 +3450,11 @@ def cards_only(n: int) -> int:
     torch.backends.cudnn.allow_tf32 = False
     _build.library()
     devs = tuple(torch.device("cuda", i) for i in range(n))
-    rec = card_peer_checks(devs)
+    rec = None if graph_rows else card_peer_checks(devs)
     launches = {k: 0 for k in KERNEL_INFO}
     one = torch.device("cuda", 0)
-    for side, D in ((DIST_SIDE, n), (DIST_SIDE, 2 * n),
-                    (CARDS_BIG_SIDE, n)):
+    for side, D in () if graph_rows else ((DIST_SIDE, n), (DIST_SIDE, 2 * n),
+                                          (CARDS_BIG_SIDE, n)):
         t0 = time.perf_counter()
         b2 = poisson.rhs(side, device=one).reshape(side, side)
         if side == CARDS_BIG_SIDE:
@@ -3422,7 +3502,8 @@ def cards_only(n: int) -> int:
             "replaces": replaces, "launches": launches[PEER],
             "max_abs_err": err, "ms": kms, "plain_ms": pms, "bound_ms": bms,
             "bound_by": by, "library_ms": None, "cards": n}
-    print(json.dumps({"kernels": [cards_entry(rec), peer]}))
+    print(json.dumps({"kernels": ([] if rec is None else [cards_entry(rec)])
+                      + [peer]}))
     print(card())
     return 0
 
@@ -3433,8 +3514,10 @@ def mp_runs(dev, report: bool) -> tuple[dict, list]:
     (MP_ELL_SIDE^2, the flat pipeline, "step") on MP_SLABS slabs, the rss
     after each and the gathered field. Returns (arrays, report lines: with
     ``report`` the setup, wall of the run, median of 3, and a traced
-    run)."""
+    run; where the processes share one card a median of 1, the whole
+    script's time being bounded)."""
     out, lines = {}, []
+    reps = 3 if torch.cuda.device_count() >= launch.world_size() else 1
     b2 = poisson.rhs(MP_SIDE, device=dev).reshape(MP_SIDE, MP_SIDE)
     A, b = poisson.poisson2d(MP_ELL_SIDE, device=dev)
     cases = (("dist", lambda: DistStructuredSolver(
@@ -3460,11 +3543,11 @@ def mp_runs(dev, report: bool) -> tuple[dict, list]:
         out[name + "_rss"], out[name + "_u"] = run()
         if not report:
             continue
-        med, walls = wall_median(run, 3)
-        w_med = wall_median(lambda: run(TRACE_CYCLES), 3)[0]
+        med, walls = wall_median(run, reps)
+        w_med = wall_median(lambda: run(TRACE_CYCLES), reps)[0]
         _, busy, n_gpu = traced(lambda: run(TRACE_CYCLES))
         lines.append(f"{name}: setup {setup:.3f} s, {MP_CYCLES} V-cycles "
-                     f"wall median of 3 {med:.6f} s (all {walls}); traced "
+                     f"wall median of {reps} {med:.6f} s (all {walls}); traced "
                      f"window of {TRACE_CYCLES} V-cycles: wall {w_med:.6f} "
                      f"s, device busy {busy:.6f} s, idle share "
                      f"{1 - busy / w_med:.4f}, GPU launches "
@@ -3630,12 +3713,14 @@ def peer_graph_ms(kern, st, ref) -> float:
                time_ms(graph.replay, 10)) / K7_GRAPH_LAUNCHES
 
 
-def peer_rdma_solve(dev, out_dir: str) -> tuple[dict, list]:
+def peer_rdma_solve(dev, out_dir: str) -> tuple[dict, list, object]:
     """The DIST_SIDE^2 D = DIST_SLABS halo="rdma" solve_ir_fused to TOL
-    across the processes: K7 (its peer form) 2 x 7 levels a V-cycle, no
-    other kernel, the one-process run's V-cycles and a bitwise equal u
-    (save_rdma_reference), an independent f64 rss; the checked run's wall
-    and a traced window of TRACE_CYCLES V-cycles."""
+    across the processes under the host driver (the host row): K7 (its
+    peer form) 2 x 7 levels a V-cycle, no other kernel, the one-process
+    run's V-cycles and a bitwise equal u (save_reference "rdma"), an
+    independent f64 rss; the checked run's wall and a traced window of
+    TRACE_CYCLES V-cycles. Returns (record, lines, the solver: the graph
+    rows take it on, proc_graph_rows)."""
     side, D = DIST_SIDE, DIST_SLABS
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
     s, setup = timed_build(lambda: DistStructuredSolver(
@@ -3645,45 +3730,137 @@ def peer_rdma_solve(dev, out_dir: str) -> tuple[dict, list]:
     res, c = drive(lambda: s.solve_ir_fused(b2, tolerance=TOL), launches)
     first = time.perf_counter() - t0
     levels = k7_levels(s.cfg)
-    with open(os.path.join(out_dir, "rdma_ref.json")) as f:
-        ref = json.load(f)
-    ref_u = torch.from_numpy(np.load(os.path.join(out_dir, "rdma_u.npy")))
+    ref = load_reference(out_dir, "rdma")
     ind = f64_rss(res.u, b2, side)
-    same = torch.equal(res.u.cpu(), ref_u)
+    same = torch.equal(res.u.cpu(), ref.u)
     require(levels == 7 and c["rdma_halo_exchange"]
             == 2 * levels * res.iterations,
             f"K7 = 2 x 7 levels x V-cycles in each process: {c}")
     require(sum(n for k, n in c.items() if k != "rdma_halo_exchange") == 0,
             "rdma across processes: no other kernel")
     require(res.error <= TOL and ind <= TOL, f"converged to {TOL}")
-    require(res.iterations == ref["iterations"] and same,
+    require(res.iterations == ref.iterations and same,
             "the one-process V-cycles and a bitwise equal u")
     med = first
     window = dist_window(s, b2)
     w_med = wall_median(window, 3)[0]
     _, busy, n_gpu = traced(window)
-    s.close()
     per = c["rdma_halo_exchange"] / res.iterations
     rec = dict(launches=c["rdma_halo_exchange"], vcycles=res.iterations,
                wall=med, idle=1 - busy / w_med)
     return rec, [
         f"rdma {side}^2 D={D}: setup {setup:.3f} s, V-cycles "
-        f"{res.iterations} (one process {ref['iterations']}), rss "
+        f"{res.iterations} (one process {ref.iterations}), rss "
         f"{res.error:.6e}, independent f64 rss {ind:.6e}, u bitwise equal "
         f"to one process's {same}, K7 {c['rdma_halo_exchange']} launches "
         f"({per:.0f} a V-cycle); wall of the checked run {med:.6f} s; "
         f"traced window of {TRACE_CYCLES} V-cycles: wall "
         f"{w_med:.6f} s, device busy {busy:.6f} s, idle share "
         f"{1 - busy / w_med:.4f}, GPU launches {n_gpu / TRACE_CYCLES:.1f} "
-        f"per V-cycle"]
+        f"per V-cycle"], s
 
 
-def save_ell_reference(out_dir: str, res) -> None:
-    """The one-block EllDistSolver "strips" history, which the mesh holds
-    its own to."""
-    with open(os.path.join(out_dir, "ell_ref.json"), "w") as f:
-        json.dump({"iterations": res.iterations, "history": res.history},
-                  f)
+def ell_strips(device):
+    """EllDistSolver at ELL_SIDE^2 on ELL_DIST_SLABS slabs, the bilinear
+    pipeline under "strips" (f64), on ``device`` (a card, or a process's
+    card group) under the host driver (the host rows; proc_graph_rows
+    turns the graph driver on), and its setup seconds."""
+    A, b = poisson.poisson2d(ELL_SIDE, device=device[0] if isinstance(
+        device, tuple) else device)
+    return timed_build(lambda: EllDistSolver(
+        A, b, ELL_BILINEAR_LEVELS, n_devices=ELL_DIST_SLABS,
+        interpolator=BilinearInterpolator2D(ELL_SIDE), halo="strips",
+        device=device, driver="host"))
+
+
+def proc_graph_rows(s, e, out_dir: str, where: str, timed: bool) -> dict:
+    """The distributed programs as CUDA graphs across the processes of
+    this process group (ROADMAP 6c step 3), inside a worker, on the
+    solvers of its host rows (``s``: DistStructuredSolver DIST_SIDE^2 D
+    = DIST_SLABS "rdma"; ``e``: EllDistSolver ELL_SIDE^2 "strips"; a block
+    a process, or the process's card group in the mesh), each against
+    the host driver of the same processes and the one-process runs that
+    save_reference left in ``out_dir``: solve_ir_fused to TOL and the f32
+    solve_pcg to DIST_GRAPH_PCG_TOL (dist_graph_rows: capture; outputs,
+    counts and stats bitwise the host driver's; one graph launch a
+    program a block under set_sync_debug_mode("error"); the launch counts,
+    K7 2 x 7 a V-cycle a block and the peer collective; the one process's
+    u bitwise and count; an independent f64 rss; the PCG's u within
+    PCG_REL_U of the df32 one), ``e``'s solve (ell_graph_row) and
+    solve_pcg (dist_graph_program), each u, count and history bitwise the
+    one process's; walls, dispatch, capture and, with ``timed`` (a card a
+    process), the pieces' busy time and the idle share beside the host
+    driver's (walls median of 3; of 1 where processes share the card:
+    correctness rows there, each round trip a context switch). Then the
+    peer collective kernel against its plain version at the path's
+    payloads (peer_collective_checks). Collective: every process calls
+    it alike. Returns this process's record: the peer
+    collective's numbers (its first block's) and its launches on these
+    rows."""
+    side, D = DIST_SIDE, DIST_SLABS
+    dev = s.devices[0]
+    blocks = len(s.devices)
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    launches = {k: 0 for k in KERNEL_INFO}
+    t0 = time.perf_counter()
+    ir_ref, pcg_ref = (load_reference(out_dir, n)
+                       for n in ("rdma", "rdma_pcg"))
+    label = f"{where} {side}^2 D={D} rdma"
+    reps = 3 if timed else 1
+    out = dist_graph_rows(label, s, b2, launches,
+                          {"ir": ir_ref, "pcg": pcg_ref}, timed=timed,
+                          reps=reps)
+    levels = k7_levels(s.cfg)
+    for prog in out:
+        rec = RECORD[f"dist graph {label} {prog}"]
+        v = rec["it"] * s.cycles_per_refine if prog == "ir" else rec["it"] + 1
+        k7 = rec["launches"].get("rdma_halo_exchange", 0)
+        require(levels == 7 and k7 == blocks * 2 * levels * v,
+                f"{label} {prog}: K7 = blocks x 2 x 7 levels x V-cycles: "
+                f"{rec['launches']}")
+    ir, pcg = out["ir"], out["pcg"]
+    ind = f64_rss(ir.u, b2, side)
+    ind_pcg = f64_rss(pcg.u.double(), b2, side)
+    _, rel_u = rel_err(pcg.u, ir_ref.u.to(pcg.u.device))
+    print(f"dist graph {label}: solve_ir_fused independent f64 rss "
+          f"{ind:.6e}; PCG true f64 rss {ind_pcg:.6e}, max|u - u_df32| / "
+          f"max|u_df32| {rel_u:.3e}; K7 2 x {levels} levels a V-cycle a "
+          f"block; {card()}")
+    require(ind <= TOL, f"{label}: the independent f64 rss within {TOL}")
+    require(rel_u <= PCG_REL_U, f"{label} PCG within {PCG_REL_U:g} of the "
+            "df32 solution")
+
+    elabel = f"{where} ell {ELL_SIDE}^2 D={ELL_DIST_SLABS} strips"
+    ref = load_reference(out_dir, "ell")
+    res = ell_graph_row(f"{elabel} solve", e, lambda e: e.solve(
+        tolerance=ELL_TOL, compute_error_every_n_iters=1),
+        ell_solve_counts, launches, timed=timed, reps=reps)
+    same = (torch.equal(res.u, ref.u.to(res.u.device))
+            and (res.iterations, res.error, res.history)
+            == (ref.iterations, ref.error, ref.history))
+    print(f"stepped graph {elabel} solve: one process's u, count, rss and "
+          f"history bitwise {same}")
+    require(same, f"{elabel} solve: one process's, bitwise")
+    parts = (pieces(*e._state().loops["pcg"])
+             if timed and e._blocks is None else None)
+    pcg = dist_graph_program(
+        f"{elabel} f64", e, "pcg", lambda blk: ell_pcg_device(
+            blk, ELL_TOL, 100), launches,
+        lambda: e.solve_pcg(tolerance=ELL_TOL),
+        load_reference(out_dir, "ell_pcg"), parts, reps)
+    ind = ell_rss(pcg.u, e.b, ELL_SIDE)
+    print(f"dist graph {elabel} f64 pcg: independent f64 rss {ind:.6e}")
+    require(pcg.converged and ind <= 10 * ELL_TOL,
+            f"{elabel} pcg converged")
+    err, (kms, pms), (bms, by), cases = peer_collective_checks(
+        s, f"{where} ")
+    print(f"dist graph {where}: the graph rows and the peer collective "
+          f"checks {time.perf_counter() - t0:.1f} s")
+    return dict(max_abs_err=err, ms=kms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, launches=launches[PEER],
+                by_case={c: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                             "bound_ms": r["bound"][0]}
+                         for c, r in cases.items()})
 
 
 def mesh_solves(blocks, out_dir: str) -> tuple[dict, list]:
@@ -3692,12 +3869,15 @@ def mesh_solves(blocks, out_dir: str) -> tuple[dict, list]:
     process group: K7's peer form on every block (peer_parity, a lost
     neighbour, per-exchange timing: ``_card_peer``; its neighbours a
     block of this process and one of the next), the DIST_SIDE^2 D =
-    DIST_SLABS "rdma" solve_ir_fused once against the one-block run
-    (save_rdma_reference: the same V-cycles, u bitwise; K7 2 x k7_levels
-    a V-cycle a block; an independent f64 rss; the checked run's wall and
-    a traced window per card), and EllDistSolver "strips" at ELL_SIDE^2
-    against the one-block history (save_ell_reference) within CARD_RTOL.
-    Returns (block 0's K7 record, the report lines)."""
+    DIST_SLABS "rdma" solve_ir_fused under the host driver once against
+    the one-block run (save_reference: the same V-cycles, u bitwise; K7
+    2 x k7_levels a V-cycle a block; an independent f64 rss; the checked
+    run's wall and a traced window per card), and EllDistSolver
+    "strips" at ELL_SIDE^2 under the host driver against the one-block
+    history within CARD_RTOL; then both solvers' programs as CUDA graphs
+    (proc_graph_rows, the peer collective across the mesh). Returns
+    (block 0's K7 record, with the graph rows' peer collective record
+    under "peer_collective", the report lines)."""
     t_phase = time.perf_counter()
     r, P = launch.world_rank(), launch.world_size()
     cross = len(set(blocks)) > 1
@@ -3713,11 +3893,10 @@ def mesh_solves(blocks, out_dir: str) -> tuple[dict, list]:
 
     side, D = DIST_SIDE, DIST_SLABS
     b2 = poisson.rhs(side, device=blocks[0]).reshape(side, side)
-    with open(os.path.join(out_dir, "rdma_ref.json")) as f:
-        ref = json.load(f)
-    ref_u = torch.from_numpy(np.load(os.path.join(out_dir, "rdma_u.npy")))
+    ref = load_reference(out_dir, "rdma")
     s, setup = timed_build(lambda: DistStructuredSolver(
         side, n_devices=D, halo="rdma", device=blocks, driver="host"))
+    e = None
     launches = {k: 0 for k in KERNEL_INFO}
     try:
         t0 = time.perf_counter()
@@ -3725,7 +3904,7 @@ def mesh_solves(blocks, out_dir: str) -> tuple[dict, list]:
         wall = time.perf_counter() - t0
         levels = k7_levels(s.cfg)
         ind = f64_rss(res.u, b2, side)
-        same = torch.equal(res.u.cpu(), ref_u)
+        same = torch.equal(res.u.cpu(), ref.u)
         k7 = c["rdma_halo_exchange"]
         require(levels == 7 and k7 == len(blocks) * 2 * levels
                 * res.iterations and sum(c.values()) == k7,
@@ -3734,50 +3913,49 @@ def mesh_solves(blocks, out_dir: str) -> tuple[dict, list]:
         require(res.error <= TOL and ind <= TOL
                 and res.u.shape == (side, side), f"mesh rdma converged to "
                 f"{TOL}")
-        require(res.iterations == ref["iterations"] and same,
+        require(res.iterations == ref.iterations and same,
                 "mesh rdma: the one-block V-cycles and a bitwise equal u")
-        w_med, per_card = traced_cards(dist_window(s, b2))
-    finally:
-        s.close()
-    rec.update(launches=k7, vcycles=res.iterations, wall=wall)
-    lines.append(
-        f"mesh rdma {side}^2 D={D}, {P} processes x {len(blocks)} blocks on "
-        f"{[str(d) for d in blocks]}: setup {setup:.3f} s, V-cycles "
-        f"{res.iterations} (one block {ref['iterations']}), rss "
-        f"{res.error:.6e}, independent f64 rss {ind:.6e}, u bitwise equal to "
-        f"one block's {same}, K7 {k7} launches in this process "
-        f"({k7 / len(blocks) / res.iterations:.0f} a V-cycle a block); wall "
-        f"of the checked run {wall:.6f} s; {cards_text(w_med, per_card)}")
+        # one window where the processes share the card (see mp_runs)
+        w_med, per_card = traced_cards(dist_window(s, b2),
+                                       3 if cross or P == 1 else 1)
+        rec.update(launches=k7, vcycles=res.iterations, wall=wall)
+        lines.append(
+            f"mesh rdma {side}^2 D={D}, {P} processes x {len(blocks)} blocks "
+            f"on {[str(d) for d in blocks]}: setup {setup:.3f} s, V-cycles "
+            f"{res.iterations} (one block {ref.iterations}), rss "
+            f"{res.error:.6e}, independent f64 rss {ind:.6e}, u bitwise "
+            f"equal to one block's {same}, K7 {k7} launches in this process "
+            f"({k7 / len(blocks) / res.iterations:.0f} a V-cycle a block); "
+            f"wall of the checked run {wall:.6f} s; "
+            f"{cards_text(w_med, per_card)}")
 
-    side = ELL_SIDE
-    A, b = poisson.poisson2d(side, device=blocks[0])
-    with open(os.path.join(out_dir, "ell_ref.json")) as f:
-        ref = json.load(f)
-    s, setup = timed_build(lambda: EllDistSolver(
-        A, b, ELL_BILINEAR_LEVELS, n_devices=ELL_DIST_SLABS,
-        interpolator=BilinearInterpolator2D(side), halo="strips",
-        device=blocks))
-    try:
+        ref = load_reference(out_dir, "ell")
+        e, setup = ell_strips(blocks)
         t0 = time.perf_counter()
-        res, c = drive(lambda: s.solve(tolerance=ELL_TOL,
+        res, c = drive(lambda: e.solve(tolerance=ELL_TOL,
                                        compute_error_every_n_iters=1),
                        launches)
         wall = time.perf_counter() - t0
+        got = np.array([h[1] for h in res.history])
+        want = np.array([h[1] for h in ref.history])
+        rel = (float(np.max(np.abs(got / want - 1)))
+               if got.shape == want.shape else float("inf"))
+        lines.append(
+            f"mesh ell {ELL_SIDE}^2 D={ELL_DIST_SLABS} strips, {P} processes "
+            f"x {len(blocks)} blocks: setup {setup:.3f} s, V-cycles "
+            f"{res.iterations} (one block {ref.iterations}), rss history "
+            f"largest relative difference {rel:.3e}; wall of the checked run "
+            f"{wall:.6f} s")
+        require(sum(c.values()) == 0, f"mesh ell: no kernel: {c}")
+        require(res.iterations == ref.iterations and rel <= CARD_RTOL,
+                f"mesh ell: the one-block history within {CARD_RTOL:g}")
+        rec["peer_collective"] = proc_graph_rows(
+            s, e, out_dir, f"mesh {P}x{len(blocks)} rank {r}",
+            timed=False)
     finally:
         s.close()
-    got = np.array([e for _, e in res.history])
-    want = np.array([e for _, e in ref["history"]])
-    rel = (float(np.max(np.abs(got / want - 1))) if got.shape == want.shape
-           else float("inf"))
-    lines.append(
-        f"mesh ell {side}^2 D={ELL_DIST_SLABS} strips, {P} processes x "
-        f"{len(blocks)} blocks: setup {setup:.3f} s, V-cycles "
-        f"{res.iterations} (one block {ref['iterations']}), rss history "
-        f"largest relative difference {rel:.3e}; wall of the checked run "
-        f"{wall:.6f} s")
-    require(sum(c.values()) == 0, f"mesh ell: no kernel: {c}")
-    require(res.iterations == ref["iterations"] and rel <= CARD_RTOL,
-            f"mesh ell: the one-block history within {CARD_RTOL:g}")
+        if e is not None:
+            e.close()
     lines.append(f"phase mesh_solves (process {r}): "
                  f"{time.perf_counter() - t_phase:.1f} s")
     return rec, [f"mesh rank {r}/{P}: {line}" for line in lines]
@@ -3798,6 +3976,20 @@ def mesh_entry(rec: dict) -> dict:
             "bound_rate": rec["bound_rate"]}
 
 
+def proc_peer_entry(rec: dict, name: str, **where) -> dict:
+    """The kernels line's entry for the peer collective across processes
+    (``name``: its form; process 0's first block: the one-row halo's ms a
+    call, its plain version's, its bound; the process's launches on the
+    graph rows; the other payloads under ``by_case``)."""
+    src, replaces = KERNEL_INFO[PEER]
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": rec["launches"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None, **where,
+            "by_case": rec["by_case"]}
+
+
 def mesh_worker(rank: int, world: int, port: int, out_dir: str,
                 k: int) -> None:
     """One process of ``--mp P --cards K`` (``chip_smoke.py
@@ -3814,9 +4006,9 @@ def mesh_worker(rank: int, world: int, port: int, out_dir: str,
 
 def mesh_only(n_procs: int, k: int) -> int:
     """``chip_smoke.py --mp P --cards K``: the mesh phase alone on P·K
-    cards, P processes of K each (nccl; K7 by peer access between the
-    cards of a process, through CUDA IPC across), against the one-block
-    runs on card 0."""
+    cards, P processes of K each (nccl; K7 and the peer collective by
+    peer access between the cards of a process, through CUDA IPC
+    across), against the one-block runs on card 0."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU "
                            "only")
@@ -3829,22 +4021,24 @@ def mesh_only(n_procs: int, k: int) -> int:
     _build.library()
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as out_dir:
-        rdma_reference(dev, out_dir)
-        A, b = poisson.poisson2d(ELL_SIDE, device=dev)
-        save_ell_reference(out_dir, EllDistSolver(
-            A, b, ELL_BILINEAR_LEVELS, n_devices=ELL_DIST_SLABS,
-            interpolator=BilinearInterpolator2D(ELL_SIDE), halo="strips",
-            device=dev).solve(tolerance=ELL_TOL,
-                              compute_error_every_n_iters=1))
+        references(dev, out_dir)
         texts = spawn_workers("--mesh-worker", n_procs, out_dir, str(k))
         for rank, text in enumerate(texts):
             print("\n".join(line for line in text.splitlines()
-                            if line.startswith("mesh rank")))
+                            if line.startswith(RELAYED)))
         with open(os.path.join(out_dir, "mesh0.json")) as f:
             rec = json.load(f)
-    print(json.dumps({"kernels": [mesh_entry(rec)]}))
+    print(json.dumps({"kernels": [
+        mesh_entry(rec), proc_peer_entry(
+            rec["peer_collective"], "peer_collective_mesh",
+            processes=n_procs, blocks=n_procs * k, cards=n_procs * k)]}))
     print(card())
     return 0
+
+
+# the worker lines the parent prints
+RELAYED = ("mp rank", "mesh rank", "dist graph", "stepped graph",
+           "peer collective")
 
 
 def spawn_workers(flag: str, n_procs: int, out_dir: str, *extra) -> list:
@@ -3880,7 +4074,10 @@ def spawn_workers(flag: str, n_procs: int, out_dir: str, *extra) -> list:
 def mp_worker(rank: int, world: int, port: int, out_dir: str) -> None:
     """One process of the process phase (``chip_smoke.py --mp-worker``):
     the plain paths (no kernel), then K7's peer form (parity, a lost
-    neighbour, timing) and the halo="rdma" solve."""
+    neighbour, timing), the halo="rdma" solve under the host driver, and
+    the distributed programs as CUDA graphs across the processes
+    (proc_graph_rows: the "rdma" solver's, then EllDistSolver "strips"
+    at ELL_SIDE^2)."""
     launch.initialize_distributed(f"localhost:{port}", world, rank)
     dev = torch.device("cuda")
     K.reset_launch_counts()
@@ -3891,7 +4088,7 @@ def mp_worker(rank: int, world: int, port: int, out_dir: str) -> None:
     lines += more + peer_timeout_check(dev)
     rec, more = peer_timing(dev, torch.cuda.device_count() >= world)
     lines += more
-    solve, more = peer_rdma_solve(dev, out_dir)
+    solve, more, s = peer_rdma_solve(dev, out_dir)
     lines += more
     rec.update(solve, max_abs_err=err)
     for line in lines:
@@ -3899,8 +4096,23 @@ def mp_worker(rank: int, world: int, port: int, out_dir: str) -> None:
               f"on card {torch.cuda.current_device()}, "
               f"{launch.device_mesh_1d(MP_SLABS).slabs_per_process} of "
               f"{MP_SLABS} slabs) {line}")
+    e = None
+    try:
+        e, setup = ell_strips(dev)
+        print(f"mp rank {rank}/{world}: ell {ELL_SIDE}^2 strips setup "
+              f"{setup:.3f} s")
+        # busy time only with a card a process: processes that share one
+        # time-slice it
+        rec["peer_collective"] = proc_graph_rows(
+            s, e, out_dir, f"{world} processes rank {rank}",
+            timed=torch.cuda.device_count() >= world)
+    finally:
+        s.close()
+        if e is not None:
+            e.close()
+    del s, e
     if (world == MESH_PROCS and torch.cuda.device_count() == 1
-            and os.path.exists(os.path.join(out_dir, "ell_ref.json"))):
+            and os.path.exists(os.path.join(out_dir, "mesh.flag"))):
         # the mesh (the whole script's run): this process's blocks on the
         # one card
         rec["mesh"], lines = mesh_solves(
@@ -3917,16 +4129,18 @@ def mp_solves(dev, launches: dict, n_procs: int = MP_PROCS):
     one process holding all: the same rss after each V-cycle and the same
     gathered field within rtol 1e-12 (only the order of the sums differs).
     On one card the processes share it under gloo: the launch path
-    (initialize_distributed, send/recv of the edge strips, all_reduce,
-    all_gather), not NCCL; with a card a process they take nccl. The
+    (initialize_distributed, send/recv of the edge strips, all_gather),
+    not NCCL; with a card a process they take nccl. The
     workers report the walls; the one process is the reference only. Each
-    worker also checks K7's peer form and runs the halo="rdma" solve
-    against the one-process run that dist_solves (or rdma_reference) saved
-    in RECORD["mp_dir"]; rank 0's K7 numbers go to RECORD["k7_peer"]. In
-    the whole script's run (2 processes, one card, ell_dist_solves'
-    one-block "strips" run saved) each worker then runs the mesh of 2 x
-    MESH_BLOCKS blocks (mesh_solves); process 0's block 0 K7 numbers go
-    to RECORD["k7_mesh"]."""
+    worker also checks K7's peer form, runs the halo="rdma" solve against
+    the one-process runs that the earlier phases (or references) saved in
+    RECORD["mp_dir"], and the programs as CUDA graphs across the
+    processes (proc_graph_rows); rank 0's K7 numbers go to
+    RECORD["k7_peer"], with its peer collective's under
+    "peer_collective". In the whole script's run (2 processes, one card)
+    each worker then runs the mesh of 2 x MESH_BLOCKS blocks
+    (mesh_solves); process 0's block 0 K7 numbers go to
+    RECORD["k7_mesh"]."""
     cards = torch.cuda.device_count()
     print(f"mp: {n_procs} processes, {cards} card(s): "
           + ("nccl, a card a process" if cards >= n_procs else
@@ -3935,12 +4149,13 @@ def mp_solves(dev, launches: dict, n_procs: int = MP_PROCS):
     (single, _), c = drive(lambda: mp_runs(dev, report=False), launches)
     require(sum(c.values()) == 0, f"mp single process: no kernel: {c}")
     out_dir = RECORD["mp_dir"]
-    if "ell dist strips" in RECORD:
-        save_ell_reference(out_dir, RECORD["ell dist strips"])
+    if "ell dist strips" in RECORD:     # the whole script's run
+        save_reference(out_dir, "ell", RECORD.pop("ell dist strips"))
+        open(os.path.join(out_dir, "mesh.flag"), "w").close()
     texts = spawn_workers("--mp-worker", n_procs, out_dir)
     for text in texts:
         print("\n".join(line for line in text.splitlines()
-                        if line.startswith(("mp rank", "mesh rank"))))
+                        if line.startswith(RELAYED)))
     for rank in range(n_procs):
         got = np.load(os.path.join(out_dir, f"rank{rank}.npz"))
         for key, want in single.items():
@@ -4084,6 +4299,12 @@ def main() -> int:
     kernels.append(peer_entry(RECORD["k7_peer"][MP_PROCS], MP_PROCS))
     kernels.append(cards_entry(RECORD["k7_cards"]))
     kernels.append(mesh_entry(RECORD["k7_mesh"]))
+    kernels.append(proc_peer_entry(
+        RECORD["k7_peer"][MP_PROCS]["peer_collective"],
+        "peer_collective_processes", processes=MP_PROCS, cards=1))
+    kernels.append(proc_peer_entry(
+        RECORD["k7_mesh"]["peer_collective"], "peer_collective_mesh",
+        processes=MESH_PROCS, blocks=MESH_PROCS * MESH_BLOCKS, cards=1))
     print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {
@@ -4103,11 +4324,16 @@ def mp_only(procs: list) -> int:
     launches = {k: 0 for k in KERNEL_INFO}
     with tempfile.TemporaryDirectory() as mp_dir:
         RECORD["mp_dir"] = mp_dir
-        rdma_reference(dev, mp_dir)
+        references(dev, mp_dir)
         for p in procs:
             mp_solves(dev, launches, p)
+    cards = torch.cuda.device_count()
     print(json.dumps({"kernels": [peer_entry(rec, p) for p, rec
-                                  in RECORD["k7_peer"].items()]}))
+                                  in RECORD["k7_peer"].items()]
+                      + [proc_peer_entry(
+                          rec["peer_collective"], "peer_collective_processes",
+                          processes=p, cards=min(p, cards))
+                         for p, rec in RECORD["k7_peer"].items()]}))
     return 0
 
 
@@ -4121,7 +4347,7 @@ if __name__ == "__main__":
                     sys.argv[5], int(sys.argv[6]))
         sys.exit(0)
     if sys.argv[1:2] == ["--cards"]:
-        sys.exit(cards_only(int(sys.argv[2])))
+        sys.exit(cards_only(int(sys.argv[2]), "--graph-rows" in sys.argv))
     if sys.argv[1:2] == ["--mp-worker"]:
         mp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
                   sys.argv[5])

@@ -852,3 +852,164 @@ def test_refine_graph_is_the_host_driver(dev):
     hr = s._solve_ir(b2, 1e-7, 40, host=True)
     assert r.converged and torch.equal(r.u, hr.u)
     assert r.history == hr.history
+
+
+# one of 2 processes on the one card (gloo: the processes share it), each a
+# block of 2 slabs, every program a CUDA graph (ROADMAP 6c step 3): "runs"
+# drives DistStructuredSolver 255^2 D = 4 "rdma" and EllDistSolver 255^2
+# "strips" (f32) under the graph driver, then the host driver; "lost"
+# leaves process 1 alive but calling nothing after the captures
+PROC_GRAPH_WORKER = textwrap.dedent("""
+    import os
+    import sys
+    import time
+    import numpy as np
+    import torch
+    from amg_tpu_torch import DistStructuredSolver, poisson
+    from amg_tpu_torch.ops.kernels import peer_collective as pc
+    from amg_tpu_torch.ops.transfer import BilinearInterpolator2D
+    from amg_tpu_torch.parallel import launch
+    from amg_tpu_torch.parallel.ell_dist import EllDistSolver
+    rank, port, out, mode = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                             sys.argv[4])
+    launch.initialize_distributed(f"localhost:{port}", 2, rank)
+    assert torch.distributed.get_backend() == "gloo"
+    side = 255
+    b2 = poisson.rhs(side, device="cuda").reshape(side, side)
+    if mode == "lost":
+        pc.TIMEOUT_S = 2.0
+        s = DistStructuredSolver(side, n_devices=4, halo="sweep")
+        s.warmup()
+        torch.cuda.synchronize()
+        if rank == 1:
+            done = os.path.join(os.path.dirname(out), "rank0.npz")
+            t0 = time.monotonic()
+            while not os.path.exists(done) and time.monotonic() - t0 < 120:
+                time.sleep(0.1)
+            os._exit(0)
+        t0 = time.monotonic()
+        try:
+            s.solve_ir_fused(b2, tolerance=1e-7)
+            what = ""
+        except RuntimeError as exc:
+            what = str(exc)
+        np.savez(out + ".part.npz", seconds=time.monotonic() - t0,
+                 what=what)
+        os.replace(out + ".part.npz", out)
+        sys.stdout.flush()
+        os._exit(0)
+    A, b = poisson.poisson2d(side, device="cuda")
+
+    def dist_runs(s):
+        return [s.solve_ir_fused(b2, 1e-7), s.solve_pcg(b2.float(), 1e-5),
+                s.solve(b2, 1e-7, compute_error_every_n_iters=2,
+                        n_iters=12)]
+
+    def ell_runs(s):
+        return [s.solve(1e-9, 2), s.solve_pcg(1e-5), s.solve_ir(1e-9)]
+    got = {}
+    for name, make, runs in (
+            ("dist", lambda: DistStructuredSolver(side, n_devices=4,
+                                                  halo="rdma"), dist_runs),
+            ("ell", lambda: EllDistSolver(
+                A, b, 7, n_devices=4, dtype=torch.float32, halo="strips",
+                interpolator=BilinearInterpolator2D(side)), ell_runs)):
+        s = make()
+        try:
+            assert s.driver == "graph", s.driver
+            runs(s)                       # the programs captured
+            n0 = {k: g.launches for k, g in s._graphs.items()}
+            graph = runs(s)
+            n1 = {k: g.launches for k, g in s._graphs.items()}
+            s.set_driver("host")
+            host = runs(s)
+        finally:
+            s.close()
+        for i, (g, h) in enumerate(zip(graph, host)):
+            for tag, r in (("graph", g), ("host", h)):
+                got[f"{name}{i}_{tag}_u"] = r.u.cpu().numpy()
+                got[f"{name}{i}_{tag}_stats"] = np.array(
+                    [r.iterations, r.error]
+                    + [x for pair in r.history for x in pair])
+        got[f"{name}_launches"] = np.array(
+            [n1[k] - n0[k] for k in sorted(n1)])
+        got[f"{name}_programs"] = np.array(sorted(n1))
+    np.savez(out, **got)
+    torch.distributed.destroy_process_group()
+""")
+
+
+def _spawn_pair(tmp_path, mode):
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PROC_GRAPH_WORKER, str(rank), str(port),
+         str(tmp_path / f"rank{rank}.npz"), mode],
+        cwd=Path(__file__).resolve().parents[1], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    outs = [p.communicate(timeout=420)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+
+
+def test_proc_graphs_are_the_host_driver_and_one_process(dev, tmp_path):
+    """2 processes on the one card: DistStructuredSolver ("rdma": K7's
+    peer form and the peer collective kernel inside the graphs across the
+    processes) and EllDistSolver ("strips", f32) default to the graph
+    driver; each call's graphs give the host driver's u, counts, rss and
+    histories bitwise, in both processes, and one process's u and counts
+    (the ELL's rss too); one graph launch a program run a process."""
+    from amg_tpu_torch.ops.transfer import BilinearInterpolator2D
+    from amg_tpu_torch.parallel.ell_dist import EllDistSolver
+    side = 255
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+    A, b = poisson.poisson2d(side, device=dev)
+    one = {"dist": DistStructuredSolver(side, n_devices=4, halo="rdma",
+                                        device=dev),
+           "ell": EllDistSolver(A, b, 7, n_devices=4, dtype=torch.float32,
+                                halo="strips", device=dev,
+                                interpolator=BilinearInterpolator2D(side))}
+    ref = {"dist": [one["dist"].solve_ir_fused(b2, 1e-7),
+                    one["dist"].solve_pcg(b2.float(), 1e-5),
+                    one["dist"].solve(b2, 1e-7,
+                                      compute_error_every_n_iters=2,
+                                      n_iters=12)],
+           "ell": [one["ell"].solve(1e-9, 2), one["ell"].solve_pcg(1e-5),
+                   one["ell"].solve_ir(1e-9)]}
+    _spawn_pair(tmp_path, "runs")
+    for rank in range(2):
+        got = np.load(tmp_path / f"rank{rank}.npz")
+        for name, rs in ref.items():
+            for i, r in enumerate(rs):
+                g, h = (got[f"{name}{i}_{t}_u"] for t in ("graph", "host"))
+                gs, hs = (got[f"{name}{i}_{t}_stats"]
+                          for t in ("graph", "host"))
+                assert np.array_equal(g, h) and np.array_equal(gs, hs), \
+                    (rank, name, i)
+                assert np.array_equal(g, r.u.cpu().numpy()), (rank, name, i)
+                assert gs[0] == r.iterations, (rank, name, i)
+                if name == "ell":
+                    assert gs[1] == r.error, (rank, name, i)
+            runs = dict(zip(got[f"{name}_programs"],
+                            got[f"{name}_launches"]))
+            first, _, last = rs
+            if name == "dist":
+                want = {"ir": 1, "pcg": 1, "vcycle": last.iterations,
+                        "rss": len(last.history)}
+            else:
+                want = {"vcycle": first.iterations,
+                        "rss": len(first.history), "pcg": 1,
+                        "refine": len(last.history)}
+            assert {k: v for k, v in runs.items() if v} == want, \
+                (rank, name, runs)
+
+
+def test_proc_graph_lost_process_raises(dev, tmp_path):
+    """Process 1 stays alive but calls nothing after the captures: process
+    0's graph launch does not hang; its peer collectives' waits end at
+    their bound (2 s here) and the solve raises on the status."""
+    _spawn_pair(tmp_path, "lost")
+    got = np.load(tmp_path / "rank0.npz")
+    assert "peer collective: a wait" in str(got["what"]), got["what"]
+    assert float(got["seconds"]) < 60.0

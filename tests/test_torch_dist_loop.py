@@ -17,7 +17,14 @@ tests/test_torch_cuda.py, chip_smoke.py ``dist_graph_solves``).
   (``launch._edges_device``) against ``launch._edges_group``, one and
   several hops;
 * a wait of the peer collectives that timed out (its status word set)
-  raising in the solve that read the program's results.
+  raising in the solve that read the program's results;
+* across processes (``launch.world_size`` patched): the drivers' rules
+  ("graph" the default whenever every block is on a card, "host" on the
+  CPU, "graph" there refused), the peer collectives' memory refused over
+  more than 8 blocks, and the edge strips assembled from a gather over N
+  blocks (``_edges_device``, no lead's frame) against the zero-framed
+  line, up to strips deeper than the whole line (the same over gloo
+  processes: tests/test_torch_multiprocess.py).
 """
 
 import ctypes
@@ -25,6 +32,7 @@ import ctypes
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from amg_tpu_torch.models import poisson
 from amg_tpu_torch.ops.doublefloat import DF32, df_add_f32
@@ -221,3 +229,72 @@ def test_a_timed_out_wait_raises_in_the_solve():
     finally:
         s.close()
     assert np.array_equal(st.status.numpy(), [1, 41])
+
+
+class _Blocks(launch.ProgramSolver):
+    """A ProgramSolver with only its blocks' devices (the driver rules)."""
+
+    def __init__(self, *devices):
+        self.devices = tuple(torch.device(d) for d in devices)
+
+
+def test_driver_rules_under_a_process_group(monkeypatch):
+    """With 2 processes the default is the graph driver whenever every
+    block is on a card (one card a process, or a card group each), the
+    host driver on the CPU, where the graph driver is refused."""
+    monkeypatch.setattr(launch, "world_size", lambda: 2)
+    assert launch.process_count() == 2
+    for devices in (("cuda:0",), ("cuda:0", "cuda:1")):
+        assert _Blocks(*devices)._driver_for(None) == "graph"
+        assert _Blocks(*devices)._driver_for("host") == "host"
+    assert _Blocks("cpu")._driver_for(None) == "host"
+    with pytest.raises(ValueError, match="graph driver"):
+        _Blocks("cpu")._driver_for("graph")
+    with pytest.raises(ValueError, match="graph driver"):
+        _Blocks("cuda:0", "cpu")._driver_for("graph")
+    s = T.DistStructuredSolver(31, n_devices=4, device=CPU)
+    assert s.driver == "host" and s.mesh.process_count == 2
+    with pytest.raises(ValueError, match="graph driver"):
+        T.DistStructuredSolver(31, n_devices=4, device=CPU, driver="graph")
+
+
+def test_group_collectives_refuse_more_than_eight_blocks(monkeypatch):
+    """The peer collective kernel holds at most 8 blocks' bases: 9
+    processes, or 3 processes of 3 blocks, are refused before any memory
+    is made; one block has no one to talk to."""
+    monkeypatch.setattr(launch, "world_size", lambda: 9)
+    with pytest.raises(ValueError, match="at most 8 blocks, not 9"):
+        launch.GroupCollectives()
+    monkeypatch.setattr(launch, "world_size", lambda: 3)
+    g = launch.CardGroup(("cpu",) * 3)
+    try:
+        with pytest.raises(ValueError, match="at most 8 blocks, not 9"):
+            g.run(lambda k: launch.GroupCollectives())
+    finally:
+        g.close()
+    monkeypatch.setattr(launch, "world_size", lambda: 1)
+    with pytest.raises(RuntimeError, match="two or more blocks"):
+        launch.GroupCollectives()
+
+
+@pytest.mark.parametrize("N,L,G", [(2, 6, 1), (4, 6, 3), (4, 2, 5),
+                                   (8, 3, 7), (8, 2, 17)])
+def test_edges_device_over_n_blocks_is_the_framed_line(N, L, G):
+    """_edges_device over the N blocks of the world (here a card group of
+    N CPU blocks; every row some block's, no lead's frame): block k's
+    strips are rows [kL, kL + G) and [kL + G + L, kL + 2G + L) of the
+    whole line zero-padded by G, bitwise, along dim 0 and along the last
+    dim; one hop (G <= L), several (G > L), and deeper than the whole
+    line (G > N L)."""
+    line = torch.arange(N * L * 3, dtype=torch.float64).reshape(N * L, 3)
+    framed = F.pad(line + 1.0, (0, 0, G, G))
+
+    def block(k):
+        x = line[k * L:(k + 1) * L] + 1.0
+        return (launch._edges_device(x, G, 0, None),
+                launch._edges_device(x.T.contiguous(), G, -1, None))
+    for k, (d0, d1) in enumerate(_group(N, block)):
+        up = framed[k * L:k * L + G]
+        down = framed[k * L + G + L:k * L + 2 * G + L]
+        assert torch.equal(d0[0], up) and torch.equal(d0[1], down), k
+        assert torch.equal(d1[0], up.T) and torch.equal(d1[1], down.T), k

@@ -9,15 +9,21 @@ V-cycles of DistStructuredSolver under "sweep", "step", "rdma", "rdma" at
 63^2 on 4 slabs, "sweep" on the jump problem's variable levels; of
 EllDistSolver under "step" and "strips"; a few PCG iterations), each held
 to the same solver in one block: the exchanges are copies and only the
-order of the sums differs (the K partials in block order, then the
-processes' all_reduce), so rtol 1e-12, PCG 1e-10; "rdma" gives "sweep"'s
-field bitwise. On D = 8 slabs of 31^2 a block holds 2 slabs of 4 rows
-and the strips of G = 10 rows cross the process boundary in several hops;
+order of the sums differs (each block's partial over its slabs, then
+the 4 partials in block order), so rtol 1e-12, PCG 1e-10; "rdma" gives
+"sweep"'s field bitwise. On D = 8 slabs of 31^2 a block holds 2 slabs of
+4 rows and the strips of G = 10 rows cross the process boundary in
+several hops;
 ``launch.frame`` is also held bitwise to the zero-padded line at strips
 deeper than a process's whole line. Then amg_tpu's
 ``DistStructuredSolver(31, n_devices=4)`` against the mesh (one slab a
 block), the device rule under a process group, and a block that raises
-in process 1, which makes process 0 raise within a bound.
+in process 1, which makes process 0 raise within a bound. The
+collectives' plain versions over the 4 blocks: psum in block order (the
+K partials gathered, then the processes', then added in block order on
+every block), the peer collective kernel's CPU branch, and the edge
+strips from one gather over the mesh (``launch._edges_device``, no
+lead's frame) against the zero-framed line.
 
 Each worker is this file run as a script:
 
@@ -36,8 +42,8 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from test_torch_multiprocess import (RTOL, RTOL_PCG, _free_port,  # noqa
-                                     runs)
+from test_torch_multiprocess import (ORDER_VALUES, RTOL,  # noqa
+                                     RTOL_PCG, _free_port, runs)
 
 P, K = 2, 2
 BLOCKS = ("cpu",) * K
@@ -52,6 +58,8 @@ def _frame_checks(launch, torch) -> dict:
     """launch.frame on every block of the mesh against the zero-padded
     line of all 4 blocks, bitwise, for strips within a block up to deeper
     than the whole line; and launch.psum / all_gather_slabs."""
+    from amg_tpu_torch.ops.kernels import peer_collective as pc
+
     n = P * K * FRAME_ROWS
     line = torch.arange(n * 3, dtype=torch.float64).reshape(n, 3) + 1.0
     group = launch.CardGroup(BLOCKS)
@@ -66,10 +74,28 @@ def _frame_checks(launch, torch) -> dict:
             ok.append(bool(torch.equal(launch.frame(x, G, dim=0), want)))
         total = launch.psum(x.sum())
         whole = launch.all_gather_slabs(x)
+        t = torch.tensor(ORDER_VALUES[r], dtype=torch.float64)
+        order = launch.psum(t)
+        edges = []
+        for G in FRAME_G:
+            pad = torch.nn.functional.pad(line, (0, 0, G, G))
+            a = r * FRAME_ROWS
+            got = launch._edges_device(x, G, 0, None)
+            edges.append(bool(
+                torch.equal(got[0], pad[a:a + G])
+                and torch.equal(got[1], pad[a + G + FRAME_ROWS:
+                                            a + 2 * G + FRAME_ROWS])))
         return dict(frame=ok, psum=float(total),
                     gathered=bool(torch.equal(whole, line)),
                     ids=[launch.process_count(), r, launch.world_size(),
-                         launch.world_rank()])
+                         launch.world_rank()],
+                    order=float(order),
+                    kernel_sum=bool(torch.equal(
+                        pc.peer_collective(t, None, pc.SUM), order)),
+                    kernel_gather=bool(torch.equal(
+                        pc.peer_collective(x, None, pc.GATHER).reshape(-1, 3),
+                        line)),
+                    edges_device=edges)
     try:
         return group.run(block)
     finally:
@@ -245,6 +271,22 @@ def test_mesh_blocks_and_deep_strips(mesh):
         assert facts["local_slabs"] == [
             list(range((rank * K + k) * slabs, (rank * K + k + 1) * slabs))
             for k in range(K)]
+
+
+def test_mesh_collectives_in_block_order(mesh):
+    """Over the 4 blocks of the mesh psum is the block-order sum on every
+    block, bitwise (1.0; another order gives 0 or 2), the peer collective
+    kernel's CPU branch is that sum and the gather in block order, and the
+    strips from one gather over the mesh are the zero-framed line's,
+    bitwise, within a block up to deeper than the line."""
+    want = ((ORDER_VALUES[0] + ORDER_VALUES[1]) + ORDER_VALUES[2]) \
+        + ORDER_VALUES[3]
+    assert want == 1.0
+    for rank, (_, facts) in enumerate(mesh):
+        for k, blk in enumerate(facts["blocks"]):
+            assert blk["order"] == want, (rank, k)
+            assert blk["kernel_sum"] and blk["kernel_gather"], (rank, k)
+            assert blk["edges_device"] == [True] * len(FRAME_G), (rank, k)
 
 
 def test_slab_devices_under_a_process_group(mesh):

@@ -11,15 +11,27 @@ the strip rows, "sweep" on the jump problem's variable levels) and of
 EllDistSolver ("step" and "strips"), and a few PCG iterations, and writes
 the rss after each V-cycle and the field it gathered from every process.
 The exchanges are copies, so the V-cycle iterates are those of one
-process; only the order of the sums differs (an all_reduce of the
-processes' partial sums), so the rss and the fields agree within rtol
+process; only the order of the sums differs (the processes' partial
+sums, each over its slabs, added in block order), so the rss and the
+fields agree within rtol
 1e-12. PCG feeds its sums back into the iterates: rtol 1e-10. On the CPU
 "rdma" runs K7's plain version, the strip exchange of "sweep": on every
 rank its field is "sweep"'s, bitwise.
 
+Each worker also checks the collectives' plain versions across the
+processes: ``launch.psum`` adds the processes' partials in block order
+(an ``all_gather``, then ((t_0 + t_1) + t_2) + ..., on values whose sum
+depends on the order), the peer collective kernel's CPU branch is that
+sum and that gather, and the edge strips assembled from one gather over
+the processes (``launch._edges_device``) are ``launch.edges``' (one batch
+of send/recv, ``_edges_processes``) and the zero-framed line's, bitwise,
+one hop and several.
+
     python tests/test_torch_multiprocess.py RANK WORLD PORT OUT_DIR
 """
 
+import functools
+import json
 import os
 import socket
 import subprocess
@@ -39,6 +51,11 @@ PCG_ITERS = 4
 RTOL = 1e-12
 RTOL_PCG = 1e-10
 TIMEOUT = 240       # seconds, for all the workers of one test
+# a partial a block whose sum depends on the order: in block order
+# ((1e16 + 1) - 1e16) + 1 = 1
+ORDER_VALUES = (1e16, 1.0, -1e16, 1.0)
+# (rows a process, strip rows): one hop, several, deeper than the line
+EDGE_CASES = ((6, 1), (6, 3), (2, 5), (3, 13))
 
 
 def runs(device="cpu"):
@@ -114,6 +131,51 @@ def run_all() -> dict:
     return out
 
 
+def collective_facts() -> dict:
+    """The collectives' plain versions across the processes on this rank
+    (see the module docstring): the sum, the kernel's CPU branch, the
+    gathers, and per EDGE_CASES case whether _edges_device's strips are
+    launch.edges' and the framed line's, along dim 0 and the last dim."""
+    import torch
+    import torch.nn.functional as F
+
+    from amg_tpu_torch.ops.kernels import peer_collective as pc
+    from amg_tpu_torch.parallel import launch
+
+    P, r = launch.process_count(), launch.process_index()
+    t = torch.tensor(ORDER_VALUES[r], dtype=torch.float64)
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * r
+    every = torch.stack([torch.arange(6, dtype=torch.float32).reshape(2, 3)
+                         + 10 * q for q in range(P)])
+    total = launch.psum(t)
+    edges = []
+    for L, G in EDGE_CASES:
+        line = torch.arange(P * L * 3, dtype=torch.float64).reshape(
+            P * L, 3) + 1.0
+        framed = F.pad(line, (0, 0, G, G))
+        want = (framed[r * L:r * L + G],
+                framed[r * L + G + L:r * L + 2 * G + L])
+        x_line = line[r * L:(r + 1) * L]
+        ok = True
+        for xx, dim, tr in ((x_line, 0, False),
+                            (x_line.T.contiguous(), -1, True)):
+            dev = launch._edges_device(xx, G, dim, None)
+            host = launch.edges(xx, G, dim)
+            for a, b, w in zip(dev, host, want):
+                w = w.T if tr else w
+                ok &= bool(torch.equal(a, w) and torch.equal(b, w))
+        edges.append(ok)
+    return dict(
+        psum=float(total),
+        kernel_sum=bool(torch.equal(pc.peer_collective(t, None, pc.SUM),
+                                    total)),
+        kernel_gather=bool(torch.equal(pc.peer_collective(x, None,
+                                                          pc.GATHER), every)),
+        slabs=bool(torch.equal(launch.all_gather_slabs(x),
+                               every.reshape(2 * P, 3))),
+        edges=edges)
+
+
 def worker(rank: int, world: int, port: int, out_dir: str) -> None:
     import torch
 
@@ -128,6 +190,8 @@ def worker(rank: int, world: int, port: int, out_dir: str) -> None:
     assert list(mesh.local_slabs) == list(range(rank * D // world,
                                                 (rank + 1) * D // world))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **run_all())
+    with open(os.path.join(out_dir, f"facts{rank}.json"), "w") as f:
+        json.dump(collective_facts(), f)
     torch.distributed.destroy_process_group()
 
 
@@ -147,7 +211,8 @@ def single():
 
 @pytest.fixture(scope="module", params=[2, 4])
 def workers(request, tmp_path_factory):
-    """(nproc, each rank's arrays): the workers of one process group."""
+    """(nproc, each rank's arrays, each rank's collective_facts): the
+    workers of one process group."""
     nproc = request.param
     out_dir = tmp_path_factory.mktemp(f"p{nproc}")
     port = _free_port()
@@ -169,12 +234,16 @@ def workers(request, tmp_path_factory):
         pytest.fail(f"workers did not finish in {TIMEOUT} s")
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{out[-3000:]}"
+    facts = []
+    for rank in range(nproc):
+        with open(out_dir / f"facts{rank}.json") as f:
+            facts.append(json.load(f))
     return nproc, [dict(np.load(out_dir / f"rank{rank}.npz"))
-                   for rank in range(nproc)]
+                   for rank in range(nproc)], facts
 
 
 def test_processes_match_one_process(workers, single):
-    nproc, got_ranks = workers
+    nproc, got_ranks, _ = workers
     for rank, got in enumerate(got_ranks):
         assert sorted(got) == sorted(single)
         for key, want in single.items():
@@ -186,12 +255,29 @@ def test_processes_match_one_process(workers, single):
 def test_rdma_field_is_sweeps(workers):
     """halo="rdma" across processes gives halo="sweep"'s field on every
     rank, bitwise: both exchange the strips by copies."""
-    nproc, got_ranks = workers
+    nproc, got_ranks, _ = workers
     for rank, got in enumerate(got_ranks):
         np.testing.assert_array_equal(got["dist_rdma_u"],
                                       got["dist_sweep_u"],
                                       err_msg=f"{nproc} processes, rank "
                                       f"{rank}")
+
+
+def test_collectives_sum_in_block_order(workers):
+    """Across the processes psum is the block-order sum on every rank,
+    bitwise (4 processes: 1.0, where another order gives 0 or 2); the
+    peer collective kernel's CPU branch is that sum and the gather in
+    block order; the edge strips from one gather are the send/recv
+    strips and the zero-framed line's, bitwise."""
+    nproc, _, facts = workers
+    want = functools.reduce(lambda a, b: a + b, ORDER_VALUES[:nproc])
+    if nproc == 4:
+        assert want == 1.0 and sum(sorted(ORDER_VALUES)) != want
+    for rank, got in enumerate(facts):
+        assert got["psum"] == want, (nproc, rank, got)
+        assert got["kernel_sum"] and got["kernel_gather"], (nproc, rank)
+        assert got["slabs"], (nproc, rank)
+        assert got["edges"] == [True] * len(EDGE_CASES), (nproc, rank)
 
 
 def test_one_process_mesh():
