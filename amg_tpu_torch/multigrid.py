@@ -29,7 +29,6 @@ flag to true (multigrid.hpp:361-364).
 from __future__ import annotations
 
 import dataclasses
-import time
 import weakref
 from typing import Any
 
@@ -45,6 +44,7 @@ from amg_tpu_torch.ops.smoothers import (MulticolorGaussSeidel,
                                          SparseGaussSeidel)
 from amg_tpu_torch.ops.transfer import InterpolatorBase, LinearInterpolator
 from amg_tpu_torch.sparse.ell import ELL
+from amg_tpu_torch.utils import tracing
 from amg_tpu_torch.utils.device import resolve_device
 from amg_tpu_torch.utils.metrics import rss
 
@@ -128,8 +128,10 @@ def galerkin_rap(R: sp.spmatrix, A: sp.spmatrix, P: sp.spmatrix):
 
 
 class _Clock:
-    """Accumulates host seconds by phase into a dict, each phase ending in
-    a device sync so the work it queued is inside it."""
+    """A hierarchy build's phases as set-up spans of the tracing module
+    (``setup.rap``, ``setup.upload``, ``setup.smoother``, ``setup.lu``),
+    each ending in a device sync so the work it queued is inside it;
+    ``seconds`` sums them by phase (``Hierarchy.setup_seconds``)."""
 
     def __init__(self, device):
         self.device = device
@@ -137,11 +139,9 @@ class _Clock:
                         "lu": 0.0}
 
     def __call__(self, key, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.seconds[key] += time.perf_counter() - t0
+        with tracing.setup_span(f"setup.{key}", self.device) as span:
+            out = fn(*args)
+        self.seconds[key] += span.seconds
         return out
 
 

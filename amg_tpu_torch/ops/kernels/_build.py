@@ -31,6 +31,8 @@ from pathlib import Path
 
 import torch
 
+from amg_tpu_torch.utils import tracing
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "amg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -68,6 +70,10 @@ _SIGNATURES = {
     "amg_loop_graph_destroy": (_P, _P),
     "amg_cuda_versions": (_P, _P),
     "amg_graph_node_types": (_P, _P, _I, _P),
+    # the tracing stamps: the ring, its index and drop count, its records,
+    # the stamp's code, the stream; the timer probe: out, steps, stream
+    "amg_trace_stamp": (_P, _P, _I, ctypes.c_longlong, _P),
+    "amg_timer_steps": (_P, _I, _P),
 }
 
 
@@ -138,8 +144,9 @@ _COUNT_LOCK = threading.Lock()
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library. Threads
     of a card group that ask at once wait for one build (the others load
-    what it built)."""
-    with _BUILD_LOCK:
+    what it built). The host span ``setup.kernels`` covers the build or
+    the load."""
+    with _BUILD_LOCK, tracing.setup_span("setup.kernels"):
         so = BUILD_DIR / f"libamg_kernels_{_digest()}.so"
         if not so.exists():
             log = compile_library(_sources(), so)

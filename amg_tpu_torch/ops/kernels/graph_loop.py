@@ -37,13 +37,15 @@ JAX's host loop over a jitted chunk of cycles and a jitted rss is a
 the rss read between them.
 
 Launch counts. The kernel wrappers count at capture into a tally of the
-piece (``_build.capture_tally``), not into their counters; the graph
-counts its replays, passes, refining passes and final recomputations on
-the device, and :func:`settle` (called by ``launch_counts`` and
-``reset_launch_counts``) adds each piece's tally times its runs to the
-counters, and the condition kernel's own runs to
-``loop_condition.launches``. A straight graph adds its tally at each
-launch.
+piece (``_build.capture_tally``), not into their counters, and the
+piece's nodes by kind go into the same tally (``utils/tracing.census``);
+the graph counts its replays, passes, refining passes and final
+recomputations on the device, and :func:`settle` (called by
+``launch_counts``, ``reset_launch_counts`` and the tracing module's
+``reset`` and ``report``) adds each piece's tally times its runs to the
+counters, the condition kernel's own runs to ``loop_condition.launches``
+and the replays to the solves. A straight graph adds its tally at each
+launch. A dropped graph's last runs are added when it is destroyed.
 
 Threads. The blocks of a card group (``parallel/launch.py``) capture
 and replay their own graphs, each on its own thread: every thread
@@ -73,6 +75,7 @@ from collections import Counter
 import torch
 
 from amg_tpu_torch.ops.kernels import _build, packed_df
+from amg_tpu_torch.utils import tracing
 from amg_tpu_torch.utils.debugging import check_rss
 
 START, STEP, STEP_IF, FINAL = 0, 1, 2, 3
@@ -140,15 +143,16 @@ def settle() -> None:
 
 def _free_retired() -> None:
     """Destroy the graphs that were dropped, after the work in flight on
-    the stream each was last launched on (their captures' memory pool is
-    released with them). Never called while a capture is underway. Left
-    for later in a card group's thread (destroying a graph waits for the
-    whole card, which could wait for another block's collective that
-    waits for this thread) and under ``set_sync_debug_mode`` (the caller
-    asked for no waits)."""
+    the stream each was last launched on (a loop graph's last runs are
+    counted first; their captures' memory pool is released with them).
+    Never called while a capture is underway. Left for later in a card
+    group's thread (destroying a graph waits for the whole card, which
+    could wait for another block's collective that waits for this
+    thread) and under ``set_sync_debug_mode`` (the caller asked for no
+    waits)."""
     from amg_tpu_torch.parallel import launch
-    if launch.in_card_group() or not _RETIRED or \
-            torch.cuda.get_sync_debug_mode():
+    if launch.in_card_group() or not _RETIRED or (
+            torch.cuda.is_available() and torch.cuda.get_sync_debug_mode()):
         return
     while True:
         try:
@@ -161,12 +165,19 @@ def _free_retired() -> None:
 
 
 def node_types(graph: int) -> list:
-    """The node types (cudaGraphNodeType values) of a captured graph."""
-    types = (ctypes.c_int * 4096)()
+    """The node types (cudaGraphNodeType values) of a captured graph, its
+    child graphs' and conditional bodies' nodes included, each after the
+    node that holds it."""
+    lib = _build.library()
     count = ctypes.c_int(0)
-    _build.check(_build.library().amg_graph_node_types(
-        graph, types, 4096, ctypes.byref(count)), "amg_graph_node_types")
-    return list(types[:min(count.value, 4096)])
+    _build.check(lib.amg_graph_node_types(graph, None, 0,
+                                          ctypes.byref(count)),
+                 "amg_graph_node_types")
+    types = (ctypes.c_int * max(count.value, 1))()
+    _build.check(lib.amg_graph_node_types(graph, types, count.value,
+                                          ctypes.byref(count)),
+                 "amg_graph_node_types")
+    return list(types[:count.value])
 
 
 def versions() -> tuple[int, int]:
@@ -182,13 +193,16 @@ def versions() -> tuple[int, int]:
 class _Capturer:
     """Warm-up and capture of pieces on this thread's capture stream of
     ``dev``, into one memory pool, with K4's ticket counter of their own
-    (made before any capture)."""
+    (made before any capture) and a tracing track of their own (the
+    stamps of their spans, when tracing is on). A captured piece is its
+    graph and its tally: the wrappers' launches and its nodes by kind."""
 
     def __init__(self, dev: torch.device):
         self.stream = capture_stream(dev)
         self.pool = torch.cuda.graph_pool_handle()
         self.k4 = packed_df.new_counter(dev)
         self.dev = dev
+        self.track = tracing.new_track()
 
     def warm(self, fns, ctx=None) -> None:
         """Run each piece once, eagerly, on the capture stream: builds the
@@ -211,6 +225,7 @@ class _Capturer:
             with packed_df.stream_counter(self.dev, self.stream.cuda_stream,
                                           self.k4), \
                     _build.capture_tally() as tally, \
+                    tracing.track(self.track), \
                     torch.cuda.graph(g, pool=self.pool, stream=self.stream):
                 fn()
         except RuntimeError:
@@ -218,6 +233,7 @@ class _Capturer:
             # loop takes a new one
             _drop_capture_stream(self.stream)
             raise
+        tracing.census(tally, node_types(g.raw_cuda_graph()))
         return g, tally
 
 
@@ -246,14 +262,16 @@ class StraightGraph:
             raise ValueError(f"StraightGraph: a CUDA graph runs on a CUDA "
                              f"device, not {dev}")
         _free_retired()
-        cap = _Capturer(dev)
-        cap.warm((fn,), warm)
-        with _in_turn(barrier):
-            self._graph, self._tally = cap.capture(fn)
-            # here, not at the first replay: instantiating can wait for
-            # the card, which another block's collectives may hold
-            self._graph.instantiate()
-        torch.cuda.current_stream().wait_stream(cap.stream)
+        _build.library()        # its build or load is set-up of its own
+        with tracing.setup_span("setup.capture"):
+            cap = _Capturer(dev)
+            cap.warm((fn,), warm)
+            with _in_turn(barrier):
+                self._graph, self._tally = cap.capture(fn)
+                # here, not at the first replay: instantiating can wait
+                # for the card, which another block's collectives may hold
+                self._graph.instantiate()
+            torch.cuda.current_stream().wait_stream(cap.stream)
         self.launches = 0
         self._launched_on = None
 
@@ -391,12 +409,18 @@ class DeviceLoop:
         with the driver's version if the driver refuses a conditional node
         or the capture fails. ``barrier``: a card group's, for the blocks
         that capture together (see the module docstring); ``warm``: a
-        context the warm-up runs in."""
+        context the warm-up runs in. The host span ``setup.capture`` covers
+        the warm-up, the captures and the instantiation (the kernel
+        library's build or load before it is ``setup.kernels``)."""
         dev = self.err.device
         if dev.type != "cuda":
             raise ValueError(f"DeviceLoop.graph: the loop graph runs on a "
                              f"CUDA device, not {dev}")
         lib = _build.library()
+        with tracing.setup_span("setup.capture"):
+            return self._graph(pre, post, barrier, warm, dev, lib)
+
+    def _graph(self, pre, post, barrier, warm, dev, lib) -> "LoopGraph":
         _free_retired()
         first = self._captured is None
         if first:
@@ -474,31 +498,40 @@ class LoopGraph:
         stream = getattr(self, "_launched_on", None)
         if stream is not None:
             stream.synchronize()
-        now = self.execs.tolist()
-        d = [a - b for a, b in zip(now, self._settled)]
-        self._settled = now
-        if not any(d):
-            return
-        p = self._pieces
-        runs = {"pre": d[0], "post": d[0], "body": d[1], "refine": d[2],
-                "final": d[3]}
-        for k, n in runs.items():
-            _build.credit(p[k][1], n)
-        conds = d[0] + d[1] + (d[0] if p["final"][0] is not None else 0)
-        _build.credit(Counter({loop_condition: 1}), conds)
+        self._settled = _credit_runs(self._pieces, self.execs.tolist(),
+                                     self._settled)
 
     def __del__(self):
         # retired, not destroyed: the garbage collector may run this while
         # another graph is being captured, where waiting for the replays
-        # in flight would end that capture
+        # in flight would end that capture; the runs since the last settle
+        # are counted when it is destroyed, after its last replay
         if getattr(self, "_exec", None) is not None and self._exec.value:
             lib, graph, exec_ = self._lib, self._graph, self._exec
-            pieces = [self._pieces]
+            pieces, execs, settled = [self._pieces], self.execs, self._settled
 
             def free():
+                _credit_runs(pieces[0], execs.tolist(), settled)
                 lib.amg_loop_graph_destroy(graph, exec_)
                 pieces.clear()
             _RETIRED.append((getattr(self, "_launched_on", None), free))
+
+
+def _credit_runs(pieces: dict, now: list, settled: list) -> list:
+    """Credit the runs a loop graph's device counts ``now`` hold beyond
+    ``settled``: each piece's tally times its runs, the condition kernel's
+    runs, the replays as solves. Returns ``now``."""
+    d = [a - b for a, b in zip(now, settled)]
+    if not any(d):
+        return now
+    runs = {"pre": d[0], "post": d[0], "body": d[1], "refine": d[2],
+            "final": d[3]}
+    for k, n in runs.items():
+        _build.credit(pieces[k][1], n)
+    conds = d[0] + d[1] + (d[0] if pieces["final"][0] is not None else 0)
+    _build.credit(Counter({loop_condition: 1}), conds)
+    tracing.credit_solves(d[0], conds)
+    return now
 
 
 loop_condition.launches = 0

@@ -83,6 +83,7 @@ from amg_tpu_torch.sparse.stencil import (Stencil2D, chebyshev_smooth,
                                           const_lam_max, const_planes,
                                           estimate_lam_max, gs4_sweep,
                                           gs4_sweep_masked)
+from amg_tpu_torch.utils import tracing
 from amg_tpu_torch.utils.debugging import check_rss
 from amg_tpu_torch.utils.device import resolve_device
 from amg_tpu_torch.utils.metrics import rss_from_residual
@@ -397,18 +398,47 @@ def cycle_stencil(hier: StencilHierarchy, u2, b2, gamma: int = 1,
     visited ``gamma`` times per level, so gamma = 1 is the V-cycle
     (:func:`vcycle_stencil`) and gamma = 2 the W-cycle."""
     l = _level
+    with _visit(hier, l):
+        if l == hier.n_levels - 1:
+            return hier.coarse_solve(b2)
+        S = hier.levels[l]
+        u2 = _smooth(hier, l, u2, b2, pre_sweeps, omega, symmetric)
+        r = b2 - S.matvec2(u2)
+        bc = restrict_mm(r, hier.P1s[l])
+        uc = torch.zeros_like(bc)
+        for _ in range(gamma):
+            uc = cycle_stencil(hier, uc, bc, gamma, pre_sweeps, post_sweeps,
+                               omega, symmetric, _level=l + 1)
+        u2 = u2 + prolong_mm(uc, hier.P1s[l])
+        return _smooth(hier, l, u2, b2, post_sweeps, omega, symmetric)
+
+
+def _cycle_kind(hier: StencilHierarchy, l: int) -> str:
+    """The machinery of level ``l`` of the unpacked cycle, as _smooth
+    picks it (level_plan's names)."""
     if l == hier.n_levels - 1:
-        return hier.coarse_solve(b2)
-    S = hier.levels[l]
-    u2 = _smooth(hier, l, u2, b2, pre_sweeps, omega, symmetric)
-    r = b2 - S.matvec2(u2)
-    bc = restrict_mm(r, hier.P1s[l])
-    uc = torch.zeros_like(bc)
-    for _ in range(gamma):
-        uc = cycle_stencil(hier, uc, bc, gamma, pre_sweeps, post_sweeps,
-                           omega, symmetric, _level=l + 1)
-    u2 = u2 + prolong_mm(uc, hier.P1s[l])
-    return _smooth(hier, l, u2, b2, post_sweeps, omega, symmetric)
+        return "coarse"
+    if hier.smoother == "strided":
+        return "strided"
+    if hier.smoother == "chebyshev" and (hier.lam_maxes is not None
+                                         or hier.levels[l].w33 is not None):
+        return "chebyshev"
+    if _fused_level(hier.smoother, hier.sides[l]):
+        return "fused_var" if hier.is_var else "fused_const"
+    return "masked"
+
+
+def _visit(hier: StencilHierarchy, l: int, kind: str | None = None):
+    """The tracing span of one visit of level ``l``: ``vcycle.level`` with
+    the level, its side and its machinery (``kind``, a level_plan name;
+    the unpacked cycle's when None; ``coarse`` for the coarsest level's
+    LU). Tracing off: the null context."""
+    if not tracing.enabled():
+        return tracing.span("vcycle.level")
+    if l == hier.n_levels - 1 or kind is None:
+        kind = _cycle_kind(hier, l)
+    return tracing.span("vcycle.level", level=l, side=hier.sides[l],
+                        machinery=kind)
 
 
 def vcycle_stencil(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
@@ -491,6 +521,21 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
         plan = level_plan(hier.sides, pre_sweeps, post_sweeps, min_side,
                           fused, var=hier.is_var)
     l = _level
+    if l < hier.n_levels - 1 and not _packed_in and plan[l] == "masked":
+        return vcycle_stencil(hier, u2, b2, pre_sweeps, post_sweeps, omega,
+                              symmetric, _level=l)
+    with _visit(hier, l, plan[l]):
+        return _vcycle_packed_at(hier, u2, b2, pre_sweeps, post_sweeps, omega,
+                                 symmetric, l, _packed_in, min_side, fused,
+                                 plan)
+
+
+def _vcycle_packed_at(hier: StencilHierarchy, u2, b2, pre_sweeps: int,
+                      post_sweeps: int, omega: float, symmetric: bool,
+                      l: int, _packed_in: bool, min_side: int, fused: bool,
+                      plan: tuple):
+    """vcycle_packed's visit of level ``l`` (not a masked one entered
+    unpacked)."""
     if l == hier.n_levels - 1:
         nc = hier.sides[-1]
         ml = (nc - 1) // 2
@@ -498,9 +543,6 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
         sol = hier.coarse_solve(bd)
         return pack(sol, ml) if _packed_in else sol
     kind = plan[l]
-    if not _packed_in and kind == "masked":
-        return vcycle_stencil(hier, u2, b2, pre_sweeps, post_sweeps, omega,
-                              symmetric, _level=l)
     S = hier.levels[l]
     m = (S.side - 1) // 2
     if S.w33 is None:
@@ -570,21 +612,38 @@ def fmg_stencil(hier: StencilHierarchy, b2, cycles_per_level: int = 1,
     use_packed = hier.smoother == "packed" and gamma == 1
     L = hier.n_levels
     l0 = start_level
+
+    def packed_at(l):
+        return (use_packed and hier.sides[l] >= min_side
+                and hier.w33s[l] is not None)
+    kinds = None
+    if tracing.enabled():
+        kinds = plan or level_plan(hier.sides, pre_sweeps, post_sweeps,
+                                   min_side, fused, var=hier.is_var)
+
+    def visit(l):
+        # a visit of level l: the b-chain's restriction from it on the way
+        # down; the prolongation to it and its cycles on the way up
+        return _visit(hier, l, kinds[l] if kinds and packed_at(l) else None)
     bs = {l0: b2}
     for l in range(l0, L - 1):
-        bs[l + 1] = restrict_mm(bs[l], hier.P1s[l])
-    u = hier.coarse_solve(bs[L - 1])
+        with visit(l):
+            bs[l + 1] = restrict_mm(bs[l], hier.P1s[l])
+    with visit(L - 1):
+        u = hier.coarse_solve(bs[L - 1])
     for l in range(L - 2, l0 - 1, -1):
-        u = prolong_mm(u, hier.P1s[l])
-        for _ in range(cycles_per_level):
-            if (use_packed and hier.sides[l] >= min_side
-                    and hier.w33s[l] is not None):
-                u = vcycle_packed(hier, u, bs[l], pre_sweeps, post_sweeps,
-                                  omega, symmetric, _level=l,
-                                  min_side=min_side, fused=fused, plan=plan)
-            else:
-                u = cycle_stencil(hier, u, bs[l], gamma, pre_sweeps,
-                                  post_sweeps, omega, symmetric, _level=l)
+        with visit(l):
+            u = prolong_mm(u, hier.P1s[l])
+            for _ in range(cycles_per_level):
+                if packed_at(l):
+                    u = vcycle_packed(hier, u, bs[l], pre_sweeps,
+                                      post_sweeps, omega, symmetric,
+                                      _level=l, min_side=min_side,
+                                      fused=fused, plan=plan)
+                else:
+                    u = cycle_stencil(hier, u, bs[l], gamma, pre_sweeps,
+                                      post_sweeps, omega, symmetric,
+                                      _level=l)
     return u
 
 
@@ -781,26 +840,29 @@ class StructuredSolver:
             if tuple(A_planes.shape) != (3, 3, side, side):
                 raise ValueError(f"A_planes must be (3, 3, {side}, {side}), "
                                  f"got {tuple(A_planes.shape)}")
-            self.hier = build_stencil_hierarchy_planes(
-                A_planes, n_levels, device=self.device,
-                smoother=self.smoother, packed_min_side=packed_min_side)
-            self.A64 = Stencil2D(side=side, c=A_planes.to(
-                device=self.device, dtype=torch.float64))
-        elif device_setup and A_fine is None:
-            self.hier = build_stencil_hierarchy_device(
-                side, n_levels, device=self.device, smoother=self.smoother)
-            # the f64 fine operator as exact static weights
-            self.A64 = Stencil2D.const(poisson_const_w33(side, 1)[0], side,
-                                       torch.float64)
-        else:
-            if A_fine is None:
-                A_fine = poisson.laplacian_scipy(side)
-            self.hier = build_stencil_hierarchy(
-                side, n_levels, torch.float32, A_fine, self.smoother,
-                self.device)
-            self.A64 = Stencil2D.from_scipy(A_fine, side,
-                                            dtype=torch.float64,
-                                            device=self.device)
+        with tracing.setup_span("setup.hierarchy", self.device):
+            if A_planes is not None:
+                self.hier = build_stencil_hierarchy_planes(
+                    A_planes, n_levels, device=self.device,
+                    smoother=self.smoother, packed_min_side=packed_min_side)
+                self.A64 = Stencil2D(side=side, c=A_planes.to(
+                    device=self.device, dtype=torch.float64))
+            elif device_setup and A_fine is None:
+                self.hier = build_stencil_hierarchy_device(
+                    side, n_levels, device=self.device,
+                    smoother=self.smoother)
+                # the f64 fine operator as exact static weights
+                self.A64 = Stencil2D.const(poisson_const_w33(side, 1)[0],
+                                           side, torch.float64)
+            else:
+                if A_fine is None:
+                    A_fine = poisson.laplacian_scipy(side)
+                self.hier = build_stencil_hierarchy(
+                    side, n_levels, torch.float32, A_fine, self.smoother,
+                    self.device)
+                self.A64 = Stencil2D.from_scipy(A_fine, side,
+                                                dtype=torch.float64,
+                                                device=self.device)
         self.device_setup = device_setup
         # a constant fine operator's df32 residual reads its weights only
         self.w33 = self.A64.w33
@@ -947,37 +1009,40 @@ class StructuredSolver:
         u4 = L.u4 = DF32(hi=f4(), lo=f4())
         L.u_out = torch.zeros_like(L.b64)
 
-        def start():
-            self._start(L, df_rss_fast(b4))
-            _assign(u4, self._fmg_start(b4))
+        def start(prepare=False):
+            tracing.begin("solve")
+            with tracing.span("solve.start"):
+                if prepare:
+                    _assign(b4, self._prepare(L.b64))
+                self._start(L, df_rss_fast(b4))
+                _assign(u4, self._fmg_start(b4))
 
         def body():
-            L.r_hi, err = self._residual_hi_rss(b4, u4)
-            L.err.copy_(err)
+            with tracing.span("solve.residual"):
+                L.r_hi, err = self._residual_hi_rss(b4, u4)
+                L.err.copy_(err)
 
         def refine():
-            e4 = torch.zeros_like(L.r_hi)
-            for _ in range(self.cycles_per_refine):
-                e4 = self._vcycle(e4, L.r_hi, packed_in=True)
-            _assign(u4, df_add_f32(u4, e4))
+            with tracing.span("solve.refine"):
+                e4 = torch.zeros_like(L.r_hi)
+                for _ in range(self.cycles_per_refine):
+                    e4 = self._vcycle(e4, L.r_hi, packed_in=True)
+                _assign(u4, df_add_f32(u4, e4))
 
         def final():
-            L.err.copy_(self._residual_hi_rss(b4, u4)[1])
+            with tracing.span("solve.final"):
+                L.err.copy_(self._residual_hi_rss(b4, u4)[1])
 
-        def stats():
-            self._finish(L, L.err)
-
-        def prepare_start():
-            _assign(b4, self._prepare(L.b64))
-            start()
-
-        def stats_finalize():
-            stats()
-            L.u_out.copy_(self.finalize_u(u4))
+        def stats(finalize=False):
+            with tracing.span("solve.finish"):
+                self._finish(L, L.err)
+                if finalize:
+                    L.u_out.copy_(self.finalize_u(u4))
+            tracing.end("solve")
 
         L.loop = graph_loop.DeviceLoop(body, refine, final, err=L.err,
                                        tol=L.tol_eff, it=L.it, n=L.n)
-        L.programs = {"device": (prepare_start, stats_finalize),
+        L.programs = {"device": (lambda: start(True), lambda: stats(True)),
                       "prepared": (start, stats)}
 
     def _unpacked_df32_loop(self, L) -> None:
@@ -991,18 +1056,24 @@ class StructuredSolver:
         L.u_out = torch.zeros_like(L.b64)
 
         def start():
-            _assign(b_df, DF32.from_f64(L.b64))
-            self._start(L, df_rss_fast(b_df))
-            _assign(u, DF32.from_f32(self._fmg(b_df.hi)))
+            tracing.begin("solve")
+            with tracing.span("solve.start"):
+                _assign(b_df, DF32.from_f64(L.b64))
+                self._start(L, df_rss_fast(b_df))
+                _assign(u, DF32.from_f32(self._fmg(b_df.hi)))
 
         def body():
-            r = self._df_residual(b_df, u)
-            L.err.copy_(df_rss_fast(r))
-            _assign(u, df_add_f32(u, self._cycles(r.hi)))
+            with tracing.span("solve.residual"):
+                r = self._df_residual(b_df, u)
+                L.err.copy_(df_rss_fast(r))
+            with tracing.span("solve.refine"):
+                _assign(u, df_add_f32(u, self._cycles(r.hi)))
 
         def finish():
-            self._finish(L, df_rss(self._df_residual(b_df, u)))
-            L.u_out.copy_(u.to_f64())
+            with tracing.span("solve.finish"):
+                self._finish(L, df_rss(self._df_residual(b_df, u)))
+                L.u_out.copy_(u.to_f64())
+            tracing.end("solve")
 
         L.loop = graph_loop.DeviceLoop(body, err=L.err, tol=L.tol_eff,
                                        it=L.it, n=L.n)
@@ -1016,16 +1087,24 @@ class StructuredSolver:
         u = L.u_out = torch.zeros_like(L.b64)
 
         def start():
-            self._start(L, rss_from_residual(L.b64))
-            u.copy_(self._fmg(L.b64.to(torch.float32)).to(torch.float64))
+            tracing.begin("solve")
+            with tracing.span("solve.start"):
+                self._start(L, rss_from_residual(L.b64))
+                u.copy_(self._fmg(L.b64.to(torch.float32)).to(torch.float64))
 
         def body():
-            r = L.b64 - self.A64.matvec2(u)
-            L.err.copy_(rss_from_residual(r))
-            u.copy_(u + self._cycles(r.to(torch.float32)).to(torch.float64))
+            with tracing.span("solve.residual"):
+                r = L.b64 - self.A64.matvec2(u)
+                L.err.copy_(rss_from_residual(r))
+            with tracing.span("solve.refine"):
+                u.copy_(u + self._cycles(r.to(torch.float32))
+                        .to(torch.float64))
 
         def finish():
-            self._finish(L, rss_from_residual(L.b64 - self.A64.matvec2(u)))
+            with tracing.span("solve.finish"):
+                self._finish(L, rss_from_residual(L.b64
+                                                  - self.A64.matvec2(u)))
+            tracing.end("solve")
 
         L.loop = graph_loop.DeviceLoop(body, err=L.err, tol=L.tol_eff,
                                        it=L.it, n=L.n)
@@ -1060,12 +1139,18 @@ class StructuredSolver:
                       rtol: float, host: bool = False):
         """solve_ir_device's program: ``(u, stats3)`` (clones), stats3 =
         [final rss, refines, effective tolerance]. ``host=True`` is the
-        host-driven oracle of the same pieces."""
-        b64 = self._b64(b2_f64)
-        L = self._loop_state()
-        L.b64.copy_(b64)
-        self._run("device", tolerance, n_refine, rtol, host)
-        return L.u_out.clone(), L.stats.clone()
+        host-driven oracle of the same pieces. Host spans while tracing is
+        on: ``entry.solve_ir_device`` around ``entry.copy_in``,
+        ``entry.launch`` and ``entry.clone_out``."""
+        with tracing.span("entry.solve_ir_device"):
+            b64 = self._b64(b2_f64)
+            L = self._loop_state()
+            with tracing.span("entry.copy_in"):
+                L.b64.copy_(b64)
+            with tracing.span("entry.launch"):
+                self._run("device", tolerance, n_refine, rtol, host)
+            with tracing.span("entry.clone_out"):
+                return L.u_out.clone(), L.stats.clone()
 
     def _require_packed(self) -> None:
         if not self.packed_loop:
@@ -1185,8 +1270,9 @@ class StructuredSolver:
         if self.device.type == "cuda":
             for name in self._loop_state().programs:
                 self._graph(name)
-        _, stats = self.solve_ir_device(z, 1e-7, 40)
-        stats.tolist()
+        with tracing.setup_span("setup.warm_solve"):
+            _, stats = self.solve_ir_device(z, 1e-7, 40)
+            stats.tolist()
 
     def solve_ir(self, b2_f64, tolerance: float = 1e-7,
                  n_refine: int = 40) -> SolveResult:

@@ -43,11 +43,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import json
 import os
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+from amg_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,15 +121,46 @@ def trace(log_dir: str | None = None):
     there is one); yields the profiler (JAX's yields ``log_dir``: the port
     has no XProf, and its callers read ``key_averages()``), and writes a
     Chrome trace, ``trace.json``, into the directory ``log_dir`` if
-    given."""
+    given. While tracing is on (``utils/tracing``), the program's spans
+    of the block go into ``trace.json`` as their own process, on the
+    profiler's clock: calibration stamps taken under the profiler before
+    and after the block are CUPTI's first and last ``trace_stamp``
+    kernels, and each pairs with its own device time."""
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
+    stamps = []
+    if tracing.enabled():
+        tracing.reset()
     with profile(activities=acts) as prof:
+        stamps += tracing.calibration_stamps()
         yield prof
+        stamps += tracing.calibration_stamps()
     if log_dir is not None:
         os.makedirs(log_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        path = os.path.join(log_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        if tracing.enabled():
+            _add_spans(path, stamps)
+
+
+def _add_spans(path: str, stamps: list) -> None:
+    """Add the program's spans (``tracing.chrome_events``) to the Chrome
+    trace at ``path``; their clock from the CUPTI records of the
+    calibration ``stamps`` (half before the traced block, half after),
+    else the host clock's, as it is."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    recs = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                  if e.get("cat") == "kernel"
+                  and "trace_stamp" in e.get("name", ""))
+    half = len(stamps) // 2
+    kernels = recs[:half] + recs[len(recs) - half:] if half else []
+    to_us = tracing.profiler_clock(kernels, stamps)
+    events += tracing.chrome_events(to_us=to_us)
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def _device_us(evt) -> float:

@@ -1013,3 +1013,172 @@ def test_proc_graph_lost_process_raises(dev, tmp_path):
     got = np.load(tmp_path / "rank0.npz")
     assert "peer collective: a wait" in str(got["what"]), got["what"]
     assert float(got["seconds"]) < 60.0
+
+
+# -- the program's tracing (utils/tracing.py) --------------------------------
+
+KERNEL_NODE = 0           # cudaGraphNodeTypeKernel
+
+
+def _piece_nodes(s):
+    """Each captured piece of the solver's loop graphs: (program, piece)
+    -> (its node types, its tally)."""
+    from collections import Counter
+    from amg_tpu_torch.ops.kernels import graph_loop
+    return {(prog, k): (Counter(graph_loop.node_types(
+        graph.raw_cuda_graph())), tally)
+        for prog, g in s._graphs.items()
+        for k, (graph, tally) in g._pieces.items() if graph is not None}
+
+
+def test_tracing_adds_exactly_the_stamp_nodes(dev):
+    """Captured with tracing off, no piece holds a stamp, and the entry
+    point's solve writes nothing to the card's ring; captured with it on,
+    each piece holds the same nodes and its stamps besides, kernel nodes,
+    two a span (``solve`` opens in a program's first piece and closes in
+    its last)."""
+    from collections import Counter
+    from amg_tpu_torch.utils import tracing
+    tracing.disable()
+    off = StructuredSolver(SIDE, device=dev)
+    off.warmup()
+    tracing.enable(dev)
+    try:
+        on = StructuredSolver(SIDE, device=dev)
+        on.warmup()
+    finally:
+        tracing.disable()
+    ring_head = tracing._RINGS[torch.device(dev).index or 0][1]
+    ring_head.zero_()
+    off.solve_ir_device(poisson.rhs(SIDE, device=dev).reshape(SIDE, SIDE))
+    torch.cuda.synchronize()
+    assert ring_head.tolist() == [0, 0]
+    a, b = _piece_nodes(off), _piece_nodes(on)
+    assert a.keys() == b.keys()
+    stamp = tracing.NODES["stamp"]
+    for key in a:
+        (na, ta), (nb, tb) = a[key], b[key]
+        assert ta[stamp] == 0 and tb[stamp] > 0, key
+        assert nb == na + Counter({KERNEL_NODE: tb[stamp]}), key
+        assert tb[stamp] % 2 == (key[1] in ("pre", "post")), key
+    print(f"stamps a piece at {SIDE}^2: "
+          f"{ {k: b[k][1][stamp] for k in b} }")
+
+
+def test_node_types_walk_every_node(dev):
+    """The FMG start's piece holds more than 4096 nodes, all typed; the
+    assembled loop graph's walk reaches into its child graphs and its
+    conditional bodies (the packed loop's WHILE, its refine IF and its
+    final IF), every node typed."""
+    from amg_tpu_torch.ops.kernels import graph_loop
+    s = StructuredSolver(SIDE, device=dev)
+    s.warmup()
+    g = s._graphs["device"]
+    pre = graph_loop.node_types(g._pieces["pre"][0].raw_cuda_graph())
+    assert len(pre) > 4096
+    post = graph_loop.node_types(g._pieces["post"][0].raw_cuda_graph())
+    whole = graph_loop.node_types(g._graph.value)
+    assert len(whole) > len(pre) + len(post)
+    assert whole.count(13) == 3 and -1 not in whole      # conditional
+    print(f"node types at {SIDE}^2: pre {len(pre)}, post {len(post)}, the "
+          f"assembled graph {len(whole)}")
+
+
+def test_kernels_executed_are_nodes_times_runs(dev):
+    """The counters over one solve: each piece's kernel nodes times its
+    runs from the graph's device counts, plus the condition kernel's; one
+    solve; no stamp (tracing off at capture)."""
+    from collections import Counter
+    from amg_tpu_torch.ops.kernels import graph_loop
+    from amg_tpu_torch.utils import tracing
+    tracing.disable()
+    s = StructuredSolver(SIDE, device=dev)
+    s.warmup()
+    g = s._graphs["device"]
+    b2 = poisson.rhs(SIDE, device=dev).reshape(SIDE, SIDE)
+    tracing.reset()
+    e0 = g.execs.clone()
+    s.solve_ir_device(b2, 1e-7)
+    c = tracing.report()["counters"]
+    d = (g.execs - e0).tolist()
+    runs = {"pre": d[0], "post": d[0], "body": d[1], "refine": d[2],
+            "final": d[3]}
+    want = sum(Counter(graph_loop.node_types(graph.raw_cuda_graph()))
+               [KERNEL_NODE] * runs[k]
+               for k, (graph, _) in g._pieces.items() if graph is not None)
+    conds = d[0] + d[1] + (d[0] if g._pieces["final"][0] is not None else 0)
+    assert d[0] == 1 and c["solves"] == 1
+    assert c["kernels"] == want + conds and c["stamps"] == 0
+    assert c["kernels_own"] > 0 and c["kernels_other"] > 0
+    print(f"kernels a solve at {SIDE}^2: {c}")
+
+
+def test_stamps_pair_up_without_drops(dev):
+    """Tracing on at capture, then a window's count of solves (400): every
+    stamp paired, none dropped; a device ``solve`` span a solve, its parts
+    inside it and covering nearly all of it; the entry point's host spans
+    a solve."""
+    from amg_tpu_torch.utils import tracing
+    n = 400
+    tracing.enable(dev)
+    try:
+        s = StructuredSolver(SIDE, device=dev)
+        s.warmup()
+        b2 = poisson.rhs(SIDE, device=dev).reshape(SIDE, SIDE)
+        tracing.reset()
+        for _ in range(n):
+            s.solve_ir_device(b2, 1e-7)
+        rep = tracing.report()
+    finally:
+        tracing.disable()
+    assert rep["stamps"]["dropped"] == 0 and rep["stamps"]["unpaired"] == 0
+    device = [x for x in rep["spans"] if x["where"] == "device"]
+    assert sum(x["name"] == "solve" for x in device) == n
+    assert rep["counters"]["solves"] == n
+    host = [x for x in rep["spans"] if x["name"] == "entry.solve_ir_device"]
+    assert len(host) == n
+    tot = tracing.totals(rep)
+    parts = sum(v for k, v in tot.items() if k.startswith("solve."))
+    assert 0.9 * tot["solve"] <= parts <= tot["solve"]
+    print(f"stamped solves at {SIDE}^2: {rep['stamps']}, "
+          f"{rep['counters']['stamps'] / n:.1f} stamps a solve, device "
+          f"seconds {tot}, clock {rep['clock']}")
+
+
+def test_calibration_stamp_inside_its_cupti_record(dev):
+    """Calibration stamps under torch.profiler, two calibrations 50 ms
+    apart: CUPTI records each stamp as a ``trace_stamp`` kernel, and in
+    each calibration one offset puts every stamp's %globaltimer inside
+    its kernel's record, within the timer's step (the offset moves
+    between the two: the clocks' drift, which ``profiler_clock`` fits)."""
+    import time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from amg_tpu_torch.utils import tracing
+    tracing.enable(dev)
+    try:
+        least, mean = tracing.timer_resolution(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            first = tracing.calibration_stamps()
+            time.sleep(0.05)
+            second = tracing.calibration_stamps()
+    finally:
+        tracing.disable()
+    recs = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and "trace_stamp" in e.name())
+    assert len(recs) == len(first) + len(second)
+    spans = []
+    for r, d in ((recs[:len(first)], first), (recs[len(first):], second)):
+        spans.append((max(a - x for (a, _), x in zip(r, d)),
+                      min(b - x for (_, b), x in zip(r, d))))
+    mid = [(lo + hi) / 2 for lo, hi in spans]
+    ppm = 1e6 * (mid[1] - mid[0]) / (second[0] - first[0])
+    print(f"%globaltimer step least {least} ns, mean {mean:.1f} ns; each "
+          f"calibration's common offset interval (ns) {spans}; the offset "
+          f"moved {mid[1] - mid[0]:.0f} ns in {second[0] - first[0]} ns "
+          f"({ppm:.1f} ppm)")
+    for lo, hi in spans:
+        assert lo <= hi + max(least, mean)
