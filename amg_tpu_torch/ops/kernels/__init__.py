@@ -9,6 +9,8 @@ they are read or reset.
 
 from amg_tpu_torch.ops.kernels import graph_loop, peer_collective
 from amg_tpu_torch.ops.kernels.halo import rdma_halo_exchange
+from amg_tpu_torch.ops.kernels.masked_cycle import (masked_down_leg,
+                                                    masked_up_leg)
 from amg_tpu_torch.ops.kernels.packed_cycle import (
     fused_down_leg_packed, fused_residual_restrict_packed,
     fused_up_leg_packed)
@@ -20,12 +22,14 @@ from amg_tpu_torch.ops.kernels.rbgs import (fused_gs4_sweep,
                                             fused_gs4_sweep_var)
 
 # the launch counters, one per kernel (K1..K9, then the loop graphs'
-# condition kernel and a card group's collectives inside them)
+# condition kernel and a card group's collectives inside them, then the
+# masked V-cycle's legs K10 and K11)
 KERNELS = (fused_gs4_sweep_packed, fused_down_leg_packed,
            fused_up_leg_packed, fused_df_residual_rss,
            fused_gs4_sweep_const, fused_gs4_sweep_var, rdma_halo_exchange,
            fused_residual_restrict_packed, fused_gs4_sweep_rm,
-           graph_loop.loop_condition, peer_collective.peer_collective)
+           graph_loop.loop_condition, peer_collective.peer_collective,
+           masked_down_leg, masked_up_leg)
 
 
 def reset_launch_counts() -> None:

@@ -62,6 +62,8 @@ _SIGNATURES = {
     "amg_ipc_open": (_I, _P, _P),
     "amg_ipc_close": (_I, _P),
     "amg_peer_collective": (_P,),   # csrc/peer_collective.cu, packed
+    "amg_masked_down_leg": (_P,),   # csrc/masked_cycle.cu MaskedCall
+    "amg_masked_up_leg": (_P,),
     # csrc/graph_loop.cu: the card, the pieces' graphs, the loop state,
     # the execs counts, the stream, then the outputs (graph, exec, failing
     # step)

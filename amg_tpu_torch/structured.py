@@ -40,6 +40,12 @@ Smoothers (``smoother=``):
   sub-lattices, or the degree-4 Chebyshev smoother on each level's
   lambda_max bound. All three are plain PyTorch, as in JAX.
 
+On the card, an unpacked V-cycle that reaches constant masked levels whose
+fields fit one block's shared memory (127^2 and below: every hierarchy's
+masked levels under the packed ones, and those of smoother="masked" or
+"fused") runs them as the masked legs K10/K11 with the coarsest LU between
+(:func:`masked_legs_engage`), bitwise the plain ops.
+
 Which machinery runs on which level is decided once, from the sides and
 the options, in :func:`level_plan` (``StructuredSolver.plan``). On CPU
 tensors every kernel wrapper runs its plain version, so the same plan
@@ -67,8 +73,9 @@ from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
                                        fused_down_leg_packed, fused_gs4_sweep,
                                        fused_gs4_sweep_packed,
                                        fused_residual_restrict_packed,
-                                       fused_up_leg_packed, graph_loop)
-from amg_tpu_torch.ops.kernels._build import require_f32
+                                       fused_up_leg_packed, graph_loop,
+                                       masked_cycle)
+from amg_tpu_torch.ops.kernels._build import count_launch, require_f32
 from amg_tpu_torch.ops.rap import (interp1d_dense, planes_to_dense,
                                    poisson_const_w33, rap_stencil_planes)
 from amg_tpu_torch.ops.transfer import linear_interp_1d
@@ -396,19 +403,74 @@ def cycle_stencil(hier: StencilHierarchy, u2, b2, gamma: int = 1,
     """Generalized multigrid cycle on unpacked fields from level ``_level``
     down (leg order of multigrid.hpp:263-305): the coarse problem is
     visited ``gamma`` times per level, so gamma = 1 is the V-cycle
-    (:func:`vcycle_stencil`) and gamma = 2 the W-cycle."""
-    l = _level
+    (:func:`vcycle_stencil`) and gamma = 2 the W-cycle. On the card, a
+    V-cycle that reaches a level where :func:`masked_legs_engage` holds
+    runs the rest of the way down and back as the masked legs K10/K11 and
+    the coarsest level's LU between them, bitwise the plain ops."""
+    return _cycle_at(hier, u2, b2, gamma, pre_sweeps, post_sweeps, omega,
+                     symmetric, _level, False)
+
+
+def masked_legs_engage(hier: StencilHierarchy, l: int, gamma: int = 1
+                       ) -> bool:
+    """Whether a cycle at level ``l`` of ``hier`` can run as the masked legs
+    K10/K11 (``ops/kernels/masked_cycle.py``): a V-cycle (gamma = 1) on an
+    f32 hierarchy whose levels from ``l`` to the coarsest but one all have
+    constant weights and the masked machinery, entered at a side whose
+    fields fit one block's shared memory (``masked_cycle.fits``: 127^2 and
+    below on 2^k - 1 hierarchies). :func:`cycle_stencil` takes them when
+    the fields are f32 on the card too."""
+    last = hier.n_levels - 1
+    return (gamma == 1 and l < last
+            and hier.coarse_lu.dtype == torch.float32
+            and masked_cycle.fits(hier.sides[l], last - l)
+            and all(hier.w33s[k] is not None
+                    and _cycle_kind(hier, k) == "masked"
+                    for k in range(l, last)))
+
+
+def _masked_legs(hier: StencilHierarchy, u2, b2, pre_sweeps: int,
+                 post_sweeps: int, omega: float, symmetric: bool, l: int):
+    """The V-cycle from level ``l`` as K10, the coarsest level's LU and
+    K11: one ``masked_legs`` span over the entry level, the LU's
+    ``coarse`` span inside it."""
+    last = hier.n_levels - 1
+    w33s = hier.w33s[l:last]
+    with _visit(hier, l, "masked_legs"):
+        count_launch(tracing.MASKED_CYCLES["kernel"])
+        b2 = b2.contiguous()
+        bc, ws = masked_cycle.masked_down_leg(u2.contiguous(), b2, w33s,
+                                              pre_sweeps, omega, symmetric)
+        with _visit(hier, last):
+            uc = hier.coarse_solve(bc).contiguous()
+        return masked_cycle.masked_up_leg(uc, b2, ws, w33s, post_sweeps,
+                                          omega, symmetric)
+
+
+def _cycle_at(hier: StencilHierarchy, u2, b2, gamma: int, pre_sweeps: int,
+              post_sweeps: int, omega: float, symmetric: bool, l: int,
+              in_masked: bool):
+    """cycle_stencil's visit of level ``l``; ``in_masked``: the level above
+    ran the plain masked machinery (a run of masked levels counts as one
+    plain masked cycle, ``tracing.MASKED_CYCLES``)."""
+    if (u2.is_cuda and u2.dtype == b2.dtype == torch.float32
+            and masked_legs_engage(hier, l, gamma)):
+        return _masked_legs(hier, u2, b2, pre_sweeps, post_sweeps, omega,
+                            symmetric, l)
     with _visit(hier, l):
         if l == hier.n_levels - 1:
             return hier.coarse_solve(b2)
+        masked = _cycle_kind(hier, l) == "masked"
+        if masked and not in_masked:
+            count_launch(tracing.MASKED_CYCLES["plain"])
         S = hier.levels[l]
         u2 = _smooth(hier, l, u2, b2, pre_sweeps, omega, symmetric)
         r = b2 - S.matvec2(u2)
         bc = restrict_mm(r, hier.P1s[l])
         uc = torch.zeros_like(bc)
         for _ in range(gamma):
-            uc = cycle_stencil(hier, uc, bc, gamma, pre_sweeps, post_sweeps,
-                               omega, symmetric, _level=l + 1)
+            uc = _cycle_at(hier, uc, bc, gamma, pre_sweeps, post_sweeps,
+                           omega, symmetric, l + 1, masked)
         u2 = u2 + prolong_mm(uc, hier.P1s[l])
         return _smooth(hier, l, u2, b2, post_sweeps, omega, symmetric)
 
@@ -430,9 +492,9 @@ def _cycle_kind(hier: StencilHierarchy, l: int) -> str:
 
 def _visit(hier: StencilHierarchy, l: int, kind: str | None = None):
     """The tracing span of one visit of level ``l``: ``vcycle.level`` with
-    the level, its side and its machinery (``kind``, a level_plan name;
-    the unpacked cycle's when None; ``coarse`` for the coarsest level's
-    LU). Tracing off: the null context."""
+    the level, its side and its machinery (``kind``, a level_plan name or
+    ``masked_legs``; the unpacked cycle's when None; ``coarse`` for the
+    coarsest level's LU). Tracing off: the null context."""
     if not tracing.enabled():
         return tracing.span("vcycle.level")
     if l == hier.n_levels - 1 or kind is None:

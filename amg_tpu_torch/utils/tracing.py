@@ -4,7 +4,7 @@ from inside the program.
 Counters, always on (nothing on the hot path: they are credited when the
 counts are read). When a CUDA graph piece is captured
 (``ops/kernels/graph_loop.py``), its nodes are counted by kind, child
-graphs and conditional bodies included: the port's own kernels (K1-K9,
+graphs and conditional bodies included: the port's own kernels (K1-K11,
 the condition kernel, the peer collective: the launches its wrappers
 counted), other kernels (aten, cuBLAS, cuSOLVER: the plain ops), memcpy,
 memset, other nodes, and the tracing stamps below as their own kind.
@@ -80,6 +80,9 @@ class Count:
 
 NODES = {k: Count(f"nodes.{k}") for k in KINDS}
 SOLVES = Count("solves")
+# masked V-cycles (structured.cycle_stencil): those the masked legs K10/K11
+# ran, and the runs of masked levels the plain ops ran
+MASKED_CYCLES = {k: Count(f"masked_cycles.{k}") for k in ("kernel", "plain")}
 
 _COUNT_LOCK = threading.Lock()
 _SETUP: Counter = Counter()         # set-up seconds by span name, always
@@ -117,13 +120,17 @@ def credit_solves(solves: int, conditions: int) -> None:
 def counters() -> dict:
     """The counts since the last ``reset``, as they stand (``report``
     settles the graphs first): kernel nodes executed (the stamps
-    excluded), by kind, and the solves."""
+    excluded), by kind, the solves, and the masked V-cycles by machinery
+    (``masked_cycles_kernel``: K10/K11 pairs; ``masked_cycles_plain``:
+    runs of masked levels in plain ops, one a cycle that reaches them)."""
     n = {k: c.launches for k, c in NODES.items()}
     return {"kernels": n["kernel_own"] + n["kernel_other"],
             "kernels_own": n["kernel_own"],
             "kernels_other": n["kernel_other"], "stamps": n["stamp"],
             "memcpy": n["memcpy"], "memset": n["memset"],
-            "other_nodes": n["other"], "solves": SOLVES.launches}
+            "other_nodes": n["other"], "solves": SOLVES.launches,
+            "masked_cycles_kernel": MASKED_CYCLES["kernel"].launches,
+            "masked_cycles_plain": MASKED_CYCLES["plain"].launches}
 
 
 # -- the switch ---------------------------------------------------------------
@@ -216,7 +223,7 @@ def reset() -> None:
     from amg_tpu_torch.ops.kernels import graph_loop
     graph_loop.settle()
     with _COUNT_LOCK:
-        for c in (*NODES.values(), SOLVES):
+        for c in (*NODES.values(), SOLVES, *MASKED_CYCLES.values()):
             c.launches = 0
     t = _TRACER
     if t is None:

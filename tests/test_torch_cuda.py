@@ -1182,3 +1182,131 @@ def test_calibration_stamp_inside_its_cupti_record(dev):
           f"({ppm:.1f} ppm)")
     for lo, hi in spans:
         assert lo <= hi + max(least, mean)
+
+
+# -- the masked V-cycle's legs K10/K11 ----------------------------------------
+
+def _masked_hierarchy(side, weights, dev):
+    """A hierarchy from ``side`` down to 3^2 on the card: the Poisson one
+    ("five"), or one of _weights' tuples on every level."""
+    from amg_tpu_torch import structured
+    from amg_tpu_torch.ops.rap import interp1d_dense
+    from amg_tpu_torch.sparse.stencil import const_planes
+    if weights == "five":
+        return structured.build_stencil_hierarchy_device(
+            side, smoother="packed", device=dev)
+    w33 = _weights(weights, side)
+    sides = structured._level_sides(side, None)
+    lu, piv = structured._factor_coarse(const_planes(w33, sides[-1]), dev)
+    P1s = [interp1d_dense(sides[l], sides[l + 1], device=dev)
+           for l in range(len(sides) - 1)]
+    return structured.StencilHierarchy(sides, [w33] * len(sides), lu, piv,
+                                       P1s, smoother="packed")
+
+
+def _plain_masked_cycles(monkeypatch):
+    """From here on the unpacked cycle takes the plain ops on the card
+    too: the masked legs' yardstick."""
+    from amg_tpu_torch import structured
+    monkeypatch.setattr(structured, "masked_legs_engage",
+                        lambda *args, **kw: False)
+
+
+@pytest.mark.parametrize("zero_u", [True, False], ids=["u0", "fmg_u"])
+@pytest.mark.parametrize("sweeps", [(1, 1), (2, 3)])
+@pytest.mark.parametrize("omega", [1.0, 0.9])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("weights", ["five", "nine", "other"])
+@pytest.mark.parametrize("side", [127, 63, 31, 15, 7])
+def test_masked_legs_are_the_plain_cycle(dev, monkeypatch, side, weights,
+                                         symmetric, omega, sweeps, zero_u):
+    """K10 -> the coarsest LU -> K11 (vcycle_stencil on the card) bitwise
+    the plain vcycle_stencil from the same level, with u = 0 and with a
+    nonzero u (the FMG's entry); K10's coarsest b and workspace bitwise
+    its plain twin's on the card."""
+    from amg_tpu_torch.ops.kernels.masked_cycle import (
+        masked_down_leg, masked_down_leg_plain)
+    from amg_tpu_torch.structured import vcycle_stencil
+    hier = _masked_hierarchy(side, weights, dev)
+    rng = np.random.default_rng(side)
+    b = torch.as_tensor(rng.standard_normal((side, side)),
+                        dtype=torch.float32, device=dev)
+    u = (torch.zeros_like(b) if zero_u else torch.as_tensor(
+        rng.standard_normal((side, side)), dtype=torch.float32, device=dev))
+    K.reset_launch_counts()
+    got = vcycle_stencil(hier, u, b, *sweeps, omega, symmetric)
+    torch.cuda.synchronize()
+    c = K.launch_counts()
+    assert c["masked_down_leg"] == c["masked_up_leg"] == 1
+    w33s = hier.w33s[:-1]
+    bc, ws = masked_down_leg(u, b, w33s, sweeps[0], omega, symmetric)
+    pbc, pws = masked_down_leg_plain(u, b, w33s, sweeps[0], omega,
+                                     symmetric)
+    assert torch.equal(bc, pbc) and torch.equal(ws, pws)
+    _plain_masked_cycles(monkeypatch)
+    K.reset_launch_counts()
+    want = vcycle_stencil(hier, u, b, *sweeps, omega, symmetric)
+    assert sum(K.launch_counts().values()) == 0
+    assert torch.equal(got, want)
+
+
+def test_masked_legs_graph_nodes(dev, monkeypatch):
+    """One V-cycle entered at 127^2, captured as a graph: K10, the LU and
+    K11 in at most 8 nodes, against the plain ops' thousands."""
+    from amg_tpu_torch.ops.kernels import graph_loop
+    from amg_tpu_torch.structured import vcycle_stencil
+    hier = _masked_hierarchy(127, "five", dev)
+    b = torch.as_tensor(np.random.default_rng(7).standard_normal((127, 127)),
+                        dtype=torch.float32, device=dev)
+    u = torch.zeros_like(b)
+    outs = {}
+
+    def nodes(name):
+        out = outs[name] = torch.empty_like(b)
+        g = graph_loop.StraightGraph(
+            lambda: out.copy_(vcycle_stencil(hier, u, b)), dev)
+        g.launch()
+        torch.cuda.synchronize()
+        return graph_loop.node_types(g._graph.raw_cuda_graph())
+    # each graph's last node is the copy into out
+    kernel = nodes("kernel")[:-1]
+    _plain_masked_cycles(monkeypatch)
+    plain = nodes("plain")[:-1]
+    print(f"nodes of a masked V-cycle entered at 127^2: K10/K11 "
+          f"{len(kernel)} ({kernel}), plain ops {len(plain)}")
+    assert torch.equal(outs["kernel"], outs["plain"])
+    assert len(kernel) <= 8 and len(plain) >= 2000
+
+
+def test_masked_legs_in_the_4095_solve(dev, monkeypatch):
+    """The constant 4095^2 solve with the masked legs: 3 refines, rss
+    9.884e-10 (tests/test_torch_refine4095.py's figures), u and rss
+    bitwise the plain ops' solve; every masked cycle run by K10/K11 (the
+    counters read none in plain ops), K10 launched once a masked cycle;
+    at least 30,000 fewer kernel nodes a solve."""
+    from amg_tpu_torch.utils import tracing
+    b2 = poisson.rhs(4095, device=dev).reshape(4095, 4095)
+
+    def solve():
+        s = StructuredSolver(4095, device=dev)
+        s.solve_ir_fused(b2, tolerance=1e-7)           # captures
+        K.reset_launch_counts()
+        tracing.reset()
+        res = s.solve_ir_fused(b2, tolerance=1e-7)
+        return res, tracing.report()["counters"], K.launch_counts()
+    res, c, launches = solve()
+    _plain_masked_cycles(monkeypatch)
+    ref, c_ref, _ = solve()
+    it = res.iterations // 3
+    print(f"4095^2: {it} refines, rss {res.error!r}; counters with K10/K11 "
+          f"{c}, plain {c_ref}")
+    assert it == 3 and f"{res.error:.3e}" == "9.884e-10"
+    assert torch.equal(res.u, ref.u) and res.error == ref.error
+    # FMG: the 5 masked levels and the 5 packed ones above; 3 a refine
+    assert c["masked_cycles_kernel"] == 10 + 3 * it
+    assert c["masked_cycles_plain"] == 0 and c["solves"] == 1
+    assert launches["masked_down_leg"] == launches["masked_up_leg"] \
+        == c["masked_cycles_kernel"]
+    assert c_ref["masked_cycles_kernel"] == 0
+    assert c_ref["masked_cycles_plain"] == 10 + 3 * it
+    assert c_ref["kernels"] - c["kernels"] >= 30000
