@@ -14,6 +14,11 @@ planes, their face terms stay in the diagonal.
 Rounding follows the JAX version: node coordinates are f32 products of an
 f32 h, and every Python scalar meets a tensor as a 0-dim tensor of the
 tensor's dtype (JAX's weak-type rule), so the planes are bitwise equal.
+
+Beside it, for a coefficient constant on each grid cell (interfaces
+through the nodes), the vertex-centred finite-volume (box) scheme
+(``box_planes``) and Kellogg's intersecting-interfaces coefficient
+(``kellogg_cells``, ``kellogg_planes``), which have no JAX counterpart.
 """
 
 from __future__ import annotations
@@ -117,3 +122,69 @@ def jump_scipy(side: int, a_in: float = 100.0, r: float = 0.5,
     rows, cols, vals = (np.concatenate([p[k].ravel() for p in parts])
                         for k in range(3))
     return sp.csr_matrix((vals, (rows, cols)), shape=(n * n, n * n))
+
+
+# Kellogg's intersecting-interfaces problem (R. B. Kellogg, Applicable Anal.
+# 4 (1974) 101-129; problem "Intersecting Interfaces" of W. F. Mitchell,
+# Appl. Math. Comput. 220 (2013) 350-364): -div(p grad u) = f on (-1, 1)^2
+# with p = R in the first and third quadrants and 1 in the second and
+# fourth; R of the alpha = 0.1 parameter set.
+KELLOGG_R = 161.4476387975881
+
+
+def kellogg_cells(side: int, dtype=torch.float64,
+                  device=None) -> torch.Tensor:
+    """Kellogg's coefficient on the (n+1, n+1) grid cells of the side-n
+    grid, boundary cells included: cell (J, I) spans the full nodes J..J+1
+    by I..I+1 (node k of the n+2 at -1 + k h), and takes KELLOGG_R where
+    its centre (-1 + (J + 1/2) h, -1 + (I + 1/2) h) has x y > 0, else 1.
+    The sign of a centre coordinate is read off the integer 2 J + 1 - (n +
+    1), so the test is exact."""
+    device = resolve_device(device)
+    k = torch.arange(side + 1, device=device)
+    s = torch.sign(2 * k + 1 - (side + 1))
+    quad13 = (s.reshape(-1, 1) * s.reshape(1, -1)) > 0
+    return torch.where(quad13, torch.tensor(KELLOGG_R, dtype=dtype,
+                                            device=device),
+                       torch.tensor(1.0, dtype=dtype, device=device))
+
+
+def box_planes(p_cells: torch.Tensor, dtype=torch.float64) -> torch.Tensor:
+    """(3,3,n,n) planes of the vertex-centred finite-volume (box) scheme
+    for -div(p grad u) with ``p_cells`` constant on each of the (n+1,
+    n+1) grid cells (boundary cells included; ``kellogg_cells``' layout),
+    on the grid of models/poisson.py and with its sign (negative
+    diagonal). Each edge couples its two nodes by the arithmetic mean of
+    the two cells that share it, over h^2; the diagonal is minus the sum
+    of the node's four edges, Dirichlet edges included, whose couplings
+    are dropped from the off-diagonal planes. Built in f64, returned in
+    ``dtype``; with p == 1 the planes equal ops/rap.poisson_planes."""
+    n = int(p_cells.shape[-1]) - 1
+    if tuple(p_cells.shape) != (n + 1, n + 1):
+        raise ValueError(f"p_cells must be square, got "
+                         f"{tuple(p_cells.shape)}")
+    p = p_cells.to(torch.float64)
+    inv_h2 = 1.0 / (2.0 / (n + 1)) ** 2
+    eN = 0.5 * (p[1:, :-1] + p[1:, 1:])       # edge to (j+1, i)
+    eS = 0.5 * (p[:-1, :-1] + p[:-1, 1:])     # edge to (j-1, i)
+    eE = 0.5 * (p[:-1, 1:] + p[1:, 1:])       # edge to (j, i+1)
+    eW = 0.5 * (p[:-1, :-1] + p[1:, :-1])     # edge to (j, i-1)
+    j = torch.arange(n, device=p.device).reshape(n, 1)
+    i = torch.arange(n, device=p.device).reshape(1, n)
+    c = torch.zeros((3, 3, n, n), dtype=torch.float64, device=p.device)
+    c[1, 1] = -(eN + eS + eE + eW) * inv_h2
+    c[2, 1] = torch.where(j < n - 1, eN * inv_h2, 0.0)
+    c[0, 1] = torch.where(j > 0, eS * inv_h2, 0.0)
+    c[1, 2] = torch.where(i < n - 1, eE * inv_h2, 0.0)
+    c[1, 0] = torch.where(i > 0, eW * inv_h2, 0.0)
+    return c.to(dtype)
+
+
+def kellogg_planes(side: int, dtype=torch.float64,
+                   device=None) -> torch.Tensor:
+    """Kellogg's operator (``kellogg_cells``) in the box scheme as
+    (3,3,n,n) planes, built in f64 on ``device`` (None means ``"cuda"``):
+    ``StructuredSolver(side, A_planes=kellogg_planes(side),
+    precision="f64")`` keeps these f64 planes as its residual's operator
+    and rounds its f32 hierarchy from them."""
+    return box_planes(kellogg_cells(side, device=device), dtype)

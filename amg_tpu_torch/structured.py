@@ -327,16 +327,18 @@ def build_stencil_hierarchy_planes(c_fine: torch.Tensor,
     """A variable-coefficient hierarchy from fine (3,3,n,n) planes: the
     Galerkin chain as the closed-form plane contraction
     (ops/rap.rap_stencil_planes), run on ``device`` (None means
-    ``"cuda"``) in ``dtype``. The levels keep their planes: no constant
-    stencil is detected, as in the JAX package. With
+    ``"cuda"``) in ``dtype`` (the set-up span ``setup.galerkin_planes``).
+    The levels keep their planes: no constant stencil is detected, as in
+    the JAX package. With
     ``smoother="chebyshev"`` each level's lambda_max is the power-iteration
     estimate (``estimate_lam_max``, seed 0)."""
     device = resolve_device(device)
     side = int(c_fine.shape[-1])
     sides = _level_sides(side, n_levels)
     planes = [c_fine.to(device=device, dtype=dtype).contiguous()]
-    for _ in range(len(sides) - 1):
-        planes.append(rap_stencil_planes(planes[-1]))
+    with tracing.setup_span("setup.galerkin_planes", device):
+        for _ in range(len(sides) - 1):
+            planes.append(rap_stencil_planes(planes[-1]))
     lu, piv = _factor_coarse(planes[-1], device)
     P1s = [interp1d_dense(sides[l], sides[l + 1], dtype, device)
            for l in range(len(sides) - 1)]
@@ -460,9 +462,13 @@ def _cycle_at(hier: StencilHierarchy, u2, b2, gamma: int, pre_sweeps: int,
     with _visit(hier, l):
         if l == hier.n_levels - 1:
             return hier.coarse_solve(b2)
-        masked = _cycle_kind(hier, l) == "masked"
+        kind = _cycle_kind(hier, l)
+        masked = kind == "masked"
         if masked and not in_masked:
             count_launch(tracing.MASKED_CYCLES["plain"])
+        if hier.w33s[l] is None:
+            count_launch(tracing.VAR_LEVELS[
+                "kernel" if kind == "fused_var" else "plain"])
         S = hier.levels[l]
         u2 = _smooth(hier, l, u2, b2, pre_sweeps, omega, symmetric)
         r = b2 - S.matvec2(u2)
@@ -608,6 +614,7 @@ def _vcycle_packed_at(hier: StencilHierarchy, u2, b2, pre_sweeps: int,
     S = hier.levels[l]
     m = (S.side - 1) // 2
     if S.w33 is None:
+        count_launch(tracing.VAR_LEVELS["plain"])
         cp = hier.packed_planes(l)
 
         def sweep(u4_, b4_):

@@ -28,9 +28,10 @@ boundary is:
 * anywhere else (the host driver, the CPU): a host span on
   ``time.perf_counter_ns``, so CPU runs see the same tree.
 
-Set-up spans (:func:`setup_span`: ``setup.hierarchy``, ``setup.kernels``,
-``setup.capture``, ``setup.warm_solve``, the ELL hierarchy's phases) are
-host spans that are always timed: their sums by name
+Set-up spans (:func:`setup_span`: ``setup.hierarchy``, with
+``setup.galerkin_planes`` inside it for a plane operator,
+``setup.kernels``, ``setup.capture``, ``setup.warm_solve``, the ELL
+hierarchy's phases) are host spans that are always timed: their sums by name
 (``report()["setup"]``) are kept for the process, tracing on or off, and
 ``reset`` leaves them; while tracing is on they are recorded as spans
 too.
@@ -83,6 +84,10 @@ SOLVES = Count("solves")
 # masked V-cycles (structured.cycle_stencil): those the masked legs K10/K11
 # ran, and the runs of masked levels the plain ops ran
 MASKED_CYCLES = {k: Count(f"masked_cycles.{k}") for k in ("kernel", "plain")}
+# visits of the levels without constant weights (a variable-coefficient
+# hierarchy's; the coarsest level's LU excluded): those the fused sweep K6
+# took, and those the plain ops ran (masked, packed-var, strided, Chebyshev)
+VAR_LEVELS = {k: Count(f"var_levels.{k}") for k in ("kernel", "plain")}
 
 _COUNT_LOCK = threading.Lock()
 _SETUP: Counter = Counter()         # set-up seconds by span name, always
@@ -120,9 +125,12 @@ def credit_solves(solves: int, conditions: int) -> None:
 def counters() -> dict:
     """The counts since the last ``reset``, as they stand (``report``
     settles the graphs first): kernel nodes executed (the stamps
-    excluded), by kind, the solves, and the masked V-cycles by machinery
+    excluded), by kind, the solves, the masked V-cycles by machinery
     (``masked_cycles_kernel``: K10/K11 pairs; ``masked_cycles_plain``:
-    runs of masked levels in plain ops, one a cycle that reaches them)."""
+    runs of masked levels in plain ops, one a cycle that reaches them),
+    and the visits of variable-coefficient levels by machinery
+    (``var_levels_kernel``: swept by K6; ``var_levels_plain``: by the
+    plain ops)."""
     n = {k: c.launches for k, c in NODES.items()}
     return {"kernels": n["kernel_own"] + n["kernel_other"],
             "kernels_own": n["kernel_own"],
@@ -130,7 +138,9 @@ def counters() -> dict:
             "memcpy": n["memcpy"], "memset": n["memset"],
             "other_nodes": n["other"], "solves": SOLVES.launches,
             "masked_cycles_kernel": MASKED_CYCLES["kernel"].launches,
-            "masked_cycles_plain": MASKED_CYCLES["plain"].launches}
+            "masked_cycles_plain": MASKED_CYCLES["plain"].launches,
+            "var_levels_kernel": VAR_LEVELS["kernel"].launches,
+            "var_levels_plain": VAR_LEVELS["plain"].launches}
 
 
 # -- the switch ---------------------------------------------------------------
@@ -223,7 +233,8 @@ def reset() -> None:
     from amg_tpu_torch.ops.kernels import graph_loop
     graph_loop.settle()
     with _COUNT_LOCK:
-        for c in (*NODES.values(), SOLVES, *MASKED_CYCLES.values()):
+        for c in (*NODES.values(), SOLVES, *MASKED_CYCLES.values(),
+                  *VAR_LEVELS.values()):
             c.launches = 0
     t = _TRACER
     if t is None:
