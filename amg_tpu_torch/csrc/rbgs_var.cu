@@ -40,6 +40,22 @@
 // Loads for steps 2 and 6 are issued before the barrier that ends the step
 // before, while the other block of the SM computes. Other tiles, row
 // phases and blocks an SM were slower on the H100 (PERF.md lists them).
+//
+// K12 (masked_var_sweep_kernel): the same block with the update rule of
+// the plain masked sweep, sparse/stencil.py gs4_sweep_masked (the port's
+// own kernel; JAX sweeps these levels with plain jnp ops). A cell of the
+// step's color becomes u + omega * ((b - sum_all c * u) * (1 / c_diag)):
+// all nine terms summed dj outer, di inner, the diagonal in its place, as
+// Stencil2D.matvec2 orders them, and an IEEE 1 / c_diag as torch's
+// reciprocal rounds it. The other cells keep u (the plain sweep adds 0 *
+// g there: the same value up to the sign of a zero). A thread keeps the
+// nine coefficients of a row in registers, as many as K6 keeps, and 1 /
+// c_diag, divided once at the load, in a third window array in shared
+// memory, a slot a cell that only the loading thread reads: a division at
+// each update spilled under K6's bound of 40 registers a thread.
+// Built as K6 is, the kernel gives gs4_sweep_masked's bits with parity
+// masks; the ring and the regions hold for it as for any 3x3 rule of
+// this reach (tests/test_torch_tiling_rbgs.py).
 
 #include "rbgs_common.cuh"
 
@@ -54,18 +70,92 @@ constexpr int kBlocks = 2;
 using rbgs::margin;
 using rbgs::Phase;
 
+// The update rules. load keeps a row's coefficients of one cell in cf (and
+// may keep what it derives in the window slot X[L] of the cell, a slot
+// only the thread that loaded the row reads); update returns the cell's
+// new value.
+
+// K6's rule: the eight off-diagonal coefficients (dj outer, di inner) and
+// 1 / c_diag, computed once at the load.
+struct FusedRule {
+  __device__ __forceinline__ static void load(float (&cf)[9],
+                                              const float* __restrict__ p,
+                                              size_t nn, float*, int) {
+#pragma unroll
+    for (int m = 0; m < 9; ++m) {
+      if (m == 4) continue;
+      cf[m < 4 ? m : m - 1] = __ldg(p + m * nn);
+    }
+    cf[8] = 1.0f / __ldg(p + 4 * nn);
+  }
+
+  template <int W>
+  __device__ __forceinline__ static float update(const float (&cf)[9],
+                                                 const float* U,
+                                                 const float* B,
+                                                 const float*, int r, int x,
+                                                 float omega) {
+    float acc = 0.f;
+    int m = 0;
+#pragma unroll
+    for (int dj = -1; dj <= 1; ++dj) {
+#pragma unroll
+      for (int di = -1; di <= 1; ++di) {
+        if (dj == 0 && di == 0) continue;
+        acc = acc + cf[m++] * U[(r + dj) * W + x + di];
+      }
+    }
+    const int L = r * W + x;
+    const float uu = U[L];
+    const float delta = (B[L] - acc) * cf[8] - uu;
+    return uu + omega * delta;
+  }
+};
+
+// K12's rule: the nine coefficients in the planes' order (c_diag at 4) in
+// registers, 1 / c_diag computed once at the load and kept in the cell's
+// slot (a division at each update spilled under K6's register bound).
+struct MaskedRule {
+  __device__ __forceinline__ static void load(float (&cf)[9],
+                                              const float* __restrict__ p,
+                                              size_t nn, float* X, int L) {
+#pragma unroll
+    for (int m = 0; m < 9; ++m) cf[m] = __ldg(p + m * nn);
+    X[L] = 1.0f / cf[4];
+  }
+
+  template <int W>
+  __device__ __forceinline__ static float update(const float (&cf)[9],
+                                                 const float* U,
+                                                 const float* B,
+                                                 const float* X, int r,
+                                                 int x, float omega) {
+    float acc = 0.f;
+#pragma unroll
+    for (int dj = -1; dj <= 1; ++dj) {
+#pragma unroll
+      for (int di = -1; di <= 1; ++di)
+        acc = acc + cf[3 * (dj + 1) + di + 1] * U[(r + dj) * W + x + di];
+    }
+    const int L = r * W + x;
+    const float g = (B[L] - acc) * X[L];
+    return U[L] + omega * g;
+  }
+};
+
 // Per-thread state of one load phase: the coefficients of rows R0 +
-// 2 (y + NY k) of the thread's column, and whether each cell is updated.
+// 2 (y + NY k) of the thread's column (the rule's nine values a row), and
+// whether each cell is updated.
 template <int K>
 struct Rows {
-  float cf[K][9];          // 8 off-diagonal (dj outer, di inner), 1/c_diag
+  float cf[K][9];
   bool on[K];
 };
 
-template <class V, int PH>
+template <class V, class R, int PH>
 __device__ __forceinline__ void load_rows(Rows<Phase<V, PH>::K>& s,
                                           const float* __restrict__ c,
-                                          int n, int Jt, int It) {
+                                          int n, int Jt, int It, float* X) {
   using F = Phase<V, PH>;
   const int t = (int)threadIdx.x - V::LEFT;    // tile column
   constexpr int l0 = margin(V::kSym, PH, 2), r0 = margin(V::kSym, PH, 3);
@@ -80,21 +170,16 @@ __device__ __forceinline__ void load_rows(Rows<Phase<V, PH>::K>& s,
     const int j = Jt + F::R0 + 2 * q;
     const bool on = col && q < F::NR && j >= 0 && j < n && i >= 0 && i < n;
     s.on[k] = on;
-    if (on) {
-      const float* p = c + (size_t)j * n + i;
-#pragma unroll
-      for (int m = 0; m < 9; ++m) {
-        if (m == 4) continue;
-        s.cf[k][m < 4 ? m : m - 1] = __ldg(p + m * nn);
-      }
-      s.cf[k][8] = 1.0f / __ldg(p + 4 * nn);
-    }
+    if (on)
+      R::load(s.cf[k], c + (size_t)j * n + i, nn, X,
+              (V::TOP + F::R0 + 2 * q) * V::W + (int)threadIdx.x);
   }
 }
 
 // One color step, column parity PI, on the rows of load phase PH.
-template <class V, int PH, int PI>
+template <class V, class R, int PH, int PI>
 __device__ __forceinline__ void update_rows(float* U, const float* B,
+                                            const float* X,
                                             const Rows<Phase<V, PH>::K>& s,
                                             float omega) {
   using F = Phase<V, PH>;
@@ -104,30 +189,17 @@ __device__ __forceinline__ void update_rows(float* U, const float* B,
   for (int k = 0; k < F::K; ++k) {
     if (!s.on[k]) continue;
     const int r = V::TOP + F::R0 + 2 * ((int)threadIdx.y + V::NY * k);
-    float acc = 0.f;
-    int m = 0;
-#pragma unroll
-    for (int dj = -1; dj <= 1; ++dj) {
-#pragma unroll
-      for (int di = -1; di <= 1; ++di) {
-        if (dj == 0 && di == 0) continue;
-        acc = acc + s.cf[k][m++] * U[(r + dj) * V::W + x + di];
-      }
-    }
-    const int L = r * V::W + x;
-    const float uu = U[L];
-    const float delta = (B[L] - acc) * s.cf[k][8] - uu;
-    U[L] = uu + omega * delta;
+    U[r * V::W + x] = R::template update<V::W>(s.cf[k], U, B, X, r, x,
+                                               omega);
   }
 }
 
-template <class V>
-__global__ void __launch_bounds__(V::NT, kBlocks)
-rbgs_var_kernel(const float* __restrict__ u, const float* __restrict__ b,
-                const float* __restrict__ c, float* __restrict__ out, int n,
-                float omega) {
-  __shared__ float U[V::H * V::W];
-  __shared__ float Bw[V::H * V::W];
+// The block: load the windows, run the color steps, write the tile.
+template <class V, class R>
+__device__ __forceinline__ void sweep_block(
+    const float* __restrict__ u, const float* __restrict__ b,
+    const float* __restrict__ c, float* __restrict__ out, int n, float omega,
+    float* U, float* Bw, float* X) {
   const int Jt = (int)blockIdx.y * V::TJ;
   const int It = (int)blockIdx.x * V::TI;
   const int j0 = Jt - V::TOP;
@@ -153,30 +225,30 @@ rbgs_var_kernel(const float* __restrict__ u, const float* __restrict__ b,
   }
   {
     Rows<Phase<V, 0>::K> a;
-    load_rows<V, 0>(a, c, n, Jt, It);
+    load_rows<V, R, 0>(a, c, n, Jt, It, X);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
-    update_rows<V, 0, 0>(U, Bw, a, omega);                 // step 0: 00
+    update_rows<V, R, 0, 0>(U, Bw, X, a, omega);          // step 0: 00
     __syncthreads();
-    update_rows<V, 0, 1>(U, Bw, a, omega);                 // step 1: 01
+    update_rows<V, R, 0, 1>(U, Bw, X, a, omega);          // step 1: 01
   }
   Rows<Phase<V, 1>::K> bs;
-  load_rows<V, 1>(bs, c, n, Jt, It);
+  load_rows<V, R, 1>(bs, c, n, Jt, It, X);
   __syncthreads();
-  update_rows<V, 1, 0>(U, Bw, bs, omega);                  // step 2: 10
+  update_rows<V, R, 1, 0>(U, Bw, X, bs, omega);           // step 2: 10
   __syncthreads();
-  update_rows<V, 1, 1>(U, Bw, bs, omega);                  // step 3: 11
+  update_rows<V, R, 1, 1>(U, Bw, X, bs, omega);           // step 3: 11
   __syncthreads();
   if constexpr (V::kSym) {
-    update_rows<V, 1, 1>(U, Bw, bs, omega);                // step 4: 11
+    update_rows<V, R, 1, 1>(U, Bw, X, bs, omega);         // step 4: 11
     __syncthreads();
-    update_rows<V, 1, 0>(U, Bw, bs, omega);                // step 5: 10
+    update_rows<V, R, 1, 0>(U, Bw, X, bs, omega);         // step 5: 10
     Rows<Phase<V, 2>::K> cs;
-    load_rows<V, 2>(cs, c, n, Jt, It);
+    load_rows<V, R, 2>(cs, c, n, Jt, It, X);
     __syncthreads();
-    update_rows<V, 2, 1>(U, Bw, cs, omega);                // step 6: 01
+    update_rows<V, R, 2, 1>(U, Bw, X, cs, omega);         // step 6: 01
     __syncthreads();
-    update_rows<V, 2, 0>(U, Bw, cs, omega);                // step 7: 00
+    update_rows<V, R, 2, 0>(U, Bw, X, cs, omega);         // step 7: 00
     __syncthreads();
   }
 
@@ -192,14 +264,40 @@ rbgs_var_kernel(const float* __restrict__ u, const float* __restrict__ b,
   }
 }
 
+template <class V>
+__global__ void __launch_bounds__(V::NT, kBlocks)
+rbgs_var_kernel(const float* __restrict__ u, const float* __restrict__ b,
+                const float* __restrict__ c, float* __restrict__ out, int n,
+                float omega) {
+  __shared__ float U[V::H * V::W];
+  __shared__ float Bw[V::H * V::W];
+  sweep_block<V, FusedRule>(u, b, c, out, n, omega, U, Bw, nullptr);
+}
 
-template <bool kSym>
+template <class V>
+__global__ void __launch_bounds__(V::NT, kBlocks)
+masked_var_sweep_kernel(const float* __restrict__ u,
+                        const float* __restrict__ b,
+                        const float* __restrict__ c, float* __restrict__ out,
+                        int n, float omega) {
+  __shared__ float U[V::H * V::W];
+  __shared__ float Bw[V::H * V::W];
+  __shared__ float Inv[V::H * V::W];   // 1 / c_diag of the loaded rows
+  static_assert(3 * V::H * V::W * sizeof(float) <= 48 * 1024, "static smem");
+  sweep_block<V, MaskedRule>(u, b, c, out, n, omega, U, Bw, Inv);
+}
+
+template <bool kSym, bool kMasked>
 int launch(const float* u, const float* b, const float* c, float* out, int n,
            float omega, cudaStream_t stream) {
   using V = rbgs::Tiling<kTJ, kTI, kNY, kSym>;
   const dim3 grid((n + V::TI - 1) / V::TI, (n + V::TJ - 1) / V::TJ);
-  rbgs_var_kernel<V><<<grid, dim3(V::NX, V::NY), 0, stream>>>(
-      u, b, c, out, n, omega);
+  if constexpr (kMasked)
+    masked_var_sweep_kernel<V><<<grid, dim3(V::NX, V::NY), 0, stream>>>(
+        u, b, c, out, n, omega);
+  else
+    rbgs_var_kernel<V><<<grid, dim3(V::NX, V::NY), 0, stream>>>(
+        u, b, c, out, n, omega);
   return (int)cudaGetLastError();
 }
 
@@ -209,6 +307,15 @@ extern "C" int amg_rbgs_sweep_var(const float* u, const float* b,
                                   const float* c, float* out, int n,
                                   float omega, int symmetric,
                                   cudaStream_t stream) {
-  return symmetric ? launch<true>(u, b, c, out, n, omega, stream)
-                   : launch<false>(u, b, c, out, n, omega, stream);
+  return symmetric ? launch<true, false>(u, b, c, out, n, omega, stream)
+                   : launch<false, false>(u, b, c, out, n, omega, stream);
+}
+
+// K12: the plain masked sweep's rule on K6's block.
+extern "C" int amg_masked_sweep_var(const float* u, const float* b,
+                                    const float* c, float* out, int n,
+                                    float omega, int symmetric,
+                                    cudaStream_t stream) {
+  return symmetric ? launch<true, true>(u, b, c, out, n, omega, stream)
+                   : launch<false, true>(u, b, c, out, n, omega, stream);
 }

@@ -19,17 +19,18 @@ from amg_tpu_torch.ops.kernels.packed_rbgs import fused_gs4_sweep_packed
 from amg_tpu_torch.ops.kernels.packed_rm import fused_gs4_sweep_rm
 from amg_tpu_torch.ops.kernels.rbgs import (fused_gs4_sweep,
                                             fused_gs4_sweep_const,
-                                            fused_gs4_sweep_var)
+                                            fused_gs4_sweep_var,
+                                            masked_gs4_sweep_var)
 
 # the launch counters, one per kernel (K1..K9, then the loop graphs'
 # condition kernel and a card group's collectives inside them, then the
-# masked V-cycle's legs K10 and K11)
+# masked V-cycle's legs K10 and K11, then the masked sweep on planes K12)
 KERNELS = (fused_gs4_sweep_packed, fused_down_leg_packed,
            fused_up_leg_packed, fused_df_residual_rss,
            fused_gs4_sweep_const, fused_gs4_sweep_var, rdma_halo_exchange,
            fused_residual_restrict_packed, fused_gs4_sweep_rm,
            graph_loop.loop_condition, peer_collective.peer_collective,
-           masked_down_leg, masked_up_leg)
+           masked_down_leg, masked_up_leg, masked_gs4_sweep_var)
 
 
 def reset_launch_counts() -> None:

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "amg_df_block_count": (_I,),
     "amg_rbgs_sweep_const": (_P, _P, _P, _I, _W9, _F, _F, _I, _P),
     "amg_rbgs_sweep_var": (_P, _P, _P, _P, _I, _F, _I, _P),
+    "amg_masked_sweep_var": (_P, _P, _P, _P, _I, _F, _I, _P),
     "amg_halo_exchange": (_P,),      # csrc/halo.cu HaloCall, packed
     "amg_halo_exchange_peer": (_P,),             # HaloPeerCall, packed
     "amg_peer_alloc": (_I, ctypes.c_longlong, _P),

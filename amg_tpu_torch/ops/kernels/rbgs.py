@@ -1,6 +1,6 @@
 """K5 and K6: the fused four-color GS sweep on unpacked (n, n) fields
 (``csrc/rbgs_sweep.cu`` K5, constant; ``csrc/rbgs_var.cu`` K6,
-variable-coefficient).
+variable-coefficient); K12, the masked sweep on planes in K6's block.
 
 Port of the TPU kernel ``amg_tpu/ops/pallas/rbgs.py`` ``fused_gs4_sweep``
 (``pallas_call`` at :544 const, :584 var): the whole (symmetric) sweep, 8
@@ -14,6 +14,12 @@ The plain version, :func:`fused_gs4_sweep_plain`, is the kernels'
 arithmetic with tensor ops on full fields. It is not
 ``sparse.stencil.gs4_sweep_masked``, which computes (b - A u) / diag with
 the diagonal inside the sum and so rounds differently.
+
+K12, :func:`masked_gs4_sweep_var` (``csrc/rbgs_var.cu``
+``masked_var_sweep_kernel``; the port's own kernel, no TPU kernel: JAX
+sweeps these levels with plain ``jnp`` ops), is K6's block with that
+masked sweep's arithmetic: its plain version is ``gs4_sweep_masked`` with
+parity masks, whose bits it gives.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch.nn.functional as F
 from amg_tpu_torch.ops.kernels._build import (LaunchCounter, check,
                                               count_launch, library,
                                               require_f32, stream_of, weights)
-from amg_tpu_torch.sparse.stencil import FOUR_COLORS, Stencil2D
+from amg_tpu_torch.sparse.stencil import (FOUR_COLORS, Stencil2D,
+                                          color_masks_iota, gs4_sweep_masked)
 
 # K6's off-diagonal order (rbgs.py _OFFSETS): dj outer, di inner.
 OFFSETS = tuple((dj, di) for dj in (-1, 0, 1) for di in (-1, 0, 1)
@@ -92,5 +99,32 @@ def fused_gs4_sweep(S: Stencil2D, u2: torch.Tensor, b2: torch.Tensor,
     return out
 
 
+def masked_gs4_sweep_var(S: Stencil2D, u2: torch.Tensor, b2: torch.Tensor,
+                         omega: float = 1.0, symmetric: bool = True
+                         ) -> torch.Tensor:
+    """One (symmetric) four-color masked GS sweep of the planes of ``S`` on
+    contiguous f32 (n, n) fields; returns a new field. CPU tensors take
+    ``gs4_sweep_masked`` with ``color_masks_iota``; CUDA tensors launch K12,
+    which gives its bits."""
+    n = S.side
+    if S.c is None or S.w33 is not None:
+        raise ValueError("masked_gs4_sweep_var sweeps an operator given by "
+                         "its planes alone (w33 None)")
+    require_f32("u2", u2, (n, n), u2.device)
+    require_f32("b2", b2, (n, n), u2.device)
+    require_f32("planes", S.c, (3, 3, n, n), u2.device)
+    if u2.device.type == "cpu":
+        return gs4_sweep_masked(S, u2, b2,
+                                color_masks_iota(n, u2.dtype, u2.device),
+                                omega, symmetric)
+    out = torch.empty_like(u2)   # out of place: ghosts read the input
+    check(library().amg_masked_sweep_var(
+        u2.data_ptr(), b2.data_ptr(), S.c.data_ptr(), out.data_ptr(), n,
+        omega, int(symmetric), stream_of(u2)), "amg_masked_sweep_var")
+    count_launch(masked_gs4_sweep_var)
+    return out
+
+
 fused_gs4_sweep_const = LaunchCounter("fused_gs4_sweep_const")   # K5
 fused_gs4_sweep_var = LaunchCounter("fused_gs4_sweep_var")       # K6
+masked_gs4_sweep_var.launches = 0                                # K12

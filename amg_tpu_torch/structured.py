@@ -44,7 +44,9 @@ On the card, an unpacked V-cycle that reaches constant masked levels whose
 fields fit one block's shared memory (127^2 and below: every hierarchy's
 masked levels under the packed ones, and those of smoother="masked" or
 "fused") runs them as the masked legs K10/K11 with the coarsest LU between
-(:func:`masked_legs_engage`), bitwise the plain ops.
+(:func:`masked_legs_engage`), bitwise the plain ops. A masked level given
+by its planes alone is swept by K12 (:func:`masked_var_sweep_engages`),
+bitwise the plain masked sweep.
 
 Which machinery runs on which level is decided once, from the sides and
 the options, in :func:`level_plan` (``StructuredSolver.plan``). On CPU
@@ -74,7 +76,7 @@ from amg_tpu_torch.ops.kernels import (fused_df_residual_rss,
                                        fused_gs4_sweep_packed,
                                        fused_residual_restrict_packed,
                                        fused_up_leg_packed, graph_loop,
-                                       masked_cycle)
+                                       masked_cycle, masked_gs4_sweep_var)
 from amg_tpu_torch.ops.kernels._build import count_launch, require_f32
 from amg_tpu_torch.ops.rap import (interp1d_dense, planes_to_dense,
                                    poisson_const_w33, rap_stencil_planes)
@@ -372,7 +374,8 @@ def _smooth(hier: StencilHierarchy, l: int, u2, b2, sweeps: int,
     """Smoothing on a non-packed level, in the JAX package's order: the
     strided sweep; the degree-4 Chebyshev smoother (where the level has a
     lambda_max bound: stored, or analytic on a constant level); the fused
-    sweep kernel on the fused levels; masked four-color sweeps with the
+    sweep kernel on the fused levels; masked four-color sweeps: K12 where
+    :func:`masked_var_sweep_engages` holds, else the plain sweep with the
     stored masks, or masks built here."""
     S = hier.levels[l]
     if hier.smoother == "strided":
@@ -389,6 +392,12 @@ def _smooth(hier: StencilHierarchy, l: int, u2, b2, sweeps: int,
     if _fused_level(hier.smoother, S.side):
         for _ in range(sweeps):
             u2 = fused_gs4_sweep(S, u2, b2, omega, symmetric)
+        return u2
+    if masked_var_sweep_engages(hier, l, u2, b2):
+        b2 = b2.contiguous()
+        for _ in range(sweeps):
+            u2 = masked_gs4_sweep_var(S, u2.contiguous(), b2, omega,
+                                      symmetric)
         return u2
     masks = hier.masks[l]
     if masks is None:
@@ -431,6 +440,23 @@ def masked_legs_engage(hier: StencilHierarchy, l: int, gamma: int = 1
                     for k in range(l, last)))
 
 
+def masked_var_sweep_engages(hier: StencilHierarchy, l: int, u2, b2
+                             ) -> bool:
+    """Whether :func:`_smooth` sweeps level ``l`` of ``hier`` with K12
+    (``ops/kernels/rbgs.masked_gs4_sweep_var``, bitwise the plain masked
+    sweep): a level given by its planes alone (no constant weights), f32
+    and contiguous, that the unpacked cycle sweeps with the masked
+    machinery, with u and b f32 fields on the card. The level's visits
+    then count as the kernel's (``tracing.VAR_LEVELS``)."""
+    if not (u2.is_cuda and b2.is_cuda
+            and u2.dtype == b2.dtype == torch.float32):
+        return False
+    c = getattr(hier, f"c_{l}", None)
+    return (hier.w33s[l] is None and c is not None
+            and c.dtype == torch.float32 and c.is_contiguous()
+            and _cycle_kind(hier, l) == "masked")
+
+
 def _masked_legs(hier: StencilHierarchy, u2, b2, pre_sweeps: int,
                  post_sweeps: int, omega: float, symmetric: bool, l: int):
     """The V-cycle from level ``l`` as K10, the coarsest level's LU and
@@ -459,7 +485,8 @@ def _cycle_at(hier: StencilHierarchy, u2, b2, gamma: int, pre_sweeps: int,
             and masked_legs_engage(hier, l, gamma)):
         return _masked_legs(hier, u2, b2, pre_sweeps, post_sweeps, omega,
                             symmetric, l)
-    with _visit(hier, l):
+    k12 = masked_var_sweep_engages(hier, l, u2, b2)
+    with _visit(hier, l, "masked_k12" if k12 else None):
         if l == hier.n_levels - 1:
             return hier.coarse_solve(b2)
         kind = _cycle_kind(hier, l)
@@ -468,7 +495,7 @@ def _cycle_at(hier: StencilHierarchy, u2, b2, gamma: int, pre_sweeps: int,
             count_launch(tracing.MASKED_CYCLES["plain"])
         if hier.w33s[l] is None:
             count_launch(tracing.VAR_LEVELS[
-                "kernel" if kind == "fused_var" else "plain"])
+                "kernel" if kind == "fused_var" or k12 else "plain"])
         S = hier.levels[l]
         u2 = _smooth(hier, l, u2, b2, pre_sweeps, omega, symmetric)
         r = b2 - S.matvec2(u2)
@@ -498,9 +525,10 @@ def _cycle_kind(hier: StencilHierarchy, l: int) -> str:
 
 def _visit(hier: StencilHierarchy, l: int, kind: str | None = None):
     """The tracing span of one visit of level ``l``: ``vcycle.level`` with
-    the level, its side and its machinery (``kind``, a level_plan name or
-    ``masked_legs``; the unpacked cycle's when None; ``coarse`` for the
-    coarsest level's LU). Tracing off: the null context."""
+    the level, its side and its machinery (``kind``, a level_plan name,
+    ``masked_legs`` or ``masked_k12``, a masked level swept by K12; the
+    unpacked cycle's when None; ``coarse`` for the coarsest level's LU).
+    Tracing off: the null context."""
     if not tracing.enabled():
         return tracing.span("vcycle.level")
     if l == hier.n_levels - 1 or kind is None:

@@ -4,7 +4,7 @@ from inside the program.
 Counters, always on (nothing on the hot path: they are credited when the
 counts are read). When a CUDA graph piece is captured
 (``ops/kernels/graph_loop.py``), its nodes are counted by kind, child
-graphs and conditional bodies included: the port's own kernels (K1-K11,
+graphs and conditional bodies included: the port's own kernels (K1-K12,
 the condition kernel, the peer collective: the launches its wrappers
 counted), other kernels (aten, cuBLAS, cuSOLVER: the plain ops), memcpy,
 memset, other nodes, and the tracing stamps below as their own kind.
@@ -85,8 +85,9 @@ SOLVES = Count("solves")
 # ran, and the runs of masked levels the plain ops ran
 MASKED_CYCLES = {k: Count(f"masked_cycles.{k}") for k in ("kernel", "plain")}
 # visits of the levels without constant weights (a variable-coefficient
-# hierarchy's; the coarsest level's LU excluded): those the fused sweep K6
-# took, and those the plain ops ran (masked, packed-var, strided, Chebyshev)
+# hierarchy's; the coarsest level's LU excluded): those a sweep kernel took
+# (K6 on the fused levels, K12 on the masked ones on the card), and those
+# the plain ops ran (masked, packed-var, strided, Chebyshev)
 VAR_LEVELS = {k: Count(f"var_levels.{k}") for k in ("kernel", "plain")}
 
 _COUNT_LOCK = threading.Lock()
@@ -129,8 +130,8 @@ def counters() -> dict:
     (``masked_cycles_kernel``: K10/K11 pairs; ``masked_cycles_plain``:
     runs of masked levels in plain ops, one a cycle that reaches them),
     and the visits of variable-coefficient levels by machinery
-    (``var_levels_kernel``: swept by K6; ``var_levels_plain``: by the
-    plain ops)."""
+    (``var_levels_kernel``: swept by K6 or K12; ``var_levels_plain``: by
+    the plain ops)."""
     n = {k: c.launches for k, c in NODES.items()}
     return {"kernels": n["kernel_own"] + n["kernel_other"],
             "kernels_own": n["kernel_own"],

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1-K11) from amg_tpu_torch/csrc, checks
+Builds the port's CUDA kernels (K1-K12) from amg_tpu_torch/csrc, checks
 each against its plain PyTorch version on the card and times both (K1, K2
 and K3 bitwise at M = 513, 512, 2048 and 4096 and timed at the last three;
 K4's r.hi bitwise at M = 101, 129, 512, 2048 and 4096 and timed at the last
@@ -14,7 +14,10 @@ graphs' condition kernel in toy loops against the host driver over the
 condition's edge cases, and per pass; the masked V-cycle's legs K10/K11
 bitwise against their plain twins at every masked entry from 127^2 down,
 each alone and a whole masked V-cycle as a CUDA graph against the plain
-ops' timed at 127^2), then drives the solves through
+ops' timed at 127^2; the masked sweep on planes K12 bitwise against the
+plain masked sweep at every side of the 4095^2 hierarchy below the fine
+level on Kellogg's planes and a Galerkin level of them, timed against it
+at 2047^2 and 255^2, each as a CUDA graph), then drives the solves through
 the user entry points with an independent f64 residual check and the
 kernels' launch counts. StructuredSolver's solve loops and
 solve_pcg_device run as one CUDA graph a solve (JAX's one-program
@@ -153,7 +156,8 @@ also across processes as peer_collective_processes and
 peer_collective_mesh, from process 0; masked_down_leg and masked_up_leg,
 K10/K11, the masked levels' V-cycle, which replace no TPU kernel either:
 every path whose cycles reach the constant masked levels on the card runs
-them); the last
+them; masked_gs4_sweep_var, K12, the masked sweep on planes, which every
+path that sweeps a plane level masked on the card runs); the last
 line is one JSON object with "ok" and the device. ``--mp P [P ...]``
 runs the process phase alone for each P (with P cards, nccl and a card
 each); ``--cards
@@ -214,14 +218,16 @@ from amg_tpu_torch.ops.kernels.packed_df import df_residual_rss_plain
 from amg_tpu_torch.ops.kernels.packed_rm import (from_rm,
                                                  fused_gs4_sweep_rm_plain,
                                                  to_rm)
-from amg_tpu_torch.ops.kernels.rbgs import fused_gs4_sweep_plain
-from amg_tpu_torch.ops.rap import poisson_const_w33
+from amg_tpu_torch.ops.kernels.rbgs import (fused_gs4_sweep_plain,
+                                            masked_gs4_sweep_var)
+from amg_tpu_torch.ops.rap import poisson_const_w33, rap_stencil_planes
 from amg_tpu_torch.ops.transfer import linear_interp_1d
 from amg_tpu_torch.parallel import launch
 from amg_tpu_torch.parallel.ell_dist import EllDistSolver
 from amg_tpu_torch.parallel.structured_dist import ghost_rows
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
-from amg_tpu_torch.sparse.stencil import Stencil2D
+from amg_tpu_torch.sparse.stencil import (Stencil2D, color_masks_iota,
+                                          gs4_sweep_masked)
 from amg_tpu_torch.structured import (PACKED_MIN_SIDE, galerkin_chain,
                                       level_plan, max_levels_for_side)
 from amg_tpu_torch.utils.coloring import (greedy_coloring,
@@ -395,6 +401,16 @@ for _name in MASKED_LEGS:
 # the entry timed: the solves' 127^2
 MASKED_TIMED = 127
 MASKED_GRAPH_LAUNCHES = 20
+# not a TPU kernel: the masked sweep on planes K12 (csrc/rbgs_var.cu), in
+# place of the plain jnp masked sweeps of JAX's cycle_stencil on the
+# variable levels; its parity sides (the 4095^2 hierarchy below the fine
+# level, and two sides that are not 2^k - 1) and the sides timed
+MASKED_SWEEP = "masked_gs4_sweep_var"
+KERNEL_INFO[MASKED_SWEEP] = ("amg_tpu_torch/csrc/rbgs_var.cu",
+                             "amg_tpu/structured.py cycle_stencil")
+K12_SIDES = (7, 15, 31, 63, 127, 255, 511, 1023, 2047, 100, 1000)
+K12_TIMED = (2047, 255)
+K12_GRAPH_LAUNCHES = 20
 # no JAX solver calls the row-grouped sweep, so no path of the port does:
 # its launches are those of its parity phase
 OFF_PATH = {"fused_gs4_sweep_rm": "no JAX solver calls it"}
@@ -1077,15 +1093,33 @@ def loop_conditions(it: int, packed: bool = False,
 
 def tpu_counts(c: dict) -> dict:
     """The TPU kernels' counts of a launch count dict: K1-K9 (not the
-    condition kernel, not the masked legs K10/K11)."""
-    return {k: n for k, n in c.items() if k != LOOP and k not in MASKED_LEGS}
+    condition kernel, not the masked legs K10/K11, not the masked sweep
+    on planes K12)."""
+    return {k: n for k, n in off_masked(c).items() if k != LOOP}
 
 
 def off_masked(c: dict) -> dict:
-    """A launch count dict without the masked legs K10/K11, which run on
-    every path whose cycles reach the constant masked levels on the
-    card."""
-    return {k: n for k, n in c.items() if k not in MASKED_LEGS}
+    """A launch count dict without the masked legs K10/K11 and the masked
+    sweep on planes K12, which run on every path whose cycles reach the
+    masked levels on the card (constant ones, plane ones)."""
+    return {k: n for k, n in c.items()
+            if k not in MASKED_LEGS and k != MASKED_SWEEP}
+
+
+def k12_launches(s: StructuredSolver, it: int) -> int:
+    """K12's launches in a solve of ``it`` refines: a sweep a pre- and a
+    post-smoothing of each visit of a plane level that the unpacked cycle
+    sweeps masked, in the FMG start's cycles (one from each level down)
+    and in the refines' V-cycles (the plan's masked levels)."""
+    hier = s.hier
+    last = hier.n_levels - 1
+    masked = [hier.w33s[l] is None
+              and structured._cycle_kind(hier, l) == "masked"
+              for l in range(last)]
+    fmg = sum(masked[k] for l in range(last) for k in range(l, last))
+    cyc = sum(m and k == "masked" for m, k in zip(masked, s.plan))
+    return (s.pre_sweeps + s.post_sweeps) * (
+        int(s.fmg) * fmg + s.cycles_per_refine * it * cyc)
 
 
 def solve_launches(plan: tuple, sides: tuple, it: int,
@@ -1292,6 +1326,8 @@ def var_solves(dev, launches: dict):
         require(sum(n for k, n in tpu_counts(c).items()
                     if k != "fused_gs4_sweep_var") == 0,
                 f"{label}: no other kernel on a variable operator")
+        require(c[MASKED_SWEEP] == k12_launches(s, it) > 0,
+                f"{label}: K12 on every masked sweep of a plane level")
         require(c[LOOP] == loop_conditions(it), f"{label}: one loop graph")
         med, walls = wall_median(lambda: solve_device(s, b2, tol, n_refine),
                                  3)
@@ -1315,6 +1351,7 @@ def var_solves(dev, launches: dict):
             "const fused: no other kernel")
     require(c["masked_down_leg"] == c["masked_up_leg"] > 0,
             "const fused: K10/K11 on the masked levels below 3000^2")
+    require(c[MASKED_SWEEP] == 0, "const fused: no K12 on constant levels")
     require(c[LOOP] == loop_conditions(it), "const fused: one loop graph")
     RECORD["fused solver"] = s          # graph_solves' solve_stencil row
     del s
@@ -1430,6 +1467,7 @@ def host_solves(dev, launches: dict):
     s = StructuredSolver(side, A_fine=A, device=dev)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
+    s.warmup()      # the loop graph's capture, whose warm-up runs pieces
     (u, err, it), c = drive(lambda: solve_device(s, b2, TOL), launches)
     r = b2.cpu().numpy().reshape(-1) - A @ u.cpu().numpy().reshape(-1)
     ind = float(r @ r)
@@ -1443,6 +1481,8 @@ def host_solves(dev, launches: dict):
     require(not s.device_setup and s.w33 is None, "A_fine: host build")
     require(err <= TOL and ind <= TOL, f"jump A_fine {side}^2 converged")
     require(sum(tpu_counts(c).values()) == 0, "jump A_fine: no kernel")
+    require(c[MASKED_SWEEP] == k12_launches(s, it) > 0,
+            "jump A_fine: K12 on the host-built plane levels swept masked")
     require(c[LOOP] == loop_conditions(it), "jump A_fine: one loop graph")
     med, walls = wall_median(lambda: solve_device(s, b2, TOL), 3)
     print(f"solve wall jump A_fine {side}^2: median of 3 {med:.6f} s "
@@ -1615,6 +1655,14 @@ def masked_cycle_ops(w33s, side: int, down: bool) -> int:
     return ops
 
 
+def as_graph(fn, reps: int, dev):
+    """The launch of a CUDA graph of ``reps`` calls of ``fn``: timed as
+    the solves run them, so that a plain version's many launches do not
+    time the host."""
+    return graph_loop.StraightGraph(
+        lambda: [fn() for _ in range(reps)], dev).launch
+
+
 def masked_cycle_parity_and_timing(dev):
     """K10 -> the coarsest LU -> K11 against the plain twins' cycle (the
     existing ops) on the card, entered at each masked level of the Poisson
@@ -1666,10 +1714,6 @@ def masked_cycle_parity_and_timing(dev):
     bc, ws = masked_down_leg(u, b, w33s)
     uc = hier.coarse_solve(bc).contiguous()
     n = MASKED_GRAPH_LAUNCHES
-
-    def as_graph(fn, reps):
-        return graph_loop.StraightGraph(
-            lambda: [fn() for _ in range(reps)], dev).launch
     runs = {"masked_down_leg": (
                 lambda: masked_down_leg(u, b, w33s),
                 lambda: masked_down_leg_plain(u, b, w33s)),
@@ -1682,8 +1726,8 @@ def masked_cycle_parity_and_timing(dev):
     nbytes = {"masked_down_leg": 2 * field + nws + bc.nbytes,
               "masked_up_leg": uc.nbytes + nws + 2 * field}
     for name, (kern, plain) in runs.items():
-        p_ms, k_ms = alternating(as_graph(plain, 1), as_graph(kern, n), 5,
-                                 20)
+        p_ms, k_ms = alternating(as_graph(plain, 1, dev),
+                                 as_graph(kern, n, dev), 5, 20)
         k_ms /= n
         bnd = bound(nbytes[name], masked_cycle_ops(
             w33s, side, name == "masked_down_leg"))
@@ -1720,6 +1764,77 @@ def masked_cycle_parity_and_timing(dev):
           f"{nodes['plain'][0]} nodes (x{p_ms / k_ms:.1f}); {card()}")
     del nodes, out
     return ({k: worst for k in MASKED_LEGS}, times, bounds)
+
+
+def k12_planes(side: int, kind: str, dev) -> torch.Tensor:
+    """Kellogg's f32 planes at ``side`` ("kellogg"), or a Galerkin level of
+    them ("galerkin": the planes of side 2 side + 1 coarsened once, in f32
+    as the solver's hierarchy coarsens them)."""
+    if kind == "kellogg":
+        return varcoef.kellogg_planes(side, torch.float32, device=dev)
+    return rap_stencil_planes(varcoef.kellogg_planes(
+        2 * side + 1, torch.float32, device=dev))
+
+
+def masked_var_sweep_parity_and_timing(dev):
+    """K12 bitwise against the plain masked sweep (gs4_sweep_masked with
+    color_masks_iota) at K12_SIDES, on Kellogg's planes and on a Galerkin
+    level of them, symmetric and forward, omega 1 and 0.8, u and b from a
+    seed. At K12_TIMED, on the Galerkin level (2047^2: the jump cell's
+    level below the fine one): K12 and the plain sweep, each as a CUDA
+    graph (K12_GRAPH_LAUNCHES calls of K12, one of the plain sweep), per
+    call, the better of two interleaved runs, against the bound: u, b and
+    the nine planes read once and u written once, 48 B a cell. Returns
+    ({name: max_abs_err}, {name: (kernel ms, plain ms)}, {name: bound},
+    {n: (ms, bound ms)})."""
+    worst = 0.0
+    for side in K12_SIDES:
+        g = torch.Generator(device=dev).manual_seed(side)
+        u, b = (torch.randn((side, side), generator=g, device=dev)
+                for _ in range(2))
+        masks = color_masks_iota(side, torch.float32, dev)
+        for kind in ("kellogg", "galerkin"):
+            S = Stencil2D(side=side, c=k12_planes(side, kind, dev))
+            for symmetric in (True, False):
+                for omega in (1.0, 0.8):
+                    got = masked_gs4_sweep_var(S, u, b, omega, symmetric)
+                    ref = gs4_sweep_masked(S, u, b, masks, omega, symmetric)
+                    d, r = rel_err(got, ref)
+                    worst = max(worst, d)
+                    same = torch.equal(got, ref)
+                    print(f"parity K12 {kind} n={side} symmetric="
+                          f"{symmetric} omega={omega}: max_abs {d:.3e} rel "
+                          f"{r:.3e}, bitwise equal {same}")
+                    require(same, f"K12 bitwise the plain masked sweep "
+                            f"({kind}, n={side}, symmetric={symmetric}, "
+                            f"omega={omega})")
+            del S
+    times, bounds, by_n = {}, {}, {}
+    n = K12_GRAPH_LAUNCHES
+    for side in K12_TIMED:
+        g = torch.Generator(device=dev).manual_seed(side + 1)
+        u, b = (torch.randn((side, side), generator=g, device=dev)
+                for _ in range(2))
+        masks = color_masks_iota(side, torch.float32, dev)
+        S = Stencil2D(side=side, c=k12_planes(side, "galerkin", dev))
+        p_ms, k_ms = alternating(
+            as_graph(lambda: gs4_sweep_masked(S, u, b, masks), 1, dev),
+            as_graph(lambda: masked_gs4_sweep_var(S, u, b), n, dev), 5, 20)
+        k_ms /= n
+        cells = side * side
+        # nine products and adds, b - acc, the reciprocal, two products
+        # and the add an update, each cell twice
+        bnd = bound(3 * u.nbytes + S.c.nbytes, cells * 2 * (2 * 9 + 5))
+        print(f"time {MASKED_SWEEP} n={side}: kernel {k_ms:.4f} ms a "
+              f"symmetric sweep, plain {p_ms:.4f} ms (graphs; "
+              f"x{p_ms / k_ms:.1f}); bound {bnd[0]:.4f} ms ({bnd[1]}, "
+              f"{100 * bnd[0] / k_ms:.1f} % of it); {card()}")
+        by_n[side] = (k_ms, bnd[0])
+        if side == K12_TIMED[0]:
+            times[MASKED_SWEEP] = (k_ms, p_ms)
+            bounds[MASKED_SWEEP] = bnd
+        del S
+    return {MASKED_SWEEP: worst}, times, bounds, by_n
 
 
 def dispatch(run):
@@ -1810,6 +1925,8 @@ def graph_row(dev, label, side, kw, jump, tol):
             # each level and every V-cycle of the refines
             for k in MASKED_LEGS:
                 c[k] = s.hier.n_levels - 1 + s.cycles_per_refine * it
+        else:
+            c[MASKED_SWEEP] = k12_launches(s, it)
         return c
     L = s._loop_state()
     program = L.programs["prepared" if s.packed_loop else "device"]
@@ -4414,6 +4531,10 @@ def main() -> int:
     errs.update(e10)
     times.update(t10)
     bounds.update(b10)
+    e12, t12, b12, k12_by_n = masked_var_sweep_parity_and_timing(dev)
+    errs.update(e12)
+    times.update(t12)
+    bounds.update(b12)
     print(f"phase parity and timing: {time.perf_counter() - t0:.1f} s")
 
     # phases 4-6: every path through the user entry points, each with the
@@ -4460,11 +4581,13 @@ def main() -> int:
             entry["ms_by_M"] = {str(M): t for M, (t, _) in by_m[name].items()}
             entry["bound_ms_by_M"] = {str(M): bm
                                       for M, (_, bm) in by_m[name].items()}
-        if name == "fused_gs4_sweep_const":
-            # K5 works on unpacked (n, n) fields: by side n
-            entry["ms_by_n"] = {str(n): t for n, (t, _) in k5_by_n.items()}
-            entry["bound_ms_by_n"] = {str(n): bm
-                                      for n, (_, bm) in k5_by_n.items()}
+        for kname, by_n in (("fused_gs4_sweep_const", k5_by_n),
+                            (MASKED_SWEEP, k12_by_n)):
+            if name == kname:
+                # K5 and K12 work on unpacked (n, n) fields: by side n
+                entry["ms_by_n"] = {str(n): t for n, (t, _) in by_n.items()}
+                entry["bound_ms_by_n"] = {str(n): bm
+                                          for n, (_, bm) in by_n.items()}
         if name == "fused_gs4_sweep_rm":
             # launches stays the path count (0); the parity phase's own
             # launches are reported apart

@@ -8,7 +8,7 @@ machine (which has no JAX, so the JAX conftest is left out):
 The kernels keep the plain versions' operation order and are built with
 -fmad=false: K1, K2, K3, K5, K6, K8, K9 and K4's r.hi are held bitwise
 equal to their plain versions (torch.equal), K9 also to K1 through the
-layout conversions; K4's rss (summed in another order) to the JAX
+layout conversions, K12 to the plain masked sweep; K4's rss (summed in another order) to the JAX
 package's own bound for that kernel (tests/test_packed_df.py).
 """
 
@@ -36,9 +36,10 @@ from amg_tpu_torch.ops.kernels.packed_rm import (from_rm,
 from amg_tpu_torch.ops.kernels.halo import rdma_halo_exchange_plain
 from amg_tpu_torch.ops.kernels.packed_df import df_residual_rss_plain
 from amg_tpu_torch.ops.kernels.rbgs import fused_gs4_sweep_plain
-from amg_tpu_torch.ops.rap import poisson_const_w33
+from amg_tpu_torch.ops.rap import poisson_const_w33, rap_stencil_planes
 from amg_tpu_torch.sparse.packed import gs4_sweep_packed, pack
-from amg_tpu_torch.sparse.stencil import Stencil2D
+from amg_tpu_torch.sparse.stencil import (Stencil2D, color_masks_iota,
+                                          gs4_sweep_masked)
 from amg_tpu_torch.structured import vcycle_packed
 
 pytestmark = pytest.mark.cuda
@@ -373,6 +374,77 @@ def test_var_sweep_kernel(dev, side, planes, symmetric, omega):
             for _ in range(2))
     got = K.fused_gs4_sweep(S, u, b, omega, symmetric)
     assert torch.equal(got, fused_gs4_sweep_plain(S, u, b, omega, symmetric))
+
+
+# K12 at every side of the 4095^2 hierarchy below the fine level, and two
+# sides that are not 2^k - 1
+K12_SIDES = [7, 15, 31, 63, 127, 255, 511, 1023, 2047, 100, 1000]
+
+
+@pytest.mark.parametrize("omega", [1.0, 0.8])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("planes", ["kellogg", "galerkin"])
+@pytest.mark.parametrize("side", K12_SIDES)
+def test_masked_var_sweep_kernel(dev, side, planes, symmetric, omega):
+    """K12 bitwise equal to the plain masked sweep (gs4_sweep_masked with
+    parity masks) on Kellogg's planes and on a Galerkin level of them (the
+    planes of side 2 side + 1 coarsened once in f32), u and b from a seed;
+    one launch a call."""
+    c = varcoef.kellogg_planes(2 * side + 1 if planes == "galerkin"
+                               else side, torch.float32, device=dev)
+    if planes == "galerkin":
+        c = rap_stencil_planes(c)
+    S = Stencil2D(side=side, c=c)
+    g = torch.Generator(device=dev).manual_seed(side + len(planes))
+    u, b = (torch.randn((side, side), generator=g, device=dev)
+            for _ in range(2))
+    K.reset_launch_counts()
+    got = K.masked_gs4_sweep_var(S, u, b, omega, symmetric)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["masked_gs4_sweep_var"] == 1
+    want = gs4_sweep_masked(S, u, b, color_masks_iota(side, u.dtype, dev),
+                            omega, symmetric)
+    assert torch.equal(got, want)
+
+
+def test_masked_var_sweep_in_the_solve(dev, monkeypatch):
+    """Kellogg's 1023^2 f64 solve with smoother="fused" (every level
+    masked): u and stats bitwise the solve with the rule patched off; every
+    visit of a variable level counted as K12's (the plan's count: the FMG
+    start's cycles from each level down, 3 V-cycles a refine), two K12
+    launches a visit, none left to the plain sweep; fewer kernel nodes."""
+    from amg_tpu_torch import structured
+    from amg_tpu_torch.utils import tracing
+    side = 1023
+    planes = varcoef.kellogg_planes(side, device=dev)
+    b2 = poisson.rhs(side, device=dev).reshape(side, side)
+
+    def solve():
+        s = StructuredSolver(side, A_planes=planes, smoother="fused",
+                             precision="f64", device=dev)
+        s.solve_ir_device(b2, 1e-7, 40)                # captures
+        K.reset_launch_counts()
+        tracing.reset()
+        u, stats = s.solve_ir_device(b2, 1e-7, 40)
+        return s, u, stats, tracing.report()["counters"], K.launch_counts()
+    s, u, stats, c, launches = solve()
+    monkeypatch.setattr(structured, "masked_var_sweep_engages",
+                        lambda *args, **kw: False)
+    _, ref_u, ref_stats, c_ref, launches_ref = solve()
+    refines = int(stats[1])
+    last = s.hier.n_levels - 1
+    visits = sum(last - l for l in range(last)) \
+        + s.cycles_per_refine * refines * last
+    print(f"1023^2 Kellogg f64: {refines} refines, rss {float(stats[0])!r}; "
+          f"counters with K12 {c}, plain {c_ref}")
+    assert s.plan == ("masked",) * last + ("direct",)
+    assert torch.equal(u, ref_u) and torch.equal(stats, ref_stats)
+    assert (c["var_levels_kernel"], c["var_levels_plain"]) == (visits, 0)
+    assert launches["masked_gs4_sweep_var"] == 2 * visits
+    assert (c_ref["var_levels_kernel"], c_ref["var_levels_plain"]) \
+        == (0, visits)
+    assert launches_ref["masked_gs4_sweep_var"] == 0
+    assert c["kernels"] < c_ref["kernels"]
 
 
 def test_var_solve_on_the_card(dev):

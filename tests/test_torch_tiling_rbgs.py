@@ -21,12 +21,19 @@ shows, where there is no card, that
 * K5's block, the same window and regions with K5's own arithmetic (the
   constant weights summed di outer, dj inner, zero weights skipped: a
   ``Stencil2D.const`` operand) and its own tile, is exact too, and with any
-  entry of the shared table one smaller it is not.
+  entry of the shared table one smaller it is not;
+* K12's block (csrc/rbgs_var.cu masked_var_sweep_kernel), K6's tile,
+  window and regions with the plain masked sweep's arithmetic (all nine
+  terms with the diagonal in its place, (b - acc) * (1 / c_diag), u +
+  omega * g), is exact against sparse.stencil.gs4_sweep_masked with
+  parity masks, on grids smaller than one tile too.
 
 Sizes: n = 127 and 255 and a ragged even n = 200 with the kernels' tiles
 (K6 32 x 64, K5 32 x 114); 5-point and 9-point constant planes, the jump
 planes and random positive planes (K6), 5-point and 9-point weights (K5);
-f32; symmetric and forward; omega 1 and 0.9.
+f32; symmetric and forward; omega 1 and 0.9. K12: n = 7, 31, 127 and 200,
+Kellogg's planes, a Galerkin level of them and random positive planes;
+omega 1 and 0.8.
 """
 
 import numpy as np
@@ -35,7 +42,9 @@ import torch
 
 from amg_tpu_torch.models import varcoef
 from amg_tpu_torch.ops.kernels.rbgs import OFFSETS, fused_gs4_sweep_plain
-from amg_tpu_torch.sparse.stencil import FOUR_COLORS, Stencil2D
+from amg_tpu_torch.ops.rap import rap_stencil_planes
+from amg_tpu_torch.sparse.stencil import (FOUR_COLORS, Stencil2D,
+                                          color_masks_iota, gs4_sweep_masked)
 
 torch.set_num_threads(1)
 
@@ -60,6 +69,11 @@ NINE = ((-0.5, -1.0, -0.5), (-1.0, 6.0, -1.0), (-0.5, -1.0, -0.5))
 def _planes(kind: str, n: int, rng) -> torch.Tensor:
     if kind == "jump":
         return varcoef.jump_planes(n, device="cpu")
+    if kind == "kellogg":
+        return varcoef.kellogg_planes(n, torch.float32, device="cpu")
+    if kind == "galerkin":
+        return rap_stencil_planes(varcoef.kellogg_planes(
+            2 * n + 1, torch.float32, device="cpu"))
     if kind == "random":
         c = rng.random((3, 3, n, n)) + 0.5
         c[1, 1] += 8.0
@@ -92,12 +106,12 @@ def _region(margins, sym: bool, k: int, pi: int, Jt: int, It: int, J, I,
 
 
 def tiled(c, u, b, omega: float, sym: bool, ring: tuple, margins=None,
-          tile=TILE):
-    """K6 (``c`` (3,3,n,n) planes) or K5 (``c`` a w33 tuple) as its blocks
-    compute it: each ``tile`` with the window margins ``ring``; every inner
-    window cell of the step's color updated, or, given per-phase
-    ``margins`` (MARGINS[sym] for the kernels'), only those in the load
-    phase regions."""
+          tile=TILE, masked: bool = False):
+    """K6 (``c`` (3,3,n,n) planes), K12 (the planes with ``masked``) or K5
+    (``c`` a w33 tuple) as its blocks compute it: each ``tile`` with the
+    window margins ``ring``; every inner window cell of the step's color
+    updated, or, given per-phase ``margins`` (MARGINS[sym] for the
+    kernels'), only those in the load phase regions."""
     n = u.shape[-1]
     TJ, TI = tile
     const = not isinstance(c, torch.Tensor)
@@ -119,16 +133,21 @@ def tiled(c, u, b, omega: float, sym: bool, ring: tuple, margins=None,
                          for dj in (-1, 0, 1)
                          if (dj, di) != (0, 0) and c[dj + 1][di + 1] != 0.0]
                 inv = 1.0 / c[1][1]
-            else:          # K6: OFFSETS order, the planes' coefficients
+            else:          # K6: OFFSETS order; K12: all nine in order
                 C = _window(c, j0, i0, H, W)
+                offsets = ([(dj, di) for dj in (-1, 0, 1)
+                            for di in (-1, 0, 1)] if masked else OFFSETS)
                 terms = [((dj, di), C[dj + 1, di + 1][inner])
-                         for dj, di in OFFSETS]
+                         for dj, di in offsets]
                 inv = 1.0 / C[1, 1][inner]
             for k, (pj, pi) in enumerate(order):
                 acc = torch.zeros((H - 2, W - 2), dtype=u.dtype)
                 for (dj, di), w in terms:
                     acc = acc + w * U[1 + dj:H - 1 + dj, 1 + di:W - 1 + di]
-                delta = (B[inner] - acc) * inv - U[inner]
+                if masked:     # u + omega * g, g = (b - acc) * (1 / c_diag)
+                    delta = (B[inner] - acc) * inv
+                else:
+                    delta = (B[inner] - acc) * inv - U[inner]
                 mask = (real & ((J % 2) == pj).reshape(-1, 1)
                         & ((I % 2) == pi).reshape(1, -1))
                 if margins is not None:
@@ -217,3 +236,21 @@ def test_k5_least_margin(sym, phase, field):
     want = fused_gs4_sweep_plain(Stencil2D.const(NINE, 127), u, b, 0.9, sym)
     got = tiled(NINE, u, b, 0.9, sym, SHIPPED[sym], less, K5_TILE)
     assert not torch.equal(got, want)
+
+
+@pytest.mark.parametrize("omega", [1.0, 0.8])
+@pytest.mark.parametrize("sym", [True, False], ids=["symmetric", "forward"])
+@pytest.mark.parametrize("planes", ["kellogg", "galerkin", "random"])
+@pytest.mark.parametrize("n", [7, 31, 127, 200])
+def test_k12_shipped_block_is_exact(n, planes, sym, omega):
+    """K12's block (K6's tile, window and regions) with the masked sweep's
+    arithmetic, bitwise against gs4_sweep_masked with parity masks."""
+    rng = np.random.default_rng(n + 11 * len(planes))
+    c = _planes(planes, n, rng)
+    u, b = (torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32)
+            for _ in range(2))
+    want = gs4_sweep_masked(Stencil2D(side=n, c=c), u, b,
+                            color_masks_iota(n), omega, sym)
+    got = tiled(c, u, b, omega, sym, SHIPPED[sym], MARGINS[sym],
+                masked=True)
+    assert torch.equal(got, want)
