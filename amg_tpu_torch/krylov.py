@@ -40,7 +40,7 @@ def _preconditioner(hier: StencilHierarchy, fused: bool = False,
     if cycle is None:
         if hier.smoother == "packed":
             ms = PACKED_MIN_SIDE if min_side is None else min_side
-            plan = level_plan(hier.sides, 1, 1, ms, fused, var=hier.is_var)
+            plan = level_plan(hier, 1, 1, ms, fused)
 
             def cycle(h, z, r):
                 return vcycle_packed(h, z, r, min_side=ms, fused=fused,

@@ -40,18 +40,16 @@ Smoothers (``smoother=``):
   sub-lattices, or the degree-4 Chebyshev smoother on each level's
   lambda_max bound. All three are plain PyTorch, as in JAX.
 
-On the card, an unpacked V-cycle that reaches constant masked levels whose
-fields fit one block's shared memory (127^2 and below: every hierarchy's
-masked levels under the packed ones, and those of smoother="masked" or
-"fused") runs them as the masked legs K10/K11 with the coarsest LU between
-(:func:`masked_legs_engage`), bitwise the plain ops. A masked level given
-by its planes alone is swept by K12 (:func:`masked_var_sweep_engages`),
-bitwise the plain masked sweep.
-
-Which machinery runs on which level is decided once, from the sides and
-the options, in :func:`level_plan` (``StructuredSolver.plan``). On CPU
-tensors every kernel wrapper runs its plain version, so the same plan
-drives the CPU tests.
+Which machinery runs on which level is decided once, from what the
+hierarchy holds, and every cycle dispatches on it: the hierarchy's
+``kinds`` name the unpacked cycle's machinery on each level, kernels
+included (``masked_legs``: the masked legs K10/K11 with the coarsest LU
+between, on constant masked levels whose fields fit one block's shared
+memory, 127^2 and below; ``masked_k12``: the masked sweep K12 on a level
+given by its planes alone), and :func:`level_plan` puts the packed
+cycle's kinds on top of them (``StructuredSolver.plan``). On CPU tensors
+every kernel wrapper runs its plain twin, bitwise the plain ops, so the
+same kinds drive the CPU tests.
 """
 
 from __future__ import annotations
@@ -131,6 +129,12 @@ class StencilHierarchy(nn.Module):
     lambda_max(D^-1 A) bounds for the Chebyshev smoother, or None.
     ``chunk_loops``: ``solve_stencil``'s chunk loops (and their graphs),
     dropped with the hierarchy or when it moves.
+
+    ``kinds``: the machinery of each level in the unpacked cycle, decided
+    from what the hierarchy holds when it is built and again when its
+    buffers move or change dtype (:meth:`_level_kinds`); every cycle
+    dispatches on them. A caller may set plain kinds (``masked`` in place
+    of ``masked_legs`` and ``masked_k12``) to run the plain ops.
     """
 
     def __init__(self, sides, w33s, coarse_lu, coarse_piv, P1s, planes=None,
@@ -165,10 +169,64 @@ class StencilHierarchy(nn.Module):
                 self.register_buffer(f"cp_{l}",
                                      pack_planes(c, (self.sides[l] - 1) // 2))
         self.chunk_loops = {}
+        self.kinds = self._level_kinds()
 
     def _apply(self, fn, recurse=True):
         self.chunk_loops = {}
-        return super()._apply(fn, recurse)
+        module = super()._apply(fn, recurse)
+        self.kinds = self._level_kinds()
+        return module
+
+    def _level_kinds(self) -> tuple:
+        """Each level's machinery in the unpacked cycle, in the JAX
+        package's order of choice:
+
+        * ``direct``: the coarsest level's LU solve;
+        * ``strided``: four-color sweeps on strided sub-lattices
+          (smoother="strided");
+        * ``chebyshev``: the degree-4 Chebyshev smoother
+          (smoother="chebyshev", on a level with a lambda_max bound: stored,
+          or analytic from constant weights);
+        * ``fused_const`` / ``fused_var``: the fused sweep K5 / K6
+          (smoother="fused", side >= FUSED_MIN_SIDE; K6 on a level given by
+          its planes alone);
+        * ``masked_legs``: the V-cycle from this level down as the masked
+          legs K10/K11 with the coarsest LU between: an f32 hierarchy whose
+          levels from here to the coarsest but one are all constant and
+          masked, entered at a side whose fields fit one block's shared
+          memory (``masked_cycle.fits``: 127^2 and below on 2^k - 1
+          hierarchies);
+        * ``masked_k12``: masked four-color sweeps by K12 on a level given
+          by its planes alone, f32 and contiguous;
+        * ``masked``: the plain masked four-color sweeps (the stored masks,
+          or masks built in each sweep).
+
+        The kernels' wrappers run their plain twins on CPU tensors, so the
+        kinds do not depend on the device."""
+        last = self.n_levels - 1
+        kinds = []
+        for l, (s, w33) in enumerate(zip(self.sides[:last], self.w33s)):
+            c = getattr(self, f"c_{l}", None)
+            if self.smoother == "strided":
+                kinds.append("strided")
+            elif self.smoother == "chebyshev" and (
+                    self.lam_maxes is not None or w33 is not None):
+                kinds.append("chebyshev")
+            elif self.smoother == "fused" and s >= FUSED_MIN_SIDE:
+                kinds.append("fused_const" if w33 is not None
+                             else "fused_var")
+            elif (w33 is None and c.dtype == torch.float32
+                  and c.is_contiguous()):
+                kinds.append("masked_k12")
+            else:
+                kinds.append("masked")
+        f32 = self.coarse_lu.dtype == torch.float32
+        for l in range(last):
+            if (f32 and masked_cycle.fits(self.sides[l], last - l)
+                    and all(kinds[k] == "masked" and self.w33s[k] is not None
+                            for k in range(l, last))):
+                kinds[l] = "masked_legs"
+        return (*kinds, "direct")
 
     @property
     def n_levels(self) -> int:
@@ -364,46 +422,35 @@ def prolong_mm(uc2, P1):
     return P1 @ uc2 @ P1.T
 
 
-def _fused_level(smoother: str, side: int) -> bool:
-    """Whether a level sweeps with K5/K6 (smoother="fused", large side)."""
-    return smoother == "fused" and side >= FUSED_MIN_SIDE
-
-
-def _smooth(hier: StencilHierarchy, l: int, u2, b2, sweeps: int,
+def _smooth(hier: StencilHierarchy, l: int, kind: str, u2, b2, sweeps: int,
             omega: float, symmetric: bool):
-    """Smoothing on a non-packed level, in the JAX package's order: the
-    strided sweep; the degree-4 Chebyshev smoother (where the level has a
-    lambda_max bound: stored, or analytic on a constant level); the fused
-    sweep kernel on the fused levels; masked four-color sweeps: K12 where
-    :func:`masked_var_sweep_engages` holds, else the plain sweep with the
-    stored masks, or masks built here."""
+    """``sweeps`` smoothing steps on a non-packed level by the machinery
+    ``kind`` names: K12, the strided sweep, the degree-4 Chebyshev
+    smoother, the fused sweep K5/K6, or else the plain masked sweep with
+    the stored masks, or masks built here."""
     S = hier.levels[l]
-    if hier.smoother == "strided":
-        for _ in range(sweeps):
-            u2 = gs4_sweep(S, u2, b2, omega, symmetric)
-        return u2
-    if hier.smoother == "chebyshev" and (hier.lam_maxes is not None
-                                         or S.w33 is not None):
-        lam = (hier.lam_maxes[l] if hier.lam_maxes is not None
-               else const_lam_max(S.w33))
-        for _ in range(sweeps):
-            u2 = chebyshev_smooth(S, u2, b2, lam, degree=4)
-        return u2
-    if _fused_level(hier.smoother, S.side):
-        for _ in range(sweeps):
-            u2 = fused_gs4_sweep(S, u2, b2, omega, symmetric)
-        return u2
-    if masked_var_sweep_engages(hier, l, u2, b2):
+    if kind == "masked_k12":
         b2 = b2.contiguous()
         for _ in range(sweeps):
             u2 = masked_gs4_sweep_var(S, u2.contiguous(), b2, omega,
                                       symmetric)
-        return u2
-    masks = hier.masks[l]
-    if masks is None:
-        masks = color_masks_iota(S.side, b2.dtype, b2.device)
-    for _ in range(sweeps):
-        u2 = gs4_sweep_masked(S, u2, b2, masks, omega, symmetric)
+    elif kind == "strided":
+        for _ in range(sweeps):
+            u2 = gs4_sweep(S, u2, b2, omega, symmetric)
+    elif kind == "chebyshev":
+        lam = (hier.lam_maxes[l] if hier.lam_maxes is not None
+               else const_lam_max(S.w33))
+        for _ in range(sweeps):
+            u2 = chebyshev_smooth(S, u2, b2, lam, degree=4)
+    elif kind in ("fused_const", "fused_var"):
+        for _ in range(sweeps):
+            u2 = fused_gs4_sweep(S, u2, b2, omega, symmetric)
+    else:
+        masks = hier.masks[l]
+        if masks is None:
+            masks = color_masks_iota(S.side, b2.dtype, b2.device)
+        for _ in range(sweeps):
+            u2 = gs4_sweep_masked(S, u2, b2, masks, omega, symmetric)
     return u2
 
 
@@ -414,90 +461,60 @@ def cycle_stencil(hier: StencilHierarchy, u2, b2, gamma: int = 1,
     """Generalized multigrid cycle on unpacked fields from level ``_level``
     down (leg order of multigrid.hpp:263-305): the coarse problem is
     visited ``gamma`` times per level, so gamma = 1 is the V-cycle
-    (:func:`vcycle_stencil`) and gamma = 2 the W-cycle. On the card, a
-    V-cycle that reaches a level where :func:`masked_legs_engage` holds
-    runs the rest of the way down and back as the masked legs K10/K11 and
-    the coarsest level's LU between them, bitwise the plain ops."""
+    (:func:`vcycle_stencil`) and gamma = 2 the W-cycle. Each level runs
+    the machinery its kind (``hier.kinds``) names: a V-cycle that reaches
+    a ``masked_legs`` level runs the rest of the way down and back as the
+    masked legs K10/K11 and the coarsest level's LU between them, bitwise
+    the plain ops."""
     return _cycle_at(hier, u2, b2, gamma, pre_sweeps, post_sweeps, omega,
                      symmetric, _level, False)
 
 
-def masked_legs_engage(hier: StencilHierarchy, l: int, gamma: int = 1
-                       ) -> bool:
-    """Whether a cycle at level ``l`` of ``hier`` can run as the masked legs
-    K10/K11 (``ops/kernels/masked_cycle.py``): a V-cycle (gamma = 1) on an
-    f32 hierarchy whose levels from ``l`` to the coarsest but one all have
-    constant weights and the masked machinery, entered at a side whose
-    fields fit one block's shared memory (``masked_cycle.fits``: 127^2 and
-    below on 2^k - 1 hierarchies). :func:`cycle_stencil` takes them when
-    the fields are f32 on the card too."""
-    last = hier.n_levels - 1
-    return (gamma == 1 and l < last
-            and hier.coarse_lu.dtype == torch.float32
-            and masked_cycle.fits(hier.sides[l], last - l)
-            and all(hier.w33s[k] is not None
-                    and _cycle_kind(hier, k) == "masked"
-                    for k in range(l, last)))
-
-
-def masked_var_sweep_engages(hier: StencilHierarchy, l: int, u2, b2
-                             ) -> bool:
-    """Whether :func:`_smooth` sweeps level ``l`` of ``hier`` with K12
-    (``ops/kernels/rbgs.masked_gs4_sweep_var``, bitwise the plain masked
-    sweep): a level given by its planes alone (no constant weights), f32
-    and contiguous, that the unpacked cycle sweeps with the masked
-    machinery, with u and b f32 fields on the card. The level's visits
-    then count as the kernel's (``tracing.VAR_LEVELS``)."""
-    if not (u2.is_cuda and b2.is_cuda
-            and u2.dtype == b2.dtype == torch.float32):
-        return False
-    c = getattr(hier, f"c_{l}", None)
-    return (hier.w33s[l] is None and c is not None
-            and c.dtype == torch.float32 and c.is_contiguous()
-            and _cycle_kind(hier, l) == "masked")
-
-
-def _masked_legs(hier: StencilHierarchy, u2, b2, pre_sweeps: int,
-                 post_sweeps: int, omega: float, symmetric: bool, l: int):
-    """The V-cycle from level ``l`` as K10, the coarsest level's LU and
-    K11: one ``masked_legs`` span over the entry level, the LU's
-    ``coarse`` span inside it."""
-    last = hier.n_levels - 1
-    w33s = hier.w33s[l:last]
-    with _visit(hier, l, "masked_legs"):
-        count_launch(tracing.MASKED_CYCLES["kernel"])
-        b2 = b2.contiguous()
-        bc, ws = masked_cycle.masked_down_leg(u2.contiguous(), b2, w33s,
-                                              pre_sweeps, omega, symmetric)
-        with _visit(hier, last):
-            uc = hier.coarse_solve(bc).contiguous()
-        return masked_cycle.masked_up_leg(uc, b2, ws, w33s, post_sweeps,
-                                          omega, symmetric)
+def _call_kind(hier: StencilHierarchy, l: int, gamma: int, u2, b2) -> str:
+    """Level ``l``'s kind for one visit: the hierarchy's, but the plain
+    masked sweep where its kernels cannot take the visit: a W-cycle
+    (gamma != 1) through ``masked_legs``, or fields other than the f32
+    that K10/K11 and K12 take."""
+    kind = hier.kinds[l]
+    if kind == "masked_legs" and gamma != 1:
+        return "masked"
+    if (kind in ("masked_legs", "masked_k12")
+            and not u2.dtype == b2.dtype == torch.float32):
+        return "masked"
+    return kind
 
 
 def _cycle_at(hier: StencilHierarchy, u2, b2, gamma: int, pre_sweeps: int,
               post_sweeps: int, omega: float, symmetric: bool, l: int,
               in_masked: bool):
     """cycle_stencil's visit of level ``l``; ``in_masked``: the level above
-    ran the plain masked machinery (a run of masked levels counts as one
-    plain masked cycle, ``tracing.MASKED_CYCLES``)."""
-    if (u2.is_cuda and u2.dtype == b2.dtype == torch.float32
-            and masked_legs_engage(hier, l, gamma)):
-        return _masked_legs(hier, u2, b2, pre_sweeps, post_sweeps, omega,
-                            symmetric, l)
-    k12 = masked_var_sweep_engages(hier, l, u2, b2)
-    with _visit(hier, l, "masked_k12" if k12 else None):
-        if l == hier.n_levels - 1:
+    was swept masked (a run of masked levels counts as one plain masked
+    cycle, ``tracing.MASKED_CYCLES``; a ``masked_legs`` entry as one of
+    K10/K11's)."""
+    kind = _call_kind(hier, l, gamma, u2, b2)
+    last = hier.n_levels - 1
+    with _visit(hier, l, kind):
+        if kind == "direct":
             return hier.coarse_solve(b2)
-        kind = _cycle_kind(hier, l)
-        masked = kind == "masked"
+        if kind == "masked_legs":
+            count_launch(tracing.MASKED_CYCLES["kernel"])
+            w33s = hier.w33s[l:last]
+            b2 = b2.contiguous()
+            bc, ws = masked_cycle.masked_down_leg(u2.contiguous(), b2, w33s,
+                                                  pre_sweeps, omega,
+                                                  symmetric)
+            with _visit(hier, last, hier.kinds[last]):
+                uc = hier.coarse_solve(bc).contiguous()
+            return masked_cycle.masked_up_leg(uc, b2, ws, w33s, post_sweeps,
+                                              omega, symmetric)
+        masked = kind in ("masked", "masked_k12")
         if masked and not in_masked:
             count_launch(tracing.MASKED_CYCLES["plain"])
         if hier.w33s[l] is None:
             count_launch(tracing.VAR_LEVELS[
-                "kernel" if kind == "fused_var" or k12 else "plain"])
+                "kernel" if kind in ("fused_var", "masked_k12") else "plain"])
         S = hier.levels[l]
-        u2 = _smooth(hier, l, u2, b2, pre_sweeps, omega, symmetric)
+        u2 = _smooth(hier, l, kind, u2, b2, pre_sweeps, omega, symmetric)
         r = b2 - S.matvec2(u2)
         bc = restrict_mm(r, hier.P1s[l])
         uc = torch.zeros_like(bc)
@@ -505,36 +522,18 @@ def _cycle_at(hier: StencilHierarchy, u2, b2, gamma: int, pre_sweeps: int,
             uc = _cycle_at(hier, uc, bc, gamma, pre_sweeps, post_sweeps,
                            omega, symmetric, l + 1, masked)
         u2 = u2 + prolong_mm(uc, hier.P1s[l])
-        return _smooth(hier, l, u2, b2, post_sweeps, omega, symmetric)
+        return _smooth(hier, l, kind, u2, b2, post_sweeps, omega, symmetric)
 
 
-def _cycle_kind(hier: StencilHierarchy, l: int) -> str:
-    """The machinery of level ``l`` of the unpacked cycle, as _smooth
-    picks it (level_plan's names)."""
-    if l == hier.n_levels - 1:
-        return "coarse"
-    if hier.smoother == "strided":
-        return "strided"
-    if hier.smoother == "chebyshev" and (hier.lam_maxes is not None
-                                         or hier.levels[l].w33 is not None):
-        return "chebyshev"
-    if _fused_level(hier.smoother, hier.sides[l]):
-        return "fused_var" if hier.is_var else "fused_const"
-    return "masked"
-
-
-def _visit(hier: StencilHierarchy, l: int, kind: str | None = None):
+def _visit(hier: StencilHierarchy, l: int, kind: str):
     """The tracing span of one visit of level ``l``: ``vcycle.level`` with
-    the level, its side and its machinery (``kind``, a level_plan name,
-    ``masked_legs`` or ``masked_k12``, a masked level swept by K12; the
-    unpacked cycle's when None; ``coarse`` for the coarsest level's LU).
-    Tracing off: the null context."""
+    the level, its side and its machinery (``kind``; ``coarse`` for the
+    coarsest level's LU, the kind ``direct``). Tracing off: the null
+    context."""
     if not tracing.enabled():
         return tracing.span("vcycle.level")
-    if l == hier.n_levels - 1 or kind is None:
-        kind = _cycle_kind(hier, l)
     return tracing.span("vcycle.level", level=l, side=hier.sides[l],
-                        machinery=kind)
+                        machinery="coarse" if kind == "direct" else kind)
 
 
 def vcycle_stencil(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
@@ -547,53 +546,47 @@ def vcycle_stencil(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
                          symmetric, _level=_level)
 
 
-def level_plan(sides, pre_sweeps: int, post_sweeps: int, min_side: int,
-               fused: bool, var: bool = False,
-               smoother: str = "packed") -> tuple:
-    """Per-level choice of machinery, decided once from the sides:
+# the packed V-cycle's kinds on constant levels; with "packed_var", every
+# kind that vcycle_packed runs packed
+CONST_PACKED = ("packed", "legs", "split", "sweep")
+PACKED = CONST_PACKED + ("packed_var",)
 
-    * ``direct``: the coarsest level's LU solve;
-    * ``masked``: the masked four-color cycle (side < min_side, any
-      non-fused level of a smoother="fused" solve, every level of a
-      smoother="masked" one);
-    * ``strided`` / ``chebyshev``: the unpacked cycle with that smoother
-      (smoother="strided" / "chebyshev", every level);
+
+def level_plan(hier: StencilHierarchy, pre_sweeps: int, post_sweeps: int,
+               min_side: int, fused: bool) -> tuple:
+    """Each level's machinery in the packed V-cycle (:func:`vcycle_packed`):
+    the packed kinds from ``min_side`` up, the hierarchy's own kinds
+    (``hier.kinds``) below:
+
     * ``packed``: plain PyTorch packed ops, constant stencil;
-    * ``packed_var``: plain PyTorch packed ops on packed planes;
+    * ``packed_var``: plain PyTorch packed ops on packed planes (a level
+      given by its planes alone);
     * ``legs``: the fused down/up legs (K2/K3), constant levels of side
-      >= FUSED_PACKED_MIN_SIDE with one pre- and one post-sweep;
+      >= FUSED_PACKED_MIN_SIDE with one pre- and one post-sweep
+      (``fused``);
     * ``split``: the same levels of side >= SPLIT_MIN_SIDE: the fused
       sweep (K1), the fused residual + restriction (K8), then the up leg
       (K3), as the JAX package runs its levels of M >= 4096;
     * ``sweep``: the fused packed sweep (K1) with plain residual and
-      transfers, the same levels with other sweep counts;
-    * ``fused_const`` / ``fused_var``: smoother="fused" levels of side >=
-      FUSED_MIN_SIDE, swept by K5 / K6.
+      transfers, the same levels with other sweep counts.
 
     The GPU kernels take every size; the TPU's VMEM eligibility gates
     survive only as the thresholds, so the plan picks on each level what
     the JAX package picks on a 2^k - 1 hierarchy.
     """
-    kinds = []
-    for l, s in enumerate(sides):
-        if l == len(sides) - 1:
-            kinds.append("direct")
-        elif smoother == "fused":
-            kinds.append(("fused_var" if var else "fused_const")
-                         if _fused_level(smoother, s) else "masked")
-        elif smoother != "packed":
-            kinds.append(smoother)
-        elif s < min_side:
-            kinds.append("masked")
-        elif var:
-            kinds.append("packed_var")
+    kinds = list(hier.kinds)
+    for l, s in enumerate(hier.sides[:-1]):
+        if s < min_side:
+            continue
+        if hier.w33s[l] is None:
+            kinds[l] = "packed_var"
         elif fused and s >= FUSED_PACKED_MIN_SIDE:
             if pre_sweeps == post_sweeps == 1:
-                kinds.append("split" if s >= SPLIT_MIN_SIDE else "legs")
+                kinds[l] = "split" if s >= SPLIT_MIN_SIDE else "legs"
             else:
-                kinds.append("sweep")
+                kinds[l] = "sweep"
         else:
-            kinds.append("packed")
+            kinds[l] = "packed"
     return tuple(kinds)
 
 
@@ -603,21 +596,20 @@ def vcycle_packed(hier: StencilHierarchy, u2, b2, pre_sweeps: int = 1,
                   _packed_in: bool = False, min_side: int | None = None,
                   fused: bool = False, plan: tuple | None = None):
     """V-cycle with color-packed smoothing, residual and transfers on the
-    levels of side >= min_side and the masked machinery below; the same
+    levels of side >= min_side and the unpacked cycle below; the same
     leg order and iterates as the unpacked cycle up to rounding.
     Variable-coefficient levels sweep with their packed planes.
 
-    ``plan`` (from :func:`level_plan`) picks each level's machinery; when
-    None it is derived from the arguments. With ``_packed_in`` the fields
+    ``plan`` (from :func:`level_plan`) names each level's machinery; when
+    None it is the plan of the arguments. With ``_packed_in`` the fields
     arrive and return packed ((4, M, M)), so a solve loop pays pack and
     unpack once per solve."""
     if min_side is None:
         min_side = PACKED_MIN_SIDE
     if plan is None:
-        plan = level_plan(hier.sides, pre_sweeps, post_sweeps, min_side,
-                          fused, var=hier.is_var)
+        plan = level_plan(hier, pre_sweeps, post_sweeps, min_side, fused)
     l = _level
-    if l < hier.n_levels - 1 and not _packed_in and plan[l] == "masked":
+    if not _packed_in and plan[l] not in PACKED:
         return vcycle_stencil(hier, u2, b2, pre_sweeps, post_sweeps, omega,
                               symmetric, _level=l)
     with _visit(hier, l, plan[l]):
@@ -630,18 +622,11 @@ def _vcycle_packed_at(hier: StencilHierarchy, u2, b2, pre_sweeps: int,
                       post_sweeps: int, omega: float, symmetric: bool,
                       l: int, _packed_in: bool, min_side: int, fused: bool,
                       plan: tuple):
-    """vcycle_packed's visit of level ``l`` (not a masked one entered
-    unpacked)."""
-    if l == hier.n_levels - 1:
-        nc = hier.sides[-1]
-        ml = (nc - 1) // 2
-        bd = unpack(b2, ml) if _packed_in else b2
-        sol = hier.coarse_solve(bd)
-        return pack(sol, ml) if _packed_in else sol
+    """vcycle_packed's visit of level ``l``, a packed one."""
     kind = plan[l]
     S = hier.levels[l]
     m = (S.side - 1) // 2
-    if S.w33 is None:
+    if kind == "packed_var":
         count_launch(tracing.VAR_LEVELS["plain"])
         cp = hier.packed_planes(l)
 
@@ -696,43 +681,39 @@ def fmg_stencil(hier: StencilHierarchy, b2, cycles_per_level: int = 1,
     """Full multigrid (nested iteration): restrict the rhs down from level
     ``start_level``, solve the coarsest level directly, then prolong the
     solution up, running ``cycles_per_level`` cycles on each level: with
-    gamma = 1 a packed V-cycle on the constant levels of side >= min_side
-    of a smoother="packed" hierarchy, the unpacked cycle of ``gamma``
-    everywhere else (as in the JAX package, so a variable or fused
-    hierarchy never takes a packed cycle here).
+    gamma = 1 a packed V-cycle on the levels where the plan packs a
+    constant level, the unpacked cycle of ``gamma`` everywhere else (as in
+    the JAX package, so a variable or fused hierarchy never takes a packed
+    cycle here). ``plan`` None: :func:`level_plan` of the arguments on a
+    smoother="packed" hierarchy, else the hierarchy's kinds.
 
     The b-chain uses restrict_mm / prolong_mm: the JAX package measured the
     4095^2 refine count to depend on this chain's precision, which is why
     TF32 stays off (StructuredSolver)."""
     if min_side is None:
         min_side = PACKED_MIN_SIDE
-    use_packed = hier.smoother == "packed" and gamma == 1
+    if plan is None:
+        plan = (level_plan(hier, pre_sweeps, post_sweeps, min_side, fused)
+                if hier.smoother == "packed" else hier.kinds)
+    # what runs on each level; a visit of level l is the b-chain's
+    # restriction from it on the way down, the prolongation to it and its
+    # cycles on the way up
+    kinds = [k if gamma == 1 and k in CONST_PACKED
+             else _call_kind(hier, l, gamma, b2, b2)
+             for l, k in enumerate(plan)]
     L = hier.n_levels
     l0 = start_level
-
-    def packed_at(l):
-        return (use_packed and hier.sides[l] >= min_side
-                and hier.w33s[l] is not None)
-    kinds = None
-    if tracing.enabled():
-        kinds = plan or level_plan(hier.sides, pre_sweeps, post_sweeps,
-                                   min_side, fused, var=hier.is_var)
-
-    def visit(l):
-        # a visit of level l: the b-chain's restriction from it on the way
-        # down; the prolongation to it and its cycles on the way up
-        return _visit(hier, l, kinds[l] if kinds and packed_at(l) else None)
     bs = {l0: b2}
     for l in range(l0, L - 1):
-        with visit(l):
+        with _visit(hier, l, kinds[l]):
             bs[l + 1] = restrict_mm(bs[l], hier.P1s[l])
-    with visit(L - 1):
+    with _visit(hier, L - 1, kinds[L - 1]):
         u = hier.coarse_solve(bs[L - 1])
     for l in range(L - 2, l0 - 1, -1):
-        with visit(l):
+        with _visit(hier, l, kinds[l]):
             u = prolong_mm(u, hier.P1s[l])
             for _ in range(cycles_per_level):
-                if packed_at(l):
+                if kinds[l] in CONST_PACKED:
                     u = vcycle_packed(hier, u, bs[l], pre_sweeps,
                                       post_sweeps, omega, symmetric,
                                       _level=l, min_side=min_side,
@@ -848,8 +829,8 @@ def _assign(dst: DF32, src: DF32) -> None:
 
 
 class StructuredSolver:
-    """Single-device structured solver: the hierarchy and the level plan
-    are built once, then solves are cheap to repeat.
+    """Single-device structured solver: the hierarchy, with each level's
+    machinery, is built once, then solves are cheap to repeat.
 
     Same defaults as the JAX solver: ``smoother="auto"``,
     ``precision="df32"``, ``fmg=True``, ``cycles_per_refine=3``. The fine
@@ -875,7 +856,10 @@ class StructuredSolver:
     levels); the unpacked df32 loop otherwise (variable operators, the
     unpacked smoothers, small sides); the f64 loop for
     ``precision="f64"``; ``solve_ir``, the host-stepped refine with an
-    f64 residual, whatever the precision.
+    f64 residual, whatever the precision. Every loop's V-cycles run
+    ``plan``; the unpacked loops' FMG start takes the JAX defaults
+    (:func:`fmg_stencil`: no fused kernel, packed levels from
+    PACKED_MIN_SIDE on a packed hierarchy).
     """
 
     def __init__(self, side: int, n_levels: int | None = None,
@@ -971,10 +955,6 @@ class StructuredSolver:
                             and self.smoother == "packed"
                             and side >= packed_min_side
                             and self.hier.n_levels >= 2)
-        self.plan = level_plan(self.hier.sides, self.pre_sweeps,
-                               self.post_sweeps, self.packed_min_side,
-                               self.fused_packed, var=self.hier.is_var,
-                               smoother=self.smoother)
         # K4 needs power-of-two weights (2^k - 1 grids); other sides take
         # the general df32 residual, as the JAX package does
         self.df_kernel = (self.fused_packed and self.w33 is not None
@@ -982,6 +962,16 @@ class StructuredSolver:
         self._loop = None         # the solve loop (_loop_state)
         self._refine = None       # solve_ir's step (_refine_state)
         self._graphs = {}         # their programs' graphs on the card
+
+    @property
+    def plan(self) -> tuple:
+        """Each level's machinery in the solve's V-cycles, kernels
+        included: :func:`level_plan` with the packed smoother, else the
+        hierarchy's kinds."""
+        if self.smoother != "packed":
+            return self.hier.kinds
+        return level_plan(self.hier, self.pre_sweeps, self.post_sweeps,
+                          self.packed_min_side, self.fused_packed)
 
     # -- pieces of the solve loop ------------------------------------------
 

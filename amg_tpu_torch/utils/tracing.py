@@ -81,13 +81,14 @@ class Count:
 
 NODES = {k: Count(f"nodes.{k}") for k in KINDS}
 SOLVES = Count("solves")
-# masked V-cycles (structured.cycle_stencil): those the masked legs K10/K11
-# ran, and the runs of masked levels the plain ops ran
+# masked V-cycles (structured.cycle_stencil), by the level kinds that ran
+# them (on CPU tensors the kernels' wrappers run their plain twins): those
+# of the masked legs K10/K11, and the runs of other masked levels
 MASKED_CYCLES = {k: Count(f"masked_cycles.{k}") for k in ("kernel", "plain")}
 # visits of the levels without constant weights (a variable-coefficient
-# hierarchy's; the coarsest level's LU excluded): those a sweep kernel took
-# (K6 on the fused levels, K12 on the masked ones on the card), and those
-# the plain ops ran (masked, packed-var, strided, Chebyshev)
+# hierarchy's; the coarsest level's LU excluded): those of a sweep kernel's
+# kind (K6 on the fused_var levels, K12 on the masked_k12 ones), and those
+# of the plain ops (masked, packed-var, strided, Chebyshev)
 VAR_LEVELS = {k: Count(f"var_levels.{k}") for k in ("kernel", "plain")}
 
 _COUNT_LOCK = threading.Lock()

@@ -1068,14 +1068,14 @@ def native_checks(dev, launches: dict):
 def vcycle_launches(plan: tuple, start: int) -> Counter:
     """Kernel launches of one packed V-cycle from level ``start``, read off
     the plan: a legs level runs K2 and K3, a split level K1, K8 and K3;
-    the masked levels, all at most 127^2 on these plans, one K10 and one
-    K11 together; packed and direct levels no kernel."""
+    the first masked_legs level K10 and K11 for itself and every level
+    below; packed and direct levels no kernel."""
     per_kind = {"legs": ("fused_down_leg_packed", "fused_up_leg_packed"),
                 "split": ("fused_gs4_sweep_packed",
                           "fused_residual_restrict_packed",
                           "fused_up_leg_packed")}
     c = Counter(k for kind in plan[start:] for k in per_kind.get(kind, ()))
-    if "masked" in plan[start:]:
+    if "masked_legs" in plan[start:]:
         c.update(MASKED_LEGS)
     return c
 
@@ -1099,25 +1099,23 @@ def tpu_counts(c: dict) -> dict:
 
 
 def off_masked(c: dict) -> dict:
-    """A launch count dict without the masked legs K10/K11 and the masked
-    sweep on planes K12, which run on every path whose cycles reach the
-    masked levels on the card (constant ones, plane ones)."""
+    """A launch count dict without the kernels of the plan's masked kinds,
+    the masked legs K10/K11 (``masked_legs``) and the masked sweep on
+    planes K12 (``masked_k12``), which a hierarchy's kinds name wherever
+    its cycles reach such levels (constant ones, plane ones)."""
     return {k: n for k, n in c.items()
             if k not in MASKED_LEGS and k != MASKED_SWEEP}
 
 
 def k12_launches(s: StructuredSolver, it: int) -> int:
     """K12's launches in a solve of ``it`` refines: a sweep a pre- and a
-    post-smoothing of each visit of a plane level that the unpacked cycle
-    sweeps masked, in the FMG start's cycles (one from each level down)
-    and in the refines' V-cycles (the plan's masked levels)."""
-    hier = s.hier
-    last = hier.n_levels - 1
-    masked = [hier.w33s[l] is None
-              and structured._cycle_kind(hier, l) == "masked"
-              for l in range(last)]
-    fmg = sum(masked[k] for l in range(last) for k in range(l, last))
-    cyc = sum(m and k == "masked" for m, k in zip(masked, s.plan))
+    post-smoothing of each visit of a ``masked_k12`` level, in the FMG
+    start's unpacked cycles (one from each level down, the hierarchy's
+    kinds) and in the refines' V-cycles (the plan's)."""
+    kinds = s.hier.kinds
+    fmg = sum(kinds[k] == "masked_k12" for l in range(len(kinds))
+              for k in range(l, len(kinds)))
+    cyc = s.plan.count("masked_k12")
     return (s.pre_sweeps + s.post_sweeps) * (
         int(s.fmg) * fmg + s.cycles_per_refine * it * cyc)
 
@@ -1230,7 +1228,7 @@ def pcg_solves(dev, launches: dict):
         u64 = solve_once(StructuredSolver(side, device=dev), b2)[0]
         floor = f64_rss(u64.float().double(), b32.double(), side)
         _, rel_u = rel_err(u, u64)
-        legs = level_plan(hier.sides, 1, 1, PACKED_MIN_SIDE, True).count(
+        legs = level_plan(hier, 1, 1, PACKED_MIN_SIDE, True).count(
             "legs")
         print(f"pcg {side}^2 f32 tol {PCG_TOL:g}: iterations {it} (TPU v5e "
               f"record: {PCG_TPU_ITERS}), recurrence rss {err:.6e}, "
@@ -1865,7 +1863,7 @@ def graph_row(dev, label, side, kw, jump, tol):
                                               device=dev)
         b = b2.to(torch.float32)
         L = krylov._pcg_state(hier, b, True, None, PCG_GRAPH_ITERS)
-        legs = level_plan(hier.sides, 1, 1, PACKED_MIN_SIDE, True).count(
+        legs = level_plan(hier, 1, 1, PACKED_MIN_SIDE, True).count(
             "legs")
 
         def run():

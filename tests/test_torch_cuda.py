@@ -407,37 +407,36 @@ def test_masked_var_sweep_kernel(dev, side, planes, symmetric, omega):
     assert torch.equal(got, want)
 
 
-def test_masked_var_sweep_in_the_solve(dev, monkeypatch):
+def test_masked_var_sweep_in_the_solve(dev):
     """Kellogg's 1023^2 f64 solve with smoother="fused" (every level
-    masked): u and stats bitwise the solve with the rule patched off; every
+    masked_k12): u and stats bitwise the solve with plain kinds; every
     visit of a variable level counted as K12's (the plan's count: the FMG
     start's cycles from each level down, 3 V-cycles a refine), two K12
     launches a visit, none left to the plain sweep; fewer kernel nodes."""
-    from amg_tpu_torch import structured
     from amg_tpu_torch.utils import tracing
     side = 1023
     planes = varcoef.kellogg_planes(side, device=dev)
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
 
-    def solve():
+    def solve(plain=False):
         s = StructuredSolver(side, A_planes=planes, smoother="fused",
                              precision="f64", device=dev)
+        if plain:
+            plain_kinds(s.hier)
         s.solve_ir_device(b2, 1e-7, 40)                # captures
         K.reset_launch_counts()
         tracing.reset()
         u, stats = s.solve_ir_device(b2, 1e-7, 40)
         return s, u, stats, tracing.report()["counters"], K.launch_counts()
     s, u, stats, c, launches = solve()
-    monkeypatch.setattr(structured, "masked_var_sweep_engages",
-                        lambda *args, **kw: False)
-    _, ref_u, ref_stats, c_ref, launches_ref = solve()
+    _, ref_u, ref_stats, c_ref, launches_ref = solve(plain=True)
     refines = int(stats[1])
     last = s.hier.n_levels - 1
     visits = sum(last - l for l in range(last)) \
         + s.cycles_per_refine * refines * last
     print(f"1023^2 Kellogg f64: {refines} refines, rss {float(stats[0])!r}; "
           f"counters with K12 {c}, plain {c_ref}")
-    assert s.plan == ("masked",) * last + ("direct",)
+    assert s.plan == ("masked_k12",) * last + ("direct",)
     assert torch.equal(u, ref_u) and torch.equal(stats, ref_stats)
     assert (c["var_levels_kernel"], c["var_levels_plain"]) == (visits, 0)
     assert launches["masked_gs4_sweep_var"] == 2 * visits
@@ -1276,12 +1275,12 @@ def _masked_hierarchy(side, weights, dev):
                                        P1s, smoother="packed")
 
 
-def _plain_masked_cycles(monkeypatch):
-    """From here on the unpacked cycle takes the plain ops on the card
-    too: the masked legs' yardstick."""
-    from amg_tpu_torch import structured
-    monkeypatch.setattr(structured, "masked_legs_engage",
-                        lambda *args, **kw: False)
+def plain_kinds(hier):
+    """The hierarchy with plain kinds: its cycles take the plain ops on the
+    card too, the kernels' yardstick."""
+    hier.kinds = tuple("masked" if k in ("masked_legs", "masked_k12") else k
+                       for k in hier.kinds)
+    return hier
 
 
 @pytest.mark.parametrize("zero_u", [True, False], ids=["u0", "fmg_u"])
@@ -1290,8 +1289,8 @@ def _plain_masked_cycles(monkeypatch):
 @pytest.mark.parametrize("symmetric", [True, False])
 @pytest.mark.parametrize("weights", ["five", "nine", "other"])
 @pytest.mark.parametrize("side", [127, 63, 31, 15, 7])
-def test_masked_legs_are_the_plain_cycle(dev, monkeypatch, side, weights,
-                                         symmetric, omega, sweeps, zero_u):
+def test_masked_legs_are_the_plain_cycle(dev, side, weights, symmetric,
+                                         omega, sweeps, zero_u):
     """K10 -> the coarsest LU -> K11 (vcycle_stencil on the card) bitwise
     the plain vcycle_stencil from the same level, with u = 0 and with a
     nonzero u (the FMG's entry); K10's coarsest b and workspace bitwise
@@ -1315,14 +1314,13 @@ def test_masked_legs_are_the_plain_cycle(dev, monkeypatch, side, weights,
     pbc, pws = masked_down_leg_plain(u, b, w33s, sweeps[0], omega,
                                      symmetric)
     assert torch.equal(bc, pbc) and torch.equal(ws, pws)
-    _plain_masked_cycles(monkeypatch)
     K.reset_launch_counts()
-    want = vcycle_stencil(hier, u, b, *sweeps, omega, symmetric)
+    want = vcycle_stencil(plain_kinds(hier), u, b, *sweeps, omega, symmetric)
     assert sum(K.launch_counts().values()) == 0
     assert torch.equal(got, want)
 
 
-def test_masked_legs_graph_nodes(dev, monkeypatch):
+def test_masked_legs_graph_nodes(dev):
     """One V-cycle entered at 127^2, captured as a graph: K10, the LU and
     K11 in at most 8 nodes, against the plain ops' thousands."""
     from amg_tpu_torch.ops.kernels import graph_loop
@@ -1342,7 +1340,7 @@ def test_masked_legs_graph_nodes(dev, monkeypatch):
         return graph_loop.node_types(g._graph.raw_cuda_graph())
     # each graph's last node is the copy into out
     kernel = nodes("kernel")[:-1]
-    _plain_masked_cycles(monkeypatch)
+    plain_kinds(hier)
     plain = nodes("plain")[:-1]
     print(f"nodes of a masked V-cycle entered at 127^2: K10/K11 "
           f"{len(kernel)} ({kernel}), plain ops {len(plain)}")
@@ -1350,7 +1348,7 @@ def test_masked_legs_graph_nodes(dev, monkeypatch):
     assert len(kernel) <= 8 and len(plain) >= 2000
 
 
-def test_masked_legs_in_the_4095_solve(dev, monkeypatch):
+def test_masked_legs_in_the_4095_solve(dev):
     """The constant 4095^2 solve with the masked legs: 3 refines, rss
     9.884e-10 (tests/test_torch_refine4095.py's figures), u and rss
     bitwise the plain ops' solve; every masked cycle run by K10/K11 (the
@@ -1359,16 +1357,17 @@ def test_masked_legs_in_the_4095_solve(dev, monkeypatch):
     from amg_tpu_torch.utils import tracing
     b2 = poisson.rhs(4095, device=dev).reshape(4095, 4095)
 
-    def solve():
+    def solve(plain=False):
         s = StructuredSolver(4095, device=dev)
+        if plain:
+            plain_kinds(s.hier)
         s.solve_ir_fused(b2, tolerance=1e-7)           # captures
         K.reset_launch_counts()
         tracing.reset()
         res = s.solve_ir_fused(b2, tolerance=1e-7)
         return res, tracing.report()["counters"], K.launch_counts()
     res, c, launches = solve()
-    _plain_masked_cycles(monkeypatch)
-    ref, c_ref, _ = solve()
+    ref, c_ref, _ = solve(plain=True)
     it = res.iterations // 3
     print(f"4095^2: {it} refines, rss {res.error!r}; counters with K10/K11 "
           f"{c}, plain {c_ref}")

@@ -162,15 +162,17 @@ def test_f64_solve_meets_the_reference_rss(n):
 def _predicted(s, refines):
     """(kernel, plain) visits of variable levels a solve, from the level
     plan: the FMG start cycles from each level l up (levels l to the
-    coarsest but one), then 3 V-cycles a refine visit each such level
-    once; a level counts as the kernel's where the plan sweeps it with
-    K6."""
+    coarsest but one, the hierarchy's kinds), then 3 V-cycles a refine
+    visit each such level once (the solver's plan); a level counts as the
+    kernel's where its kind sweeps it with K6 or K12."""
     var = [k != "direct" for k in s.plan] if s.hier.is_var else []
-    kernel = [k == "fused_var" for k in s.plan]
+    sweeps = ("fused_var", "masked_k12")
+    fmg_kernel = [k in sweeps for k in s.hier.kinds]
+    kernel = [k in sweeps for k in s.plan]
     fmg = [(l2, v) for l in range(len(var)) for l2, v in enumerate(var)
            if l2 >= l and v]
     cycles = s.cycles_per_refine * refines
-    n_k = sum(kernel[l] for l, _ in fmg) + cycles * sum(
+    n_k = sum(fmg_kernel[l] for l, _ in fmg) + cycles * sum(
         kernel[l] for l, v in enumerate(var) if v)
     n_all = len(fmg) + cycles * sum(var)
     return n_k, n_all - n_k

@@ -1,12 +1,11 @@
 """K12, the masked four-color sweep on planes (ops/kernels/rbgs.py
 ``masked_gs4_sweep_var``, csrc/rbgs_var.cu ``masked_var_sweep_kernel``),
 on the CPU: the wrapper against ``gs4_sweep_masked``, its input checks,
-the rule ``structured.masked_var_sweep_engages`` and what the unpacked
-cycle does where it holds: the sweep, the counters of variable-level
-visits and the span's machinery. Nothing engages on the CPU, so the rule's
-conditions other than the fields' device are read with stand-ins for
-fields on the card, and the cycle's dispatch with the rule patched to take
-CPU fields (the wrapper then runs the plain sweep). The kernel itself is
+the levels the hierarchy's kinds name ``masked_k12`` and what the unpacked
+cycle does there: the sweep, the counters of variable-level visits and
+the span's machinery. On CPU tensors the wrapper runs the plain sweep, so
+the cycle's dispatch runs here as it runs on the card, and the plain
+yardstick is the same hierarchy with plain kinds. The kernel itself is
 held to the plain sweep on the card (tests/test_torch_cuda.py
 test_masked_var_sweep_kernel and test_masked_var_sweep_in_the_solve)."""
 
@@ -22,18 +21,17 @@ from amg_tpu_torch.ops.kernels.rbgs import masked_gs4_sweep_var
 from amg_tpu_torch.ops.rap import poisson_const_w33, rap_stencil_planes
 from amg_tpu_torch.sparse.stencil import (Stencil2D, color_masks,
                                           color_masks_iota, gs4_sweep_masked)
-from amg_tpu_torch.structured import (build_stencil_hierarchy,
+from amg_tpu_torch.structured import (_call_kind, build_stencil_hierarchy,
                                       build_stencil_hierarchy_device,
                                       build_stencil_hierarchy_planes,
-                                      masked_var_sweep_engages,
                                       vcycle_stencil)
 from amg_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
-# what the rule reads of a field on the card, without a card
-CARD32 = SimpleNamespace(is_cuda=True, dtype=torch.float32)
-CARD64 = SimpleNamespace(is_cuda=True, dtype=torch.float64)
+# what a visit's kind reads of its fields
+F32 = SimpleNamespace(dtype=torch.float32)
+F64 = SimpleNamespace(dtype=torch.float64)
 
 
 def _planes(kind: str, n: int) -> torch.Tensor:
@@ -57,9 +55,18 @@ def _kellogg_hier(side: int, smoother: str, **kw):
         device=CPU, **kw)
 
 
-def _engages(hier, fields=CARD32) -> list:
-    return [masked_var_sweep_engages(hier, l, fields, fields)
+def _engages(hier, fields=F32) -> list:
+    """Whether a V-cycle's visit of each level with these fields sweeps it
+    with K12."""
+    return [_call_kind(hier, l, 1, fields, fields) == "masked_k12"
             for l in range(hier.n_levels)]
+
+
+def plain_kinds(hier):
+    """The hierarchy with plain kinds: its cycles take the plain ops."""
+    hier.kinds = tuple("masked" if k in ("masked_legs", "masked_k12") else k
+                       for k in hier.kinds)
+    return hier
 
 
 @pytest.mark.parametrize("omega", [1.0, 0.8])
@@ -113,20 +120,20 @@ def test_input_checks_raise(case):
 @pytest.mark.parametrize("smoother,side", [("fused", 255), ("masked", 255),
                                            ("packed", 511)])
 def test_rule_engages_on_masked_plane_levels(smoother, side):
-    """Kellogg's plane hierarchy, f32 fields on the card: every level but
-    the coarsest, for smoother="fused" (all below FUSED_MIN_SIDE),
-    "masked", and "auto" (the solver's "packed": the plan's masked levels
-    below PACKED_MIN_SIDE, and the FMG's unpacked cycles on every level);
-    CPU fields never."""
+    """Kellogg's plane hierarchy, f32 fields: every level but the
+    coarsest, for smoother="fused" (all below FUSED_MIN_SIDE), "masked",
+    and "auto" (the solver's "packed": the plan's masked levels below
+    PACKED_MIN_SIDE, and the FMG's unpacked cycles on every level); CPU
+    fields as the card's, since the wrapper runs the plain sweep there."""
     hier = _kellogg_hier(side, smoother)
     last = hier.n_levels - 1
     assert _engages(hier) == [l < last for l in range(last + 1)]
     u, b = _fields(side, 1)
-    assert not any(_engages(hier, u))
+    assert _engages(hier, u) == _engages(hier)
     if smoother == "packed":
         s = StructuredSolver(side, A_planes=varcoef.kellogg_planes(
             side, device=CPU), device=CPU)
-        masked = [l for l, k in enumerate(s.plan) if k == "masked"]
+        masked = [l for l, k in enumerate(s.plan) if k == "masked_k12"]
         assert masked and all(s.hier.sides[l] < structured.PACKED_MIN_SIDE
                               for l in masked)
         assert all(_engages(s.hier)[l] for l in masked)
@@ -154,10 +161,10 @@ def _never(case: str, monkeypatch) -> list:
     if case == "fused_var":
         monkeypatch.setattr(structured, "FUSED_MIN_SIDE", 63)
         hier = _kellogg_hier(63, "fused")
-        assert structured._cycle_kind(hier, 0) == "fused_var"
+        assert hier.kinds[0] == "fused_var"
         return _engages(hier)[:1]
     if case == "f64_fields":
-        return _engages(_kellogg_hier(63, "masked"), CARD64)
+        return _engages(_kellogg_hier(63, "masked"), F64)
     return _engages(_kellogg_hier(63, "masked", dtype=torch.float64))
 
 
@@ -170,35 +177,30 @@ def test_rule_never_engages(case, monkeypatch):
     assert not any(_never(case, monkeypatch))
 
 
-def _on_the_cpu(monkeypatch):
-    """From here on the rule takes CPU f32 fields as it takes the card's,
-    and the sweeps it picks are recorded (the CPU wrapper runs the plain
-    sweep)."""
-    rule = structured.masked_var_sweep_engages
+def _k12_sweeps(monkeypatch) -> list:
+    """From here on the sides of the sweeps given to K12's wrapper are
+    recorded."""
     calls = []
-
-    def engages(hier, l, u2, b2):
-        f = (CARD32 if u2.dtype == b2.dtype == torch.float32 else CARD64)
-        return rule(hier, l, f, f)
 
     def sweep(*args):
         calls.append(args[0].side)
         return masked_gs4_sweep_var(*args)
-    monkeypatch.setattr(structured, "masked_var_sweep_engages", engages)
     monkeypatch.setattr(structured, "masked_gs4_sweep_var", sweep)
     return calls
 
 
 @pytest.mark.parametrize("sweeps", [(1, 1), (2, 3)])
 def test_cycle_sweeps_with_k12_where_the_rule_holds(monkeypatch, sweeps):
-    """vcycle_stencil on Kellogg's masked plane hierarchy with the rule
-    holding: the same bits as the plain cycle, K12's wrapper called for
-    each sweep of each level but the coarsest, every visit counted as the
-    kernel's, and the level spans naming the machinery masked_k12."""
-    hier = _kellogg_hier(63, "masked")
+    """vcycle_stencil on Kellogg's masked plane hierarchy, whose kinds
+    name masked_k12: the same bits as the plain cycle (the hierarchy with
+    plain kinds), K12's wrapper called for each sweep of each level but
+    the coarsest, every visit counted as the kernel's, and the level spans
+    naming the machinery masked_k12."""
     u, b = _fields(63, 9)
-    want = vcycle_stencil(hier, u, b, *sweeps, 0.8)
-    calls = _on_the_cpu(monkeypatch)
+    want = vcycle_stencil(plain_kinds(_kellogg_hier(63, "masked")), u, b,
+                          *sweeps, 0.8)
+    hier = _kellogg_hier(63, "masked")
+    calls = _k12_sweeps(monkeypatch)
     tracing.reset()
     tracing.enable()
     try:
@@ -217,15 +219,16 @@ def test_cycle_sweeps_with_k12_where_the_rule_holds(monkeypatch, sweeps):
 
 
 def _predicted(s, refines: int) -> tuple:
-    """(kernel, plain) visits of variable levels a solve with the rule
-    holding: the FMG start's unpacked cycles from each level l (levels l to
-    the coarsest but one) all swept by a kernel, then 3 V-cycles a refine,
-    the plan's masked and fused levels a kernel's, its packed-var ones
-    plain."""
+    """(kernel, plain) visits of variable levels a solve: the FMG start's
+    unpacked cycles from each level l (levels l to the coarsest but one,
+    the hierarchy's kinds, here all masked_k12) all swept by a kernel,
+    then 3 V-cycles a refine, the plan's masked_k12 and fused levels a
+    kernel's, its packed-var ones plain."""
     L = len(s.plan)
+    assert s.hier.kinds == ("masked_k12",) * (L - 1) + ("direct",)
     fmg = sum(L - 1 - l for l in range(L - 1))
     cycles = s.cycles_per_refine * refines
-    kernel = sum(k in ("masked", "fused_var") for k in s.plan)
+    kernel = sum(k in ("masked_k12", "fused_var") for k in s.plan)
     plain = sum(k == "packed_var" for k in s.plan)
     return fmg + cycles * kernel, cycles * plain
 
@@ -240,20 +243,23 @@ SOLVES = [("fused", {"smoother": "fused", "precision": "f64"}),
 @pytest.mark.parametrize("case,kw", SOLVES, ids=[c[0] for c in SOLVES])
 def test_solve_with_the_rule_holding_is_the_plain_solve(monkeypatch, case,
                                                         kw):
-    """Kellogg's 63^2 solve with the rule holding on the CPU: u and the
-    stats bitwise the plain solve's, the variable-level visits counted by
-    the plan, and none left to the plain masked sweep."""
+    """Kellogg's 63^2 solve with its plan on the CPU: u and the stats
+    bitwise the plain solve's (the hierarchy with plain kinds), the
+    variable-level visits counted by the plan, and none left to the plain
+    masked sweep."""
     b = torch.tensor(np.random.default_rng(5).standard_normal((63, 63)))
     planes = varcoef.kellogg_planes(63, device=CPU)
 
-    def solve():
+    def solve(plain=False):
         s = StructuredSolver(63, A_planes=planes, device=CPU, **kw)
+        if plain:
+            plain_kinds(s.hier)
         tracing.reset()
         u, stats = s.solve_ir_device(b, 1e-7, 40)
         return s, u, stats, tracing.counters()
-    _, want_u, want_stats, plain = solve()
+    _, want_u, want_stats, plain = solve(plain=True)
     assert plain["var_levels_kernel"] == 0
-    calls = _on_the_cpu(monkeypatch)
+    calls = _k12_sweeps(monkeypatch)
     s, u, stats, got = solve()
     assert torch.equal(u, want_u) and torch.equal(stats, want_stats)
     refines = int(stats[1])

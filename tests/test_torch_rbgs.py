@@ -190,7 +190,6 @@ def test_fused_smoother_dispatch(monkeypatch, var):
     got = tst.vcycle_stencil(h, torch.zeros_like(b), b)
     assert len(calls) == 2
     assert float((got - want).abs().max() / want.abs().max()) < 1e-5
-    plan = tst.level_plan(h.sides, 1, 1, 200, False, var=var,
-                          smoother="fused")
-    assert plan[0] == ("fused_var" if var else "fused_const")
-    assert set(plan[1:-1]) == {"masked"} and plan[-1] == "direct"
+    assert h.kinds[0] == ("fused_var" if var else "fused_const")
+    assert set(h.kinds[1:-1]) == {"masked_k12" if var else "masked_legs"}
+    assert h.kinds[-1] == "direct"

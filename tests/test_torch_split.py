@@ -81,7 +81,7 @@ def test_residual_restrict_refuses_bad_inputs(bad):
 
 def _split_plan(monkeypatch, hier, min_side):
     monkeypatch.setattr(tst, "FUSED_PACKED_MIN_SIDE", 200)
-    plan = tst.level_plan(hier.sides, 1, 1, min_side, True)
+    plan = tst.level_plan(hier, 1, 1, min_side, True)
     return ("split",) + plan[1:]
 
 
@@ -136,7 +136,7 @@ def test_split_vcycle_equals_packed_bitwise(monkeypatch):
         SIDE, SIDE)
     split = _split_plan(monkeypatch, th, tst.PACKED_MIN_SIDE)
     legs = ("legs",) + split[1:]
-    plain = tst.level_plan(th.sides, 1, 1, tst.PACKED_MIN_SIDE, False)
+    plain = tst.level_plan(th, 1, 1, tst.PACKED_MIN_SIDE, False)
     assert plain[0] == "packed"
     us = [tst.vcycle_packed(th, torch.zeros_like(b2), b2, plan=p)
           for p in (split, legs, plain)]
@@ -162,12 +162,13 @@ def _jax_kind(side: int, sweeps: int) -> str:
 @pytest.mark.parametrize("sweeps", [1, 2])
 @pytest.mark.parametrize("side", [1023, 2047, 4095, 8191])
 def test_level_plan_matches_jax_eligibility(side, sweeps):
-    sides = [side]
-    while sides[-1] > 3:
-        sides.append((sides[-1] - 1) // 2)
-    plan = tst.level_plan(sides, sweeps, sweeps, tst.PACKED_MIN_SIDE, True)
-    want = tuple(_jax_kind(s, sweeps) for s in sides[:-1]) + ("direct",)
-    assert plan == want
+    """The plan of the Poisson hierarchy (its shapes alone, on the meta
+    device) against JAX's rules; JAX's masked levels, all 127^2 and
+    below, are the port's masked legs K10/K11."""
+    hier = tst.build_stencil_hierarchy_device(side, device="meta")
+    plan = tst.level_plan(hier, sweeps, sweeps, tst.PACKED_MIN_SIDE, True)
+    want = tuple(_jax_kind(s, sweeps) for s in hier.sides[:-1]) + ("direct",)
+    assert plan == tuple("masked_legs" if k == "masked" else k for k in want)
     assert (plan[0] == "split") == (side >= tst.SPLIT_MIN_SIDE
                                     and sweeps == 1)
 

@@ -116,7 +116,7 @@ def test_vcycle_legs_match_jax_fused(monkeypatch):
 
     monkeypatch.setattr(tst, "FUSED_PACKED_MIN_SIDE", 200)
     th = tst.build_stencil_hierarchy_device(side, device=CPU)
-    plan = tst.level_plan(th.sides, 1, 1, 100, True)
+    plan = tst.level_plan(th, 1, 1, 100, True)
     assert plan[:2] == ("legs", "packed")
     tb = torch.as_tensor(b_np)
     got = tst.vcycle_packed(th, torch.zeros_like(tb), tb, min_side=100,
@@ -175,17 +175,16 @@ def test_level_plan_at_production_sides():
     """Fused levels: legs from 1023 up, split from 8191 up (JAX's split
     level at M = 4096), so 8191 is one split level and three legs."""
     for side, split, legs in ((1023, 0, 1), (4095, 0, 3), (8191, 1, 3)):
-        sides = [side]
-        while sides[-1] > 3:
-            sides.append((sides[-1] - 1) // 2)
-        plan = tst.level_plan(sides, 1, 1, tst.PACKED_MIN_SIDE, True)
+        # the hierarchy's shapes alone, on the meta device
+        hier = tst.build_stencil_hierarchy_device(side, device="meta")
+        plan = tst.level_plan(hier, 1, 1, tst.PACKED_MIN_SIDE, True)
         assert plan[:split] == ("split",) * split
         assert plan.count("split") == split and plan.count("legs") == legs
         assert plan[split:split + legs] == ("legs",) * legs
         assert plan[split + legs:split + legs + 2] == ("packed", "packed")
         assert plan[-1] == "direct" and "sweep" not in plan
         assert not {"legs", "split"} & set(
-            tst.level_plan(sides, 1, 1, 200, False))
+            tst.level_plan(hier, 1, 1, 200, False))
 
 
 def test_budget_exhaustion_and_rtol():

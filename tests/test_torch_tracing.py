@@ -6,8 +6,9 @@ on the CPU.
     clone out; under the launch one ``solve`` with its parts in the
     loop's order (start, a residual a pass, a refine a refining pass,
     the finish); ``vcycle.level`` spans under the start and the refines,
-    nested level in level, with their level, side and machinery; every
-    child inside its parent, self time its time less its children's.
+    nested level in level, with their level, side and machinery (the
+    plan's kind of their level); every child inside its parent, self time
+    its time less its children's.
 (b) Tracing off records nothing and launches nothing: ``span`` is one
     shared null context, and a solve leaves no span.
 (c) The counters: a piece's nodes by kind (``census``) times its runs
@@ -47,20 +48,24 @@ def _rhs(side):
     return poisson.rhs(side, device=CPU).reshape(side, side)
 
 
-# (case, side, StructuredSolver options, jump operator): one of each loop
-LOOPS = [("packed", 255, {}, False), ("unpacked", 63, {}, True),
-         ("f64", 63, {"precision": "f64"}, True)]
+# (case, side, StructuredSolver options, plane operator): one of each
+# loop, and the Kellogg cell's options
+LOOPS = [("packed", 255, {}, None), ("unpacked", 63, {}, "jump"),
+         ("f64", 63, {"precision": "f64"}, "jump"),
+         ("kellogg", 63, {"smoother": "fused", "precision": "f64"},
+          "kellogg")]
 
 
 def _children(spans, i):
     return [j for j, s in enumerate(spans) if s["parent"] == i]
 
 
-@pytest.mark.parametrize("case,side,kw,jump", LOOPS,
+@pytest.mark.parametrize("case,side,kw,operator", LOOPS,
                          ids=[c[0] for c in LOOPS])
-def test_solve_span_tree(traced, case, side, kw, jump):
-    if jump:
-        kw = dict(kw, A_planes=varcoef.jump_planes(side, device=CPU))
+def test_solve_span_tree(traced, case, side, kw, operator):
+    if operator:
+        planes = getattr(varcoef, f"{operator}_planes")
+        kw = dict(kw, A_planes=planes(side, device=CPU))
     s = StructuredSolver(side, device=CPU, **kw)
     tracing.reset()
     _, stats = s.solve_ir_device(_rhs(side), 1e-7)
@@ -96,11 +101,20 @@ def test_solve_span_tree(traced, case, side, kw, jump):
         p = spans[x["parent"]]
         assert p["name"] in ("solve.start", "solve.refine", "vcycle.level")
         if p["name"] == "vcycle.level":
-            assert p["attrs"]["level"] in (x["attrs"]["level"] - 1,
-                                           x["attrs"]["level"])
+            # the level above, the level's own visit, or for the coarsest
+            # level's LU the masked legs' entry
+            assert (p["attrs"]["level"] in (x["attrs"]["level"] - 1,
+                                            x["attrs"]["level"])
+                    or p["attrs"]["machinery"] == "masked_legs"
+                    and x["attrs"]["machinery"] == "coarse")
+    # each visit names the machinery the plan gives its level
+    for x in levels:
+        kind = s.plan[x["attrs"]["level"]]
+        assert x["attrs"]["machinery"] == ("coarse" if kind == "direct"
+                                           else kind)
     machinery = {x["attrs"]["machinery"] for x in levels}
     assert "coarse" in machinery
-    assert machinery <= {"packed", "masked", "coarse"}
+    assert machinery <= {"packed", "masked_legs", "masked_k12", "coarse"}
     for i, x in enumerate(spans):
         kids = _children(spans, i)
         assert all(x["start_ns"] <= spans[j]["start_ns"]

@@ -71,7 +71,7 @@ def test_var_solve_matches_jax(side, smoother):
         side, smoother=smoother)
     assert not ts.packed_loop and ts.hier.is_var
     assert ts.plan[0] == ("packed_var" if smoother == "auto" and side > 200
-                          else "masked")
+                          else "masked_k12")
     assert int(t_it) == int(j_it) >= 2
     assert t_rss <= TOL and j_rss <= TOL
     t_ind, j_ind = _f64_rss(tu, b, planes), _f64_rss(ju, b, planes)

@@ -280,8 +280,8 @@ def test_var_vcycle_packed_matches_jax():
     b = _field(side, 12, np.float32)
     want = np.asarray(jst.vcycle_packed(jh, jnp.zeros_like(jnp.asarray(b)),
                                         jnp.asarray(b)))
-    plan = tst.level_plan(th.sides, 1, 1, 200, False, var=True)
-    assert plan[0] == "packed_var" and plan[1] == "masked"
+    plan = tst.level_plan(th, 1, 1, 200, False)
+    assert plan[0] == "packed_var" and plan[1] == "masked_k12"
     got = tst.vcycle_packed(th, torch.zeros(side, side), torch.tensor(b),
                             plan=plan).numpy()
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
