@@ -26,9 +26,9 @@ with an f64 residual. The free functions ``solve_stencil`` and
 Smoothers (``smoother=``):
 
 * ``"auto"``: color-packed levels (sparse/packed.py) from side 200 up. On
-  constant levels of side >= 1023 the V-cycle legs are the fused CUDA
-  kernels K2/K3 (K1 the standalone sweep when the sweep counts are not 1),
-  from side 8191 the split level (K1, the fused residual + restriction K8,
+  their constant levels the V-cycle legs are the fused CUDA kernels K2/K3
+  (K1 the standalone sweep when the sweep counts are not 1), from side
+  8191 the split level (K1, the fused residual + restriction K8,
   K3), and the fine-level df32 residual + rss is K4. Variable-coefficient
   levels run the plain packed-var ops, with no kernel, as in JAX.
 * ``"packed"``: the same levels with the plain packed ops only.
@@ -95,17 +95,22 @@ from amg_tpu_torch.utils.debugging import check_rss
 from amg_tpu_torch.utils.device import resolve_device
 from amg_tpu_torch.utils.metrics import rss_from_residual
 
-# Level thresholds, all measured on a TPU v5e for the JAX package
-# (amg_tpu/structured.py) and kept as they are; re-deriving them on the GPU
-# is later work. Packed levels from PACKED_MIN_SIDE up, the fused packed
-# kernels from FUSED_PACKED_MIN_SIDE up, and with smoother="fused" the
-# fused masked sweep (K5/K6) from FUSED_MIN_SIDE up. From SPLIT_MIN_SIDE
-# up a fused level is split (sweep K1, residual + restriction K8, up leg
-# K3): the side from which the JAX package's full down leg does not fit the
-# TPU's VMEM (ops/pallas/packed_cycle.py eligible / eligible_split); K2
-# itself takes every size on the GPU.
+# Level thresholds. PACKED_MIN_SIDE, FUSED_MIN_SIDE and SPLIT_MIN_SIDE were
+# measured on a TPU v5e for the JAX package (amg_tpu/structured.py) and are
+# kept as they are: packed levels from PACKED_MIN_SIDE up, with
+# smoother="fused" the fused masked sweep (K5/K6) from FUSED_MIN_SIDE up,
+# and from SPLIT_MIN_SIDE up a fused level is split (sweep K1, residual +
+# restriction K8, up leg K3), the side from which the JAX package's full
+# down leg does not fit the TPU's VMEM (ops/pallas/packed_cycle.py
+# eligible / eligible_split). FUSED_PACKED_MIN_SIDE is the card's own
+# choice: the fused packed kernels (K1, K2/K3) take every constant packed
+# level, where the TPU's VMEM gate kept the JAX package to 1023 and up: on
+# an H100 a plain packed visit of the 511^2 or 255^2 level is about 870
+# graph nodes and 1.2 ms, the legs' visit 13 nodes and 0.04 ms. The CPU
+# takes the same plan through the kernels' plain twins, which are the
+# plain packed ops in the same order, so the bits are the same either way.
 PACKED_MIN_SIDE = 200
-FUSED_PACKED_MIN_SIDE = 1023
+FUSED_PACKED_MIN_SIDE = PACKED_MIN_SIDE
 FUSED_MIN_SIDE = 3000
 SPLIT_MIN_SIDE = 8191
 
@@ -562,8 +567,8 @@ def level_plan(hier: StencilHierarchy, pre_sweeps: int, post_sweeps: int,
     * ``packed_var``: plain PyTorch packed ops on packed planes (a level
       given by its planes alone);
     * ``legs``: the fused down/up legs (K2/K3), constant levels of side
-      >= FUSED_PACKED_MIN_SIDE with one pre- and one post-sweep
-      (``fused``);
+      >= FUSED_PACKED_MIN_SIDE (every packed one) with one pre- and one
+      post-sweep (``fused``);
     * ``split``: the same levels of side >= SPLIT_MIN_SIDE: the fused
       sweep (K1), the fused residual + restriction (K8), then the up leg
       (K3), as the JAX package runs its levels of M >= 4096;
@@ -571,8 +576,10 @@ def level_plan(hier: StencilHierarchy, pre_sweeps: int, post_sweeps: int,
       transfers, the same levels with other sweep counts.
 
     The GPU kernels take every size; the TPU's VMEM eligibility gates
-    survive only as the thresholds, so the plan picks on each level what
-    the JAX package picks on a 2^k - 1 hierarchy.
+    survive only as SPLIT_MIN_SIDE, so on a 2^k - 1 hierarchy the plan
+    picks what the JAX package picks, but for the fused kinds on the
+    constant packed levels below 1023^2, where the JAX package runs the
+    plain packed ops.
     """
     kinds = list(hier.kinds)
     for l, s in enumerate(hier.sides[:-1]):
@@ -636,6 +643,8 @@ def _vcycle_packed_at(hier: StencilHierarchy, u2, b2, pre_sweeps: int,
         def resid(u4_, b4_):
             return residual_packed_var(cp, u4_, b4_, m)
     else:
+        count_launch(tracing.PACKED_LEVELS[
+            "plain" if kind == "packed" else "kernel"])
         sweep_fn = fused_gs4_sweep_packed if kind == "sweep" \
             else gs4_sweep_packed
 

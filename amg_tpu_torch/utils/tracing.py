@@ -90,6 +90,10 @@ MASKED_CYCLES = {k: Count(f"masked_cycles.{k}") for k in ("kernel", "plain")}
 # kind (K6 on the fused_var levels, K12 on the masked_k12 ones), and those
 # of the plain ops (masked, packed-var, strided, Chebyshev)
 VAR_LEVELS = {k: Count(f"var_levels.{k}") for k in ("kernel", "plain")}
+# visits of the constant packed levels (structured.vcycle_packed): those
+# whose sweeps and transfers a fused kernel took (the kinds legs, split and
+# sweep: K1-K3, K8), and those of the plain packed ops (the kind packed)
+PACKED_LEVELS = {k: Count(f"packed_levels.{k}") for k in ("kernel", "plain")}
 
 _COUNT_LOCK = threading.Lock()
 _SETUP: Counter = Counter()         # set-up seconds by span name, always
@@ -130,9 +134,11 @@ def counters() -> dict:
     excluded), by kind, the solves, the masked V-cycles by machinery
     (``masked_cycles_kernel``: K10/K11 pairs; ``masked_cycles_plain``:
     runs of masked levels in plain ops, one a cycle that reaches them),
-    and the visits of variable-coefficient levels by machinery
+    the visits of variable-coefficient levels by machinery
     (``var_levels_kernel``: swept by K6 or K12; ``var_levels_plain``: by
-    the plain ops)."""
+    the plain ops), and the visits of constant packed levels by machinery
+    (``packed_levels_kernel``: fused kernels; ``packed_levels_plain``: the
+    plain packed ops)."""
     n = {k: c.launches for k, c in NODES.items()}
     return {"kernels": n["kernel_own"] + n["kernel_other"],
             "kernels_own": n["kernel_own"],
@@ -142,7 +148,9 @@ def counters() -> dict:
             "masked_cycles_kernel": MASKED_CYCLES["kernel"].launches,
             "masked_cycles_plain": MASKED_CYCLES["plain"].launches,
             "var_levels_kernel": VAR_LEVELS["kernel"].launches,
-            "var_levels_plain": VAR_LEVELS["plain"].launches}
+            "var_levels_plain": VAR_LEVELS["plain"].launches,
+            "packed_levels_kernel": PACKED_LEVELS["kernel"].launches,
+            "packed_levels_plain": PACKED_LEVELS["plain"].launches}
 
 
 # -- the switch ---------------------------------------------------------------
@@ -236,7 +244,7 @@ def reset() -> None:
     graph_loop.settle()
     with _COUNT_LOCK:
         for c in (*NODES.values(), SOLVES, *MASKED_CYCLES.values(),
-                  *VAR_LEVELS.values()):
+                  *VAR_LEVELS.values(), *PACKED_LEVELS.values()):
             c.launches = 0
     t = _TRACER
     if t is None:

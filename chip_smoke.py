@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels (K1-K12) from amg_tpu_torch/csrc, checks
 each against its plain PyTorch version on the card and times both (K1, K2
-and K3 bitwise at M = 513, 512, 2048 and 4096 and timed at the last three;
+and K3 bitwise at M = 513, 512, 2048, 4096, 1024, 256 and 128, every size
+the solves give them, and timed at 512, 2048 and 4096;
 K4's r.hi bitwise at M = 101, 129, 512, 2048 and 4096 and timed at the last
 three; K5 and K6 bitwise at n = 1000, 1023 and 4095; K8 bitwise at M = 101
 and 4096; K9 bitwise, and to K1 through the layouts, at M = 101, 512,
@@ -240,9 +241,10 @@ TOL = 1e-7
 PARITY_SIDES = (201, 257, 1023, 4095, 8191)
 DF_TIMED = (1023, 4095, 8191)
 # K1, K2, K3 (the windowed kernels): M = 513 (ragged: 4-byte copies, edge
-# tiles), then the timed sizes M = 512, 2048 (the legs' fine levels) and
-# 4096 (8191^2's fine level)
-WINDOW_SIDES = (1025, 1023, 4095, 8191)
+# tiles), the timed sizes M = 512, 2048 (the legs' fine levels) and 4096
+# (8191^2's fine level), then the legs' other levels, M = 1024, 256 and 128
+# (2047^2, 511^2, 255^2)
+WINDOW_SIDES = (1025, 1023, 4095, 8191, 2047, 511, 255)
 WINDOW_TIMED = (1023, 4095, 8191)
 # their weight instantiations besides the fine level's 5-point Poisson
 # weights: a Galerkin level's 9-point pattern and another zero pattern
@@ -952,15 +954,19 @@ def const_solves(dev, launches: dict):
         require(c[LOOP] == loop_conditions(it, packed=True),
                 "one loop graph: the condition at the start, each pass "
                 "and the final branch")
+        # visits of the plan's n fused levels: the FMG start's V-cycle
+        # from each of them, then 3 a refine from the fine one
+        n = solvers[(side, sweeps)].plan.count(
+            "legs" if sweeps == 1 else "sweep")
+        visits = n * (n + 1) // 2 + 3 * n * it
         if sweeps == 1:
-            legs = 1 + 3 * it if side == 1023 else 6 + 9 * it
-            require(c["fused_down_leg_packed"] == legs
-                    and c["fused_up_leg_packed"] == legs,
-                    f"K2 = K3 = {legs} at {side}^2")
+            require(c["fused_down_leg_packed"] == visits
+                    and c["fused_up_leg_packed"] == visits,
+                    f"K2 = K3 = {visits} at {side}^2")
             require(c["fused_gs4_sweep_packed"] == 0, "K1 off the legs path")
         else:
-            require(c["fused_gs4_sweep_packed"] == 4 * (1 + 3 * it),
-                    "K1 = 4 (1 + 3 it) with two sweeps")
+            require(c["fused_gs4_sweep_packed"] == 4 * visits,
+                    f"K1 = 4 x {visits} with two sweeps")
             require(c["fused_down_leg_packed"] == 0, "legs off at 2 sweeps")
         require(c["fused_gs4_sweep_const"] == c["fused_gs4_sweep_var"] == 0,
                 "K5/K6 off the packed path")
@@ -1149,8 +1155,8 @@ def split_solve(dev, launches: dict):
     torch.cuda.synchronize()
     print(f"setup+warmup {side}^2: plan {s.plan}, "
           f"{time.perf_counter() - t0:.2f} s")
-    require(s.plan[:5] == ("split", "legs", "legs", "legs", "packed"),
-            f"{side}^2 plan: split, 3 legs, packed")
+    require(s.plan[:7] == ("split",) + ("legs",) * 5 + ("masked_legs",),
+            f"{side}^2 plan: split, 5 legs, masked legs")
     b2 = poisson.rhs(side, device=dev).reshape(side, side)
     (u, err, it), c = drive(lambda: solve_once(s, b2), launches)
     ind = f64_rss(u, b2, side)
@@ -1159,7 +1165,7 @@ def split_solve(dev, launches: dict):
     require(bool(torch.isfinite(u).all()) and u.shape == (side, side),
             f"finite u of shape ({side}, {side})")
     require(err <= TOL and ind <= TOL, f"{side}^2 converged to {TOL}")
-    # for this plan: K1 = K8 = 1 + 3 it, K2 = 9 + 9 it, K3 = 10 + 12 it,
+    # for this plan: K1 = K8 = 1 + 3 it, K2 = 20 + 15 it, K3 = 21 + 18 it,
     # K4 = it + 1
     want = solve_launches(s.plan, s.hier.sides, it)
     require(all(c[k] == want[k] for k in c),
@@ -1241,7 +1247,7 @@ def pcg_solves(dev, launches: dict):
         # solution does, well above f32 rounding
         require(rel_u <= PCG_REL_U, f"pcg {side}^2 within {PCG_REL_U:g} "
                 "of the df32 solution")
-        require(legs == {2047: 2, 4095: 3}[side], "legs levels of the plan")
+        require(legs == {2047: 4, 4095: 5}[side], "legs levels of the plan")
         require(c["fused_down_leg_packed"] == c["fused_up_leg_packed"]
                 == legs * (it + 1),
                 f"pcg {side}^2: K2 = K3 = {legs} x (it + 1)")
@@ -1372,7 +1378,7 @@ def var_solves(dev, launches: dict):
 
 
 def refine_solves(dev, launches: dict):
-    """The constant problem at 4095^2 (legs on 4095, 2047, 1023): the
+    """The constant problem at 4095^2 (legs on 4095 down to 255): the
     host-stepped solve_ir (f64 residual, 3 V-cycles a step, from u = 0;
     the stopping step's cycles run too, as in JAX) and the packed loop
     with fmg=False; refines, rss, an independent f64 rss, launch counts

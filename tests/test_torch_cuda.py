@@ -84,8 +84,8 @@ def _pads_zero(u4, m):
 
 
 # M = 513 (ragged: 4-byte copies, edge tiles), 512 and 2048 (the 1023^2
-# and 4095^2 fine levels)
-LEG_SIDES = pytest.mark.parametrize("side", [1025, 1023, 4095])
+# and 4095^2 fine levels), 256 and 128 (the 511^2 and 255^2 levels)
+LEG_SIDES = pytest.mark.parametrize("side", [1025, 1023, 4095, 511, 255])
 
 
 @LEG_SIDES
@@ -208,6 +208,7 @@ def test_split_vcycle_on_the_card(dev):
     s = StructuredSolver(side, device=dev)
     assert s.plan[:2] == ("legs", "legs")
     split = ("split",) + s.plan[1:]
+    legs = split.count("legs")
     b2 = poisson.rhs(side, dtype=torch.float32, device=dev).reshape(side,
                                                                    side)
     K.reset_launch_counts()
@@ -217,7 +218,7 @@ def test_split_vcycle_on_the_card(dev):
     c = K.launch_counts()
     assert (c["fused_gs4_sweep_packed"], c["fused_residual_restrict_packed"],
             c["fused_down_leg_packed"], c["fused_up_leg_packed"]) \
-        == (1, 1, 1, 2)
+        == (1, 1, legs, legs + 1)
     u_legs = vcycle_packed(s.hier, torch.zeros_like(b2), b2, fused=True,
                            plan=s.plan)
     assert _rel(u_split, u_legs) <= 1e-5
@@ -225,9 +226,11 @@ def test_split_vcycle_on_the_card(dev):
 
 def test_solve_goes_through_the_kernels(dev):
     """After warmup (the loop graphs' capture), one solve is one graph
-    launch whose replays run the kernels: the legs 1 + 3 it times, K4
-    it + 1 times, the condition kernel at the start, each of the it + 1
-    passes and the final branch."""
+    launch whose replays run the kernels: the legs on each of the n = 3
+    legs levels (1023^2, 511^2, 255^2) once a V-cycle that reaches it, so
+    n (n + 1) / 2 times in the FMG start (a V-cycle from each) and 3 n
+    times a refine; K4 it + 1 times, the condition kernel at the start,
+    each of the it + 1 passes and the final branch."""
     s = StructuredSolver(SIDE, device=dev)
     s.warmup()
     b2 = poisson.rhs(SIDE, device=dev).reshape(SIDE, SIDE)
@@ -236,10 +239,41 @@ def test_solve_goes_through_the_kernels(dev):
     it = res.iterations // s.cycles_per_refine
     assert res.converged and res.u.is_cuda
     counts = K.launch_counts()
-    assert counts["fused_down_leg_packed"] == 1 + 3 * it
+    n = s.plan.count("legs")
+    assert n == 3 and s.plan[:n] == ("legs",) * n
+    assert counts["fused_down_leg_packed"] == counts["fused_up_leg_packed"] \
+        == n * (n + 1) // 2 + 3 * n * it
     assert counts["fused_df_residual_rss"] == it + 1
     assert counts["loop_condition"] == it + 3
     assert s._graphs["device"].launches == 2       # warmup's and this one
+
+
+def test_fused_packed_levels_are_the_plain_ones(dev):
+    """One 4095^2 packed V-cycle under the solver's plan (the legs K2/K3
+    on every level from 4095^2 to 255^2) torch.equal to the same V-cycle
+    with its 511^2 and 255^2 levels forced to the plain packed ops: K2/K3
+    are bitwise their plain twins, which are the plain packed sequence."""
+    from amg_tpu_torch.utils import tracing
+    side = 4095
+    s = StructuredSolver(side, device=dev)
+    small = [l for l, n in enumerate(s.hier.sides[:-1]) if n in (511, 255)]
+    assert [s.plan[l] for l in small] == ["legs", "legs"]
+    plain = tuple("packed" if l in small else k
+                  for l, k in enumerate(s.plan))
+    b2 = poisson.rhs(side, dtype=torch.float32, device=dev).reshape(side,
+                                                                   side)
+    us, counts = [], []
+    for plan in (s.plan, plain):
+        K.reset_launch_counts()
+        tracing.reset()
+        us.append(vcycle_packed(s.hier, torch.zeros_like(b2), b2,
+                                fused=True, plan=plan))
+        torch.cuda.synchronize()
+        c = tracing.counters()
+        counts.append((K.launch_counts()["fused_down_leg_packed"],
+                       c["packed_levels_kernel"], c["packed_levels_plain"]))
+    assert torch.equal(us[0], us[1])
+    assert counts == [(5, 5, 0), (3, 3, 2)]
 
 
 # (case, StructuredSolver options, jump operator): one of each loop
@@ -1137,12 +1171,14 @@ def test_tracing_adds_exactly_the_stamp_nodes(dev):
 
 
 def test_node_types_walk_every_node(dev):
-    """The FMG start's piece holds more than 4096 nodes, all typed; the
-    assembled loop graph's walk reaches into its child graphs and its
-    conditional bodies (the packed loop's WHILE, its refine IF and its
-    final IF), every node typed."""
+    """The FMG start's piece of the plain packed ops (smoother="packed":
+    no fused kernel, so some thousand nodes a level visit) holds more than
+    4096 nodes, all typed; the assembled loop graph's walk reaches into
+    its child graphs and its conditional bodies (the packed loop's WHILE,
+    its refine IF and its final IF), every node typed."""
     from amg_tpu_torch.ops.kernels import graph_loop
-    s = StructuredSolver(SIDE, device=dev)
+    s = StructuredSolver(SIDE, smoother="packed", device=dev)
+    assert s.packed_loop and "packed" in s.plan
     s.warmup()
     g = s._graphs["device"]
     pre = graph_loop.node_types(g._pieces["pre"][0].raw_cuda_graph())

@@ -164,11 +164,16 @@ def _jax_kind(side: int, sweeps: int) -> str:
 def test_level_plan_matches_jax_eligibility(side, sweeps):
     """The plan of the Poisson hierarchy (its shapes alone, on the meta
     device) against JAX's rules; JAX's masked levels, all 127^2 and
-    below, are the port's masked legs K10/K11."""
+    below, are the port's masked legs K10/K11, and its plain packed
+    levels, 511^2 and 255^2 below the TPU's VMEM gate, take the fused
+    kernels on the card: the legs with one sweep, K1 with two."""
     hier = tst.build_stencil_hierarchy_device(side, device="meta")
     plan = tst.level_plan(hier, sweeps, sweeps, tst.PACKED_MIN_SIDE, True)
     want = tuple(_jax_kind(s, sweeps) for s in hier.sides[:-1]) + ("direct",)
-    assert plan == tuple("masked_legs" if k == "masked" else k for k in want)
+    port = {"masked": "masked_legs",
+            "packed": "legs" if sweeps == 1 else "sweep"}
+    assert want.count("packed") == 2
+    assert plan == tuple(port.get(k, k) for k in want)
     assert (plan[0] == "split") == (side >= tst.SPLIT_MIN_SIDE
                                     and sweeps == 1)
 

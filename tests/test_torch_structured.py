@@ -23,6 +23,7 @@ from amg_tpu_torch.config import StructuredConfig
 from amg_tpu_torch.interop import df32_from_numpy, hierarchy_from_numpy
 from amg_tpu_torch.models import poisson as tpoisson
 from amg_tpu_torch.ops.kernels import _build
+from amg_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -172,19 +173,61 @@ def test_kernel_call_counts_follow_the_plan(monkeypatch, smoother, sweeps):
 
 
 def test_level_plan_at_production_sides():
-    """Fused levels: legs from 1023 up, split from 8191 up (JAX's split
-    level at M = 4096), so 8191 is one split level and three legs."""
-    for side, split, legs in ((1023, 0, 1), (4095, 0, 3), (8191, 1, 3)):
+    """Fused levels: split from 8191 up (JAX's split level at M = 4096),
+    legs on every other constant packed level, 255 and up, the masked
+    legs K10/K11 from 127 down; so 8191 is one split level and five legs,
+    and no level runs the plain packed ops."""
+    for side, split, legs in ((1023, 0, 3), (4095, 0, 5), (8191, 1, 5)):
         # the hierarchy's shapes alone, on the meta device
         hier = tst.build_stencil_hierarchy_device(side, device="meta")
         plan = tst.level_plan(hier, 1, 1, tst.PACKED_MIN_SIDE, True)
         assert plan[:split] == ("split",) * split
         assert plan.count("split") == split and plan.count("legs") == legs
         assert plan[split:split + legs] == ("legs",) * legs
-        assert plan[split + legs:split + legs + 2] == ("packed", "packed")
-        assert plan[-1] == "direct" and "sweep" not in plan
+        assert hier.sides[split + legs] == 127
+        assert set(plan[split + legs:-1]) == {"masked_legs"}
+        assert plan[-1] == "direct" and not {"sweep", "packed"} & set(plan)
         assert not {"legs", "split"} & set(
             tst.level_plan(hier, 1, 1, 200, False))
+
+
+@pytest.mark.parametrize("sweeps", [1, 2])
+@pytest.mark.parametrize("side", [511, 1023])
+def test_fused_packed_levels_solve_as_the_plain_ones(monkeypatch, side,
+                                                     sweeps):
+    """Every constant packed level from FUSED_PACKED_MIN_SIDE up takes the
+    fused kernels (the legs with one sweep, K1 with two). On the CPU their
+    plain twins are the plain packed ops in the same order, so a solve
+    returns u, the stats and the iterations of the plan with those levels
+    forced to the plain packed ops, bit for bit. With min_side 100 the
+    127^2 level is packed too, below the fused threshold: the plain
+    visits are its own, one a V-cycle that reaches it (the FMG start runs
+    one from each level below the fine one, then the fine one)."""
+    s = tst.StructuredSolver(side, packed_min_side=100, pre_sweeps=sweeps,
+                             post_sweeps=sweeps, device=CPU)
+    b2 = tpoisson.rhs(side, device=CPU).reshape(side, side)
+    j127 = s.hier.sides.index(127)
+    fused = "legs" if sweeps == 1 else "sweep"
+    assert s.plan[:j127 + 1] == (fused,) * j127 + ("packed",)
+
+    def solve():
+        tracing.reset()
+        res = s.solve_ir_fused(b2, tolerance=1e-7)
+        c = tracing.report()["counters"]
+        return res, (c["packed_levels_kernel"], c["packed_levels_plain"])
+
+    res, got = solve()
+    with monkeypatch.context() as m:
+        m.setattr(tst, "FUSED_PACKED_MIN_SIDE", side + 1)
+        assert s.plan[:j127 + 1] == ("packed",) * (j127 + 1)
+        ref, want = solve()
+    assert res.converged and res.iterations == ref.iterations
+    assert torch.equal(res.u, ref.u)
+    assert (res.error, res.history) == (ref.error, ref.history)
+    it = res.iterations // s.cycles_per_refine
+    visits = [j + 1 + s.cycles_per_refine * it for j in range(j127 + 1)]
+    assert got == (sum(visits[:-1]), visits[-1])
+    assert want == (0, sum(visits))
 
 
 def test_budget_exhaustion_and_rtol():

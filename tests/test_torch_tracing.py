@@ -114,7 +114,9 @@ def test_solve_span_tree(traced, case, side, kw, operator):
                                            else kind)
     machinery = {x["attrs"]["machinery"] for x in levels}
     assert "coarse" in machinery
-    assert machinery <= {"packed", "masked_legs", "masked_k12", "coarse"}
+    # the packed loop's 255^2 level takes the legs (K2/K3)
+    assert machinery <= {"legs", "masked_legs", "masked_k12", "coarse"}
+    assert ("legs" in machinery) == (case == "packed")
     for i, x in enumerate(spans):
         kids = _children(spans, i)
         assert all(x["start_ns"] <= spans[j]["start_ns"]
